@@ -1,0 +1,29 @@
+"""diffusionnet_tpu_torch — the PyTorch/CUDA port of diffusionnet_tpu.
+
+The JAX package `diffusionnet_tpu` is the reference; this package mirrors its
+layout and names so each module's counterpart is easy to find. It imports
+torch, numpy and scipy, never jax. Ported so far: the inference path
+(host operator precompute with the shared disk cache, HKS features, the eager
+DiffusionNet, and the megakernel fast path on the hand-written CUDA block
+kernel, csrc/megablock_fwd.cu). ROADMAP.md lists what is still to come.
+"""
+
+from . import utils
+from .utils import hash_arrays, ensure_dir_exists
+
+from . import ops
+from .ops import to_basis, from_basis, compute_hks, compute_hks_autoscale
+
+from . import geometry
+from .geometry import (compute_operators, get_operators, Operators,
+                       pad_operators)
+
+from . import models
+from .models import (DiffusionNet, DiffusionNetBlock, LearnedTimeDiffusion,
+                     SpatialGradientFeatures, MiniMLP)
+
+from . import data
+from . import training
+from .training import InferenceSession
+
+__version__ = "0.1.0"

@@ -1,0 +1,313 @@
+"""Operator precompute, the typed Operators bundle, disk caching, and padding.
+
+The counterpart of diffusionnet_tpu/geometry/operators.py. All host work is
+numpy/scipy (float64, stored float32); `Operators.to(device)` is the one
+boundary where the bundle becomes torch tensors. The npz disk cache is the
+JAX package's format byte for byte (same SHA1 key, same probing, same
+fields), so a cache written by either package is read by the other.
+
+Attribution: the get_operators cache protocol (bucket probing, messages, npz
+field layout) transcribes nmwsharp/diffusion-net geometry.py:426-570 for
+on-disk byte compatibility — MIT License (c) 2020-2021 Nicholas Sharp and
+coauthors; see the repository LICENSE file.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import NamedTuple
+
+import numpy as np
+import scipy.sparse
+import torch
+
+from .. import utils
+from ..ops.sparse import Ell, ell_from_coo, ell_pad
+from .eigen import eigensolve_host
+from .gradients import build_grad
+from .host_frames import build_tangent_frames_np, edge_tangent_vectors_np
+from .laplacian import cotan_laplacian, vertex_areas
+
+
+class Operators(NamedTuple):
+    """The operator bundle (reference geometry.py:392's 7-tuple). Padded
+    vertices carry mass == 0.
+
+    gradX_spec/gradY_spec are the spectral gradient operators
+    GX = gradX @ evecs, GY = gradY @ evecs, each (V, K): the gradient of the
+    spectrally diffused signal is then GX @ (e^{-lambda t} (.) x_hat), a dense
+    (V,K)x(K,C) product."""
+    frames: np.ndarray   # (V, 3, 3)
+    mass: np.ndarray     # (V,)
+    L: Ell               # (V, V) weak Laplacian
+    evals: np.ndarray    # (K,)
+    evecs: np.ndarray    # (V, K)
+    gradX: Ell           # (V, V) tangent-gradient real part
+    gradY: Ell           # (V, V) tangent-gradient imaginary part
+    gradX_spec: np.ndarray | None = None  # (V, K) gradX @ evecs
+    gradY_spec: np.ndarray | None = None  # (V, K) gradY @ evecs
+
+    def to(self, device) -> "Operators":
+        """The same bundle with every array a torch tensor on `device`."""
+        def t(a):
+            if a is None:
+                return None
+            if isinstance(a, Ell):
+                return Ell(t(a.idx), t(a.val))
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return Operators(*(t(a) for a in self))
+
+
+def spectral_gradients(gradX, gradY, evecs: np.ndarray):
+    """Host computation of GX = gradX @ evecs, GY = gradY @ evecs for scipy
+    sparse gradX/gradY."""
+    evecs = np.asarray(evecs)
+    return (np.asarray(gradX @ evecs).astype(evecs.dtype),
+            np.asarray(gradY @ evecs).astype(evecs.dtype))
+
+
+def grad_operators(ops: Operators, prefer_spectral: bool = True):
+    """(gradX, gradY) to feed the model: the dense spectral operators when
+    available, else the ELL operators."""
+    if prefer_spectral and ops.gradX_spec is not None:
+        return ops.gradX_spec, ops.gradY_spec
+    return ops.gradX, ops.gradY
+
+
+def _csc_to_ell(mat: scipy.sparse.spmatrix, dtype=np.float32) -> Ell:
+    coo = mat.tocoo()
+    return ell_from_coo(coo.row, coo.col, coo.data, mat.shape[0], dtype=dtype)
+
+
+# ARPACK on the host. The JAX package defaults to its device eigensolver;
+# the port's counterpart (kernel B5) comes with ROADMAP item A.8.
+DEFAULT_EIGENSOLVER = "host"
+
+
+def compute_operators(verts, faces, k_eig: int, normals=None,
+                      dtype=np.float32,
+                      eigensolver: str = DEFAULT_EIGENSOLVER,
+                      _return_sparse: bool = False):
+    """Build spectral operators for a triangle mesh (numpy in / Operators out).
+
+    verts: (V,3); faces: (F,3) int; k_eig: number of eigenpairs. Same
+    pipeline as reference geometry.py:276-392: tangent frames, cotan
+    Laplacian and lumped mass, ARPACK-ladder eigendecomposition,
+    least-squares tangent gradients over the Laplacian's edge set.
+
+    eigensolver: only 'host' (seeded ARPACK, deterministic, so the result
+    equals the JAX package's 'host' result). 'device' raises: the port's
+    device eigensolver comes with ROADMAP item A.8. Point clouds (no faces)
+    raise too (same item)."""
+    if eigensolver == "device":
+        raise NotImplementedError(
+            "the port's device eigensolver (kernel B5) comes with ROADMAP "
+            "item A.8; use eigensolver='host'")
+    if eigensolver != "host":
+        raise ValueError("eigensolver must be 'host' or 'device'")
+    verts_np = np.asarray(verts, dtype=np.float64)
+    faces_np = (np.asarray(faces, dtype=np.int64)
+                if faces is not None and np.asarray(faces).size else
+                np.zeros((0, 3), dtype=np.int64))
+    if faces_np.size == 0:
+        raise NotImplementedError(
+            "point-cloud operators come with ROADMAP item A.8 (precompute)")
+    eps = 1e-8
+
+    if normals is not None:
+        normals = np.asarray(normals, dtype=np.float64)
+    frames = build_tangent_frames_np(verts_np, faces_np, normals=normals)
+
+    L = cotan_laplacian(verts_np, faces_np, denom_eps=1e-10)
+    massvec_np = vertex_areas(verts_np, faces_np)
+    massvec_np = massvec_np + eps * np.mean(massvec_np)
+    if np.isnan(L.data).any():
+        raise RuntimeError("NaN Laplace matrix")
+    if np.isnan(massvec_np).any():
+        raise RuntimeError("NaN mass matrix")
+
+    evals_np, evecs_np = eigensolve_host(L, massvec_np, k_eig, eps=eps)
+
+    # gradient operator over the Laplacian's sparsity (reference
+    # geometry.py:331-334,375)
+    L_coo = L.tocoo()
+    edges = np.stack((L_coo.row, L_coo.col), axis=0)
+    edge_vecs = edge_tangent_vectors_np(verts_np, frames, edges)
+    grad_mat = build_grad(verts_np.shape[0], edges, edge_vecs)
+
+    # split the complex gradient into two real sparse matrices
+    gradX_sp = grad_mat.copy()
+    gradX_sp.data = np.real(grad_mat.data)
+    gradY_sp = grad_mat.copy()
+    gradY_sp.data = np.imag(grad_mat.data)
+
+    gradX_ell = _csc_to_ell(gradX_sp, dtype=dtype)
+    gradY_ell = _csc_to_ell(gradY_sp, dtype=dtype)
+    L_ell = _csc_to_ell(L, dtype=dtype)
+    gX_spec, gY_spec = spectral_gradients(gradX_sp, gradY_sp,
+                                          evecs_np.astype(dtype))
+    ops = Operators(
+        frames=frames.astype(dtype),
+        mass=massvec_np.astype(dtype),
+        L=L_ell,
+        evals=evals_np.astype(dtype),
+        evecs=evecs_np.astype(dtype),
+        gradX=gradX_ell,
+        gradY=gradY_ell,
+        gradX_spec=gX_spec,
+        gradY_spec=gY_spec,
+    )
+    if _return_sparse:
+        return ops, (L, gradX_sp, gradY_sp)
+    return ops
+
+
+def _write_cache(search_path, verts_np, faces_np, k_eig, ops, sparse_mats):
+    L, gradX_sp, gradY_sp = sparse_mats
+    f32 = np.float32
+    L_csc = L.tocsc().astype(f32)
+    gX = gradX_sp.tocsc().astype(f32)
+    gY = gradY_sp.tocsc().astype(f32)
+    np.savez(
+        search_path,
+        verts=verts_np.astype(f32),
+        frames=ops.frames.astype(f32),
+        faces=faces_np,
+        k_eig=k_eig,
+        mass=ops.mass.astype(f32),
+        L_data=L_csc.data.astype(f32), L_indices=L_csc.indices,
+        L_indptr=L_csc.indptr, L_shape=L_csc.shape,
+        evals=ops.evals.astype(f32),
+        evecs=ops.evecs.astype(f32),
+        gradX_data=gX.data.astype(f32), gradX_indices=gX.indices,
+        gradX_indptr=gX.indptr, gradX_shape=gX.shape,
+        gradY_data=gY.data.astype(f32), gradY_indices=gY.indices,
+        gradY_indptr=gY.indptr, gradY_shape=gY.shape,
+        # beyond the reference's set, as the JAX package writes them: the
+        # dense spectral gradient operators
+        gradX_spec=(np.zeros((0, 0), f32) if ops.gradX_spec is None
+                    else ops.gradX_spec.astype(f32)),
+        gradY_spec=(np.zeros((0, 0), f32) if ops.gradY_spec is None
+                    else ops.gradY_spec.astype(f32)),
+    )
+
+
+def _read_sp_mat(npzfile, prefix) -> scipy.sparse.csc_matrix:
+    return scipy.sparse.csc_matrix(
+        (npzfile[prefix + "_data"], npzfile[prefix + "_indices"],
+         npzfile[prefix + "_indptr"]), shape=npzfile[prefix + "_shape"])
+
+
+def get_operators(verts, faces, k_eig: int = 128, op_cache_dir: str | None = None,
+                  normals=None, overwrite_cache: bool = False,
+                  dtype=np.float32, eigensolver: str = DEFAULT_EIGENSOLVER
+                  ) -> Operators:
+    """compute_operators with reference-compatible disk caching
+    (geometry.py:426-570): SHA1-of-bytes key, linear probing on collision,
+    exact array-equality verification, k_eig truncation on load.
+
+    The cache is keyed on geometry only, so an entry written by the JAX
+    package (with either of its eigensolvers) satisfies a request here."""
+    verts_np = np.asarray(verts)
+    faces_np = (np.asarray(faces) if faces is not None and np.asarray(faces).size
+                else np.zeros((0, 3), dtype=np.int64))
+    if np.isnan(verts_np).any():
+        raise RuntimeError("tried to construct operators from NaN verts")
+
+    search_path = None
+    if op_cache_dir is not None:
+        utils.ensure_dir_exists(op_cache_dir)
+        # canonical key dtypes (f32 verts / int64 faces), as the JAX package
+        hash_key_str = str(utils.hash_arrays(
+            (verts_np.astype(np.float32), faces_np.astype(np.int64))))
+        i_cache_search = 0
+        while True:
+            search_path = os.path.join(
+                op_cache_dir, f"{hash_key_str}_{i_cache_search}.npz")
+            try:
+                npzfile = np.load(search_path, allow_pickle=True)
+                cache_verts = npzfile["verts"]
+                cache_faces = npzfile["faces"]
+                cache_k_eig = npzfile["k_eig"].item()
+                if (not np.array_equal(verts_np.astype(np.float32), cache_verts)
+                        or not np.array_equal(faces_np, cache_faces)):
+                    i_cache_search += 1
+                    print("hash collision! searching next.")
+                    continue
+                if overwrite_cache:
+                    os.remove(search_path)
+                    break
+                if cache_k_eig < k_eig:
+                    print("  overwriting cache --- not enough eigenvalues")
+                    os.remove(search_path)
+                    break
+                if "L_data" not in npzfile:
+                    print("  overwriting cache --- entries are absent")
+                    os.remove(search_path)
+                    break
+
+                gradX_sp = _read_sp_mat(npzfile, "gradX")
+                gradY_sp = _read_sp_mat(npzfile, "gradY")
+                evecs = npzfile["evecs"][:, :k_eig].astype(dtype)
+                if ("gradX_spec" in npzfile.files
+                        and npzfile["gradX_spec"].size):
+                    gX_spec = npzfile["gradX_spec"][:, :k_eig].astype(dtype)
+                    gY_spec = npzfile["gradY_spec"][:, :k_eig].astype(dtype)
+                else:  # entry written by the reference
+                    gX_spec, gY_spec = spectral_gradients(gradX_sp, gradY_sp,
+                                                          evecs)
+                return Operators(
+                    frames=npzfile["frames"].astype(dtype),
+                    mass=npzfile["mass"].astype(dtype),
+                    L=_csc_to_ell(_read_sp_mat(npzfile, "L"), dtype=dtype),
+                    evals=npzfile["evals"][:k_eig].astype(dtype),
+                    evecs=evecs,
+                    gradX=_csc_to_ell(gradX_sp, dtype=dtype),
+                    gradY=_csc_to_ell(gradY_sp, dtype=dtype),
+                    gradX_spec=gX_spec,
+                    gradY_spec=gY_spec,
+                )
+            except FileNotFoundError:
+                break
+            except Exception as E:
+                print("unexpected error loading file: " + str(E))
+                print("-- constructing operators")
+                break
+
+    ops, sparse_mats = compute_operators(verts_np, faces_np, k_eig,
+                                         normals=normals, dtype=dtype,
+                                         eigensolver=eigensolver,
+                                         _return_sparse=True)
+    if search_path is not None:
+        _write_cache(search_path, np.asarray(verts_np, dtype=np.float64),
+                     faces_np, k_eig, ops, sparse_mats)
+    return ops
+
+
+def pad_operators(ops: Operators, v_pad: int, k_eig: int | None = None,
+                  d_max_l: int | None = None, d_max_grad: int | None = None
+                  ) -> Operators:
+    """Pad a (numpy) Operators bundle to static shapes.
+
+    Padded vertices have mass == 0, zero rows in evecs/frames/gradX_spec/
+    gradY_spec, and all-zero ELL rows."""
+    V = ops.mass.shape[0]
+    if v_pad < V:
+        raise ValueError(f"v_pad={v_pad} < V={V}")
+    K = ops.evals.shape[0]
+    k_eig = k_eig if k_eig is not None else K
+
+    def pad_vk(g):
+        if g is None:
+            return None
+        return utils.pad_to(utils.pad_to(g, v_pad, axis=0), k_eig, axis=1)
+
+    return Operators(frames=utils.pad_to(ops.frames, v_pad, axis=0),
+                     mass=utils.pad_to(ops.mass, v_pad, axis=0),
+                     L=ell_pad(ops.L, v_pad, d_max_l),
+                     evals=utils.pad_to(ops.evals, k_eig, axis=0),
+                     evecs=pad_vk(ops.evecs),
+                     gradX=ell_pad(ops.gradX, v_pad, d_max_grad),
+                     gradY=ell_pad(ops.gradY, v_pad, d_max_grad),
+                     gradX_spec=pad_vk(ops.gradX_spec),
+                     gradY_spec=pad_vk(ops.gradY_spec))

@@ -1,0 +1,8 @@
+"""torch modules: the eager DiffusionNet, the weight bridge to the JAX
+package's parameters, and the megakernel fast path."""
+
+from .diffusion_net import (DiffusionNet, DiffusionNetBlock,
+                            LearnedTimeDiffusion, SpatialGradientFeatures,
+                            MiniMLP)
+from .params import from_flat_jax_params, to_flat_jax_params
+from .fast_path import megablock_apply, flat_params

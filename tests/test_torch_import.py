@@ -1,0 +1,75 @@
+"""The PyTorch port's package boundary: it loads no JAX module, its kernel
+module imports without nvcc, and the kernel wrapper dispatches by device
+with no fallback."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import diffusionnet_tpu_torch\n"
+        "from diffusionnet_tpu_torch import _build\n"
+        "from diffusionnet_tpu_torch.ops import megablock\n"
+        "from diffusionnet_tpu_torch.models import fast_path\n"
+        "from diffusionnet_tpu_torch.training import inference\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
+        "                                    'diffusionnet_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_build_raises_without_nvcc(tmp_path, monkeypatch):
+    """The kernel module imports here (no nvcc, no card); building raises
+    with the reason instead of falling back."""
+    from diffusionnet_tpu_torch import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc|cannot run"):
+        _build.build(nvcc=str(tmp_path / "no-such-nvcc"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    if not os.path.exists("/usr/local/cuda/bin/nvcc"):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.find_nvcc()
+
+
+def _small_block(rs, B=1, V=40, K=8, C=4):
+    def r(*shape):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32))
+    Ws = [r(3 * C, 8), r(8, C)]
+    bs = [r(8), r(C)]
+    return (r(B, V, C), r(B, V, K), r(B, V, K), r(B, V, K),
+            torch.from_numpy(rs.rand(B, V).astype(np.float32)),
+            torch.from_numpy(rs.rand(B, K, C).astype(np.float32)),
+            r(C, C), r(C, C), Ws, bs, r(B, K, C))
+
+
+def test_megablock_dispatch_by_device():
+    """CPU tensors take the plain version and launch nothing; tensors on a
+    device that is neither CPU nor CUDA are refused."""
+    from diffusionnet_tpu_torch.ops import megablock as mb
+    args = _small_block(np.random.RandomState(0))
+    mb.reset_launches()
+    out, xn = mb.megablock_chained(*args, emit_next=True, lowp=False)
+    ref, rxn = mb.megablock_chained_reference(*args, emit_next=True)
+    assert torch.equal(out, ref) and torch.equal(xn, rxn)
+    assert mb.LAUNCHES == {"megablock_fwd": 0, "xhat_reduce": 0}
+    meta = [a.to("meta") if torch.is_tensor(a) else [t.to("meta") for t in a]
+            for a in args]
+    with pytest.raises(ValueError, match="unsupported device"):
+        mb.megablock_chained(*meta)
+    mixed = list(args)
+    mixed[0] = mixed[0].to("meta")
+    with pytest.raises(ValueError, match="several devices"):
+        mb.megablock_chained(*mixed)
