@@ -15,7 +15,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      counters show each request ran n_block block kernels, and the eager
      DiffusionNet on the same card agrees;
   5. times of the block kernel against its plain version (CUDA events
-     around 10 calls back to back, median of 10 such runs after warm-up).
+     around 10 calls back to back, median of 10 such runs after warm-up);
+  6. B1 with dropout against its plain version (B=2, V=32768, tile_v 2048
+     and 1024, f32 and bf16), and with all-ones inputs, where the kept
+     pattern must equal the plain masks exactly;
+  7. B2 (the block's backward) and its partial-sum kernel against the plain
+     backward, at full width and at a small ragged shape, f32 and bf16,
+     emit_next on and off, dropout on and off;
+  8. the training slice: 5 Adam steps of the segmentation model (dropout
+     on) on a SurfaceDataset of four synthetic meshes, batch 4, through
+     apply_model on the megakernel path; the counters must show 4 B1 and 4
+     B2 launches per step; then one step with dropout off through the fast
+     path and through the eager model with autograd, from the same state,
+     must agree in loss, every gradient and the updated parameters;
+  9. times: B2 against its plain backward, B1's dropout cost, and the
+     whole train step at bench.py's shapes (B=8, V=20480, f32 and bf16
+     operands), with a profiler breakdown averaged over three steps.
 
 The last two lines of standard output are the card's name and power limit
 as nvidia-smi reports them, then {"ok": true, "device": {...}}; the line
@@ -26,6 +41,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -39,6 +55,7 @@ N_BLOCK = 4
 SEG_MODEL = dict(c_in=16, c_out=8, c_width=128, n_block=N_BLOCK,
                  mlp_hidden_dims=[128, 128], dropout=True, outputs_at="faces")
 K_EIG = 128
+BENCH_B, BENCH_V = 8, 20480  # bench.py's train step: BATCH, V_PAD
 
 # Kernel against plain version, elementwise |kernel - plain| <= atol + rtol |plain|.
 # f32: the same f32 products summed in another order (K = 128 to 3C = 384
@@ -51,6 +68,32 @@ TOL = {"f32": dict(rtol=1e-4, atol=1e-4), "bf16": dict(rtol=2e-2, atol=2e-2)}
 # whose products are summed in other orders (the kernel's three TF32 passes
 # against cuBLAS in f32)
 SLICE_TOL = dict(rtol=1e-3, atol=1e-3)
+# B2 against the plain backward. f32: |kernel - plain| <= rtol |plain| +
+# atol * max |plain| (gradients are sums over every row of the batch, 65,536
+# at full width, so the bound scales with the output's largest entry): three
+# TF32 passes and another summation order. bf16: relative L2 error. Both
+# sides round the same operands to bf16, but where an f32 sum lands next to
+# a bf16 rounding boundary the two round it apart (2^-8 relative), and a
+# ReLU input downstream of it can then change sign: that row's whole
+# contribution moves, so no elementwise bound holds on every row.
+GRAD_TOL = {"f32": dict(rtol=1e-4, atol=1e-4), "bf16": dict(l2=2e-2)}
+# Rows whose smallest ReLU input is within TIE of 0 (relative to its layer's
+# largest) can take the other ReLU branch in the kernel and in the plain
+# version (the sums differ in their last bits), which moves that row's whole
+# contribution to every gradient; phase 7 gives such rows zero cotangent
+# (dout = 0, mass = 0). At full width they are about 1% of the rows.
+TIE = 1e-5
+# one train step, fast path against the eager model with autograd (f32). The
+# loss within rtol 1e-4. Gradients and the Adam updates (parameters after
+# minus before) in L2 norm: here ReLU ties cannot be excluded, and each
+# moves one row's whole contribution (measured on the card: 6 tie rows of
+# 65,536 moved dW by 1.2e-3 of its norm, all other rows agreeing within
+# 2e-5). The whole gradient (all tensors as one vector) within `whole`;
+# each tensor within `own` of its own norm plus `whole` of the whole
+# gradient's, since a tensor whose gradient nearly cancels over the batch
+# (dA_im sums ddots (gx_i gy_j - gy_i gx_j)) has a small norm next to the
+# one-row changes a tie makes. The same for the Adam updates.
+STEP_TOL = dict(loss=1e-4, own=1e-2, whole=1e-3)
 
 
 def log(*a):
@@ -67,6 +110,17 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return res.stdout.strip().splitlines()[0]
+
+
+def meshgen():
+    """(icosphere, torus) of tests/meshgen.py. tests/ is not a package: a
+    `tests` package installed elsewhere would shadow it, so the mesh
+    generator (numpy only) is imported by its path."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    if os.path.join(here, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(here, "tests"))
+    from meshgen import icosphere, torus
+    return icosphere, torus
 
 
 def block_inputs(B, V, K, C, hidden, dtype, seed, n_pad=0):
@@ -92,18 +146,33 @@ def block_inputs(B, V, K, C, hidden, dtype, seed, n_pad=0):
             coefs, A_re, A_im, Ws, bs, x_hat)
 
 
-def compare(name, got, want, tol):
-    """Elementwise check; returns the max abs error."""
+def compare(name, got, want, tol, scaled=False, quiet=False):
+    """Elementwise check (or, with tol {"l2": bound}, one of the relative L2
+    error); returns the max abs error. scaled: atol is relative to
+    max |want|. quiet: log only a failure."""
     got, want = got.float(), want.float()
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite values")
     err = (got - want).abs()
     max_abs = err.max().item()
     scale = want.abs().max().item()
-    bound = tol["atol"] + tol["rtol"] * want.abs()
+    if "l2" in tol:
+        rel = ((got - want).norm() / want.norm().clamp(min=1e-30)).item()
+        ok = rel <= tol["l2"]
+        if not (quiet and ok):
+            log(f"  {name}: relative L2 err {rel:.3e} (tolerance "
+                f"{tol['l2']}), max abs err {max_abs:.3e}, max abs err / "
+                f"max |plain| {max_abs / max(scale, 1e-30):.3e} "
+                f"{'ok' if ok else 'FAILED'}")
+        check(ok, f"{name} disagrees with the plain version")
+        return max_abs
+    atol = tol["atol"] * (max(scale, 1e-30) if scaled else 1.0)
+    bound = atol + tol["rtol"] * want.abs()
     ok = bool((err <= bound).all())
-    log(f"  {name}: max abs err {max_abs:.3e}, max abs err / max |plain| "
-        f"{max_abs / max(scale, 1e-30):.3e} (tolerance rtol {tol['rtol']}, "
-        f"atol {tol['atol']}) {'ok' if ok else 'FAILED'}")
+    if not (quiet and ok):
+        log(f"  {name}: max abs err {max_abs:.3e}, max abs err / max |plain| "
+            f"{max_abs / max(scale, 1e-30):.3e} (tolerance rtol "
+            f"{tol['rtol']}, atol {tol['atol']}"
+            f"{' x max|plain|' if scaled else ''}) {'ok' if ok else 'FAILED'}")
     check(ok, f"{name} disagrees with the plain version")
     return max_abs
 
@@ -174,11 +243,7 @@ def phase_slice(mb):
     Returns the launch counts of the three requests."""
     from diffusionnet_tpu_torch.models import DiffusionNet
     from diffusionnet_tpu_torch.training import InferenceSession
-    # tests/ is not a package: a `tests` package installed elsewhere would
-    # shadow it, so the mesh generator (numpy only) is imported by its path
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                    "tests"))
-    from meshgen import icosphere, torus
+    icosphere, torus = meshgen()
 
     log("== phase 4: the slice, InferenceSession(use_megakernel=True) on cuda")
     gen = torch.Generator().manual_seed(0)
@@ -195,7 +260,8 @@ def phase_slice(mb):
     with tempfile.TemporaryDirectory() as cache:
         session = InferenceSession(model, k_eig=K_EIG, op_cache_dir=cache,
                                    use_megakernel=True, device="cuda")
-        per_block = {"megablock_fwd": N_BLOCK, "xhat_reduce": N_BLOCK - 1}
+        per_block = {"megablock_fwd": N_BLOCK, "xhat_reduce": N_BLOCK - 1,
+                     "megablock_bwd": 0, "grad_reduce": 0}
         preds, stamps = [], []
         mb.reset_launches()
         for name, (verts, faces) in requests:
@@ -257,6 +323,350 @@ def phase_times(mb, card):
     return ms
 
 
+def phase_dropout(mb):
+    """B1 with dropout against the plain version, then with all-ones inputs
+    where out - x is exactly 4 where both hidden masks keep, else 0."""
+    log("== phase 6: B1 with dropout against its plain version")
+    err = 0.0
+    B, V, K, C = 2, 32768, 128, 128
+    for tile_v in (2048, 1024):
+        seed = 2 ** 31 - 2 - tile_v
+        for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            lowp = kind == "bf16"
+            args = block_inputs(B, V, K, C, (128, 128), dtype, seed=tile_v)
+            out, xn = mb.megablock_chained_fwd(*args, emit_next=True,
+                                               lowp=lowp, seed=seed,
+                                               tile_v=tile_v)
+            torch.cuda.synchronize()
+            ref, ref_xn = mb.megablock_chained_reference(
+                *args, emit_next=True, lowp=lowp, seed=seed, tile_v=tile_v)
+            tag = f"dropout B={B} V={V} tile_v={tile_v} {kind}"
+            e = max(compare(f"{tag} out", out, ref, TOL[kind]),
+                    compare(f"{tag} x_hat_next", xn, ref_xn, TOL[kind]))
+            if kind == "f32":
+                err = max(err, e)
+            del args, out, xn, ref, ref_xn
+            # all-ones: the first layer gives 1 everywhere, the next two are
+            # identities, so out - x = 2 keep_0 * 2 keep_1 exactly
+            dt = dtype
+            z = functools.partial(torch.zeros, device="cuda")
+            Ws = [z(3 * C, C), torch.eye(C, device="cuda"),
+                  torch.eye(C, device="cuda")]
+            bs = [torch.ones(C, device="cuda"), z(C), z(C)]
+            out, _ = mb.megablock_chained_fwd(
+                z(B, V, C, dtype=dt), z(B, V, K, dtype=dt),
+                z(B, V, K, dtype=dt), z(B, V, K, dtype=dt),
+                torch.ones(B, V, device="cuda"), z(B, K, C), z(C, C),
+                z(C, C), Ws, bs, z(B, K, C), emit_next=False, lowp=lowp,
+                seed=seed, tile_v=tile_v)
+            keep = [mb.dropout_masks(B, V, C, seed, layer, tile_v,
+                                     device="cuda") for layer in (0, 1)]
+            want = 4.0 * (keep[0] & keep[1]).float()
+            same = bool(torch.equal(out.float(), want))
+            log(f"  {tag} all-ones: kept {keep[0].float().mean().item():.4f} "
+                f"and {keep[1].float().mean().item():.4f} of layers 0 and 1, "
+                f"pattern equal to the plain masks: {same}")
+            check(same, f"{tag}: dropout pattern differs from the plain masks")
+    return err
+
+
+def phase_backward(mb):
+    """B2 and its partial-sum kernel against the plain backward; returns the
+    largest f32 full-width error and a gradient-slot tensor at the main
+    path's shape."""
+    log("== phase 7: B2 (backward) against the plain backward")
+    err = 0.0
+    cases = [(2, 32768, 128, 128, (128, 128), 0, 2048, (False, True)),
+             (2, 1000, 16, 8, (16, 32, 8), 100, None, (False,)),  # ragged
+             (2, 1024, 16, 8, (16, 32, 8), 100, 256, (True,))]
+    for B, V, K, C, hidden, n_pad, tile_v, drops in cases:
+        for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            lowp = kind == "bf16"
+            args = block_inputs(B, V, K, C, hidden, dtype, seed=V + 7 * K,
+                                n_pad=n_pad)
+            g = torch.Generator(device="cuda").manual_seed(V)
+            dout = torch.randn(B, V, C, generator=g, device="cuda").to(dtype)
+            for emit in (True, False):
+                dxn = (torch.randn(B, K, C, generator=g, device="cuda")
+                       if emit else None)
+                for drop in drops:
+                    seed = 1234567 if drop else None
+                    kw = dict(lowp=lowp, seed=seed,
+                              tile_v=tile_v or mb.DEFAULT_TILE_V)
+                    ties = mb.relu_margin(*args, **kw) < TIE
+                    targs = list(args)
+                    targs[4] = args[4].masked_fill(ties, 0.0)  # mass
+                    d = dout.masked_fill(ties[..., None], 0.0)
+                    got = mb.megablock_chained_bwd(*targs, d, dxn, **kw)
+                    torch.cuda.synchronize()
+                    want = mb.megablock_chained_bwd_reference(*targs, d, dxn,
+                                                              **kw)
+                    torch.cuda.synchronize()
+                    tag = (f"bwd B={B} V={V} K={K} C={C} hidden="
+                           f"{list(hidden)} {kind} emit_next={emit} "
+                           f"dropout={drop}")
+                    check(got[0].dtype == dtype, f"{tag}: dx dtype")
+                    names = ["dx_direct", "ds", "dA_re", "dA_im"]
+                    pairs = list(zip(got[:4], want[:4]))
+                    for l in range(len(got[4])):
+                        names += [f"dW{l}", f"db{l}"]
+                        pairs += [(got[4][l], want[4][l]),
+                                  (got[5][l], want[5][l])]
+                    e, worst = 0.0, (0.0, "")
+                    for name, (a, b) in zip(names, pairs):
+                        ea = compare(f"{tag} {name}", a, b, GRAD_TOL[kind],
+                                     scaled=True, quiet=True)
+                        e = max(e, ea)
+                        r = ea / max(b.float().abs().max().item(), 1e-30)
+                        worst = max(worst, (r, name))
+                    log(f"  {tag}: {len(names)} outputs ok ("
+                        + ("elementwise" if "atol" in GRAD_TOL[kind]
+                           else "relative L2") + f"), largest max abs err / "
+                        f"max |plain| {worst[0]:.2e} ({worst[1]}); "
+                        f"{int(ties.sum())} of {B * V} rows with a ReLU input "
+                        f"within {TIE} of 0 given zero cotangent")
+                    if kind == "f32" and V == 32768:
+                        err = max(err, e)
+                    del got, want
+            del args
+    # the partial-sum kernel at the main path's shape: one slot per SM
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lay = mb.grad_slot_layout(128, 128, (384, 128, 128, 128))
+    g = torch.Generator(device="cuda").manual_seed(8)
+    slots = torch.randn(1, sms, lay["P"], generator=g, device="cuda")
+    n = lay["P"] - lay["are"]
+    got = mb.grad_reduce(slots, lay["are"], n)
+    torch.cuda.synchronize()
+    rerr = compare(f"grad_reduce (1, {sms}, {lay['P']}) [{lay['are']}, "
+                   f"{lay['P']})", got,
+                   mb.grad_reduce_reference(slots, lay["are"], n),
+                   dict(rtol=0.0, atol=0.0))
+    return err, rerr, slots, lay
+
+
+def segmentation_dataset(cache):
+    """Four synthetic meshes with face labels from the face centroids:
+    4 sectors of azimuth times 2 halves in z, 8 classes."""
+    import numpy as np
+    from diffusionnet_tpu_torch.data import SurfaceDataset
+    icosphere, torus = meshgen()
+    meshes = [("torus(144, 140)", torus(n_major=144, n_minor=140)),
+              ("icosphere(5)", icosphere(subdivisions=5)),
+              ("torus(96, 80)", torus(n_major=96, n_minor=80)),
+              ("icosphere(4)", icosphere(subdivisions=4))]
+    ds = SurfaceDataset(labels_kind="face")
+    for _, (v, f) in meshes:
+        c = v[f].mean(axis=1)
+        sector = np.floor((np.arctan2(c[:, 1], c[:, 0]) + np.pi)
+                          / (2 * np.pi) * 4).astype(np.int64) % 4
+        ds.add(v, f, sector * 2 + (c[:, 2] > 0))
+    t0 = time.perf_counter()
+    ds.precompute(K_EIG, op_cache_dir=cache, verbose=False)
+    log(f"  precompute of {', '.join(n for n, _ in meshes)} "
+        f"(V = {[v.shape[0] for _, (v, _) in meshes]}): "
+        f"{time.perf_counter() - t0:.2f} s")
+    return ds
+
+
+def phase_train(mb):
+    """The training slice on the card. Returns the launch counts of its five
+    steps and the torus's operators (for the bench-shape step)."""
+    from diffusionnet_tpu_torch.data import make_padded_batches
+    from diffusionnet_tpu_torch.models import DiffusionNet, flat_params
+    from diffusionnet_tpu_torch.training import (
+        TaskConfig, adam_state_from_flat, adam_state_to_flat,
+        adam_with_step_decay, apply_model, loss_and_counts, make_train_step)
+
+    log("== phase 8: the training slice, 5 Adam steps of the segmentation "
+        "model on cuda")
+    with tempfile.TemporaryDirectory() as cache:
+        ds = segmentation_dataset(cache)
+    batch = next(make_padded_batches(ds, 4)).to("cuda")
+    B, V = batch.verts.shape[:2]
+    check((B, V) == (4, 32768), f"batch shape {(B, V)}")
+    model = DiffusionNet(**SEG_MODEL, generator=torch.Generator().manual_seed(0),
+                         last_activation=functools.partial(torch.log_softmax,
+                                                           dim=-1))
+    params = flat_params(model, "cuda", requires_grad=True)
+    cfg = TaskConfig(input_features="hks", labels_kind="face")
+    opt = adam_with_step_decay(1e-3, 50, 0.5)
+    state = opt.init(params)
+
+    def make_step(c, deterministic):
+        return make_train_step(
+            lambda p, b, g: loss_and_counts(
+                apply_model(model, p, b, g, c, deterministic), b, c), opt)
+    step = make_step(cfg, False)
+    before = {k: v.detach().clone() for k, v in params.items()}
+    gen = torch.Generator().manual_seed(1)
+    torch.cuda.synchronize()
+    mb.reset_launches()
+    losses = []
+    for i in range(5):
+        t0 = time.perf_counter()
+        _, _, loss, (correct, total) = step(params, state, batch, gen)
+        losses.append(loss.item())
+        log(f"  step {i}: loss {losses[-1]:.6f}, correct {int(correct)} of "
+            f"{int(total)} faces, {1e3 * (time.perf_counter() - t0):.1f} ms")
+    launches = dict(mb.LAUNCHES)
+    per_step = {"megablock_fwd": N_BLOCK, "xhat_reduce": N_BLOCK - 1,
+                "megablock_bwd": N_BLOCK, "grad_reduce": 2 * N_BLOCK}
+    log(f"  launches in 5 steps: {launches}")
+    check(launches == {k: 5 * v for k, v in per_step.items()},
+          f"launches {launches} != 5 x {per_step}")
+    check(all(map(math.isfinite, losses)), f"losses {losses}")
+    still = [k for k in params if torch.equal(params[k].detach(), before[k])]
+    check(not still, f"parameters that did not move: {still}")
+
+    # one more step with dropout off, from the same state, through the fast
+    # path and through the eager model with autograd
+    flat_state = adam_state_to_flat(state)
+    res = {}
+    for name, use_mk in (("fast path", True), ("eager model", False)):
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params.items()}
+        s = adam_state_from_flat(opt.init(p), flat_state)
+        c = TaskConfig(input_features="hks", labels_kind="face",
+                       use_megakernel=use_mk)
+        _, _, loss, _ = make_step(c, True)(p, s, batch, None)
+        res[name] = (loss.item(), {k: v.grad for k, v in p.items()},
+                     {k: v.detach() for k, v in p.items()})
+    (lf, gf, pf), (le, ge, pe) = res["fast path"], res["eager model"]
+    rel = abs(lf - le) / abs(le)
+    log(f"  dropout off: loss fast path {lf:.8f}, eager model {le:.8f} "
+        f"(relative difference {rel:.2e}, tolerance {STEP_TOL['loss']})")
+    check(rel <= STEP_TOL["loss"], "loss: fast path and eager model differ")
+    uf = {k: pf[k] - params[k].detach() for k in pf}
+    ue = {k: pe[k] - params[k].detach() for k in pe}
+    for what, a, b in (("gradient", gf, ge), ("Adam update", uf, ue)):
+        whole = math.sqrt(sum(b[k].float().norm().item() ** 2 for k in b))
+        diff = math.sqrt(sum((a[k].float() - b[k].float()).norm().item() ** 2
+                             for k in b))
+        log(f"  dropout off, {what}s: whole {diff / whole:.2e} of the whole "
+            f"norm {whole:.3e} (tolerance {STEP_TOL['whole']}); per tensor, "
+            f"|difference| / |own| (own norm / whole):")
+        check(diff <= STEP_TOL["whole"] * whole, f"{what}s as a whole")
+        rows = []
+        for k in b:
+            own = b[k].float().norm().item()
+            e = (a[k].float() - b[k].float()).norm().item()
+            rows.append(f"{k.split('/', 1)[1]} {e / max(own, 1e-30):.1e} "
+                        f"({own / whole:.1e})")
+            check(e <= STEP_TOL["own"] * own + STEP_TOL["whole"] * whole,
+                  f"{what} of {k}: {e:.3e} against own norm {own:.3e}, "
+                  f"whole {whole:.3e}")
+        for i in range(0, len(rows), 4):
+            log("    " + "; ".join(rows[i:i + 4]))
+    return launches, ds.ops_list[0], ds.verts_list[0]
+
+
+def phase_bwd_times(mb, card):
+    log("== phase 9: times (CUDA events, median of 10 runs of 10 calls)")
+    ms = {}
+    for B, V in ((1, 32768), (BENCH_B, BENCH_V)):
+        for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            lowp = kind == "bf16"
+            args = block_inputs(B, V, 128, 128, (128, 128), dtype, seed=B)
+            g = torch.Generator(device="cuda").manual_seed(3)
+            dout = torch.randn(B, V, 128, generator=g, device="cuda").to(dtype)
+            dxn = torch.randn(B, 128, 128, generator=g, device="cuda")
+            k = time_ms(lambda: mb.megablock_chained_bwd(*args, dout, dxn,
+                                                         lowp=lowp))
+            p = time_ms(lambda: mb.megablock_chained_bwd_reference(
+                *args, dout, dxn, lowp=lowp))
+            ms[(B, V, kind)] = (k, p)
+            log(f"  time megablock_chained_bwd emit_next B={B} V={V} K=128 "
+                f"C=128 {kind}: kernel {k:.4f} ms, plain {p:.4f} ms [{card}]")
+            if B == 1:
+                on = time_ms(lambda: mb.megablock_chained_fwd(
+                    *args, lowp=lowp, seed=5, tile_v=2048))
+                off = time_ms(lambda: mb.megablock_chained_fwd(*args,
+                                                               lowp=lowp))
+                log(f"  time megablock_chained emit_next B=1 V={V} {kind}: "
+                    f"dropout on {on:.4f} ms, off {off:.4f} ms [{card}]")
+            del args, dout, dxn
+    return ms
+
+
+def phase_step_times(mb, card, torus_ops, torus_verts):
+    """The whole train step at bench.py's shapes: B=8 copies of the torus
+    padded to V=20480, k 128, 4 blocks of width 128, c_in 3 (xyz), c_out 8,
+    dropout off, vertex outputs, the masked sum-of-squares loss."""
+    import numpy as np
+    from diffusionnet_tpu_torch.geometry import stack_operators
+    from diffusionnet_tpu_torch.models import (DiffusionNet, flat_params,
+                                               megablock_apply)
+    from diffusionnet_tpu_torch.training import (adam_with_step_decay,
+                                                 make_train_step)
+    from torch.profiler import ProfilerActivity, profile
+
+    ops = stack_operators([torus_ops] * BENCH_B, v_pad=BENCH_V).to("cuda")
+    x = np.zeros((BENCH_B, BENCH_V, 3), np.float32)
+    x[:, :torus_verts.shape[0]] = torus_verts
+    x = torch.from_numpy(x).cuda()
+    mask = (ops.mass > 0)[..., None]
+    model = DiffusionNet(c_in=3, c_out=8, c_width=128, n_block=N_BLOCK,
+                         dropout=False,
+                         generator=torch.Generator().manual_seed(2))
+    step_ms = {}
+    for kind in ("f32", "bf16"):
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        consts = [t.to(dt) for t in (x, ops.evecs, ops.gradX_spec,
+                                     ops.gradY_spec)]
+        params = flat_params(model, "cuda", requires_grad=True)
+        opt = adam_with_step_decay(1e-3)
+
+        def loss_fn(p, batch, g):
+            out = megablock_apply(p, consts[0], ops.mass, ops.evals,
+                                  *consts[1:], n_block=N_BLOCK,
+                                  tile_v=2048).float()
+            return ((out * mask) ** 2).sum() / mask.sum(), None
+        step = make_train_step(loss_fn, opt)
+        state = opt.init(params)
+        t = time_ms(lambda: step(params, state, None, None), reps=5)
+        step_ms[kind] = t
+        log(f"  time train step B={BENCH_B} V={BENCH_V} K=128 4x128 {kind} "
+            f"operands: {t:.3f} ms per step, {BENCH_B / (t / 1e3):.1f} "
+            f"meshes/s [{card}]")
+        # where a step's time goes: three steps under the profiler
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step(params, state, None, None)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 3 * 1e3
+        groups = {"B1 megablock_fwd": 0.0, "B2 megablock_bwd": 0.0,
+                  "reduces": 0.0, "Adam": 0.0, "other": 0.0}
+        top = []
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            us = us if us is not None else e.self_cuda_time_total
+            name = e.key
+            top.append((us, name))
+            if "megablock_fwd_kernel" in name:
+                groups["B1 megablock_fwd"] += us
+            elif "megablock_bwd_kernel" in name:
+                groups["B2 megablock_bwd"] += us
+            elif "reduce_kernel" in name and ("xhat" in name or "grad" in name):
+                groups["reduces"] += us
+            elif "adam" in name.lower() or "multi_tensor" in name:
+                groups["Adam"] += us
+            else:
+                groups["other"] += us
+        busy = sum(groups.values()) / 3 / 1e3
+        log(f"  profile {kind}: wall {wall:.3f} ms per step, device busy "
+            f"{busy:.3f} ms (idle share {1 - busy / wall:.4f}); per step: "
+            + ", ".join(f"{k} {v / 3 / 1e3:.3f} ms" for k, v in groups.items()))
+        for us, name in sorted(top, reverse=True)[:8]:
+            log(f"    {us / 3 / 1e3:9.3f} ms  {name[:100]}")
+        del params, state, consts
+    return step_ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -284,14 +694,28 @@ def main() -> int:
             log("  " + line.strip())
 
     errs, partial = phase_kernels(mb)
-    launches = phase_slice(mb)
+    serve_launches = phase_slice(mb)
     times = phase_times(mb, card)
     xr_ms = time_ms(lambda: mb.xhat_reduce(partial, 128, 128))
     xr_plain = time_ms(lambda: mb.xhat_reduce_reference(partial, 128, 128))
     log(f"  time xhat_reduce (1, {partial.shape[1]}, 128, 128): kernel "
         f"{xr_ms:.4f} ms, plain {xr_plain:.4f} ms [{card}]")
+    errs["megablock_fwd"] = max(errs["megablock_fwd"], phase_dropout(mb))
+    errs["megablock_bwd"], errs["grad_reduce"], slots, lay = \
+        phase_backward(mb)
+    launches, torus_ops, torus_verts = phase_train(mb)
+    log(f"  launches of the inference slice: {serve_launches}; of the "
+        f"training slice: {launches}")
+    bwd_times = phase_bwd_times(mb, card)
+    n = lay["P"] - lay["are"]
+    gr_ms = time_ms(lambda: mb.grad_reduce(slots, lay["are"], n))
+    gr_plain = time_ms(lambda: mb.grad_reduce_reference(slots, lay["are"], n))
+    log(f"  time grad_reduce {tuple(slots.shape)} [{lay['are']}, {lay['P']}): "
+        f"kernel {gr_ms:.4f} ms, plain {gr_plain:.4f} ms [{card}]")
+    phase_step_times(mb, card, torus_ops, torus_verts)
 
     k_ms, p_ms = times[(1, 32768, "f32")]
+    kb_ms, pb_ms = bwd_times[(1, 32768, "f32")]
     summary = {"kernels": [
         {"name": "megablock_fwd", "route": "cuda",
          "source": "diffusionnet_tpu_torch/csrc/megablock_fwd.cu",
@@ -304,6 +728,18 @@ def main() -> int:
          "launches": launches["xhat_reduce"],
          "max_abs_err": errs["xhat_reduce"], "ms": xr_ms,
          "plain_ms": xr_plain},
+        {"name": "megablock_bwd", "route": "cuda",
+         "source": "diffusionnet_tpu_torch/csrc/megablock_bwd.cu",
+         "replaces": "diffusionnet_tpu/ops/pallas_megablock.py:379",
+         "launches": launches["megablock_bwd"],
+         "max_abs_err": errs["megablock_bwd"], "ms": kb_ms,
+         "plain_ms": pb_ms},
+        {"name": "grad_reduce", "route": "cuda",
+         "source": "diffusionnet_tpu_torch/csrc/megablock_bwd.cu",
+         "replaces": "diffusionnet_tpu/ops/pallas_megablock.py:486",
+         "launches": launches["grad_reduce"],
+         "max_abs_err": errs["grad_reduce"], "ms": gr_ms,
+         "plain_ms": gr_plain},
     ]}
     log(json.dumps(summary))
     log(card_line())

@@ -5,7 +5,9 @@ layout and names so each module's counterpart is easy to find. It imports
 torch, numpy and scipy, never jax. Ported so far: the inference path
 (host operator precompute with the shared disk cache, HKS features, the eager
 DiffusionNet, and the megakernel fast path on the hand-written CUDA block
-kernel, csrc/megablock_fwd.cu). ROADMAP.md lists what is still to come.
+kernel, csrc/megablock_fwd.cu) and the training step (padded batching, the
+block's backward kernel csrc/megablock_bwd.cu, dropout, Adam with step
+decay). ROADMAP.md lists what is still to come.
 """
 
 from . import utils
@@ -16,14 +18,16 @@ from .ops import to_basis, from_basis, compute_hks, compute_hks_autoscale
 
 from . import geometry
 from .geometry import (compute_operators, get_operators, Operators,
-                       pad_operators)
+                       pad_operators, stack_operators)
 
 from . import models
 from .models import (DiffusionNet, DiffusionNetBlock, LearnedTimeDiffusion,
                      SpatialGradientFeatures, MiniMLP)
 
 from . import data
+from .data import PaddedBatch, SurfaceDataset, make_padded_batches
 from . import training
-from .training import InferenceSession
+from .training import (InferenceSession, adam_with_step_decay,
+                       make_train_step)
 
 __version__ = "0.1.0"

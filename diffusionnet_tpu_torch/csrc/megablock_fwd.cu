@@ -8,7 +8,7 @@
 //   xd    = Phi s;   gx = GX s;   gy = GY s
 //   vb_re = gx A_re - gy A_im;   vb_im = gy A_re + gx A_im
 //   feat  = tanh(gx (.) vb_re + gy (.) vb_im)
-//   out   = MLP([x, xd, feat]) + x          (Dense-ReLU-...-Dense)
+//   out   = MLP([x, xd, feat]) + x   (Dense, [Dropout]-ReLU-Dense, ...)
 //
 // and, with emit_next, the next block's x_hat = Phi^T (m (.) out). Only `out`
 // and the x_hat partials reach device memory; every intermediate of a tile
@@ -55,44 +55,31 @@
 // sees f32; `out` is stored in x's dtype while x_hat_next accumulates from
 // the f32 `out`.
 //
+// Dropout (training): the mask of a hidden activation comes from the JAX
+// kernel's interpret-mode hash over (seed, batch, tile of tile_v rows,
+// layer) (`Dropout` in megablock_common.cuh), so it is bit-identical to
+// `interpret_dropout_mask` and to the plain version's. The kernel's own
+// 32-row tile lies inside one tile_v tile (the wrapper checks tile_v % 32
+// == 0), and the mask is applied to the f32 activation before it is rounded
+// for the next product, as `_mlp_fwd` does.
+//
 // Padding: rows at or past V are masked inside the kernel (any V works);
 // padded rows inside V carry mass 0 and zero operator rows.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "megablock_common.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace mb;
 
-constexpr int NT = 512;        // threads per CTA: 16 warps
-constexpr int TV = 32;         // vertex rows per tile
 constexpr int KC = 32;         // operator columns staged per chunk
-constexpr int NP = 128;        // output columns per pass of a tile product
-constexpr int PAD = 4;         // row padding of shared buffers (floats)
 constexpr int LDA = KC + PAD;  // staged operator chunk: TV x KC
 constexpr int LDB = NP + PAD;  // staged Phi tile for the x_hat product
-constexpr int LDC = NP + PAD;  // output patches of the warps: TV x NP
 constexpr int LDS = NP + PAD;  // resident s: MAX_KC x NP
-constexpr int DEPTH = 4;       // k-steps of weight fragments in flight
-constexpr int MAX_DENSE = 8;   // MLP layers
-constexpr int MAX_KC = 128;    // bound on K and C; x_hat partial slots are MAX_KC^2
-constexpr int MAX_WIDTH = 512; // bound on hidden widths
 static_assert(KC == TV && NP == MAX_KC,
               "the x_hat product stages Phi^T in sB and m (.) out in sC");
-static_assert(2 * NP / 16 == NT / 32, "one 16x16 output block per warp");
 static_assert((MAX_KC / 16) * (MAX_KC / 16) == 4 * (NT / 32),
               "four 16x16 blocks of the x_hat partial per warp");
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 8, wmma::precision::tf32,
-                             wmma::row_major>;
-using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 8,
-                              wmma::precision::tf32, wmma::col_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32,
-                             wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 8, float>;
 
 struct Args {
   const void* x;      // (B,V,C) f32 or bf16
@@ -115,84 +102,8 @@ struct Args {
   int n_tiles, nsplit;
   int x_bf16, ops_bf16;
   int ldc, ldp;  // row strides of [x | xd | feat] and the activation buffers
+  Dropout drop;
 };
-
-// A load kept apart from its use: the staging loops below first put all
-// their loads in flight, then convert and round. A bf16 element travels as
-// its 16 bits in the low half of a float register.
-__device__ __forceinline__ float raw_load(const void* p, size_t i, int bf16) {
-  return bf16 ? __uint_as_float(
-                    (uint32_t)reinterpret_cast<const unsigned short*>(p)[i])
-              : reinterpret_cast<const float*>(p)[i];
-}
-
-__device__ __forceinline__ float from_raw(float raw, int bf16) {
-  return bf16 ? __uint_as_float(__float_as_uint(raw) << 16) : raw;
-}
-
-// With LOWP every product operand is rounded to bf16 (round to nearest even).
-template <bool LOWP>
-__device__ __forceinline__ float rnd(float v) {
-  if constexpr (LOWP) return __bfloat162float(__float2bfloat16_rn(v));
-  return v;
-}
-
-// Operands for near-f32 products on TF32 tensor cores: hi = tf32(v),
-// lo = tf32(v - hi). bf16-rounded operands (LOWP) are exact in TF32 and are
-// used as they are.
-template <bool LOWP, class Frag>
-__device__ __forceinline__ void split(Frag& hi, Frag& lo) {
-  if constexpr (!LOWP) {
-#pragma unroll
-    for (int i = 0; i < hi.num_elements; ++i) {
-      const float v = hi.x[i];
-      const float h = wmma::__float_to_tf32(v);
-      hi.x[i] = h;
-      lo.x[i] = wmma::__float_to_tf32(v - h);
-    }
-  }
-}
-
-// A fragment loaded as stored (f32) made into product operands: rounded to
-// bf16 with LOWP, else split into TF32 hi + lo.
-template <bool LOWP, class Frag>
-__device__ __forceinline__ void operands(Frag& hi, Frag& lo) {
-  if constexpr (LOWP) {
-#pragma unroll
-    for (int i = 0; i < hi.num_elements; ++i) hi.x[i] = rnd<true>(hi.x[i]);
-  } else {
-    split<false>(hi, lo);
-  }
-}
-
-// acc += a b: three TF32 products (a_lo b_hi + a_hi b_lo + a_hi b_hi; the
-// dropped a_lo b_lo is ~2^-22 relative), or one when the operands are exact.
-template <bool LOWP, class FA>
-__device__ __forceinline__ void mma3(FragC& acc, const FA& a_hi, const FA& a_lo,
-                                     const FragB& b_hi, const FragB& b_lo) {
-  if constexpr (!LOWP) {
-    wmma::mma_sync(acc, a_lo, b_hi, acc);
-    wmma::mma_sync(acc, a_hi, b_lo, acc);
-  }
-  wmma::mma_sync(acc, a_hi, b_hi, acc);
-}
-
-// Hands warp (rb, cb)'s 16x16 output block, whose first column is c0, to
-// epi(m, n, v) for columns n < N, through the warp's own patch of sC.
-template <class EPI>
-__device__ __forceinline__ void warp_epilogue(const FragC& acc, int rb, int cb,
-                                              int c0, int N, EPI epi,
-                                              float* sC) {
-  const int lane = threadIdx.x % 32;
-  float* patch = sC + rb * 16 * LDC + cb * 16;
-  wmma::store_matrix_sync(patch, acc, LDC, wmma::mem_row_major);
-  __syncwarp();
-  for (int i = lane; i < 16 * 16; i += 32) {
-    const int m = i / 16, n = i % 16;
-    if (c0 + n < N) epi(rb * 16 + m, c0 + n, patch[m * LDC + n]);
-  }
-  __syncwarp();
-}
 
 // A spectral product of one tile: epi(m, n, sum_k Op[m][k] s[k][n]) for
 // m < TV, n < C. fetchA(m, k) loads a raw operator element (0 outside the
@@ -241,62 +152,6 @@ __device__ __forceinline__ void spectral_gemm(int K, int C, FA fetchA,
     }
   }
   if (live) warp_epilogue(acc, rb, cb, cb * 16, C, epi, sC);
-}
-
-// A weight product of one tile: epi(m, n, sum_k A[m][k] W[k][n]) for m < TV,
-// n < N. A is resident in shared memory (row stride lda, finite values past
-// Kd up to a multiple of 8). W stays in global memory (L2-resident): row
-// stride ldw, zero rows from Kd up to a multiple of 8, columns readable up
-// to a multiple of 16. N is covered in passes of NP columns; in a pass warp
-// w owns the 16x16 output block (w % 2, w / 2) and streams its own fragments
-// of W, DEPTH k-steps ahead, so the contraction has no barrier. Two
-// accumulators make two independent chains of products.
-template <bool LOWP, class EPI>
-__device__ __forceinline__ void weight_gemm(int Kd, int N, const float* A,
-                                            int lda, const float* W, int ldw,
-                                            EPI epi, float* sC) {
-  const int warp = threadIdx.x / 32, rb = warp % 2, cb = warp / 2;
-  const int steps = (Kd + 7) / 8;
-  __syncthreads();  // A's writers are done, and so are the last readers of
-                    // what epi overwrites
-  for (int n0 = 0; n0 < N; n0 += NP) {
-    const int c0 = n0 + cb * 16;
-    if (c0 >= N) continue;  // warp-uniform
-    const float* a = A + rb * 16 * lda;
-    const float* w = W + c0;
-    FragB ring[DEPTH];
-#pragma unroll
-    for (int j = 0; j < DEPTH; ++j)
-      if (j < steps) wmma::load_matrix_sync(ring[j], w + j * 8 * ldw, ldw);
-    FragC acc, acc2;
-    wmma::fill_fragment(acc, 0.f);
-    wmma::fill_fragment(acc2, 0.f);
-    for (int s0 = 0; s0 < steps; s0 += DEPTH) {
-#pragma unroll
-      for (int j = 0; j < DEPTH; ++j) {
-        const int s = s0 + j;
-        if (s >= steps) break;
-        FragB b_hi = ring[j], b_lo;
-        if (s + DEPTH < steps)
-          wmma::load_matrix_sync(ring[j], w + (s + DEPTH) * 8 * ldw, ldw);
-        FragA a_hi, a_lo;
-        wmma::load_matrix_sync(a_hi, a + s * 8, lda);
-        operands<LOWP>(a_hi, a_lo);
-        operands<LOWP>(b_hi, b_lo);
-        if constexpr (LOWP) {
-          FragC& c = j % 2 ? acc2 : acc;
-          wmma::mma_sync(c, a_hi, b_hi, c);
-        } else {
-          wmma::mma_sync(acc2, a_lo, b_hi, acc2);
-          wmma::mma_sync(acc2, a_hi, b_lo, acc2);
-          wmma::mma_sync(acc, a_hi, b_hi, acc);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < acc.num_elements; ++i) acc.x[i] += acc2.x[i];
-    warp_epilogue(acc, rb, cb, c0, N, epi, sC);
-  }
 }
 
 template <bool LOWP>
@@ -387,7 +242,7 @@ __global__ void __launch_bounds__(NT, 1) megablock_fwd_kernel(const Args p) {
                         sA, sC);
 
     // [vb_re | vb_im] = [gx | gy] [[A_re, A_im], [-A_im, A_re]]
-    weight_gemm<LOWP>(2 * C, 2 * C, p0, ldp, p.cmap, p.ld_cmap,
+    weight_gemm<LOWP, false>(2 * C, 2 * C, p0, ldp, p.cmap, p.ld_cmap,
                       [&](int m, int n, float v) { p1[m * ldp + n] = v; }, sC);
 
     __syncthreads();
@@ -405,11 +260,14 @@ __global__ void __launch_bounds__(NT, 1) megablock_fwd_kernel(const Args p) {
       float* dst = (l % 2 == 0) ? p0 : p1;
       const float* bias = p.b[l];
       const bool last = l == p.n_dense - 1;
-      weight_gemm<LOWP>(
-          p.width[l], p.width[l + 1], src, lds, p.w[l], p.ldw[l],
+      const int width = p.width[l + 1];
+      weight_gemm<LOWP, false>(
+          p.width[l], width, src, lds, p.w[l], p.ldw[l],
           [&](int m, int n, float v) {
             v += bias[n];
-            dst[m * ldp + n] = last ? v + cat[m * ldc + n] : fmaxf(v, 0.f);
+            dst[m * ldp + n] =
+                last ? v + cat[m * ldc + n]
+                     : p.drop.apply(fmaxf(v, 0.f), b, row0 + m, n, width, l);
           },
           sC);
       src = dst;
@@ -503,38 +361,32 @@ __global__ void xhat_reduce_kernel(const float* __restrict__ partial,
   out[i] = acc;
 }
 
-int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
 size_t smem_bytes(int ldc, int ldp) {
   return sizeof(float) * ((size_t)TV * LDA + (size_t)TV * LDB +
                           (size_t)TV * LDC + (size_t)MAX_KC * LDS +
                           (size_t)TV * ldc + 2 * (size_t)TV * ldp);
 }
 
-// A weight matrix as weight_gemm reads it: 32-byte aligned rows, a row
-// stride that covers the columns rounded up to 16.
-bool weight_layout_ok(const void* w, int ld, int cols) {
-  return reinterpret_cast<uintptr_t>(w) % 32 == 0 && ld % 8 == 0 &&
-         ld >= round_up(cols, 16);
-}
-
 }  // namespace
 
 extern "C" {
 
-// Error codes beyond cudaError_t's: the wrapper turns them into messages.
-enum { MB_BAD_SHAPE = -1, MB_SMEM = -2, MB_BAD_LAYOUT = -3 };
-
 // Launches the block kernel on `stream`. `partial` null: emit_next off.
 // cmap is [[A_re, A_im], [-A_im, A_re]] and each ws[l] the l-th MLP kernel,
 // laid out as weight_gemm reads them (zero rows up to a multiple of 8).
+// dropout 0: off; else masks from (seed, b, row / tile_v, layer).
 int mb_fwd_launch(const void* x, const void* evecs, const void* gx,
                   const void* gy, const void* mass, const void* coefs,
                   const void* cmap, int ld_cmap, const void* const* ws,
                   const int* ldw, const void* const* bs, const int* widths,
                   int n_dense, const void* xhat_in, void* out, void* partial,
                   int B, int V, int K, int C, int nsplit, int x_bf16,
-                  int ops_bf16, int lowp, void* stream) {
+                  int ops_bf16, int lowp, int dropout, int seed, int tile_v,
+                  void* stream) {
+  if (dropout && (tile_v < TV || tile_v % TV != 0 || V % tile_v != 0 ||
+                  seed < 0 || B > 2048 || V / tile_v > 65536 ||
+                  n_dense - 1 > 16))
+    return MB_BAD_SHAPE;
   if (n_dense < 1 || n_dense > MAX_DENSE || K < 1 || K > MAX_KC || C < 1 ||
       C > MAX_KC || B < 1 || V < 1 || nsplit < 1)
     return MB_BAD_SHAPE;
@@ -565,6 +417,7 @@ int mb_fwd_launch(const void* x, const void* evecs, const void* gx,
   p.nsplit = nsplit < p.n_tiles ? nsplit : p.n_tiles;
   if (p.nsplit != nsplit) return MB_BAD_SHAPE;  // partial is sized by nsplit
   p.x_bf16 = x_bf16; p.ops_bf16 = ops_bf16;
+  p.drop = {dropout, seed, tile_v};
   // padded to 4 mod 32 floats: the rows of a fragment fall in other banks
   p.ldc = round_up(3 * C, 8) + PAD;
   p.ldp = round_up(widest, 8) + PAD;

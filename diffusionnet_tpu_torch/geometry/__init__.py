@@ -6,6 +6,7 @@ from .operators import (
     compute_operators,
     get_operators,
     pad_operators,
+    stack_operators,
     spectral_gradients,
     grad_operators,
 )

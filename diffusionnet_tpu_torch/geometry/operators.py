@@ -15,7 +15,7 @@ coauthors; see the repository LICENSE file.
 from __future__ import annotations
 
 import os
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import scipy.sparse
@@ -49,13 +49,21 @@ class Operators(NamedTuple):
 
     def to(self, device) -> "Operators":
         """The same bundle with every array a torch tensor on `device`."""
-        def t(a):
-            if a is None:
-                return None
-            if isinstance(a, Ell):
-                return Ell(t(a.idx), t(a.val))
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        return Operators(*(t(a) for a in self))
+        return map_operators(
+            lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device),
+            self)
+
+
+def map_operators(fn: Callable, *bundles: Operators) -> Operators:
+    """fn applied field by field across bundles (to the idx and val of each
+    Ell; None stays None): the JAX package's jax.tree.map over Operators."""
+    def one(*xs):
+        if xs[0] is None:
+            return None
+        if isinstance(xs[0], Ell):
+            return Ell(fn(*(x.idx for x in xs)), fn(*(x.val for x in xs)))
+        return fn(*xs)
+    return Operators(*(one(*xs) for xs in zip(*bundles)))
 
 
 def spectral_gradients(gradX, gradY, evecs: np.ndarray):
@@ -311,3 +319,26 @@ def pad_operators(ops: Operators, v_pad: int, k_eig: int | None = None,
                      gradY=ell_pad(ops.gradY, v_pad, d_max_grad),
                      gradX_spec=pad_vk(ops.gradX_spec),
                      gradY_spec=pad_vk(ops.gradY_spec))
+
+
+def stack_operators(ops_list: Sequence[Operators],
+                    v_pad: int | None = None,
+                    k_eig: int | None = None) -> Operators:
+    """Stack a list of Operators into one batched bundle with common padding:
+    V padded to the largest (or v_pad), k truncated to the smallest (or
+    k_eig), ELL degrees padded to the largest."""
+    v_pad = v_pad if v_pad is not None else max(o.mass.shape[0] for o in ops_list)
+    k_eig = k_eig if k_eig is not None else min(o.evals.shape[0] for o in ops_list)
+    d_l = max(o.L.max_degree for o in ops_list)
+    d_g = max(max(o.gradX.max_degree, o.gradY.max_degree) for o in ops_list)
+    padded = [pad_operators(truncate_k(o, k_eig), v_pad, k_eig, d_l, d_g)
+              for o in ops_list]
+    return map_operators(lambda *xs: np.stack(xs, axis=0), *padded)
+
+
+def truncate_k(o: Operators, k_eig: int) -> Operators:
+    """The first k_eig eigenpairs (and spectral gradient columns)."""
+    return o._replace(
+        evals=o.evals[:k_eig], evecs=o.evecs[:, :k_eig],
+        gradX_spec=None if o.gradX_spec is None else o.gradX_spec[:, :k_eig],
+        gradY_spec=None if o.gradY_spec is None else o.gradY_spec[:, :k_eig])

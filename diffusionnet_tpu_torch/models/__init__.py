@@ -4,5 +4,5 @@ package's parameters, and the megakernel fast path."""
 from .diffusion_net import (DiffusionNet, DiffusionNetBlock,
                             LearnedTimeDiffusion, SpatialGradientFeatures,
                             MiniMLP)
-from .params import from_flat_jax_params, to_flat_jax_params
+from .params import from_flat_jax_params, module_state, to_flat_jax_params
 from .fast_path import megablock_apply, flat_params

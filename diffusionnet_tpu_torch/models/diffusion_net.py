@@ -100,9 +100,10 @@ class SpatialGradientFeatures(nn.Module):
 
 class MiniMLP(nn.Module):
     """Linear+ReLU stack, no activation after the last layer (reference
-    layers.py:133-164). With `dropout` the reference puts Dropout(0.5)
-    before every layer except the first; that is inactive at inference, and
-    training mode comes with the training slice (ROADMAP item A.3)."""
+    layers.py:133-164). With `dropout`, Dropout(0.5) before every layer
+    except the first, active when deterministic is False: its masks come
+    from `generator` (a torch.Generator on the tensors' device, or None for
+    torch's default one), so they differ from flax's bits but not in law."""
 
     def __init__(self, layer_sizes: Sequence[int], dropout: bool = False):
         super().__init__()
@@ -111,13 +112,14 @@ class MiniMLP(nn.Module):
             _dense(layer_sizes[i], layer_sizes[i + 1])
             for i in range(len(layer_sizes) - 1))
 
-    def forward(self, x, deterministic: bool = True):
-        if self.dropout and not deterministic:
-            raise NotImplementedError(
-                "dropout in training mode comes with the training slice "
-                "(ROADMAP item A.3)")
+    def forward(self, x, deterministic: bool = True,
+                generator: torch.Generator | None = None):
         n = len(self.layers)
         for i, lin in enumerate(self.layers):
+            if self.dropout and not deterministic and i > 0:
+                keep = torch.rand(x.shape, generator=generator,
+                                  device=x.device) >= 0.5
+                x = torch.where(keep, x * 2.0, torch.zeros_like(x))
             x = lin(x)
             if i < n - 1:
                 x = torch.relu(x)
@@ -143,7 +145,8 @@ class DiffusionNetBlock(nn.Module):
         self.mlp = MiniMLP((mlp_c, *mlp_hidden_dims, c_width), dropout=dropout)
 
     def forward(self, x_in, mass, evals, evecs, gradX, gradY,
-                deterministic: bool = True):
+                deterministic: bool = True,
+                generator: torch.Generator | None = None):
         if x_in.shape[-1] != self.c_width:
             raise ValueError(
                 f"Tensor has wrong shape = {tuple(x_in.shape)}. Last dim "
@@ -159,7 +162,7 @@ class DiffusionNetBlock(nn.Module):
             combined = torch.cat((x_in, x_diffuse, feats), dim=-1)
         else:
             combined = torch.cat((x_in, x_diffuse), dim=-1)
-        return self.mlp(combined, deterministic) + x_in
+        return self.mlp(combined, deterministic, generator) + x_in
 
 
 def _gather_mean(x, inds):
@@ -177,12 +180,13 @@ class DiffusionNet(nn.Module):
     of the JAX package's DiffusionNet.
 
     forward(x_in, mass, evals, evecs, gradX, gradY, edges=None, faces=None,
-            deterministic=True)
+            deterministic=True, generator=None)
     x_in: (V, C_in) or (B, V, C_in); operators batched to match; gradX/gradY
     are the dense (.., V, K) spectral gradient operators.
 
     generator: the torch.Generator the weights are drawn from (on the CPU);
-    None means a generator seeded with 0."""
+    None means a generator seeded with 0. forward's `generator` is another
+    one: the source of the dropout masks in training mode."""
 
     def __init__(self, c_in: int, c_out: int, c_width: int = 128,
                  n_block: int = 4,
@@ -204,6 +208,7 @@ class DiffusionNet(nn.Module):
             raise ValueError("invalid setting for diffusion_method")
         self.c_in, self.c_out, self.c_width = c_in, c_out, c_width
         self.n_block = n_block
+        self.dropout = dropout
         self.last_activation = last_activation
         self.outputs_at = outputs_at
         self.diffusion_method = diffusion_method
@@ -237,7 +242,8 @@ class DiffusionNet(nn.Module):
 
     def forward(self, x_in, mass, evals=None, evecs=None, gradX=None,
                 gradY=None, edges=None, faces=None,
-                deterministic: bool = True):
+                deterministic: bool = True,
+                generator: torch.Generator | None = None):
         if x_in.shape[-1] != self.c_in:
             raise ValueError(
                 f"DiffusionNet was constructed with C_in={self.c_in}, but "
@@ -255,7 +261,8 @@ class DiffusionNet(nn.Module):
 
         x = self.first_lin(x_in)
         for block in self.blocks:
-            x = block(x, mass, evals, evecs, gradX, gradY, deterministic)
+            x = block(x, mass, evals, evecs, gradX, gradY, deterministic,
+                      generator)
         x = self.last_lin(x)
 
         if self.outputs_at == "vertices":

@@ -1,14 +1,15 @@
 """Megakernel fast path: a DiffusionNet forward with each block as one
-`megablock_chained` call (kernel B1). The counterpart of
-diffusionnet_tpu/models/fast_path.py, forward only.
+`megablock_chained` call (kernel B1 forward, kernel B2 backward). The
+counterpart of diffusionnet_tpu/models/fast_path.py.
 
 Supported configuration: spectral diffusion with dense spectral gradient
 operators and gradient features, with or without gradient rotations, any
-MLP hidden widths, dropout off. The block-0 projection x_hat = Phi^T (m x),
-first_lin, last_lin and coefs = exp(-evals t) are plain torch, as the JAX
-package computes them outside Pallas. One kernel launch per block covers the
-whole batch, plus one x_hat partial-sum launch per block that feeds a next
-block.
+MLP hidden widths, dropout on (rate 0.5) or off. The block-0 projection
+x_hat = Phi^T (m x), first_lin, last_lin and coefs = exp(-evals t) are plain
+torch, as the JAX package computes them outside Pallas. One kernel launch
+per block covers the whole batch, plus one x_hat partial-sum launch per
+block that feeds a next block; the backward is one B2 launch and two
+partial-sum launches per block.
 """
 
 from __future__ import annotations
@@ -16,15 +17,18 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.megablock import megablock_chained
+from ..ops.megablock import DEFAULT_TILE_V, megablock_chained
 from .params import to_flat_jax_params
 
 
-def flat_params(model: nn.Module, device=None) -> dict[str, torch.Tensor]:
+def flat_params(model: nn.Module, device=None, requires_grad: bool = False
+                ) -> dict[str, torch.Tensor]:
     """The model's weights as JAX-layout flat tensors (kernels (in, out),
-    contiguous), the form `megablock_apply` reads."""
+    contiguous), the form `megablock_apply` reads. With requires_grad they
+    are new leaf tensors: the train state of `training.fit`, which
+    `from_flat_jax_params` takes back into a module."""
     device = device if device is not None else next(model.parameters()).device
-    return {k: torch.from_numpy(v).to(device)
+    return {k: torch.from_numpy(v).to(device).requires_grad_(requires_grad)
             for k, v in to_flat_jax_params(model).items()}
 
 
@@ -44,23 +48,45 @@ def _block_params(params: dict, b: int):
 
 
 def megablock_apply(params, x_in, mass, evals, evecs, gX_spec, gY_spec,
-                    n_block: int, last_activation=None, dropout_rng=None,
+                    n_block: int, tile_v: int = DEFAULT_TILE_V,
+                    last_activation=None, dropout_rng=None,
                     xhat_reduce=None):
     """Forward pass equal to DiffusionNet for the supported configuration,
-    with each block as ONE batched kernel launch.
+    with each block as ONE batched kernel launch; differentiable in params.
 
     params: the model's flat JAX-layout tensors (`flat_params`). x_in
-    (B, V, C_in); evecs/gX_spec/gY_spec (B, V, K); mass
-    (B, V); evals (B, K). The operand precision follows evecs: bf16 evecs run
-    every product on bf16 operands (f32 accumulation).
+    (B, V, C_in); evecs/gX_spec/gY_spec (B, V, K); mass (B, V); evals
+    (B, K). The operand precision follows evecs: bf16 evecs run every
+    product on bf16 operands (f32 accumulation).
+
+    dropout_rng: None, or a torch.Generator (on the CPU) that turns MiniMLP
+    dropout (rate 0.5) on; it draws one seed per block in [0, 2^31 - 1), as
+    the JAX package's randint(fold_in(rng, b)) does (the bits differ). The
+    masks are tiled in tile_v rows, so V must then be a multiple of tile_v.
 
     xhat_reduce: optional callable applied to each block's x_hat = Phi^T(m x)
     (vertex sharding sums the per-shard partials through it)."""
-    if dropout_rng is not None:
-        raise NotImplementedError(
-            "dropout in the block kernel comes with the training slice "
-            "(ROADMAP item A.3)")
     lowp = evecs.dtype == torch.bfloat16
+    if dropout_rng is not None:
+        # the kernels fold (batch, tile, layer) into ONE int32 key
+        # ((b * 65536 + i) * 16 + layer); the packing is exact only inside
+        # these bounds -- outside them keys collide and masks correlate
+        # across batch elements, so refuse
+        B, V = x_in.shape[0], x_in.shape[-2]
+        n_tiles = -(-V // tile_v)
+        n_mlp = len(_block_params(params, 0)[3])
+        problems = []
+        if B > 2048:
+            problems.append(f"batch {B} > 2048")
+        if n_tiles > 65536:
+            problems.append(f"V/tile_v = {n_tiles} tiles > 65536")
+        if n_mlp - 1 > 16:
+            problems.append(f"{n_mlp - 1} dropout layers > 16")
+        if problems:
+            raise ValueError(
+                "megakernel dropout key packing out of range ("
+                + "; ".join(problems) + "); use the eager model for this "
+                "config")
 
     x = (x_in.float() @ params["params/first_lin/kernel"]
          + params["params/first_lin/bias"])
@@ -74,11 +100,18 @@ def megablock_apply(params, x_in, mass, evals, evecs, gX_spec, gY_spec,
         x_hat = xhat_reduce(x_hat)
     for b in range(n_block):
         t, A_re, A_im, Ws, bs = _block_params(params, b)
-        t = torch.clamp(t, min=1e-8)
+        # straight-through clamp: the value is >= 1e-8, the gradient passes
+        # (diffusion times start at 0)
+        t = t + (torch.clamp(t, min=1e-8) - t).detach()
         coefs = torch.exp(-evals[..., None] * t).contiguous()  # (B, K, C)
+        seed = None
+        if dropout_rng is not None:
+            seed = int(torch.randint(0, 2 ** 31 - 1, (),
+                                     generator=dropout_rng))
         x, x_hat = megablock_chained(
             x, evecs, gX_spec, gY_spec, mass, coefs, A_re, A_im, Ws, bs,
-            x_hat, emit_next=b < n_block - 1, lowp=lowp)
+            x_hat, emit_next=b < n_block - 1, lowp=lowp, seed=seed,
+            tile_v=tile_v)
         if x_hat is not None and xhat_reduce is not None:
             x_hat = xhat_reduce(x_hat)
 

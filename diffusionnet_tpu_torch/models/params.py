@@ -62,11 +62,14 @@ def _torch_to_jax_name(key: str) -> tuple[str, bool]:
 
 
 def from_flat_jax_params(flat: dict) -> dict[str, torch.Tensor]:
-    """JAX flat params (numpy arrays) -> a state_dict for the port's
-    DiffusionNet: `model.load_state_dict(from_flat_jax_params(flat))`."""
+    """JAX flat params (numpy arrays, or tensors such as the train state of
+    `training.fit`) -> a state_dict for the port's DiffusionNet:
+    `model.load_state_dict(from_flat_jax_params(flat))`."""
     state = {}
     for key, val in flat.items():
         name, transpose = _jax_to_torch_name(key)
+        if isinstance(val, torch.Tensor):
+            val = val.detach().cpu().numpy()
         arr = np.asarray(val, dtype=np.float32)
         state[name] = torch.from_numpy(np.array(arr.T if transpose else arr,
                                                 order="C"))
@@ -85,3 +88,15 @@ def to_flat_jax_params(model_or_state) -> dict[str, np.ndarray]:
         arr = t.detach().cpu().numpy()
         flat[key] = np.ascontiguousarray(arr.T if transpose else arr)
     return flat
+
+
+def module_state(params: dict) -> dict[str, torch.Tensor]:
+    """JAX-layout flat tensors -> the port's state_dict names, as views that
+    keep autograd: `torch.func.functional_call(model, module_state(params),
+    ...)` runs the eager model on the train state, and its gradients land on
+    the flat tensors."""
+    state = {}
+    for key, val in params.items():
+        name, transpose = _jax_to_torch_name(key)
+        state[name] = val.transpose(0, 1) if transpose else val
+    return state

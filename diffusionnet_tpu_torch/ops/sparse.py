@@ -22,6 +22,10 @@ class Ell(NamedTuple):
     idx: np.ndarray
     val: np.ndarray
 
+    @property
+    def max_degree(self) -> int:
+        return self.idx.shape[-1]
+
 
 def ell_from_coo(rows, cols, vals, n_rows: int, dtype=np.float32) -> Ell:
     """COO triplets to ELL, summing duplicates; D is the largest row degree

@@ -59,7 +59,8 @@ def test_block_kernel_matches_plain(cuda, emit_next, lowp):
     mb.reset_launches()
     out, xn = mb.megablock_chained(*args, emit_next=emit_next, lowp=lowp)
     torch.cuda.synchronize()
-    assert mb.LAUNCHES == {"megablock_fwd": 1, "xhat_reduce": int(emit_next)}
+    assert mb.LAUNCHES == {"megablock_fwd": 1, "xhat_reduce": int(emit_next),
+                           "megablock_bwd": 0, "grad_reduce": 0}
     ref, ref_xn = mb.megablock_chained_reference(*args, emit_next=emit_next,
                                                  lowp=lowp)
     assert out.dtype == args[0].dtype
@@ -87,4 +88,134 @@ def test_block_kernel_refuses_what_it_does_not_take(cuda):
     big = _block(cuda, False, V=64, K=256, C=8, hidden=(8,))
     with pytest.raises(ValueError, match="K, C <= 128"):
         mb.megablock_chained(*big)
-    assert mb.LAUNCHES == {"megablock_fwd": 0, "xhat_reduce": 0}
+    assert mb.LAUNCHES == {"megablock_fwd": 0, "xhat_reduce": 0,
+                           "megablock_bwd": 0, "grad_reduce": 0}
+
+
+def _close(name, got, want, lowp):
+    """|kernel - plain| <= rtol |plain| + atol * max |plain|: gradients are
+    sums over every row of the batch, so the bound scales with the largest
+    entry. f32: the kernel's three TF32 passes and another summation order;
+    bf16: a cotangent that rounds to the neighbouring bf16 value carries
+    2^-8 relative into every later product."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all(), name
+    scale = max(want.abs().max().item(), 1e-6)
+    rtol, atol = (2e-2, 2e-2) if lowp else (1e-4, 1e-4)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol * scale,
+                               msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lowp", [False, True], ids=["f32", "bf16"])
+def test_block_kernel_dropout_matches_plain(cuda, lowp):
+    """Masks from (seed, b, tile of 256 rows, layer), bit-identical to the
+    plain version's: with all-ones inputs the kept pattern shows exactly."""
+    args = _block(cuda, lowp, V=1024)
+    out, xn = mb.megablock_chained_fwd(*args, emit_next=True, lowp=lowp,
+                                       seed=12345, tile_v=256)
+    ref, ref_xn = mb.megablock_chained_reference(*args, emit_next=True,
+                                                 lowp=lowp, seed=12345,
+                                                 tile_v=256)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[lowp])
+    torch.testing.assert_close(xn, ref_xn, **TOL[lowp])
+    # one hidden layer of width 16, identity beyond it: out - x is the
+    # dropped, scaled activation of an all-ones hidden layer
+    B, V, C = 2, 1024, 16
+    dt = torch.bfloat16 if lowp else torch.float32
+    ones = torch.ones
+    Ws = [torch.zeros(3 * C, C, device=cuda), torch.eye(C, device=cuda)]
+    bs = [torch.ones(C, device=cuda), torch.zeros(C, device=cuda)]
+    ops = [torch.zeros(B, V, 16, device=cuda, dtype=dt) for _ in range(3)]
+    x = torch.zeros(B, V, C, device=cuda, dtype=dt)
+    out, _ = mb.megablock_chained_fwd(
+        x, *ops, ones(B, V, device=cuda), ones(B, 16, C, device=cuda),
+        torch.zeros(C, C, device=cuda), torch.zeros(C, C, device=cuda), Ws, bs,
+        torch.zeros(B, 16, C, device=cuda), emit_next=False, lowp=lowp,
+        seed=2 ** 31 - 2, tile_v=512)
+    keep = mb.dropout_masks(B, V, C, 2 ** 31 - 2, 0, 512, device=cuda)
+    assert torch.equal(out.float(), keep.float() * 2.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lowp", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("emit_next", [True, False])
+@pytest.mark.parametrize("V,seed", [(1000, None), (1024, 777)],
+                         ids=["ragged", "dropout"])
+def test_backward_kernel_matches_plain(cuda, V, seed, emit_next, lowp):
+    """B2 and its partial-sum kernel against the plain backward: every
+    output, at a ragged V (last row tile partly past V) and with dropout."""
+    args = _block(cuda, lowp, V=V)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    dout = torch.randn(args[0].shape, generator=g, device=cuda).to(
+        args[0].dtype)
+    dxn = (torch.randn(args[-1].shape, generator=g, device=cuda)
+           if emit_next else None)
+    mb.reset_launches()
+    got = mb.megablock_chained_bwd(*args, dout, dxn, lowp=lowp, seed=seed,
+                                   tile_v=256)
+    torch.cuda.synchronize()
+    assert mb.LAUNCHES["megablock_bwd"] == 1
+    assert mb.LAUNCHES["grad_reduce"] == 2
+    want = mb.megablock_chained_bwd_reference(*args, dout, dxn, lowp=lowp,
+                                              seed=seed, tile_v=256)
+    assert got[0].dtype == args[0].dtype
+    for name, a, b in zip(("dx_direct", "ds", "dA_re", "dA_im"), got[:4],
+                          want[:4]):
+        _close(name, a, b, lowp)
+    for l, (a, b) in enumerate(zip(got[4], want[4])):
+        _close(f"dW{l}", a, b, lowp)
+    for l, (a, b) in enumerate(zip(got[5], want[5])):
+        _close(f"db{l}", a, b, lowp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [None, 99], ids=["nodrop", "drop"])
+def test_function_gradients_match_autograd_of_plain(cuda, seed):
+    """The autograd Function on the card (B1 forward, B2 backward) against
+    torch.autograd through the plain forward on the same card."""
+    def leaves(args):
+        out = []
+        for i, a in enumerate(args):
+            if isinstance(a, list):
+                out.append([t.detach().clone().requires_grad_(True)
+                            for t in a])
+            elif i in (0, 5, 6, 7, 10):
+                out.append(a.detach().clone().requires_grad_(True))
+            else:
+                out.append(a)
+        return out
+    base = _block(cuda, False, V=1024)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    dout = torch.randn(base[0].shape, generator=g, device=cuda)
+    dxn = torch.randn(base[-1].shape, generator=g, device=cuda)
+    grads = []
+    for fn in (mb.megablock_chained, mb.megablock_chained_reference):
+        args = leaves(base)
+        out, xn = fn(*args, emit_next=True, seed=seed, tile_v=256)
+        ((out * dout).sum() + (xn * dxn).sum()).backward()
+        grads.append([args[i].grad for i in (0, 5, 6, 7, 10)]
+                     + [t.grad for t in args[8] + args[9]])
+    for k, (a, b) in enumerate(zip(*grads)):
+        _close(f"grad {k}", a, b, False)
+
+
+@pytest.mark.cuda
+def test_dropout_and_backward_refusals(cuda):
+    """tile_v not a multiple of the kernel's 32-row tile, V not a multiple
+    of tile_v with dropout, dout in another dtype, C % 8 != 0: raised before
+    any launch."""
+    args = _block(cuda, False, V=1024)
+    dout = torch.zeros_like(args[0])
+    mb.reset_launches()
+    with pytest.raises(ValueError, match="multiple of the kernel's 32-row"):
+        mb.megablock_chained_fwd(*args, seed=1, tile_v=48)
+    with pytest.raises(ValueError, match="multiple of tile_v"):
+        mb.megablock_chained_fwd(*_block(cuda, False, V=1000), seed=1,
+                                 tile_v=256)
+    with pytest.raises(ValueError, match="dout must be"):
+        mb.megablock_chained_bwd(*args, dout.double())
+    small = _block(cuda, False, V=64, C=12, hidden=(12,))
+    with pytest.raises(ValueError, match="C % 8 == 0"):
+        mb.megablock_chained_bwd(*small, torch.zeros_like(small[0]))
+    assert all(v == 0 for v in mb.LAUNCHES.values())

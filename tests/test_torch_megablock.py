@@ -133,7 +133,8 @@ def test_weight_layout_pads_with_zeros(shape, padded):
 def test_megablock_apply_xhat_reduce_hook_and_refusals():
     """megablock_apply equals the eager model; its xhat_reduce hook sees
     every block's x_hat (the block-0 projection and each emitted one);
-    dropout in training mode is refused on both paths."""
+    dropout in training mode runs on both paths (and changes the output),
+    and dropout keys past the packing range are refused."""
     from diffusionnet_tpu_torch.models import (DiffusionNet, flat_params,
                                                megablock_apply)
 
@@ -160,9 +161,17 @@ def test_megablock_apply_xhat_reduce_hook_and_refusals():
     assert seen == [(1, 8, 8)] * 3
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-6)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        megablock_apply(flat_params(model), x, mass, evals, evecs, gX, gY,
-                        n_block=3, dropout_rng=torch.Generator())
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(x, mass, evals=evals, evecs=evecs, gradX=gX, gradY=gY,
-              deterministic=False)
+    with torch.no_grad():
+        fast = megablock_apply(flat_params(model), x, mass, evals, evecs, gX,
+                               gY, n_block=3, tile_v=32,
+                               dropout_rng=torch.Generator().manual_seed(0))
+        eager = model(x, mass, evals=evals, evecs=evecs, gradX=gX, gradY=gY,
+                      deterministic=False,
+                      generator=torch.Generator().manual_seed(0))
+    for dropped in (fast, eager):
+        assert torch.isfinite(dropped).all()
+        assert (dropped - want).abs().max() > 1e-3
+    with pytest.raises(ValueError, match="key packing out of range"):
+        megablock_apply(flat_params(model), x.expand(2049, -1, -1), mass,
+                        evals, evecs, gX, gY, n_block=3,
+                        dropout_rng=torch.Generator())
