@@ -30,7 +30,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      must agree in loss, every gradient and the updated parameters;
   9. times: B2 against its plain backward, B1's dropout cost, and the
      whole train step at bench.py's shapes (B=8, V=20480, f32 and bf16
-     operands), with a profiler breakdown averaged over three steps.
+     operands), with a profiler breakdown averaged over three steps;
+ 10. B5 (the blocked-ELL SpMM of the device eigensolver) against its plain
+     version on the cotan Laplacians of torus(144, 140) and
+     delaunay_sphere(100_000), planned at the port's defaults, C = 160 and
+     96, and nb = 2 once for the COO overflow;
+ 11. times of B5, its plain version and torch.sparse.mm on the same matrix
+     in CSR (a yardstick the port never calls) at C = 160, with B5's bound;
+ 12. the precompute slice: get_operators(k_eig=128, eigensolver="device")
+     on the card for torus(144, 140), icosphere(5) and
+     delaunay_sphere(100_000) from a fresh cache; B5 must launch on every
+     mesh, and the solves of the torus and the icosphere may not fall back
+     to ARPACK. The Delaunay sphere's sliver triangles leave the f32 sweeps
+     short of what the f64 certification accepts, so there the solver falls
+     back to ARPACK as the JAX package's does; the run prints why. On every
+     mesh the eigenvalues and a cluster-closed subspace are held to host
+     ARPACK and both cold precomputes are timed; on the two smaller ones a
+     cold InferenceSession(use_megakernel=True) request of the segmentation
+     model is held to a session on ARPACK operators.
+
+Since this slice the port's default eigensolver is the device one, so the
+cold requests of phase 4 and the dataset precompute of phase 8 run on B5
+as well.
 
 The last two lines of standard output are the card's name and power limit
 as nvidia-smi reports them, then {"ok": true, "device": {...}}; the line
@@ -113,14 +134,14 @@ def card_line() -> str:
 
 
 def meshgen():
-    """(icosphere, torus) of tests/meshgen.py. tests/ is not a package: a
-    `tests` package installed elsewhere would shadow it, so the mesh
-    generator (numpy only) is imported by its path."""
+    """tests/meshgen.py (icosphere, torus, delaunay_sphere). tests/ is not a
+    package: a `tests` package installed elsewhere would shadow it, so the
+    mesh generator (numpy and scipy only) is imported by its path."""
     here = os.path.dirname(os.path.abspath(__file__))
     if os.path.join(here, "tests") not in sys.path:
         sys.path.insert(0, os.path.join(here, "tests"))
-    from meshgen import icosphere, torus
-    return icosphere, torus
+    import meshgen as mg
+    return mg
 
 
 def block_inputs(B, V, K, C, hidden, dtype, seed, n_pad=0):
@@ -238,22 +259,30 @@ def phase_kernels(mb):
     return errs, partial
 
 
-def phase_slice(mb):
-    """The main path: three requests through InferenceSession on the card.
-    Returns the launch counts of the three requests."""
+def segmentation_model():
+    """The segmentation model with seeded weights and seeded diffusion
+    times (trained models have non-zero ones)."""
     from diffusionnet_tpu_torch.models import DiffusionNet
-    from diffusionnet_tpu_torch.training import InferenceSession
-    icosphere, torus = meshgen()
-
-    log("== phase 4: the slice, InferenceSession(use_megakernel=True) on cuda")
     gen = torch.Generator().manual_seed(0)
     model = DiffusionNet(**SEG_MODEL, generator=gen,
                          last_activation=functools.partial(torch.log_softmax,
                                                            dim=-1))
-    with torch.no_grad():  # trained models have non-zero diffusion times
+    with torch.no_grad():
         for blk in model.blocks:
             t = blk.diffusion.diffusion_time
             t.copy_(torch.rand(t.shape, generator=gen) * 0.05)
+    return model
+
+
+def phase_slice(mb):
+    """The main path: three requests through InferenceSession on the card.
+    Returns the launch counts of the three requests."""
+    from diffusionnet_tpu_torch.training import InferenceSession
+    mg = meshgen()
+    icosphere, torus = mg.icosphere, mg.torus
+
+    log("== phase 4: the slice, InferenceSession(use_megakernel=True) on cuda")
+    model = segmentation_model()
     requests = [("torus(144, 140)", torus(n_major=144, n_minor=140)),
                 ("icosphere(5)", icosphere(subdivisions=5)),
                 ("torus(144, 140) again", torus(n_major=144, n_minor=140))]
@@ -449,7 +478,8 @@ def segmentation_dataset(cache):
     4 sectors of azimuth times 2 halves in z, 8 classes."""
     import numpy as np
     from diffusionnet_tpu_torch.data import SurfaceDataset
-    icosphere, torus = meshgen()
+    mg = meshgen()
+    icosphere, torus = mg.icosphere, mg.torus
     meshes = [("torus(144, 140)", torus(n_major=144, n_minor=140)),
               ("icosphere(5)", icosphere(subdivisions=5)),
               ("torus(96, 80)", torus(n_major=96, n_minor=80)),
@@ -667,6 +697,321 @@ def phase_step_times(mb, card, torus_ops, torus_verts):
     return step_ms
 
 
+# --- B5 and the device eigensolver (phases 10-12) ---------------------------
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM rate, f32 outside
+# the tensor cores, TF32 on them (f32-accurate products take three TF32
+# passes, as B1 and B2 run them). Bounds below are against these, at the
+# card's power limit printed beside them.
+HBM_BYTES_S = 3.35e12
+F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
+B5_TOL = 5e-6      # B5 against its plain version, times max |plain|: f32
+                   # sums of the same panel products in another order
+C_SUBSPACE = 160   # the solver's block width at k_eig = 128 (k + k // 4)
+ROT_TOL = 1e-6     # device vectors of a cut eigen-cluster inside ARPACK's:
+                   # the certified f64 residuals put them there to ~1e-8
+
+
+def bound(n_bytes, flops, peak):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the HBM
+    rate and the operations over `peak`."""
+    tb, to = n_bytes / HBM_BYTES_S, flops / peak
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def megablock_bound(B, V, K, C, widths, emit_next, backward, lowp=False):
+    """B1's (or B2's) least time: operations counted from the code (the
+    block's products, per vertex: Phi s, GX s, GY s 3 * 2KC; the complex
+    map 8C^2; the MLP 2 sum w_l w_l+1; x_hat_next 2KC. B2 recomputes the
+    forward up to the last layer, then the MLP's two products per layer,
+    16C^2 for the complex map, 3 * 2KC for ds and 2KC for m Phi dx_hat),
+    at three TF32 passes (f32) or the bf16 rate; bytes: x, Phi, GX, GY,
+    mass, out (and dout, dx) once."""
+    mlp = [2 * a * b for a, b in zip(widths[:-1], widths[1:])]
+    fwd = 6 * K * C + 8 * C * C + sum(mlp)
+    if backward:
+        flops = (fwd - mlp[-1] + 2 * sum(mlp) + 16 * C * C + 6 * K * C
+                 + (2 * K * C if emit_next else 0))
+        rows = 3 * C * (2 if lowp else 4) + 3 * K * (2 if lowp else 4) + 4
+    else:
+        flops = fwd + (2 * K * C if emit_next else 0)
+        rows = 2 * C * (2 if lowp else 4) + 3 * K * (2 if lowp else 4) + 4
+    peak = BF16_FLOPS if lowp else TF32_FLOPS / 3
+    return bound(B * V * rows, B * V * flops, peak)
+
+
+def b5_bound(nnz, V, C):
+    """B5's least time: what the matrix needs (CSR values, column indices,
+    row pointers), x read once and y written once; 2 nnz C operations at
+    the f32 rate."""
+    return bound(nnz * 8 + (V + 1) * 4 + 2 * V * C * 4, 2 * nnz * C,
+                 F32_FLOPS)
+
+
+def b5_meshes():
+    mg = meshgen()
+    return [("torus(144, 140)", mg.torus(n_major=144, n_minor=140)),
+            ("delaunay_sphere(100000)", mg.delaunay_sphere(100_000))]
+
+
+def phase_b5(be, lap):
+    """B5 against its plain version. Returns the largest max abs error at
+    the main path's plans (nb 8)."""
+    log("== phase 10: B5 (blocked-ELL SpMM) against its plain version")
+    err = 0.0
+    for name, L in lap:
+        V = L.shape[0]
+        for nb, widths in ((8, (C_SUBSPACE, 96)), (2, (C_SUBSPACE,))):
+            b = be.blocked_ell_from_sparse(L, nb=nb, device="cuda")
+            n_ov = int((b.ov_vals != 0).sum())
+            log(f"  {name}: V={V} nnz={L.nnz} nb={nb}: n_pad {b.n_pad}, "
+                f"{b.nused.numel()} groups of {b.group_rows} rows, used "
+                f"panels per group {b.nused.float().mean().item():.3f} "
+                f"(max {int(b.nused.max())}), {n_ov} overflow entries, "
+                f"format {b.nbytes() / 1e6:.1f} MB")
+            if nb == 2:
+                check(n_ov > 0, f"{name}: nb=2 should overflow")
+            g = torch.Generator(device="cuda").manual_seed(V + nb)
+            for C in widths:
+                x = torch.zeros(b.n_pad, C, device="cuda")
+                x[:V] = torch.randn(V, C, generator=g, device="cuda")
+                be.reset_launches()
+                y = be.blocked_ell_matvec(b, x)
+                torch.cuda.synchronize()
+                check(be.LAUNCHES["blocked_ell"] == 1,
+                      f"B5 launches {be.LAUNCHES}")
+                ref = be.blocked_ell_matvec_reference(b, x)
+                torch.cuda.synchronize()
+                e = compare(f"{name} nb={nb} C={C}", y, ref,
+                            dict(rtol=0.0, atol=B5_TOL), scaled=True)
+                pad = y[V:].abs().max().item() if b.n_pad > V else 0.0
+                check(pad == 0.0, f"{name}: padded rows {pad}")
+                if nb == 8 and C == C_SUBSPACE:
+                    err = max(err, e)
+                del x, y, ref
+            del b
+    return err
+
+
+def phase_b5_times(be, lap, card):
+    """B5, its plain version and torch.sparse.mm (cuSPARSE CSR SpMM, a
+    yardstick only) on the same permuted matrix at C = 160."""
+    import scipy.sparse
+    log("== phase 11: B5 times (CUDA events, median of 10 runs of 10 "
+        "calls), C = 160")
+    rows = {}
+    for name, L in lap:
+        V, C = L.shape[0], C_SUBSPACE
+        b = be.blocked_ell_from_sparse(L, device="cuda")
+        Lp = scipy.sparse.csr_matrix(L)[b.perm][:, b.perm].astype("float32")
+        csr = torch.sparse_csr_tensor(
+            torch.from_numpy(Lp.indptr.astype("int64")),
+            torch.from_numpy(Lp.indices.astype("int64")),
+            torch.from_numpy(Lp.data), size=Lp.shape).to("cuda")
+        g = torch.Generator(device="cuda").manual_seed(11)
+        x = torch.zeros(b.n_pad, C, device="cuda")
+        x[:V] = torch.randn(V, C, generator=g, device="cuda")
+        xv = x[:V].contiguous()
+        lib_y = torch.sparse.mm(csr, xv)
+        y = be.blocked_ell_matvec(b, x)
+        torch.cuda.synchronize()
+        compare(f"{name} torch.sparse.mm against B5", lib_y, y[:V],
+                dict(rtol=0.0, atol=B5_TOL), scaled=True)
+        k = time_ms(lambda: be.blocked_ell_matvec(b, x))
+        p = time_ms(lambda: be.blocked_ell_matvec_reference(b, x))
+        lib = time_ms(lambda: torch.sparse.mm(csr, xv))
+        bms, by = b5_bound(Lp.nnz, V, C)
+        rows[name] = dict(ms=k, plain_ms=p, library_ms=lib, bound_ms=bms,
+                          bound_by=by)
+        log(f"  time B5 {name} V={V} nnz={Lp.nnz} C={C}: kernel {k:.4f} ms, "
+            f"plain {p:.4f} ms, torch.sparse.mm CSR {lib:.4f} ms; bound "
+            f"{bms:.4f} ms ({by}), roofline share {bms / k:.4f} [{card}]")
+        del b, csr, x, xv, y, lib_y
+    return rows
+
+
+def _cluster_closed_cut(ev, k):
+    """The largest j <= k preceded by a relative gap >= 1e-3 (the subspace
+    of the first j pairs is then well defined)."""
+    gaps = (ev[1:k] - ev[:k - 1]) / max(ev[k - 1], 1e-12)
+    closed = [i + 1 for i in range(k - 1) if gaps[i] >= 1e-3]
+    return closed[-1] if closed else 0
+
+
+def _angle_err(A, B, mass):
+    import numpy as np
+    s = np.linalg.svd(A.T @ (mass[:, None] * B), compute_uv=False)
+    return float(np.abs(s - 1).max())
+
+
+def _host_reference_cache(ops_mod, verts, faces, dev_ops, cache):
+    """A cache entry of host-ARPACK operators for a session, with the basis
+    of the eigenvalue cluster that k = K_EIG cuts (both test meshes have
+    one: an exactly degenerate eigenspace of which the truncation keeps a
+    part) rotated to the device basis' choice of that part. The model is
+    invariant to signs and to rotations within whole degenerate clusters,
+    but not within a cut one, where any basis is as right as another
+    (a random rotation there moves the predictions by 0.4-1.7% of their
+    max on these meshes). The device vectors must lie in the ARPACK
+    cluster: the singular values of their M-products with it are held to
+    1 - ROT_TOL. Returns (the cluster, those singular values)."""
+    import numpy as np
+    kk = K_EIG + 8
+    host, sparse_mats = ops_mod.compute_operators(
+        verts, faces, kk, eigensolver="host", _return_sparse=True)
+    ev = host.evals.astype(np.float64)
+    E = host.evecs.astype(np.float64)
+    lam = ev[K_EIG - 1]
+    members = np.nonzero(np.abs(ev - lam) <= 1e-6 * lam)[0]
+    lo, hi = int(members.min()), int(members.max())
+    check(hi < kk - 1, "the cut cluster reaches past the host basis")
+    evecs = E[:, :K_EIG].copy()
+    s = np.ones(1)
+    if hi >= K_EIG:
+        H = E[:, lo:hi + 1]
+        D = dev_ops.evecs[:, lo:K_EIG].astype(np.float64)
+        mass = host.mass.astype(np.float64)
+        U, s, Vt = np.linalg.svd(H.T @ (mass[:, None] * D),
+                                 full_matrices=False)
+        check(float(s.min()) >= 1.0 - ROT_TOL,
+              f"device vectors {lo}..{K_EIG - 1} leave the ARPACK cluster "
+              f"{lo}..{hi}: smallest singular value {float(s.min()):.9f}")
+        evecs[:, lo:K_EIG] = H @ (U @ Vt)
+    evecs = evecs.astype(np.float32)
+    gX, gY = ops_mod.spectral_gradients(sparse_mats[1], sparse_mats[2],
+                                        evecs)
+    ref = host._replace(evals=host.evals[:K_EIG], evecs=evecs,
+                        gradX_spec=gX, gradY_spec=gY)
+    _write_entry(ops_mod, cache, verts, faces, ref, sparse_mats)
+    return (lo, hi), s
+
+
+def _write_entry(ops_mod, cache, verts, faces, ops, sparse_mats):
+    """Write `ops` as get_operators' cache entry of this mesh."""
+    import numpy as np
+    from diffusionnet_tpu_torch import utils
+    utils.ensure_dir_exists(cache)
+    key = utils.hash_arrays((np.asarray(verts, np.float32),
+                             np.asarray(faces, np.int64)))
+    ops_mod._write_cache(os.path.join(cache, f"{key}_0.npz"),
+                         np.asarray(verts, np.float64),
+                         np.asarray(faces, np.int64),
+                         ops.evals.shape[0], ops, sparse_mats)
+
+
+def phase_precompute(be, card):
+    """The slice of this phase: the cold operator precompute with the
+    device eigensolver on the card. Returns B5's launches in it."""
+    import warnings
+    import numpy as np
+    from diffusionnet_tpu_torch.geometry import eigen as eig
+    from diffusionnet_tpu_torch.geometry import operators as ops_mod
+    from diffusionnet_tpu_torch.training import InferenceSession
+    mg = meshgen()
+    log("== phase 12: the precompute slice, get_operators(k_eig=128, "
+        "eigensolver='device') on cuda")
+    meshes = [("torus(144, 140)", mg.torus(n_major=144, n_minor=140)),
+              ("icosphere(5)", mg.icosphere(subdivisions=5)),
+              ("delaunay_sphere(100000)", mg.delaunay_sphere(100_000))]
+    dev_ops = {}
+    with tempfile.TemporaryDirectory() as cache:
+        torch.cuda.synchronize()
+        be.reset_launches()
+        for i, (name, (verts, faces)) in enumerate(meshes):
+            before = be.LAUNCHES["blocked_ell"]
+            fallbacks = ops_mod.EIGEN_FALLBACKS
+            tm = {}
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                ops = ops_mod.get_operators(verts, faces, k_eig=K_EIG,
+                                            op_cache_dir=cache,
+                                            eigensolver="device", timings=tm)
+            wall = time.perf_counter() - t0
+            rise = be.LAUNCHES["blocked_ell"] - before
+            fell = ops_mod.EIGEN_FALLBACKS - fallbacks
+            dev_ops[name] = ops
+            log(f"  {name}: V={verts.shape[0]}: cold precompute {wall:.3f} s "
+                f"[{card}], B5 launches {rise}, fallbacks to ARPACK {fell}; "
+                "stages (s): "
+                + ", ".join(f"{k} {v:.3f}" for k, v in tm.items()))
+            log(f"    converge: {eig.LAST_CONVERGE_INFO}")
+            for w in caught:
+                log(f"    warning: {w.message}")
+            check(rise > 0, f"{name}: B5 did not launch")
+            if i < 2:
+                check(fell == 0, f"{name}: the device solve fell back to "
+                      "ARPACK")
+            check(ops.evecs.shape == (verts.shape[0], K_EIG)
+                  and bool(np.isfinite(ops.evecs).all())
+                  and bool(np.isfinite(ops.evals).all()),
+                  f"{name}: operators not finite or misshapen")
+        launches = be.LAUNCHES["blocked_ell"]
+
+    model = segmentation_model()
+    for i, (name, (verts, faces)) in enumerate(meshes):
+        d = dev_ops[name]
+        t0 = time.perf_counter()
+        host, host_sparse = ops_mod.compute_operators(
+            verts, faces, K_EIG, eigensolver="host", _return_sparse=True)
+        host_s = time.perf_counter() - t0
+        ev_err = float(np.abs(d.evals.astype(np.float64) - host.evals).max()
+                       / host.evals.max())
+        ev_h = host.evals.astype(np.float64)
+        j = _cluster_closed_cut(ev_h, K_EIG)
+        ang = _angle_err(d.evecs[:, :j].astype(np.float64),
+                         host.evecs[:, :j].astype(np.float64),
+                         host.mass.astype(np.float64))
+        log(f"  {name}: host ARPACK cold precompute {host_s:.3f} s [{card}]; "
+            f"evals max |device - host| / max {ev_err:.3e} (tolerance 1e-6); "
+            f"principal angles on the cluster-closed cut j={j}: "
+            f"max |s - 1| {ang:.3e} (tolerance 1e-6)")
+        check(ev_err <= 1e-6, f"{name}: eigenvalues off ARPACK")
+        check(ang <= 1e-6, f"{name}: subspace off ARPACK")
+        if i == 2:  # the session requests run on the two smaller meshes
+            continue
+
+        with tempfile.TemporaryDirectory() as tmp:
+            sess = InferenceSession(model, k_eig=K_EIG,
+                                    op_cache_dir=os.path.join(tmp, "cold"),
+                                    use_megakernel=True)
+            be.reset_launches()
+            p_dev = sess(verts, faces)
+            cold_launches = be.LAUNCHES["blocked_ell"]
+            cold_s = sess.timings["precompute_s"]
+            check(cold_launches > 0, f"{name}: the cold request ran no B5")
+            sess_ops = ops_mod.get_operators(
+                verts, faces, K_EIG, op_cache_dir=os.path.join(tmp, "cold"))
+            (lo, hi), s = _host_reference_cache(
+                ops_mod, verts, faces, sess_ops, os.path.join(tmp, "host"))
+            ref = InferenceSession(model, k_eig=K_EIG,
+                                   op_cache_dir=os.path.join(tmp, "host"),
+                                   use_megakernel=True)
+            p_ref = ref(verts, faces)
+            _write_entry(ops_mod, os.path.join(tmp, "raw"), verts, faces,
+                         host, host_sparse)
+            raw = InferenceSession(model, k_eig=K_EIG,
+                                   op_cache_dir=os.path.join(tmp, "raw"),
+                                   use_megakernel=True)
+            p_raw = raw(verts, faces)
+        scale = float(np.abs(p_ref).max())
+        diff = float(np.abs(p_dev - p_ref).max())
+        raw_diff = float(np.abs(p_dev - p_raw).max())
+        log(f"  {name}: cold InferenceSession request on cuda "
+            f"(precompute {cold_s:.3f} s, {cold_launches} B5 launches): "
+            f"predictions {p_dev.shape}, max |device - ARPACK| / max "
+            f"{diff / scale:.3e} (tolerance 1e-3), with the cut cluster "
+            f"{lo}..{hi} of ARPACK rotated to the device's choice (device "
+            f"vectors inside the ARPACK cluster: singular values "
+            f"{float(s.min()):.9f}..{float(s.max()):.9f}); against raw "
+            f"ARPACK operators {raw_diff / scale:.3e}")
+        check(bool(np.isfinite(p_dev).all()), f"{name}: non-finite outputs")
+        check(diff <= 1e-3 * scale, f"{name}: predictions off ARPACK's")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -714,32 +1059,61 @@ def main() -> int:
         f"kernel {gr_ms:.4f} ms, plain {gr_plain:.4f} ms [{card}]")
     phase_step_times(mb, card, torus_ops, torus_verts)
 
+    from diffusionnet_tpu_torch.ops import blocked_ell as be
+    from diffusionnet_tpu_torch.geometry.laplacian import cotan_laplacian
+    lap = [(name, cotan_laplacian(v, f, denom_eps=1e-10))
+           for name, (v, f) in b5_meshes()]
+    b5_err = phase_b5(be, lap)
+    b5_ms = phase_b5_times(be, lap, card)
+    b5_launches = phase_precompute(be, card)
+    log(f"  launches of the precompute slice (phase 12, three meshes): B5 "
+        f"{b5_launches}")
+
+    # library yardsticks of the partial sums: one torch.sum over the slots
+    S = partial.shape[1]
+    xr_lib = time_ms(lambda: partial[:, :, :128, :128].sum(1))
+    gr_lib = time_ms(lambda: slots[:, :, lay["are"]:lay["P"]].sum(1))
+    log(f"  time torch.sum of the slots: xhat_reduce's {xr_lib:.4f} ms, "
+        f"grad_reduce's {gr_lib:.4f} ms [{card}]")
+    widths = (3 * 128, 128, 128, 128)
     k_ms, p_ms = times[(1, 32768, "f32")]
     kb_ms, pb_ms = bwd_times[(1, 32768, "f32")]
+    fwd_b = megablock_bound(1, 32768, 128, 128, widths, True, False)
+    bwd_b = megablock_bound(1, 32768, 128, 128, widths, True, True)
+    xr_b = bound((S + 1) * 128 * 128 * 4, S * 128 * 128, F32_FLOPS)
+    n_gr = lay["P"] - lay["are"]
+    gr_b = bound((slots.shape[1] + 1) * n_gr * 4, slots.shape[1] * n_gr,
+                 F32_FLOPS)
+    t5 = b5_ms["torus(144, 140)"]
+    log(f"  bounds (H100 SXM peaks, [{card}]): B1 B=1 V=32768 f32 "
+        f"{fwd_b[0]:.4f} ms ({fwd_b[1]}, three TF32 passes), B2 "
+        f"{bwd_b[0]:.4f} ms ({bwd_b[1]}), xhat_reduce {xr_b[0]:.4f} ms, "
+        f"grad_reduce {gr_b[0]:.4f} ms, B5 torus C=160 "
+        f"{t5['bound_ms']:.4f} ms ({t5['bound_by']})")
+
+    def row(name, source, replaces, n, err, ms, plain, bnd, lib):
+        return {"name": name, "route": "cuda",
+                "source": "diffusionnet_tpu_torch/csrc/" + source,
+                "replaces": "diffusionnet_tpu/ops/" + replaces,
+                "launches": n, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": lib}
     summary = {"kernels": [
-        {"name": "megablock_fwd", "route": "cuda",
-         "source": "diffusionnet_tpu_torch/csrc/megablock_fwd.cu",
-         "replaces": "diffusionnet_tpu/ops/pallas_megablock.py:259",
-         "launches": launches["megablock_fwd"],
-         "max_abs_err": errs["megablock_fwd"], "ms": k_ms, "plain_ms": p_ms},
-        {"name": "xhat_reduce", "route": "cuda",
-         "source": "diffusionnet_tpu_torch/csrc/megablock_fwd.cu",
-         "replaces": "diffusionnet_tpu/ops/pallas_megablock.py:305",
-         "launches": launches["xhat_reduce"],
-         "max_abs_err": errs["xhat_reduce"], "ms": xr_ms,
-         "plain_ms": xr_plain},
-        {"name": "megablock_bwd", "route": "cuda",
-         "source": "diffusionnet_tpu_torch/csrc/megablock_bwd.cu",
-         "replaces": "diffusionnet_tpu/ops/pallas_megablock.py:379",
-         "launches": launches["megablock_bwd"],
-         "max_abs_err": errs["megablock_bwd"], "ms": kb_ms,
-         "plain_ms": pb_ms},
-        {"name": "grad_reduce", "route": "cuda",
-         "source": "diffusionnet_tpu_torch/csrc/megablock_bwd.cu",
-         "replaces": "diffusionnet_tpu/ops/pallas_megablock.py:486",
-         "launches": launches["grad_reduce"],
-         "max_abs_err": errs["grad_reduce"], "ms": gr_ms,
-         "plain_ms": gr_plain},
+        row("megablock_fwd", "megablock_fwd.cu", "pallas_megablock.py:259",
+            launches["megablock_fwd"], errs["megablock_fwd"], k_ms, p_ms,
+            fwd_b, None),
+        row("xhat_reduce", "megablock_fwd.cu", "pallas_megablock.py:305",
+            launches["xhat_reduce"], errs["xhat_reduce"], xr_ms, xr_plain,
+            xr_b, xr_lib),
+        row("megablock_bwd", "megablock_bwd.cu", "pallas_megablock.py:379",
+            launches["megablock_bwd"], errs["megablock_bwd"], kb_ms, pb_ms,
+            bwd_b, None),
+        row("grad_reduce", "megablock_bwd.cu", "pallas_megablock.py:486",
+            launches["grad_reduce"], errs["grad_reduce"], gr_ms, gr_plain,
+            gr_b, gr_lib),
+        row("blocked_ell", "blocked_ell.cu", "blocked_ell.py:331",
+            b5_launches, b5_err, t5["ms"], t5["plain_ms"],
+            (t5["bound_ms"], t5["bound_by"]), t5["library_ms"]),
     ]}
     log(json.dumps(summary))
     log(card_line())

@@ -5,9 +5,11 @@ layout and names so each module's counterpart is easy to find. It imports
 torch, numpy and scipy, never jax. Ported so far: the inference path
 (host operator precompute with the shared disk cache, HKS features, the eager
 DiffusionNet, and the megakernel fast path on the hand-written CUDA block
-kernel, csrc/megablock_fwd.cu) and the training step (padded batching, the
+kernel, csrc/megablock_fwd.cu), the training step (padded batching, the
 block's backward kernel csrc/megablock_bwd.cu, dropout, Adam with step
-decay). ROADMAP.md lists what is still to come.
+decay) and the device eigensolver of the operator precompute (on the
+blocked-ELL SpMM kernel csrc/blocked_ell.cu). ROADMAP.md lists what is
+still to come.
 """
 
 from . import utils

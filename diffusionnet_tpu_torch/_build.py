@@ -22,7 +22,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 SOURCES = (_PKG / "csrc" / "megablock_fwd.cu",
-           _PKG / "csrc" / "megablock_bwd.cu")
+           _PKG / "csrc" / "megablock_bwd.cu",
+           _PKG / "csrc" / "blocked_ell.cu")
 HEADERS = (_PKG / "csrc" / "megablock_common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -119,5 +120,9 @@ def load() -> ctypes.CDLL:
         lib.mb_grad_reduce_launch.restype = i
         lib.mb_error_string.argtypes = [i]
         lib.mb_error_string.restype = ctypes.c_char_p
+        lib.bell_matvec_launch.argtypes = [p] * 6 + [i] * 7 + [p]
+        lib.bell_matvec_launch.restype = i
+        lib.bell_error_string.argtypes = [i]
+        lib.bell_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib

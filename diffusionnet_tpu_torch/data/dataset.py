@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from .. import utils
-from ..geometry.operators import (Operators, get_operators, map_operators,
+from ..geometry.operators import (DEFAULT_EIGENSOLVER, Operators,
+                                  get_operators, map_operators,
                                   pad_operators, truncate_k)
 
 LABEL_KINDS = ("global", "vertex", "face")
@@ -95,16 +96,20 @@ class SurfaceDataset:
         self.labels_list.append(labels)
 
     def precompute(self, k_eig: int, op_cache_dir: str | None = None,
-                   verbose: bool = True) -> None:
+                   verbose: bool = True,
+                   eigensolver: str = DEFAULT_EIGENSOLVER,
+                   device="cuda") -> None:
         """Compute (or load from the disk cache) the Operators bundle of
-        every surface, with the host eigensolver."""
+        every surface. eigensolver: 'device' (default; the solve runs on
+        `device`) or 'host' (ARPACK), as get_operators."""
         n = len(self)
         ops = []
         for i in range(n):
             if verbose:
                 print(f"precompute {i} / {n}")
             ops.append(get_operators(self.verts_list[i], self.faces_list[i],
-                                     k_eig, op_cache_dir))
+                                     k_eig, op_cache_dir,
+                                     eigensolver=eigensolver, device=device))
         self.ops_list = ops
 
 

@@ -1,5 +1,6 @@
-"""Host-side geometry precompute: cotan Laplacian, tangent frames, gradients,
-the ARPACK eigensolver, and the Operators bundle with caching and padding."""
+"""Geometry precompute: cotan Laplacian, tangent frames, gradients, the
+eigensolvers (the device solver on kernel B5, and host ARPACK), and the
+Operators bundle with caching and padding."""
 
 from .operators import (
     Operators,
@@ -12,7 +13,7 @@ from .operators import (
 )
 from .laplacian import cotan_laplacian, vertex_areas, face_areas_np
 from .gradients import build_grad
-from .eigen import eigensolve_host
+from .eigen import EigenSolveNotConverged, eigensolve_device, eigensolve_host
 from .host_frames import (
     build_tangent_frames_np,
     edge_tangent_vectors_np,

@@ -1,8 +1,10 @@
 """Operator precompute, the typed Operators bundle, disk caching, and padding.
 
-The counterpart of diffusionnet_tpu/geometry/operators.py. All host work is
-numpy/scipy (float64, stored float32); `Operators.to(device)` is the one
-boundary where the bundle becomes torch tensors. The npz disk cache is the
+The counterpart of diffusionnet_tpu/geometry/operators.py. The host work is
+numpy/scipy (float64, stored float32) and the eigensolve runs on the device
+(geometry/eigen.py) unless the caller asks for host ARPACK; the bundle is
+numpy, and `Operators.to(device)` is the one boundary where it becomes
+torch tensors. The npz disk cache is the
 JAX package's format byte for byte (same SHA1 key, same probing, same
 fields), so a cache written by either package is read by the other.
 
@@ -15,6 +17,7 @@ coauthors; see the repository LICENSE file.
 from __future__ import annotations
 
 import os
+import time
 from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
@@ -23,7 +26,7 @@ import torch
 
 from .. import utils
 from ..ops.sparse import Ell, ell_from_coo, ell_pad
-from .eigen import eigensolve_host
+from .eigen import EigenSolveNotConverged, eigensolve_device, eigensolve_host
 from .gradients import build_grad
 from .host_frames import build_tangent_frames_np, edge_tangent_vectors_np
 from .laplacian import cotan_laplacian, vertex_areas
@@ -87,32 +90,50 @@ def _csc_to_ell(mat: scipy.sparse.spmatrix, dtype=np.float32) -> Ell:
     return ell_from_coo(coo.row, coo.col, coo.data, mat.shape[0], dtype=dtype)
 
 
-# ARPACK on the host. The JAX package defaults to its device eigensolver;
-# the port's counterpart (kernel B5) comes with ROADMAP item A.8.
-DEFAULT_EIGENSOLVER = "host"
+# The device eigensolver (Chebyshev-filtered subspace iteration on kernel
+# B5) is the default, as in the JAX package; 'host' (ARPACK) stays as the
+# reference-parity path and the fallback when the device solve does not
+# converge.
+DEFAULT_EIGENSOLVER = "device"
+
+# device solves that did not converge and fell back to host ARPACK in this
+# process (a run reads it to show that its operators came from the device)
+EIGEN_FALLBACKS = 0
 
 
 def compute_operators(verts, faces, k_eig: int, normals=None,
                       dtype=np.float32,
                       eigensolver: str = DEFAULT_EIGENSOLVER,
-                      _return_sparse: bool = False):
+                      device="cuda",
+                      _return_sparse: bool = False,
+                      timings: dict | None = None):
     """Build spectral operators for a triangle mesh (numpy in / Operators out).
 
     verts: (V,3); faces: (F,3) int; k_eig: number of eigenpairs. Same
     pipeline as reference geometry.py:276-392: tangent frames, cotan
-    Laplacian and lumped mass, ARPACK-ladder eigendecomposition,
-    least-squares tangent gradients over the Laplacian's edge set.
+    Laplacian and lumped mass, eigendecomposition, least-squares tangent
+    gradients over the Laplacian's edge set.
 
-    eigensolver: only 'host' (seeded ARPACK, deterministic, so the result
-    equals the JAX package's 'host' result). 'device' raises: the port's
-    device eigensolver comes with ROADMAP item A.8. Point clouds (no faces)
-    raise too (same item)."""
-    if eigensolver == "device":
-        raise NotImplementedError(
-            "the port's device eigensolver (kernel B5) comes with ROADMAP "
-            "item A.8; use eigensolver='host'")
-    if eigensolver != "host":
+    eigensolver: 'device' (default): the device solver on `device`, with
+    the float64 host polish; if it does not converge
+    (EigenSolveNotConverged) a warning is issued, EIGEN_FALLBACKS rises and
+    the host ARPACK ladder runs instead. Any other error propagates.
+    'host': seeded ARPACK, deterministic, equal to the JAX package's 'host'
+    result. Point clouds (no faces) raise (ROADMAP item A.8).
+    timings: optional dict of wall seconds per stage (frames, laplacian,
+    eigensolve and the solver's own stages, build_grad, ell_convert,
+    spectral_grad)."""
+    global EIGEN_FALLBACKS
+    if eigensolver not in ("host", "device"):
         raise ValueError("eigensolver must be 'host' or 'device'")
+    t_last = [time.perf_counter()]
+
+    def _mark(stage):
+        now = time.perf_counter()
+        if timings is not None:
+            timings[stage] = timings.get(stage, 0.0) + now - t_last[0]
+        t_last[0] = now
+
     verts_np = np.asarray(verts, dtype=np.float64)
     faces_np = (np.asarray(faces, dtype=np.int64)
                 if faces is not None and np.asarray(faces).size else
@@ -125,6 +146,7 @@ def compute_operators(verts, faces, k_eig: int, normals=None,
     if normals is not None:
         normals = np.asarray(normals, dtype=np.float64)
     frames = build_tangent_frames_np(verts_np, faces_np, normals=normals)
+    _mark("frames")
 
     L = cotan_laplacian(verts_np, faces_np, denom_eps=1e-10)
     massvec_np = vertex_areas(verts_np, faces_np)
@@ -133,8 +155,30 @@ def compute_operators(verts, faces, k_eig: int, normals=None,
         raise RuntimeError("NaN Laplace matrix")
     if np.isnan(massvec_np).any():
         raise RuntimeError("NaN mass matrix")
+    _mark("laplacian")
 
-    evals_np, evecs_np = eigensolve_host(L, massvec_np, k_eig, eps=eps)
+    if k_eig == 0:
+        evals_np = np.zeros((0,))
+        evecs_np = np.zeros((verts_np.shape[0], 0))
+    elif eigensolver == "host":
+        evals_np, evecs_np = eigensolve_host(L, massvec_np, k_eig, eps=eps)
+    else:
+        try:
+            # polish: one float64 Rayleigh-Ritz on the host within the
+            # device-converged basis (the f64 operator is at hand)
+            evals_np, evecs_np = eigensolve_device(
+                _csc_to_ell(L, dtype=np.float32),
+                massvec_np.astype(np.float32), k_eig, eps=eps,
+                polish=(L, massvec_np), timings=timings, device=device)
+        except EigenSolveNotConverged as e:
+            import warnings
+            warnings.warn(f"device eigensolver did not converge ({e}); "
+                          "falling back to the host ARPACK ladder",
+                          stacklevel=2)
+            EIGEN_FALLBACKS += 1
+            evals_np, evecs_np = eigensolve_host(L, massvec_np, k_eig,
+                                                 eps=eps)
+    _mark("eigensolve")
 
     # gradient operator over the Laplacian's sparsity (reference
     # geometry.py:331-334,375)
@@ -142,6 +186,7 @@ def compute_operators(verts, faces, k_eig: int, normals=None,
     edges = np.stack((L_coo.row, L_coo.col), axis=0)
     edge_vecs = edge_tangent_vectors_np(verts_np, frames, edges)
     grad_mat = build_grad(verts_np.shape[0], edges, edge_vecs)
+    _mark("build_grad")
 
     # split the complex gradient into two real sparse matrices
     gradX_sp = grad_mat.copy()
@@ -152,8 +197,10 @@ def compute_operators(verts, faces, k_eig: int, normals=None,
     gradX_ell = _csc_to_ell(gradX_sp, dtype=dtype)
     gradY_ell = _csc_to_ell(gradY_sp, dtype=dtype)
     L_ell = _csc_to_ell(L, dtype=dtype)
+    _mark("ell_convert")
     gX_spec, gY_spec = spectral_gradients(gradX_sp, gradY_sp,
                                           evecs_np.astype(dtype))
+    _mark("spectral_grad")
     ops = Operators(
         frames=frames.astype(dtype),
         mass=massvec_np.astype(dtype),
@@ -208,14 +255,16 @@ def _read_sp_mat(npzfile, prefix) -> scipy.sparse.csc_matrix:
 
 def get_operators(verts, faces, k_eig: int = 128, op_cache_dir: str | None = None,
                   normals=None, overwrite_cache: bool = False,
-                  dtype=np.float32, eigensolver: str = DEFAULT_EIGENSOLVER
-                  ) -> Operators:
+                  dtype=np.float32, eigensolver: str = DEFAULT_EIGENSOLVER,
+                  device="cuda", timings: dict | None = None) -> Operators:
     """compute_operators with reference-compatible disk caching
     (geometry.py:426-570): SHA1-of-bytes key, linear probing on collision,
     exact array-equality verification, k_eig truncation on load.
 
-    The cache is keyed on geometry only, so an entry written by the JAX
-    package (with either of its eigensolvers) satisfies a request here."""
+    eigensolver, device, timings: as compute_operators (the device solve
+    runs on `device`). The cache is keyed on geometry only, so an entry
+    written by either eigensolver, or by the JAX package, satisfies a
+    request here."""
     verts_np = np.asarray(verts)
     faces_np = (np.asarray(faces) if faces is not None and np.asarray(faces).size
                 else np.zeros((0, 3), dtype=np.int64))
@@ -285,7 +334,9 @@ def get_operators(verts, faces, k_eig: int = 128, op_cache_dir: str | None = Non
     ops, sparse_mats = compute_operators(verts_np, faces_np, k_eig,
                                          normals=normals, dtype=dtype,
                                          eigensolver=eigensolver,
-                                         _return_sparse=True)
+                                         device=device,
+                                         _return_sparse=True,
+                                         timings=timings)
     if search_path is not None:
         _write_cache(search_path, np.asarray(verts_np, dtype=np.float64),
                      faces_np, k_eig, ops, sparse_mats)

@@ -1,8 +1,11 @@
-"""Tensor ops: spectral transforms and HKS, the host ELL layout, and the
-block kernel's wrapper (megablock)."""
+"""Tensor ops: spectral transforms and HKS, the ELL layout and its gather
+product, the block kernel's wrapper (megablock), and the blocked-ELL SpMM
+of the device eigensolver (kernel B5's wrapper)."""
 
 from .spectral import to_basis, from_basis, compute_hks, compute_hks_autoscale
-from .sparse import Ell, ell_from_coo, ell_pad
+from .sparse import Ell, ell_from_coo, ell_matvec, ell_pad
+from .blocked_ell import (BlockedEll, blocked_ell_from_sparse,
+                          blocked_ell_matvec, blocked_ell_matvec_reference)
 from .megablock import (megablock_chained, megablock_chained_reference,
                         xhat_reduce, xhat_reduce_reference, LAUNCHES,
                         reset_launches)

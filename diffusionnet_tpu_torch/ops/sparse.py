@@ -1,9 +1,10 @@
-"""Fixed-topology sparse operators in ELL format, host side (numpy).
+"""Fixed-topology sparse operators in ELL format.
 
 The counterpart of diffusionnet_tpu/ops/sparse.py. Each row is padded to a
 static max degree D: `idx (V, D) int32`, `val (V, D) float`; padding entries
-carry val == 0. The operator bundle keeps L, gradX and gradY in this layout;
-applying them on the device (`ell_matvec`) comes with ROADMAP item A.5.
+carry val == 0. The operator bundle keeps L, gradX and gradY in this layout
+(numpy); `ell_matvec` applies one to torch tensors (the device eigensolver's
+gather route). The model's ELL gradient path comes with ROADMAP item A.5.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 class Ell(NamedTuple):
@@ -55,6 +57,30 @@ def ell_from_coo(rows, cols, vals, n_rows: int, dtype=np.float32) -> Ell:
     idx[u_rows, slot] = u_cols.astype(np.int32)
     val[u_rows, slot] = summed.astype(dtype)
     return Ell(idx=idx, val=val)
+
+
+def ell_matvec(ell: Ell, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x with A in ELL (torch tensors): a row gather and a
+    contraction over the degree. ell.idx/val: (n, D), or (..., n, D)
+    matching x's leading dims; x: (..., n, C) -> (..., n, C).
+
+    Accumulates in f32 (f64 for f64 operands) and returns x's dtype, as
+    the JAX package's `ell_matvec` does. Plain torch: the JAX package has
+    no kernel here either (plain XLA)."""
+    idx, val = ell.idx.long(), ell.val
+    if idx.ndim == 2:
+        gathered = x[..., idx, :]                       # (..., n, D, C)
+    else:
+        lead = idx.shape[:-2]
+        n, D = idx.shape[-2:]
+        xb = x.reshape(-1, *x.shape[-2:])
+        ib = idx.reshape(-1, n, D)
+        b = torch.arange(ib.shape[0], device=x.device)[:, None, None]
+        gathered = xb[b, ib].reshape(*lead, n, D, x.shape[-1])
+    acc = torch.promote_types(torch.promote_types(val.dtype, x.dtype),
+                              torch.float32)
+    y = torch.einsum("...nd,...ndc->...nc", val.to(acc), gathered.to(acc))
+    return y.to(x.dtype)
 
 
 def ell_pad(ell: Ell, n_rows: int, d_max: int | None = None) -> Ell:

@@ -1,8 +1,9 @@
 """High-level inference session: mesh in, predictions out.
 
 The counterpart of diffusionnet_tpu/training/inference.py: operator
-precompute (host, with the disk cache), bucket padding, features and the
-forward pass behind one object, on an explicit torch device.
+precompute (with the disk cache; a cold mesh's eigensolve runs on the
+session's device), bucket padding, features and the forward pass behind one
+object, on the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -29,8 +30,10 @@ class InferenceSession:
                  buckets=utils.DEFAULT_BUCKETS,
                  use_megakernel: bool = False,
                  bf16: bool = False,
-                 device="cpu"):
-        """model: the port's DiffusionNet, moved to `device`. params: None
+                 device="cuda"):
+        """model: the port's DiffusionNet, moved to `device` (the CUDA card
+        unless the caller passes device="cpu"), where a cold request's
+        eigensolve also runs. params: None
         to use the model's own weights, or the JAX package's flat params
         ('/'-joined keys, serving's params.npz) loaded into it.
 
@@ -90,7 +93,8 @@ class InferenceSession:
         verts = np.asarray(verts, dtype=np.float32)
         V = verts.shape[0]
         ops = get_operators(verts, faces, k_eig=self.k_eig,
-                            op_cache_dir=self.op_cache_dir, normals=normals)
+                            op_cache_dir=self.op_cache_dir, normals=normals,
+                            device=self.device)
         v_pad = utils.bucket_size(V, self.buckets)
         ops = pad_operators(ops, v_pad)
         t1 = time.perf_counter()

@@ -219,3 +219,89 @@ def test_dropout_and_backward_refusals(cuda):
     with pytest.raises(ValueError, match="C % 8 == 0"):
         mb.megablock_chained_bwd(*small, torch.zeros_like(small[0]))
     assert all(v == 0 for v in mb.LAUNCHES.values())
+
+
+# --- B5: the blocked-ELL SpMM (csrc/blocked_ell.cu) --------------------------
+
+def _torus_laplacian(with_mass=False):
+    """The cotan Laplacian of torus(40, 30) (numpy and scipy only, so the
+    file stays free of jax and the JAX package), and its lumped mass."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__)))
+    from meshgen import torus
+    from diffusionnet_tpu_torch.geometry.laplacian import (cotan_laplacian,
+                                                          vertex_areas)
+    v, f = torus(40, 30)
+    L = cotan_laplacian(v, f)
+    return (L, vertex_areas(v, f)) if with_mass else L
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,G,C", [(8, 32, 160), (8, 64, 96), (2, 32, 96),
+                                    (8, 32, 18), (8, 32, 150), (8, 64, 100)],
+                         ids=["C160", "G64", "overflow", "ragged-C",
+                              "ragged-C150", "C100-G64"])
+def test_blocked_ell_kernel_matches_plain(cuda, nb, G, C):
+    """B5 against its plain version within 5e-6 of max |plain| (f32 sums of
+    the same products in another order); padded rows exactly 0; one launch.
+    C=18 and C=150 take the kernel's element-by-element path, C=100 the
+    16-byte path with a partial last column tile."""
+    from diffusionnet_tpu_torch.ops import blocked_ell as be
+    L = _torus_laplacian()
+    b = be.blocked_ell_from_sparse(L, group_rows=G, tile_rows=256, nb=nb,
+                                   device=cuda)
+    V = L.shape[0]
+    g = torch.Generator(device=cuda).manual_seed(C)
+    x = torch.zeros(b.n_pad, C, device=cuda)
+    x[:V] = torch.randn(V, C, generator=g, device=cuda)
+    be.reset_launches()
+    y = be.blocked_ell_matvec(b, x)
+    torch.cuda.synchronize()
+    assert be.LAUNCHES == {"blocked_ell": 1}
+    ref = be.blocked_ell_matvec_reference(b, x)
+    scale = ref.abs().max().item()
+    assert (y - ref).abs().max().item() <= 5e-6 * scale
+    assert y[V:].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_blocked_ell_kernel_refusals(cuda):
+    """An f64 or f16 x, an f64 format, a non-contiguous x and a format on
+    another device are refused before any launch."""
+    from diffusionnet_tpu_torch.ops import blocked_ell as be
+    b = be.blocked_ell_from_sparse(_torus_laplacian(), device=cuda)
+    x = torch.zeros(b.n_pad, 32, device=cuda)
+    be.reset_launches()
+    with pytest.raises(ValueError, match="contiguous f32"):
+        be.blocked_ell_matvec(b, x.double())
+    with pytest.raises(ValueError, match="contiguous f32"):
+        be.blocked_ell_matvec(b, x.half())
+    with pytest.raises(ValueError, match="must be f32"):
+        be.blocked_ell_matvec(b._replace(blocks=b.blocks.double()), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        be.blocked_ell_matvec(b, torch.zeros(32, b.n_pad, device=cuda).T)
+    cpu_fmt = b._replace(blocks=b.blocks.cpu())
+    with pytest.raises(ValueError, match="different devices"):
+        be.blocked_ell_matvec(cpu_fmt, x)
+    assert be.LAUNCHES == {"blocked_ell": 0}
+
+
+@pytest.mark.cuda
+def test_device_eigensolver_runs_on_b5(cuda):
+    """eigensolve_device on the card takes the blocked route through B5 and
+    agrees with host ARPACK within 1e-6 of the largest eigenvalue."""
+    import numpy as np
+    import scipy.sparse
+    from diffusionnet_tpu_torch.geometry import eigen
+    from diffusionnet_tpu_torch.ops import blocked_ell as be
+    from diffusionnet_tpu_torch.ops.sparse import ell_from_coo
+    L, m = _torus_laplacian(with_mass=True)
+    coo = scipy.sparse.coo_matrix(L)
+    ell = ell_from_coo(coo.row, coo.col, coo.data, L.shape[0])
+    be.reset_launches()
+    ev, _ = eigen.eigensolve_device(ell, m.astype(np.float32), 16,
+                                    polish=(L, m), device=cuda)
+    assert be.LAUNCHES["blocked_ell"] > 0
+    h, _ = eigen.eigensolve_host(L, m, 16)
+    assert np.abs(ev - h).max() / h.max() < 1e-6

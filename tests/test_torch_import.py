@@ -21,6 +21,8 @@ def test_port_imports_no_jax():
         "from diffusionnet_tpu_torch.ops import megablock\n"
         "from diffusionnet_tpu_torch.models import fast_path\n"
         "from diffusionnet_tpu_torch.training import inference\n"
+        "from diffusionnet_tpu_torch.ops import banded, blocked_ell, sparse\n"
+        "from diffusionnet_tpu_torch.geometry import eigen, operators\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
         "                                    'diffusionnet_tpu'))\n"

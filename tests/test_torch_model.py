@@ -30,7 +30,8 @@ def meshes():
     out = []
     for scale in ((1.0, 1.0, 1.0), (1.0, 0.7, 1.3)):
         v = verts * np.asarray(scale)
-        ops = pad_operators(compute_operators(v, faces, k_eig=K), V_PAD)
+        ops = pad_operators(compute_operators(v, faces, k_eig=K,
+                                              eigensolver="host"), V_PAD)
         x = np.pad(v.astype(np.float32), ((0, V_PAD - v.shape[0]), (0, 0)))
         out.append(dict(x=x, mass=ops.mass, evals=ops.evals, evecs=ops.evecs,
                         gX=ops.gradX_spec, gY=ops.gradY_spec))

@@ -111,8 +111,9 @@ def padded_meshes():
     out = []
     for scale in ((1.0, 1.0, 1.0), (1.0, 0.7, 1.3)):
         v = verts * np.asarray(scale)
-        ops = tgeo.pad_operators(tgeo.compute_operators(v, faces, k_eig=K),
-                                 256)
+        ops = tgeo.pad_operators(
+            tgeo.compute_operators(v, faces, k_eig=K, eigensolver="host"),
+            256)
         x = np.pad(v.astype(np.float32), ((0, 256 - v.shape[0]), (0, 0)))
         out.append(dict(x=x, mass=ops.mass, evals=ops.evals, evecs=ops.evecs,
                         gX=ops.gradX_spec, gY=ops.gradY_spec))
@@ -191,7 +192,7 @@ def datasets():
         lab = (np.arange(f.shape[0]) * (i + 1)) % 4
         tds.add(v, f, lab)
         jds.add(v, f, lab)
-    tds.precompute(k_eig=K, verbose=False)
+    tds.precompute(k_eig=K, verbose=False, eigensolver="host")
     jds.ops_list = [_to_jax_ops(o) for o in tds.ops_list]
     return tds, jds
 
