@@ -49,9 +49,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      cold InferenceSession(use_megakernel=True) request of the segmentation
      model is held to a session on ARPACK operators.
 
-Since this slice the port's default eigensolver is the device one, so the
-cold requests of phase 4 and the dataset precompute of phase 8 run on B5
-as well.
+ 13. B4 (`spectral_project` with `xhat_reduce`, `spectral_apply`, and the
+     whole fused block) against its plain version at the segmentation
+     training shape (B=4, V=32768, K=C=128) and a ragged small shape
+     (V=1000, tile_v 8), f32 and a bf16 x beside f32 operators; B3 (the op
+     `megablock`) at B=2, V=32768, hidden [128, 128], f32 and bf16,
+     dropout off and on, forward and every gradient (ReLU-tie rows given
+     zero cotangent, as in phase 7);
+ 14. the fused slice: the segmentation model built with
+     use_pallas_fused=True takes 5 Adam steps (dropout on) through
+     apply_model(use_megakernel=False) on phase 8's batch; the counters must
+     show 4 spectral_project and 4 spectral_apply launches per step and no
+     B1 or B2; one step with dropout off from the same state, fused and
+     unfused, must agree in loss, gradients and updated parameters; a warm
+     InferenceSession(use_megakernel=False) request on torus(144, 140) must
+     launch B4 four times and agree with the unfused model; then the B3 op
+     takes 3 Adam steps of one block's parameters at full width with
+     dropout (1 projection, 1 B1, 1 B2 launch a step);
+ 15. times: B4's kernels and the whole block beside their plain versions
+     and bounds at B=4 and B=1, f32 and bf16 x; B3 beside its plain
+     version; the fused and the unfused train step of phase 14 with a
+     profiler breakdown.
+
+Since phase 12's slice the port's default eigensolver is the device one,
+so the cold requests of phases 4 and 14 and the dataset precompute of
+phase 8 run on B5 as well.
 
 The last two lines of standard output are the card's name and power limit
 as nvidia-smi reports them, then {"ok": true, "device": {...}}; the line
@@ -115,6 +137,12 @@ TIE = 1e-5
 # (dA_im sums ddots (gx_i gy_j - gy_i gx_j)) has a small norm next to the
 # one-row changes a tie makes. The same for the Adam updates.
 STEP_TOL = dict(loss=1e-4, own=1e-2, whole=1e-3)
+# B4's bf16 outputs against the plain version, elementwise, atol times
+# max |plain|: both round the same f32 sums (of the same f32 products, in
+# another order) to bf16 once, so they differ by at most one bf16 step
+# (2^-7 relative) where a sum lands by a rounding boundary, plus the f32
+# sums' own difference near zero.
+B4_BF16_TOL = dict(rtol=2 ** -7, atol=1e-4)
 
 
 def log(*a):
@@ -259,12 +287,13 @@ def phase_kernels(mb):
     return errs, partial
 
 
-def segmentation_model():
+def segmentation_model(**kw):
     """The segmentation model with seeded weights and seeded diffusion
-    times (trained models have non-zero ones)."""
+    times (trained models have non-zero ones); kw: more constructor
+    arguments (use_pallas_fused)."""
     from diffusionnet_tpu_torch.models import DiffusionNet
     gen = torch.Generator().manual_seed(0)
-    model = DiffusionNet(**SEG_MODEL, generator=gen,
+    model = DiffusionNet(**SEG_MODEL, **kw, generator=gen,
                          last_activation=functools.partial(torch.log_softmax,
                                                            dim=-1))
     with torch.no_grad():
@@ -498,6 +527,57 @@ def segmentation_dataset(cache):
     return ds
 
 
+def step_agreement(name_a, name_b, res, before, checked, exempt=()):
+    """Two results of one train step from the same state, res[name] =
+    (loss, gradients, parameters after): the loss within STEP_TOL["loss"],
+    then for each of gradients, Adam updates (parameters after minus
+    before) and updated parameters the whole (all tensors as one vector)
+    and each tensor (STEP_TOL's `own` of its own norm plus `whole` of the
+    whole's), checked for the kinds named in `checked` and printed for the
+    others. Tensors whose names contain a string of `exempt` are printed
+    but left out of the Adam updates' check (their gradients stay
+    checked)."""
+    (la, ga, pa), (lb, gb, pb) = res[name_a], res[name_b]
+    rel = abs(la - lb) / abs(lb)
+    log(f"  dropout off: loss {name_a} {la:.8f}, {name_b} {lb:.8f} "
+        f"(relative difference {rel:.2e}, tolerance {STEP_TOL['loss']})")
+    check(rel <= STEP_TOL["loss"], f"loss: {name_a} and {name_b} differ")
+    kinds = (("gradient", ga, gb),
+             ("Adam update", {k: pa[k] - before[k].detach() for k in pa},
+              {k: pb[k] - before[k].detach() for k in pb}),
+             ("updated parameter", pa, pb))
+    for what, a, b in kinds:
+        gate = what in checked
+        held = [k for k in b if what != "Adam update"
+                or not any(e in k for e in exempt)]
+
+        def norm(ks, d=lambda k: b[k]):
+            return math.sqrt(sum(d(k).float().norm().item() ** 2 for k in ks))
+        whole, held_whole = norm(b), norm(held)
+        diff = norm(held, lambda k: a[k].float() - b[k].float())
+        log(f"  dropout off, {what}s ({'checked' if gate else 'not checked'}"
+            f"): whole {diff / held_whole:.2e} of the whole norm "
+            f"{held_whole:.3e} (tolerance {STEP_TOL['whole']}"
+            + (f"; {len(b) - len(held)} tensors matching {exempt} printed, "
+               "not checked" if len(held) < len(b) else "")
+            + "); per tensor, |difference| / |own| (own norm / whole):")
+        rows, bad = [], []
+        for k in b:
+            own = b[k].float().norm().item()
+            e = (a[k].float() - b[k].float()).norm().item()
+            rows.append(f"{k.split('/', 1)[1]} {e / max(own, 1e-30):.1e} "
+                        f"({own / whole:.1e})")
+            if k in held and e > (STEP_TOL["own"] * own
+                                  + STEP_TOL["whole"] * held_whole):
+                bad.append(k)
+        for i in range(0, len(rows), 4):
+            log("    " + "; ".join(rows[i:i + 4]))
+        if gate:
+            check(diff <= STEP_TOL["whole"] * held_whole,
+                  f"{what}s as a whole")
+            check(not bad, f"{what}s of {bad} past their tolerance")
+
+
 def phase_train(mb):
     """The training slice on the card. Returns the launch counts of its five
     steps and the torus's operators (for the bench-shape step)."""
@@ -561,33 +641,9 @@ def phase_train(mb):
         _, _, loss, _ = make_step(c, True)(p, s, batch, None)
         res[name] = (loss.item(), {k: v.grad for k, v in p.items()},
                      {k: v.detach() for k, v in p.items()})
-    (lf, gf, pf), (le, ge, pe) = res["fast path"], res["eager model"]
-    rel = abs(lf - le) / abs(le)
-    log(f"  dropout off: loss fast path {lf:.8f}, eager model {le:.8f} "
-        f"(relative difference {rel:.2e}, tolerance {STEP_TOL['loss']})")
-    check(rel <= STEP_TOL["loss"], "loss: fast path and eager model differ")
-    uf = {k: pf[k] - params[k].detach() for k in pf}
-    ue = {k: pe[k] - params[k].detach() for k in pe}
-    for what, a, b in (("gradient", gf, ge), ("Adam update", uf, ue)):
-        whole = math.sqrt(sum(b[k].float().norm().item() ** 2 for k in b))
-        diff = math.sqrt(sum((a[k].float() - b[k].float()).norm().item() ** 2
-                             for k in b))
-        log(f"  dropout off, {what}s: whole {diff / whole:.2e} of the whole "
-            f"norm {whole:.3e} (tolerance {STEP_TOL['whole']}); per tensor, "
-            f"|difference| / |own| (own norm / whole):")
-        check(diff <= STEP_TOL["whole"] * whole, f"{what}s as a whole")
-        rows = []
-        for k in b:
-            own = b[k].float().norm().item()
-            e = (a[k].float() - b[k].float()).norm().item()
-            rows.append(f"{k.split('/', 1)[1]} {e / max(own, 1e-30):.1e} "
-                        f"({own / whole:.1e})")
-            check(e <= STEP_TOL["own"] * own + STEP_TOL["whole"] * whole,
-                  f"{what} of {k}: {e:.3e} against own norm {own:.3e}, "
-                  f"whole {whole:.3e}")
-        for i in range(0, len(rows), 4):
-            log("    " + "; ".join(rows[i:i + 4]))
-    return launches, ds.ops_list[0], ds.verts_list[0]
+    step_agreement("fast path", "eager model", res, params,
+                   checked=("gradient", "Adam update"))
+    return launches, ds.ops_list[0], ds.verts_list[0], batch
 
 
 def phase_bwd_times(mb, card):
@@ -1012,6 +1068,373 @@ def phase_precompute(be, card):
     return launches
 
 
+# --- B4 (the fused spectral block) and B3 (the one-block op): phases 13-15 --
+
+def fused_inputs(B, V, K, C, x_dtype, seed, n_pad=0):
+    """Random inputs of the fused block on the card (f32 operators); the
+    last n_pad rows are bucket padding."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, V, C, generator=g, device="cuda").to(x_dtype)
+    ops = [torch.randn(B, V, K, generator=g, device="cuda") * V ** -0.5
+           for _ in range(3)]
+    mass = torch.rand(B, V, generator=g, device="cuda")
+    if n_pad:
+        for t in (*ops, mass):
+            t[:, V - n_pad:] = 0
+    coefs = torch.rand(B, K, C, generator=g, device="cuda")
+    return (x, *ops, mass, coefs)
+
+
+def phase_b4_b3(mb, fu):
+    """B4's two kernels and B3 against their plain versions. Returns the
+    largest f32 full-width errors."""
+    log("== phase 13: B4 (spectral_project, xhat_reduce, spectral_apply) "
+        "and B3 (megablock) against their plain versions")
+    errs = {"spectral_project": 0.0, "spectral_apply": 0.0, "megablock": 0.0}
+    for B, V, K, C, tile, n_pad in ((4, 32768, 128, 128, 1024, 0),
+                                    (2, 1000, 16, 8, 8, 100)):
+        for kind, dt in (("f32", torch.float32), ("bf16 x", torch.bfloat16)):
+            x, evecs, gX, gY, mass, coefs = fused_inputs(B, V, K, C, dt,
+                                                         seed=V + K,
+                                                         n_pad=n_pad)
+            tag = f"B={B} V={V} K={K} C={C} tile_v={tile} {kind}"
+            x_hat = fu.spectral_project(x, evecs, mass)
+            outs = fu.spectral_apply(x_hat, coefs, evecs, gX, gY, x.dtype)
+            whole = fu.fused_spectral_block_batched(x, evecs, gX, gY, mass,
+                                                    coefs, tile)
+            torch.cuda.synchronize()
+            e = compare(f"{tag} x_hat", x_hat,
+                        fu.spectral_project_reference(x, evecs, mass),
+                        TOL["f32"])
+            refs = fu.spectral_apply_reference(x_hat, coefs, evecs, gX, gY,
+                                               x.dtype)
+            lowp = dt == torch.bfloat16
+            tol = B4_BF16_TOL if lowp else TOL["f32"]
+            ea = 0.0
+            for name, a, b in zip(("y", "ygx", "ygy"), outs, refs):
+                check(a.dtype == x.dtype and a.shape == b.shape,
+                      f"{tag} {name}: dtype/shape")
+                ea = max(ea, compare(f"{tag} {name}", a, b, tol, scaled=lowp))
+            for name, a, b in zip(("y", "ygx", "ygy"), whole,
+                                  fu.fused_spectral_block_reference(
+                                      x, evecs, gX, gY, mass, coefs)):
+                compare(f"{tag} whole function {name}", a, b, tol,
+                        scaled=lowp, quiet=True)
+            if V == 32768 and kind == "f32":
+                errs["spectral_project"] = e
+                errs["spectral_apply"] = ea
+            del x, evecs, gX, gY, outs, refs, whole
+    B, V, K, C = 2, 32768, 128, 128
+    for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        lowp = kind == "bf16"
+        base = block_inputs(B, V, K, C, (128, 128), dtype, seed=33)[:10]
+        g = torch.Generator(device="cuda").manual_seed(34)
+        dout = torch.randn(B, V, C, generator=g, device="cuda").to(dtype)
+        for seed in (None, 2 ** 31 - 7):
+            tag = f"megablock B={B} V={V} {kind} dropout={seed is not None}"
+            kw = dict(lowp=lowp, seed=seed, tile_v=1024)
+            x_hat = fu.spectral_project_reference(base[0], base[1], base[4],
+                                                  lowp)
+            ties = mb.relu_margin(*base, x_hat, **kw) < TIE
+            d = dout.masked_fill(ties[..., None], 0.0)
+            res = []
+            for k, fn in enumerate((mb.megablock, mb.megablock_reference)):
+                args = [[t.clone().requires_grad_(True) for t in a]
+                        if isinstance(a, list) else
+                        (a.clone().requires_grad_(True) if i in (0, 5, 6, 7)
+                         else a) for i, a in enumerate(base)]
+                out = (fn(*args, seed or 0, 1024, seed is not None) if k == 0
+                       else fn(*args, seed, 1024, lowp))
+                (out.float() * d.float()).sum().backward()
+                torch.cuda.synchronize()
+                res.append([out] + [args[i].grad for i in (0, 5, 6, 7)]
+                           + [t.grad for t in args[8] + args[9]])
+            e = compare(f"{tag} out", res[0][0], res[1][0], TOL[kind])
+            if kind == "f32":
+                errs["megablock"] = max(errs["megablock"], e)
+            names = ["dx", "dcoefs", "dA_re", "dA_im", "dW0", "dW1", "dW2",
+                     "db0", "db1", "db2"]
+            worst = (0.0, "")
+            for name, a, b in zip(names, res[0][1:], res[1][1:]):
+                ea = compare(f"{tag} {name}", a, b, GRAD_TOL[kind],
+                             scaled=True, quiet=True)
+                worst = max(worst, (ea / max(b.float().abs().max().item(),
+                                             1e-30), name))
+            log(f"  {tag}: forward ok, {len(names)} gradients ok "
+                f"(largest max abs err / max |plain| {worst[0]:.2e}, "
+                f"{worst[1]}); {int(ties.sum())} ReLU-tie rows given zero "
+                f"cotangent")
+            del res
+        del base, dout
+    return errs
+
+
+def phase_fused_slice(mb, fu, batch):
+    """The slice of this phase: the segmentation model built with
+    use_pallas_fused trains through apply_model(use_megakernel=False) and
+    serves through InferenceSession(use_megakernel=False); then the B3 op's
+    own path. Returns the launch counts of each run."""
+    from diffusionnet_tpu_torch.models import flat_params
+    from diffusionnet_tpu_torch.training import (
+        InferenceSession, TaskConfig, adam_state_from_flat,
+        adam_state_to_flat, adam_with_step_decay, apply_model,
+        loss_and_counts, make_train_step)
+    log("== phase 14: the fused slice, DiffusionNet(use_pallas_fused=True) "
+        "on cuda: 5 Adam steps through the eager model, then a request")
+    B, V = batch.verts.shape[:2]
+    fused_model = segmentation_model(use_pallas_fused=True)
+    plain_model = segmentation_model()
+    params = flat_params(fused_model, "cuda", requires_grad=True)
+    cfg = TaskConfig(input_features="hks", labels_kind="face",
+                     use_megakernel=False)
+    opt = adam_with_step_decay(1e-3, 50, 0.5)
+    state = opt.init(params)
+
+    def make_step(model, deterministic):
+        return make_train_step(
+            lambda p, b, g: loss_and_counts(
+                apply_model(model, p, b, g, cfg, deterministic), b, cfg), opt)
+    step = make_step(fused_model, False)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    torch.cuda.synchronize()
+    mb.reset_launches()
+    fu.reset_launches()
+    losses = []
+    for i in range(5):
+        t0 = time.perf_counter()
+        _, _, loss, (correct, total) = step(params, state, batch, gen)
+        losses.append(loss.item())
+        log(f"  step {i}: loss {losses[-1]:.6f}, correct {int(correct)} of "
+            f"{int(total)} faces, {1e3 * (time.perf_counter() - t0):.1f} ms")
+    launches = {**fu.LAUNCHES, **mb.LAUNCHES}
+    per_step = {"spectral_project": N_BLOCK, "spectral_apply": N_BLOCK,
+                "megablock_fwd": 0, "xhat_reduce": N_BLOCK,
+                "megablock_bwd": 0, "grad_reduce": 0}
+    log(f"  launches in 5 steps (B={B}, V={V}): {launches}")
+    check(launches == {k: 5 * v for k, v in per_step.items()},
+          f"launches {launches} != 5 x {per_step}")
+    check(all(map(math.isfinite, losses)), f"losses {losses}")
+
+    # one step with dropout off from the same state, fused and unfused
+    flat_state = adam_state_to_flat(state)
+    res = {}
+    for name, model in (("fused", fused_model), ("unfused", plain_model)):
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params.items()}
+        s = adam_state_from_flat(opt.init(p), flat_state)
+        _, _, loss, _ = make_step(model, True)(p, s, batch, None)
+        res[name] = (loss.item(), {k: v.grad for k, v in p.items()},
+                     {k: v.detach() for k, v in p.items()})
+    # the loss, the gradients, the Adam updates and the updated parameters
+    # within STEP_TOL. A_im's updates are printed, not checked: its
+    # gradient nearly cancels over the batch (own norm about 3e-7 of the
+    # whole), so another summation order of gx and gy moves it by several
+    # percent of itself (its gradient row above, checked within STEP_TOL),
+    # and Adam, which divides by the running RMS, turns that into an update
+    # as far off
+    step_agreement("fused", "unfused", res, params,
+                   checked=("gradient", "Adam update", "updated parameter"),
+                   exempt=("A_im",))
+
+    # one warm request with the fused model, against the unfused model
+    mg = meshgen()
+    verts, faces = mg.torus(n_major=144, n_minor=140)
+    with tempfile.TemporaryDirectory() as cache:
+        sess = InferenceSession(fused_model, k_eig=K_EIG, op_cache_dir=cache,
+                                device="cuda")
+        sess(verts, faces)  # cold: fills the operator cache
+        torch.cuda.synchronize()
+        mb.reset_launches()
+        fu.reset_launches()
+        pred = sess(verts, faces)
+        served = {**fu.LAUNCHES, **mb.LAUNCHES}
+        ref = InferenceSession(plain_model, k_eig=K_EIG, op_cache_dir=cache,
+                               device="cuda")(verts, faces)
+    per_req = {"spectral_project": N_BLOCK, "spectral_apply": N_BLOCK,
+               "megablock_fwd": 0, "xhat_reduce": N_BLOCK,
+               "megablock_bwd": 0, "grad_reduce": 0}
+    log(f"  warm request torus(144, 140) (V={verts.shape[0]}, bucket "
+        f"32768): forward {sess.timings['forward_s'] * 1e3:.2f} ms, "
+        f"launches {served}")
+    check(served == per_req, f"request launches {served} != {per_req}")
+    compare(f"fused request {pred.shape} against the unfused model",
+            torch.from_numpy(pred), torch.from_numpy(ref), SLICE_TOL)
+
+    # the B3 op's own path: 3 Adam steps of one block's parameters through
+    # `megablock` at full width with dropout, as its callers drive it
+    log("  the one-block op: 3 Adam steps through ops.megablock.megablock, "
+        "B=2 V=32768 K=C=128 hidden [128, 128], dropout on")
+    base = block_inputs(2, 32768, 128, 128, (128, 128), torch.float32,
+                        seed=35)
+    x, evecs, gX, gY, mass = base[:5]
+    leaves = [t.clone().requires_grad_(True)
+              for t in (*base[6:8], *base[8], *base[9])]
+    t_diff = torch.full((128,), 0.02, device="cuda", requires_grad=True)
+    evals = torch.linspace(0, 40, 128, device="cuda").expand(2, 128)
+    target = torch.randn(x.shape, generator=torch.Generator(
+        device="cuda").manual_seed(36), device="cuda")
+    adam = torch.optim.Adam(leaves + [t_diff], lr=1e-3)
+    torch.cuda.synchronize()
+    mb.reset_launches()
+    fu.reset_launches()
+    for i in range(3):
+        adam.zero_grad()
+        coefs = torch.exp(-evals[..., None] * t_diff).contiguous()
+        out = mb.megablock(x, evecs, gX, gY, mass, coefs, leaves[0],
+                           leaves[1], leaves[2:5], leaves[5:8], 1000 + i,
+                           1024, True)
+        loss = (((out - target) ** 2) * mass[..., None]).sum() / mass.sum()
+        loss.backward()
+        adam.step()
+        check(math.isfinite(loss.item()), f"B3 path loss {loss.item()}")
+        log(f"    step {i}: loss {loss.item():.6f}")
+    one = {**fu.LAUNCHES, **mb.LAUNCHES}
+    want = {"spectral_project": 3, "spectral_apply": 0, "megablock_fwd": 3,
+            "xhat_reduce": 3, "megablock_bwd": 3, "grad_reduce": 6}
+    log(f"    launches: {one}")
+    check(one == want, f"B3 path launches {one} != {want}")
+    return launches, served, one
+
+
+def fused_bound(B, V, K, C, x_bytes, parts=("project", "apply")):
+    """B4's least time: bytes of x and mass (projection), Phi, GX and GY
+    and the three outputs, each once; 2VKC operations per product (one for
+    the projection, three for the outputs) at the f32 rate of three TF32
+    passes."""
+    n_bytes = flops = 0
+    if "project" in parts:
+        n_bytes += B * V * (C * x_bytes + K * 4 + 4) + B * K * C * 4
+        flops += 2 * B * V * K * C
+    if "apply" in parts:
+        n_bytes += B * V * (3 * K * 4 + 3 * C * x_bytes) + 2 * B * K * C * 4
+        flops += 6 * B * V * K * C
+    return bound(n_bytes, flops, TF32_FLOPS / 3)
+
+
+def phase_fused_times(mb, fu, card, batch):
+    """B4 and B3 beside their plain versions and bounds, and the fused
+    train step beside the unfused one with a profiler breakdown."""
+    from diffusionnet_tpu_torch.models import flat_params
+    from diffusionnet_tpu_torch.training import (
+        TaskConfig, adam_with_step_decay, apply_model, loss_and_counts,
+        make_train_step)
+    from torch.profiler import ProfilerActivity, profile
+    log("== phase 15: times (CUDA events, median of 10 runs of 10 calls)")
+    rows = {}
+    for B in (4, 1):
+        for kind, dt in (("f32", torch.float32), ("bf16 x", torch.bfloat16)):
+            x, evecs, gX, gY, mass, coefs = fused_inputs(B, 32768, 128, 128,
+                                                         dt, seed=B)
+            xb = 2 if dt == torch.bfloat16 else 4
+            x_hat = fu.spectral_project(x, evecs, mass)
+            tp = time_ms(lambda: fu.spectral_project(x, evecs, mass))
+            pp = time_ms(lambda: fu.spectral_project_reference(x, evecs,
+                                                               mass))
+            # the library call of the projection: one einsum (f32 only; it
+            # takes no bf16 x beside f32 operators)
+            lp = (time_ms(lambda: torch.einsum("bvk,bv,bvc->bkc", evecs,
+                                               mass, x))
+                  if dt == torch.float32 else None)
+            ta = time_ms(lambda: fu.spectral_apply(x_hat, coefs, evecs, gX,
+                                                   gY, dt))
+            pa = time_ms(lambda: fu.spectral_apply_reference(
+                x_hat, coefs, evecs, gX, gY, dt))
+            tw = time_ms(lambda: fu.fused_spectral_block_batched(
+                x, evecs, gX, gY, mass, coefs))
+            pw = time_ms(lambda: fu.fused_spectral_block_reference(
+                x, evecs, gX, gY, mass, coefs))
+            bp = fused_bound(B, 32768, 128, 128, xb, ("project",))
+            ba = fused_bound(B, 32768, 128, 128, xb, ("apply",))
+            bw = fused_bound(B, 32768, 128, 128, xb)
+            rows[(B, kind)] = dict(project=(tp, pp, bp, lp),
+                                   apply=(ta, pa, ba, None),
+                                   whole=(tw, pw, bw, None))
+            products = {"project": 1, "apply": 3, "whole": 4}
+            for name, (k, p, bd, lib) in rows[(B, kind)].items():
+                # the f32 FFMA version's own floor: its products at 67 TFLOP/s
+                ffma = products[name] * 2 * B * 32768 * 128 * 128 / F32_FLOPS
+                log(f"  time B4 {name} B={B} V=32768 K=C=128 {kind}: kernel "
+                    f"{k:.4f} ms, plain {p:.4f} ms"
+                    + (f", library (einsum) {lib:.4f} ms" if lib else "")
+                    + f"; bound {bd[0]:.4f} ms ({bd[1]}), share "
+                    f"{bd[0] / k:.4f}; FFMA floor {ffma * 1e3:.4f} ms [{card}]")
+            del x, evecs, gX, gY, x_hat
+    widths = (3 * 128, 128, 128, 128)
+    for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        args = block_inputs(1, 32768, 128, 128, (128, 128), dtype,
+                            seed=37)[:10]
+        lowp = kind == "bf16"
+        k = time_ms(lambda: mb.megablock(*args, 0, 1024, False))
+        p = time_ms(lambda: mb.megablock_reference(*args, None, 1024, lowp))
+        bd = megablock_bound(1, 32768, 128, 128, widths, True, False, lowp)
+        rows[("B3", kind)] = (k, p, bd, None)
+        log(f"  time B3 megablock B=1 V=32768 K=C=128 hidden [128, 128] "
+            f"{kind}: kernels {k:.4f} ms, plain {p:.4f} ms; bound "
+            f"{bd[0]:.4f} ms ({bd[1]}), share {bd[0] / k:.4f} [{card}]")
+        del args
+
+    # the train step of phase 14, fused and unfused, dropout on
+    cfg = TaskConfig(input_features="hks", labels_kind="face",
+                     use_megakernel=False)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    steps = {}
+    for name, kw in (("fused", dict(use_pallas_fused=True)),
+                     ("unfused", {})):
+        model = segmentation_model(**kw)
+        params = flat_params(model, "cuda", requires_grad=True)
+        opt = adam_with_step_decay(1e-3)
+        state = opt.init(params)
+        step = make_train_step(
+            lambda p, b, g: loss_and_counts(
+                apply_model(model, p, b, g, cfg, False), b, cfg), opt)
+        t = time_ms(lambda: step(params, state, batch, gen), reps=5, calls=3,
+                    warmup=2)
+        steps[name] = t
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step(params, state, batch, gen)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 3 * 1e3
+        groups = {"B4 spectral_project": 0.0, "B4 spectral_apply": 0.0,
+                  "xhat_reduce": 0.0, "matmul (cuBLAS)": 0.0, "Adam": 0.0,
+                  "other": 0.0}
+        top = []
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            us = us if us is not None else e.self_cuda_time_total
+            top.append((us, e.key))
+            key = e.key.lower()
+            if "spectral_project" in key:
+                groups["B4 spectral_project"] += us
+            elif "spectral_apply" in key:
+                groups["B4 spectral_apply"] += us
+            elif "xhat_reduce" in key:
+                groups["xhat_reduce"] += us
+            elif "gemm" in key or "sm90" in key or "cutlass" in key:
+                groups["matmul (cuBLAS)"] += us
+            elif "adam" in key or "multi_tensor" in key:
+                groups["Adam"] += us
+            else:
+                groups["other"] += us
+        busy = sum(groups.values()) / 3 / 1e3
+        log(f"  time train step B={batch.verts.shape[0]} "
+            f"V={batch.verts.shape[1]} segmentation model {name}, dropout "
+            f"on, eager path: {t:.3f} ms per step [{card}]; profile: wall "
+            f"{wall:.3f} ms, device busy {busy:.3f} ms (idle share "
+            f"{1 - busy / wall:.4f}); per step: "
+            + ", ".join(f"{k} {v / 3 / 1e3:.3f} ms" for k, v in groups.items()))
+        for us, key in sorted(top, reverse=True)[:6]:
+            log(f"    {us / 3 / 1e3:9.3f} ms  {key[:100]}")
+        del params, state, model
+    return rows, steps
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -1048,7 +1471,7 @@ def main() -> int:
     errs["megablock_fwd"] = max(errs["megablock_fwd"], phase_dropout(mb))
     errs["megablock_bwd"], errs["grad_reduce"], slots, lay = \
         phase_backward(mb)
-    launches, torus_ops, torus_verts = phase_train(mb)
+    launches, torus_ops, torus_verts, seg_batch = phase_train(mb)
     log(f"  launches of the inference slice: {serve_launches}; of the "
         f"training slice: {launches}")
     bwd_times = phase_bwd_times(mb, card)
@@ -1068,6 +1491,14 @@ def main() -> int:
     b5_launches = phase_precompute(be, card)
     log(f"  launches of the precompute slice (phase 12, three meshes): B5 "
         f"{b5_launches}")
+
+    from diffusionnet_tpu_torch.ops import fused as fu
+    errs.update(phase_b4_b3(mb, fu))
+    fused_launches, served_launches, b3_launches = phase_fused_slice(
+        mb, fu, seg_batch)
+    fused_ms, step_ms = phase_fused_times(mb, fu, card, seg_batch)
+    log(f"  launches of the fused slice: 5 train steps {fused_launches}; "
+        f"one request {served_launches}; the B3 op's 3 steps {b3_launches}")
 
     # library yardsticks of the partial sums: one torch.sum over the slots
     S = partial.shape[1]
@@ -1114,6 +1545,18 @@ def main() -> int:
         row("blocked_ell", "blocked_ell.cu", "blocked_ell.py:331",
             b5_launches, b5_err, t5["ms"], t5["plain_ms"],
             (t5["bound_ms"], t5["bound_by"]), t5["library_ms"]),
+        # B4 at the training shape (B=4, V=32768, f32); B4a is B=1
+        row("spectral_project", "spectral_fused.cu", "pallas_fused.py:200",
+            fused_launches["spectral_project"], errs["spectral_project"],
+            *fused_ms[(4, "f32")]["project"]),
+        row("spectral_apply", "spectral_fused.cu", "pallas_fused.py:200",
+            fused_launches["spectral_apply"], errs["spectral_apply"],
+            *fused_ms[(4, "f32")]["apply"]),
+        # B3: spectral_project, xhat_reduce and B1 (B=1, V=32768, f32);
+        # launches: the op's calls on its own path
+        row("megablock", "spectral_fused.cu", "pallas_megablock.py:244",
+            b3_launches["spectral_project"], errs["megablock"],
+            *fused_ms[("B3", "f32")]),
     ]}
     log(json.dumps(summary))
     log(card_line())

@@ -7,9 +7,12 @@ torch, numpy and scipy, never jax. Ported so far: the inference path
 DiffusionNet, and the megakernel fast path on the hand-written CUDA block
 kernel, csrc/megablock_fwd.cu), the training step (padded batching, the
 block's backward kernel csrc/megablock_bwd.cu, dropout, Adam with step
-decay) and the device eigensolver of the operator precompute (on the
-blocked-ELL SpMM kernel csrc/blocked_ell.cu). ROADMAP.md lists what is
-still to come.
+decay), the device eigensolver of the operator precompute (on the
+blocked-ELL SpMM kernel csrc/blocked_ell.cu) and the rest of the model
+surface (implicit_dense diffusion, ELL gradients, compute_dtype, remat, the
+fused spectral block on csrc/spectral_fused.cu, the one-block op
+`megablock`, the functional-maps head). ROADMAP.md lists what is still to
+come.
 """
 
 from . import utils
@@ -24,7 +27,8 @@ from .geometry import (compute_operators, get_operators, Operators,
 
 from . import models
 from .models import (DiffusionNet, DiffusionNetBlock, LearnedTimeDiffusion,
-                     SpatialGradientFeatures, MiniMLP)
+                     SpatialGradientFeatures, MiniMLP,
+                     FunctionalMapCorrespondence)
 
 from . import data
 from .data import PaddedBatch, SurfaceDataset, make_padded_batches

@@ -23,7 +23,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 SOURCES = (_PKG / "csrc" / "megablock_fwd.cu",
            _PKG / "csrc" / "megablock_bwd.cu",
-           _PKG / "csrc" / "blocked_ell.cu")
+           _PKG / "csrc" / "blocked_ell.cu",
+           _PKG / "csrc" / "spectral_fused.cu")
 HEADERS = (_PKG / "csrc" / "megablock_common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -124,5 +125,9 @@ def load() -> ctypes.CDLL:
         lib.bell_matvec_launch.restype = i
         lib.bell_error_string.argtypes = [i]
         lib.bell_error_string.restype = ctypes.c_char_p
+        lib.sf_project_launch.argtypes = [p] * 4 + [i] * 8 + [p]
+        lib.sf_project_launch.restype = i
+        lib.sf_apply_launch.argtypes = [p] * 8 + [i] * 6 + [p]
+        lib.sf_apply_launch.restype = i
         _lib = lib
         return lib

@@ -28,7 +28,9 @@ def flat_params(model: nn.Module, device=None, requires_grad: bool = False
     are new leaf tensors: the train state of `training.fit`, which
     `from_flat_jax_params` takes back into a module."""
     device = device if device is not None else next(model.parameters()).device
-    return {k: torch.from_numpy(v).to(device).requires_grad_(requires_grad)
+    # torch.tensor copies: a CPU state must not share storage with the
+    # module's parameters (to_flat_jax_params' arrays view the 1-D ones)
+    return {k: torch.tensor(v, device=device).requires_grad_(requires_grad)
             for k, v in to_flat_jax_params(model).items()}
 
 

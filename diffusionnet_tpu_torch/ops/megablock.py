@@ -1,6 +1,8 @@
-"""Whole-DiffusionNet-block kernels, chained form: the counterpart of
+"""Whole-DiffusionNet-block kernels: the counterparts of
 diffusionnet_tpu/ops/pallas_megablock.py::megablock_chained (forward kernel
-B1, backward kernel B2).
+B1, backward kernel B2) and of its `megablock` (B3: the projection kernel of
+ops/fused.py, then B1 without emit_next; backward B2, see the end of this
+module).
 
 Given this block's x_hat = Phi^T (m x), the forward computes
 
@@ -37,6 +39,8 @@ import ctypes
 import functools
 
 import torch
+
+from .spectral import lowp_matmul
 
 DEFAULT_TILE_V = 1024
 DROPOUT_RATE = 0.5   # the reference's fixed MiniMLP rate
@@ -119,10 +123,6 @@ def dropout_masks(B: int, V: int, width: int, seed, layer: int, tile_v: int,
 # Plain PyTorch versions (the CPU path, and the kernels' references)
 # ---------------------------------------------------------------------------
 
-def _round_bf16(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.bfloat16).to(torch.float32)
-
-
 def _cdt(*ts) -> torch.dtype:
     """Compute dtype of the plain versions: f32, or f64 if an input is f64."""
     return (torch.float64 if any(t.dtype == torch.float64 for t in ts)
@@ -134,7 +134,7 @@ def _mm(a, b, lowp: bool):
     rounded to bf16 (the products of bf16 values are exact in f32, so this
     is bf16 operands with f32 accumulation)."""
     if lowp:
-        return _round_bf16(a) @ _round_bf16(b)
+        return lowp_matmul(a, b, torch.bfloat16, torch.float32)
     dt = _cdt(a, b)
     return a.to(dt) @ b.to(dt)
 
@@ -667,3 +667,77 @@ def megablock_chained(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
                                   x_hat_in, seed, tile_v, emit_next, lowp,
                                   len(Ws), *Ws, *bs)
     return res if emit_next else (res, None)
+
+
+# ---------------------------------------------------------------------------
+# B3: one whole block with its own projection (the JAX op `megablock`)
+# ---------------------------------------------------------------------------
+
+def megablock_reference(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
+                        seed=None, tile_v: int = DEFAULT_TILE_V,
+                        lowp: bool = False):
+    """Plain version of B3 (JAX's `megablock_reference`): x_hat = Phi^T(m x),
+    then the block on it, with the kernels' casts (lowp) and dropout masks
+    (seed None: off; the masks equal `interpret_dropout_mask`). Returns out
+    in x's dtype; differentiable through torch autograd."""
+    from .fused import spectral_project_reference
+    x_hat = spectral_project_reference(x, evecs, mass, lowp)
+    out, _ = megablock_chained_reference(x, evecs, gX, gY, mass, coefs, A_re,
+                                         A_im, Ws, bs, x_hat, False, lowp,
+                                         seed, tile_v)
+    return out
+
+
+class _Megablock(torch.autograd.Function):
+    """Forward: the projection kernel (x_hat kept as the residual), then B1
+    with emit_next off. Backward: B2 with no dx_hat_next, then the spectral
+    chain outside the kernel (the JAX package's `_mb_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x, evecs, gX, gY, mass, coefs, A_re, A_im, seed, tile_v,
+                lowp, n_dense, *wb):
+        from .fused import spectral_project
+        Ws, bs = wb[:n_dense], wb[n_dense:]
+        x_hat = spectral_project(x, evecs, mass, lowp)
+        out, _ = megablock_chained_fwd(x, evecs, gX, gY, mass, coefs, A_re,
+                                       A_im, Ws, bs, x_hat, False, lowp, seed,
+                                       tile_v)
+        ctx.save_for_backward(x, evecs, gX, gY, mass, coefs, A_re, A_im,
+                              x_hat, *wb)
+        ctx.cfg = (seed, tile_v, lowp, n_dense)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        (x, evecs, gX, gY, mass, coefs, A_re, A_im, x_hat,
+         *wb) = ctx.saved_tensors
+        seed, tile_v, lowp, n_dense = ctx.cfg
+        Ws, bs = wb[:n_dense], wb[n_dense:]
+        dx_direct, ds, dA_re, dA_im, dWs, dbs = megablock_chained_bwd(
+            x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs, x_hat,
+            dout.contiguous(), None, lowp, seed, tile_v)
+        from .fused import spectral_chain_vjp
+        dx, dcoefs = spectral_chain_vjp(ds, x_hat, coefs, evecs, mass,
+                                        x.dtype, dx_direct)
+        return (dx, None, None, None, None, dcoefs, dA_re, dA_im, None, None,
+                None, None, *dWs, *dbs)
+
+
+def megablock(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs, seed,
+              tile_v: int = DEFAULT_TILE_V, dropout: bool = False):
+    """One whole DiffusionNet block for a batch of surfaces, with its own
+    projection x_hat = Phi^T (m x): the JAX op `megablock`, in its argument
+    order. x (B,V,C) f32 or bf16; evecs/gX/gY (B,V,K), one dtype (bf16
+    operators run every product on bf16 operands, as `_lowp_for` decides);
+    mass (B,V); coefs (B,K,C); Ws/bs the MLP, first input 3C, last output C;
+    seed an int in [0, 2^31) keying the dropout masks, ignored unless
+    dropout (then V must be a multiple of tile_v). Differentiable in x,
+    coefs, A_re, A_im, Ws and bs. Returns out (B,V,C) in x's dtype."""
+    if x.shape[-2] % tile_v:
+        raise ValueError(f"V={x.shape[-2]} must be a multiple of "
+                         f"tile_v={tile_v} (pad to a bucket)")
+    Ws, bs = tuple(Ws), tuple(bs)
+    lowp = evecs.dtype == torch.bfloat16
+    return _Megablock.apply(x, evecs, gX, gY, mass, coefs, A_re, A_im,
+                            int(seed) if dropout else None, tile_v, lowp,
+                            len(Ws), *Ws, *bs)

@@ -4,7 +4,8 @@ The counterpart of diffusionnet_tpu/ops/sparse.py. Each row is padded to a
 static max degree D: `idx (V, D) int32`, `val (V, D) float`; padding entries
 carry val == 0. The operator bundle keeps L, gradX and gradY in this layout
 (numpy); `ell_matvec` applies one to torch tensors (the device eigensolver's
-gather route). The model's ELL gradient path comes with ROADMAP item A.5.
+gather route and the model's ELL gradient path), and `ell_to_dense`
+densifies one (the implicit_dense diffusion).
 """
 
 from __future__ import annotations
@@ -81,6 +82,21 @@ def ell_matvec(ell: Ell, x: torch.Tensor) -> torch.Tensor:
                               torch.float32)
     y = torch.einsum("...nd,...ndc->...nc", val.to(acc), gathered.to(acc))
     return y.to(x.dtype)
+
+
+def ell_to_dense(ell: Ell, n: int | None = None) -> torch.Tensor:
+    """Densify: (..., rows, D) ELL -> (..., rows, n) torch tensor (n defaults
+    to rows). Batch dims are kept. Entries that share a (row, column) are
+    added, as the JAX package's `.at[].add` does; padding adds its zeros."""
+    idx = torch.as_tensor(ell.idx).long()
+    val = torch.as_tensor(ell.val)
+    rows = idx.shape[-2]
+    n = n if n is not None else rows
+    lead = idx.shape[:-2]
+    flat = torch.arange(rows, device=idx.device)[:, None] * n + idx
+    dense = val.new_zeros((*lead, rows * n))
+    dense.scatter_add_(-1, flat.reshape(*lead, -1), val.reshape(*lead, -1))
+    return dense.reshape(*lead, rows, n)
 
 
 def ell_pad(ell: Ell, n_rows: int, d_max: int | None = None) -> Ell:

@@ -9,19 +9,36 @@ from __future__ import annotations
 import torch
 
 
-def to_basis(values, basis, massvec):
+def lowp_matmul(a, b, compute_dtype=None, out_dtype=None):
+    """a @ b. With compute_dtype (e.g. torch.bfloat16) both operands are
+    rounded to it and the product is accumulated in f32 (the JAX package's
+    einsum with preferred_element_type=f32). The result is stored in
+    out_dtype, by default compute_dtype (then astype)."""
+    if compute_dtype is not None:
+        a = a.to(compute_dtype).float()
+        b = b.to(compute_dtype).float()
+    out = a @ b
+    dtype = out_dtype or compute_dtype
+    return out if dtype is None else out.to(dtype)
+
+
+def to_basis(values, basis, massvec, compute_dtype=None):
     """Project into the mass-orthonormal basis: phi^T (M (.) x).
 
     values: (..., V, D); basis: (..., V, K); massvec: (..., V) -> (..., K, D).
-    Padded vertices carry mass 0 and contribute nothing."""
-    return basis.transpose(-1, -2) @ (values * massvec[..., None])
+    Padded vertices carry mass 0 and contribute nothing. compute_dtype
+    (e.g. torch.bfloat16): operands cast to it, f32 accumulation, result
+    stored in it."""
+    return lowp_matmul(basis.transpose(-1, -2), values * massvec[..., None],
+                       compute_dtype)
 
 
-def from_basis(values, basis):
+def from_basis(values, basis, compute_dtype=None):
     """Back-project out of the basis: phi x_hat.
 
-    values: (..., K, D); basis: (..., V, K) -> (..., V, D)."""
-    return basis @ values
+    values: (..., K, D); basis: (..., V, K) -> (..., V, D). compute_dtype as
+    in to_basis."""
+    return lowp_matmul(basis, values, compute_dtype)
 
 
 def compute_hks(evals, evecs, scales):

@@ -47,7 +47,8 @@ class InferenceSession:
                 "InferenceSession does not support outputs_at='edges' (it "
                 "has no edge list input); call the model directly with an "
                 "edges tensor")
-        if use_megakernel and not model.with_gradient_features:
+        if use_megakernel and (model.diffusion_method != "spectral"
+                               or not model.with_gradient_features):
             raise ValueError("use_megakernel needs spectral diffusion with "
                              "gradient features")
         self.device = torch.device(device)
@@ -68,11 +69,12 @@ class InferenceSession:
             from ..models.fast_path import flat_params
             self._flat = flat_params(self.model, self.device)
 
-    def _forward(self, feats, mass, evals, evecs, gX, gY, faces):
+    def _forward(self, feats, mass, evals, evecs, gX, gY, faces, L):
         m = self.model
         if not self.use_megakernel:
             return m(feats, mass, evals=evals, evecs=evecs, gradX=gX,
-                     gradY=gY, faces=faces if m.outputs_at == "faces" else None)
+                     gradY=gY, faces=faces if m.outputs_at == "faces" else None,
+                     L=L)
         from ..models.fast_path import megablock_apply
         out = megablock_apply(self._flat, feats[None], mass[None],
                               evals[None], evecs[None], gX[None], gY[None],
@@ -100,7 +102,11 @@ class InferenceSession:
         t1 = time.perf_counter()
         dev = self.device
         to = ops.to(dev)
-        gX, gY = grad_operators(to, prefer_spectral=True)
+        # implicit_dense diffusion solves against L and applies the ELL
+        # gradient operators; the dense spectral ones are only valid for
+        # diffusion_method='spectral'
+        spectral = self.model.diffusion_method == "spectral"
+        gX, gY = grad_operators(to, prefer_spectral=spectral)
         x = torch.from_numpy(utils.pad_to(verts, v_pad)).to(dev)
         feats = get_features(self.input_features, x, to.evals, to.evecs)
         evecs = to.evecs
@@ -111,7 +117,8 @@ class InferenceSession:
         faces_t = (torch.from_numpy(np.asarray(faces, np.int64)).to(dev)
                    if faces is not None and np.asarray(faces).size
                    else torch.zeros((1, 3), dtype=torch.int64, device=dev))
-        out = self._forward(feats, to.mass, to.evals, evecs, gX, gY, faces_t)
+        out = self._forward(feats, to.mass, to.evals, evecs, gX, gY, faces_t,
+                            to.L)
         out = out.float().cpu().numpy()
         self.timings = {"precompute_s": t1 - t0,
                         "forward_s": time.perf_counter() - t1}

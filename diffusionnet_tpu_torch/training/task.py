@@ -9,6 +9,7 @@ from dataclasses import dataclass
 import torch
 
 from ..data.features import get_features
+from ..geometry import grad_operators
 from ..models.fast_path import megablock_apply
 from ..models.params import module_state
 
@@ -32,17 +33,21 @@ def apply_model(model, params: dict, batch, generator, cfg: TaskConfig,
     (JAX-layout leaf tensors) on a PaddedBatch of tensors.
 
     With cfg.use_megakernel the blocks run as kernels B1/B2
-    (`megablock_apply`); else the eager model runs on the same tensors.
+    (`megablock_apply`); else the eager model runs on the same tensors (a
+    model built with use_pallas_fused runs its blocks on kernel B4 there).
     generator: the torch.Generator of the dropout masks, used when the model
     has dropout and deterministic is False."""
     ops = batch.ops
     feats = get_features(cfg.input_features, batch.verts, ops.evals, ops.evecs)
-    gX, gY = ops.gradX_spec, ops.gradY_spec
+    # the dense spectral operators where the batch has them, else the ELL
+    # ones (as the JAX package's `_apply_model`)
+    gX, gY = grad_operators(ops)
     dropout_rng = (generator if model.dropout and not deterministic
                    else None)
     if not cfg.use_megakernel:
         kwargs = dict(evals=ops.evals, evecs=ops.evecs, gradX=gX, gradY=gY,
-                      deterministic=deterministic, generator=dropout_rng)
+                      deterministic=deterministic, generator=dropout_rng,
+                      L=ops.L)
         if model.outputs_at == "faces":
             kwargs["faces"] = batch.faces.long().clamp(min=0)
         return torch.func.functional_call(model, module_state(params),

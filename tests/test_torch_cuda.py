@@ -305,3 +305,114 @@ def test_device_eigensolver_runs_on_b5(cuda):
     assert be.LAUNCHES["blocked_ell"] > 0
     h, _ = eigen.eigensolve_host(L, m, 16)
     assert np.abs(ev - h).max() / h.max() < 1e-6
+
+
+# --- B4 (csrc/spectral_fused.cu) and B3 (ops.megablock.megablock) -----------
+
+def _fused_inputs(device, x_dtype, ops_dtype, B=2, V=1000, K=16, C=8):
+    """Seeded inputs of the fused block; the last 100 rows are padding."""
+    g = torch.Generator(device=device).manual_seed(V + K + C)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=device) * scale
+    x = r(B, V, C).to(x_dtype)
+    ops = [r(B, V, K, scale=V ** -0.5) for _ in range(3)]
+    mass = torch.rand(B, V, generator=g, device=device)
+    for t in (*ops, mass):
+        t[:, V - 100:] = 0
+    coefs = torch.rand(B, K, C, generator=g, device=device)
+    return (x, *(o.to(ops_dtype) for o in ops), mass, coefs)
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dt,ops_dt", [(F32, F32), (BF16, F32),
+                                         (BF16, BF16)],
+                         ids=["f32", "bf16-x", "bf16"])
+@pytest.mark.parametrize("K,C", [(16, 8), (160, 136), (24, 10)],
+                         ids=["small", "past-128", "C%4"])
+def test_fused_kernels_match_plain(cuda, x_dt, ops_dt, K, C):
+    """spectral_project (+ xhat_reduce) and spectral_apply against their
+    plain versions at a ragged V, with K or C past one 128-wide piece and C
+    not a multiple of 4: |kernel - plain| <= rtol |plain| + atol max|plain|,
+    1e-4 for f32 results (FFMA sums in another order), 2e-2 for bf16
+    outputs (one rounding step of 2^-8 apart)."""
+    from diffusionnet_tpu_torch.ops import fused
+    x, evecs, gX, gY, mass, coefs = _fused_inputs(cuda, x_dt, ops_dt, K=K,
+                                                  C=C)
+    fused.reset_launches()
+    mb.reset_launches()
+    x_hat = fused.spectral_project(x, evecs, mass)
+    outs = fused.spectral_apply(x_hat, coefs, evecs, gX, gY, x.dtype)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == {"spectral_project": 1, "spectral_apply": 1}
+    assert mb.LAUNCHES["xhat_reduce"] == 1
+    _close("x_hat", x_hat, fused.spectral_project_reference(x, evecs, mass),
+           False)
+    want = fused.spectral_apply_reference(x_hat, coefs, evecs, gX, gY,
+                                          x.dtype)
+    for name, a, b in zip(("y", "ygx", "ygy"), outs, want):
+        assert a.dtype == x.dtype
+        _close(name, a, b, x.dtype == BF16)
+        assert a[:, -100:].float().abs().max().item() == 0.0
+    lowp = fused.spectral_project(x, evecs.to(BF16), mass, lowp=True)
+    _close("x_hat lowp", lowp, fused.spectral_project_reference(
+        x, evecs.to(BF16), mass, lowp=True), False)
+
+
+@pytest.mark.cuda
+def test_fused_function_gradients_match_autograd_of_plain(cuda):
+    """The autograd Function on the card (B4 forward) against autograd
+    through the plain forward."""
+    from diffusionnet_tpu_torch.ops import fused
+    base = _fused_inputs(cuda, F32, F32, V=1024)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    cts = [torch.randn(base[0].shape, generator=g, device=cuda)
+           for _ in range(3)]
+    grads = []
+    for fn in (fused.fused_spectral_block_batched,
+               fused.fused_spectral_block_reference):
+        x = base[0].clone().requires_grad_(True)
+        coefs = base[5].clone().requires_grad_(True)
+        outs = (fn(x, *base[1:5], coefs, 256) if fn is not
+                fused.fused_spectral_block_reference
+                else fn(x, *base[1:5], coefs))
+        sum((o * c).sum() for o, c in zip(outs, cts)).backward()
+        grads.append((x.grad, coefs.grad))
+    for name, a, b in zip(("dx", "dcoefs"), *grads):
+        _close(name, a, b, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lowp", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("seed", [None, 4321], ids=["nodrop", "drop"])
+def test_megablock_one_matches_plain(cuda, lowp, seed):
+    """B3 (projection kernel, xhat_reduce, B1; backward B2 and its partial
+    sums) against autograd through `megablock_reference` on the same card:
+    the forward and the gradients in x, coefs, A_re, A_im, Ws and bs."""
+    base = _block(cuda, lowp, V=1024)[:10]
+    g = torch.Generator(device=cuda).manual_seed(6)
+    dout = torch.randn(base[0].shape, generator=g, device=cuda).to(
+        base[0].dtype)
+    res = []
+    for k, fn in enumerate((mb.megablock, mb.megablock_reference)):
+        args = [[t.clone().requires_grad_(True) for t in a]
+                if isinstance(a, list) else
+                (a.clone().requires_grad_(True) if i in (0, 5, 6, 7) else a)
+                for i, a in enumerate(base)]
+        mb.reset_launches()
+        if k == 0:
+            out = fn(*args, seed or 0, 256, seed is not None)
+        else:
+            out = fn(*args, seed, 256, lowp)
+        (out.float() * dout.float()).sum().backward()
+        if k == 0:
+            torch.cuda.synchronize()
+            assert mb.LAUNCHES == {"megablock_fwd": 1, "xhat_reduce": 1,
+                                   "megablock_bwd": 1, "grad_reduce": 2}
+        res.append([out] + [args[i].grad for i in (0, 5, 6, 7)]
+                   + [t.grad for t in args[8] + args[9]])
+    for k, (a, b) in enumerate(zip(*res)):
+        _close(f"output {k}", a, b, lowp)

@@ -22,6 +22,9 @@ def test_port_imports_no_jax():
         "from diffusionnet_tpu_torch.models import fast_path\n"
         "from diffusionnet_tpu_torch.training import inference\n"
         "from diffusionnet_tpu_torch.ops import banded, blocked_ell, sparse\n"
+        "from diffusionnet_tpu_torch.ops import fused, spectral\n"
+        "from diffusionnet_tpu_torch.models import diffusion_net, fmaps\n"
+        "from diffusionnet_tpu_torch.training import task\n"
         "from diffusionnet_tpu_torch.geometry import eigen, operators\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
@@ -76,3 +79,22 @@ def test_megablock_dispatch_by_device():
     mixed[0] = mixed[0].to("meta")
     with pytest.raises(ValueError, match="several devices"):
         mb.megablock_chained(*mixed)
+
+
+def test_fused_dispatch_by_device():
+    """The fused block's wrappers: CPU tensors take the plain versions and
+    launch nothing; a device that is neither CPU nor CUDA, or tensors on
+    several devices, are refused."""
+    from diffusionnet_tpu_torch.ops import fused
+    x, evecs, gX, gY, mass, coefs = _small_block(np.random.RandomState(1),
+                                                 B=2, V=64)[:6]
+    fused.reset_launches()
+    x_hat = fused.spectral_project(x, evecs, mass)
+    fused.spectral_apply(x_hat, coefs, evecs, gX, gY, torch.float32)
+    assert fused.LAUNCHES == {"spectral_project": 0, "spectral_apply": 0}
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused.spectral_project(x.to("meta"), evecs.to("meta"),
+                               mass.to("meta"))
+    with pytest.raises(ValueError, match="several devices"):
+        fused.spectral_apply(x_hat.to("meta"), coefs, evecs, gX, gY,
+                             torch.float32)

@@ -99,3 +99,70 @@ def test_port_megakernel_session_matches_eager(mesh_and_cache, outputs_at,
     tol = dict(rtol=0, atol=5e-2) if bf16 else dict(rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(fast, eager, **tol)
     np.testing.assert_allclose(np.exp(fast).sum(-1), 1.0, rtol=1e-5)
+
+
+def _jax_model_params(seed=6, **kw):
+    """Seeded JAX parameters of a small xyz-input model, diffusion times
+    drawn away from zero (drawn through the spectral model: every variant
+    has the same tree)."""
+    arch = dict(c_in=3, c_out=C_OUT, c_width=8, n_block=2, dropout=False,
+                outputs_at="vertices")
+    model = JaxDiffusionNet(**arch, **kw)
+    z = jnp.zeros((64, 4))
+    params = JaxDiffusionNet(**arch).init(jax.random.PRNGKey(seed), jnp.zeros((64, 3)),
+                        jnp.ones(64), evals=jnp.zeros(4), evecs=z, gradX=z,
+                        gradY=z)
+    flat = _flatten_params(jax.tree.map(np.asarray, params))
+    rs = np.random.RandomState(seed)
+    for k in flat:
+        if k.endswith("diffusion_time"):
+            flat[k] = (rs.rand(*flat[k].shape) * 0.05).astype(np.float32)
+    return model, arch, flat
+
+
+def test_session_serves_implicit_dense_on_ell_operators(tmp_path):
+    """An implicit_dense model with k_eig=0 operators: the session hands it
+    the ELL gradients and L (the dense spectral operators are for
+    diffusion_method='spectral' only), as the JAX session does; outputs
+    within rtol 1e-4 / atol 1e-5. The megakernel path refuses the model."""
+    verts, faces = icosphere(1)
+    cache = str(tmp_path)
+    get_operators(verts, faces, k_eig=0, op_cache_dir=cache)
+    kw = dict(diffusion_method="implicit_dense")
+    jmodel, arch, flat = _jax_model_params(**kw)
+    want = JaxInferenceSession(jmodel, _unflatten_params(flat), k_eig=0,
+                               input_features="xyz", op_cache_dir=cache,
+                               buckets=(64,))(verts, faces)
+    session = InferenceSession(DiffusionNet(**arch, **kw), flat, k_eig=0,
+                               input_features="xyz", op_cache_dir=cache,
+                               buckets=(64,), device="cpu")
+    got = session(verts, faces)
+    assert got.shape == want.shape == (verts.shape[0], C_OUT)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    with pytest.raises(ValueError, match="spectral diffusion"):
+        InferenceSession(DiffusionNet(**arch, **kw), flat, k_eig=0,
+                         use_megakernel=True, device="cpu")
+
+
+def test_session_serves_fused_model(mesh_and_cache, monkeypatch):
+    """A use_pallas_fused model on the eager path: every block of the
+    request (bucket 1024 = pallas_tile_v) runs kernel B4's Function, and
+    the predictions match the JAX session's (Pallas in interpret mode)
+    within rtol 1e-4 / atol 1e-5."""
+    from diffusionnet_tpu_torch.ops import fused
+    verts, faces, cache = mesh_and_cache
+    kw = dict(use_pallas_fused=True)
+    jmodel = JaxDiffusionNet(**ARCH, **kw, last_activation=jax.nn.log_softmax)
+    _, flat = _jax_flat_params("vertices")
+    want = JaxInferenceSession(jmodel, _unflatten_params(flat), k_eig=K_EIG,
+                               op_cache_dir=cache)(verts, faces)
+    model = DiffusionNet(**ARCH, **kw, last_activation=functools.partial(
+        torch.log_softmax, dim=-1))
+    calls = []
+    real = fused._FusedSpectralBlock.apply
+    monkeypatch.setattr(fused._FusedSpectralBlock, "apply",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    got = InferenceSession(model, flat, k_eig=K_EIG, op_cache_dir=cache,
+                           device="cpu")(verts, faces)
+    assert calls == [(1, 1024, WIDTH)] * N_BLOCK
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)

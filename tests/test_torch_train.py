@@ -247,23 +247,21 @@ def test_make_padded_batches_bit_equal(datasets, buckets, shuffle):
 
 # --- (f) one train step against the JAX step -------------------------------
 
-def test_train_step_matches_jax_step(datasets):
-    """apply_model (megakernel path) + loss_and_counts + Adam with step
-    decay, dropout off, from one numpy train state (params and an Adam state
-    at count 3, so the schedule has decayed once): loss, every gradient, the
-    updated parameters and the Adam state within rtol 1e-4."""
-    tds, jds = datasets
-    tb = next(tds_mod.make_padded_batches(tds, 2))
-    jb = jax.tree.map(jnp.asarray, next(jds_mod.make_padded_batches(jds, 2)))
-    arch = dict(n_class=4, c_width=8, outputs_at="faces", dropout=False,
-                input_features="hks", n_block=2)
-    jmodel = exp_common.build_model(**arch)
-    cfg = exp_common.FitConfig(labels_kind="face", use_megakernel=True,
+def _step_against_jax(tb, jb, jmodel, model, use_megakernel):
+    """One train step of the port (apply_model + loss_and_counts + Adam with
+    step decay, dropout off) against the JAX step (exp_common._apply_model
+    + _loss_and_counts + make_train_step), from one numpy train state
+    (params and an Adam state at count 3, so the schedule has decayed once):
+    loss, every gradient, the updated parameters and the Adam state within
+    rtol 1e-4."""
+    cfg = exp_common.FitConfig(labels_kind="face",
+                               use_megakernel=use_megakernel,
                                input_features="hks")
     feats = jnp.zeros(jb.verts.shape[:-1] + (16,))
-    flat = _jax_params(jmodel, feats, jb.ops.mass, evals=jb.ops.evals,
-                       evecs=jb.ops.evecs, gradX=jb.ops.gradX_spec,
-                       gradY=jb.ops.gradY_spec, faces=jb.faces)
+    gX, gY = jgeo.grad_operators(jb.ops)
+    flat = _jax_params(jmodel, feats, jb.ops.mass, L=jb.ops.L,
+                       evals=jb.ops.evals, evecs=jb.ops.evecs, gradX=gX,
+                       gradY=gY, faces=jb.faces)
     rs = np.random.RandomState(4)
     for k in flat:
         if k.endswith("diffusion_time"):
@@ -290,11 +288,8 @@ def test_train_step_matches_jax_step(datasets):
     jp2, js2, jloss2, (jc, jt) = jstep(jparams, jstate, jb,
                                        jax.random.PRNGKey(0))
 
-    model = DiffusionNet(c_in=16, c_out=4, c_width=8, n_block=2,
-                         dropout=False, outputs_at="faces",
-                         last_activation=functools.partial(torch.log_softmax,
-                                                           dim=-1))
-    tcfg = TaskConfig(labels_kind="face", input_features="hks")
+    tcfg = TaskConfig(labels_kind="face", input_features="hks",
+                      use_megakernel=use_megakernel)
     params = _t(flat)
     opt = adam_with_step_decay(1e-3, 2, 0.5)
     state = opt.init(params)
@@ -332,6 +327,61 @@ def test_train_step_matches_jax_step(datasets):
                                    atol=1e-10, err_msg="nu " + k)
 
 
+def _first_batches(datasets):
+    tds, jds = datasets
+    tb = next(tds_mod.make_padded_batches(tds, 2))
+    jb = jax.tree.map(jnp.asarray, next(jds_mod.make_padded_batches(jds, 2)))
+    return tb, jb
+
+
+def _port_model(**kw):
+    return DiffusionNet(c_in=16, c_out=4, c_width=8, n_block=2,
+                        dropout=False, outputs_at="faces",
+                        last_activation=functools.partial(torch.log_softmax,
+                                                          dim=-1), **kw)
+
+
+def test_train_step_matches_jax_step(datasets):
+    """The megakernel path (B1/B2's plain versions, Pallas in interpret
+    mode) against the JAX step."""
+    tb, jb = _first_batches(datasets)
+    jmodel = exp_common.build_model(n_class=4, c_width=8, outputs_at="faces",
+                                    dropout=False, input_features="hks",
+                                    n_block=2)
+    _step_against_jax(tb, jb, jmodel, _port_model(), use_megakernel=True)
+
+
+def test_fused_train_step_matches_jax_step(datasets):
+    """A use_pallas_fused model through apply_model(use_megakernel=False):
+    the eager model's blocks on kernel B4 (its plain version here, the
+    Pallas op in interpret mode on the JAX side), one tile over the
+    bucket."""
+    tb, jb = _first_batches(datasets)
+    V = tb.verts.shape[1]
+    fused_kw = dict(use_pallas_fused=True, pallas_tile_v=V)
+    jmodel = JaxDiffusionNet(c_in=16, c_out=4, c_width=8, n_block=2,
+                             dropout=False, outputs_at="faces",
+                             last_activation=jax.nn.log_softmax, **fused_kw)
+    _step_against_jax(tb, jb, jmodel, _port_model(**fused_kw),
+                      use_megakernel=False)
+
+
+@pytest.mark.parametrize("method", ["spectral", "implicit_dense"])
+def test_eager_step_on_ell_operators_matches_jax(datasets, method):
+    """A batch whose bundle has no dense spectral operators: apply_model
+    feeds the eager model the ELL gradients that grad_operators picks, and
+    L (read by implicit_dense), as the JAX `_apply_model` does."""
+    tb, jb = _first_batches(datasets)
+    tb = tb._replace(ops=tb.ops._replace(gradX_spec=None, gradY_spec=None))
+    jb = jb._replace(ops=jb.ops._replace(gradX_spec=None, gradY_spec=None))
+    jmodel = JaxDiffusionNet(c_in=16, c_out=4, c_width=8, n_block=2,
+                             dropout=False, outputs_at="faces",
+                             last_activation=jax.nn.log_softmax,
+                             diffusion_method=method)
+    _step_against_jax(tb, jb, jmodel, _port_model(diffusion_method=method),
+                      use_megakernel=False)
+
+
 def test_train_step_with_dropout_moves_every_parameter(datasets):
     """Dropout on (the segmentation model's setting), megakernel path: a
     finite loss, and one step moves every parameter, diffusion times at 0
@@ -356,6 +406,21 @@ def test_train_step_with_dropout_moves_every_parameter(datasets):
     assert np.isfinite(loss.item())
     for k, v in params.items():
         assert not torch.equal(v.detach(), before[k]), k
+
+
+def test_flat_params_do_not_alias_the_module():
+    """The train state is a copy on every device: a step that updates it in
+    place on the CPU leaves the module's weights (biases and diffusion times
+    included, whose flat arrays are views) as they were."""
+    from diffusionnet_tpu_torch.models import flat_params
+    model = _port_model()
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    params = flat_params(model, "cpu", requires_grad=True)
+    with torch.no_grad():
+        for v in params.values():
+            v.add_(1.0)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k]), k
 
 
 # --- (h) the schedule, (i) eager dropout ------------------------------------
