@@ -10,6 +10,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. kernels against their plain PyTorch versions, at the full width of the
      segmentation model (B=2, V=32768, K=128, C=128, hidden [128, 128]) and
      at a small ragged shape, f32 and bf16 operands, emit_next on and off;
+     the x_hat partial sum bit-equal to its plain version at (1, SMs, 128,
+     128) and (8, 16, 128, 128), and timed there beside torch.sum;
   4. the slice: InferenceSession(use_megakernel=True) on the card serves
      three meshes with the segmentation model (seeded weights); the launch
      counters show each request ran n_block block kernels, and the eager
@@ -31,12 +33,17 @@ Phases, in order; any failure raises and the script exits non-zero:
   9. times: B2 against its plain backward, B1's dropout cost, and the
      whole train step at bench.py's shapes (B=8, V=20480, f32 and bf16
      operands), with a profiler breakdown averaged over three steps;
- 10. B5 (the blocked-ELL SpMM of the device eigensolver) against its plain
-     version on the cotan Laplacians of torus(144, 140) and
-     delaunay_sphere(100_000), planned at the port's defaults, C = 160 and
-     96, and nb = 2 once for the COO overflow;
+ 10. B5 (the sliced-ELL SpMM of the device eigensolver) against its plain
+     version, and bit-identical over two launches, on the cotan Laplacians
+     of torus(144, 140) and delaunay_sphere(100_000) and on a matrix with
+     one hub row of degree > 500 and empty rows, at C = 160, 96 and 97
+     (the kernel's scalar path); the format's bytes beside those of the
+     dense panels it replaced;
  11. times of B5, its plain version and torch.sparse.mm on the same matrix
-     in CSR (a yardstick the port never calls) at C = 160, with B5's bound;
+     in CSR (a yardstick the port never calls) at C = 160, with B5's bound:
+     device time (device_ms: CUDA events around calls queued behind a spin
+     kernel), and CUDA events around back-to-back calls, which also count
+     the host's time to issue each;
  12. the precompute slice: get_operators(k_eig=128, eigensolver="device")
      on the card for torus(144, 140), icosphere(5) and
      delaunay_sphere(100_000) from a fresh cache; B5 must launch on every
@@ -246,6 +253,51 @@ def time_ms(fn, reps=10, calls=10, warmup=3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, calls=20, reps=5, warmup=3) -> float:
+    """Device time per call with the host's time to issue a call left out
+    (for a kernel of a few microseconds that time is longer than the
+    kernel): a spin kernel (torch.cuda._sleep) holds the stream while the
+    host issues `calls` calls behind it, so the CUDA events around the calls
+    time them run back to back on the device, the device's gaps between
+    kernels included; the median of `reps` runs. If the device had already
+    reached the start event when the host finished issuing, the run is made
+    again with twice the spin. A function that waits on the device itself
+    (the B5 plain version sizes its loop on the host) reaches it however
+    long the spin; after three tries it is timed without one, its waits
+    included. Needs no profiler, whose device activities a card does not
+    always report."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin = max(int(4 * issue_s * 2e9), 1 << 20)    # cycles at up to 2 GHz
+    waits = False
+    runs = []
+    for _ in range(reps):
+        for _ in range(1 if waits else 3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if not waits:
+                torch.cuda._sleep(spin)
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            caught_up = start.query()
+            end.synchronize()
+            if not caught_up:
+                break
+            spin *= 2
+        else:
+            waits = True
+        runs.append(start.elapsed_time(end) / calls)
+    return statistics.median(runs)
+
+
 def phase_kernels(mb):
     log("== phase 3: kernels against their plain versions")
     errs = {"megablock_fwd": 0.0}
@@ -275,16 +327,25 @@ def phase_kernels(mb):
                     check(xn is None, f"{tag}: x_hat_next without emit_next")
                 if kind == "f32" and V == 32768:
                     errs["megablock_fwd"] = max(errs["megablock_fwd"], e)
-    # the partial-sum kernel at the main path's shape (B=1: one CTA per SM)
+    # the partial-sum kernel at the main paths' shapes (B=1: one CTA per SM;
+    # B=8: bench.py's batch), bit-equal to its plain version and to itself
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     g = torch.Generator(device="cuda").manual_seed(7)
-    partial = torch.randn(1, sms, mb.SLOT, mb.SLOT, generator=g, device="cuda")
-    got = mb.xhat_reduce(partial, 128, 128)
-    torch.cuda.synchronize()
-    errs["xhat_reduce"] = compare(f"xhat_reduce (1, {sms}, 128, 128)", got,
-                                  mb.xhat_reduce_reference(partial, 128, 128),
-                                  dict(rtol=0.0, atol=0.0))
-    return errs, partial
+    partials = [torch.randn(B, S, mb.SLOT, mb.SLOT, generator=g,
+                            device="cuda") for B, S in ((1, sms), (8, 16))]
+    errs["xhat_reduce"] = 0.0
+    for partial in partials:
+        got = mb.xhat_reduce(partial, 128, 128)
+        again = mb.xhat_reduce(partial, 128, 128)
+        ref = mb.xhat_reduce_reference(partial, 128, 128)
+        torch.cuda.synchronize()
+        tag = f"xhat_reduce {tuple(partial.shape)}"
+        check(torch.equal(got, again), f"{tag}: two launches differ")
+        errs["xhat_reduce"] = max(errs["xhat_reduce"], compare(
+            f"{tag} (bit-equal, and over two launches)", got, ref,
+            dict(rtol=0.0, atol=0.0)))
+        check(torch.equal(got, ref), f"{tag}: not bit-equal to plain")
+    return errs, partials
 
 
 def segmentation_model(**kw):
@@ -379,6 +440,35 @@ def phase_times(mb, card):
                 f"{kind}: kernel {k:.4f} ms, plain {p:.4f} ms [{card}]")
             del args
     return ms
+
+
+def xhat_reduce_times(mb, partials, card):
+    """xhat_reduce, its plain version and one torch.sum over the same slots
+    at (1, SMs, 128, 128) and (8, 16, 128, 128), in device time (device_ms)
+    and, for the kernel and torch.sum, with CUDA events around calls issued
+    back to back (time_ms, host issue included); the bound: the slots'
+    (K, C) corners read once and x_hat written once. Returns, per (B, S),
+    the device times and bound of the kernels line."""
+    out = {}
+    for partial in partials:
+        B, S = partial.shape[:2]
+        def kern():
+            return mb.xhat_reduce(partial, 128, 128)
+        def lib_sum():
+            return partial[:, :, :128, :128].sum(1)
+        k, lib = device_ms(kern), device_ms(lib_sum)
+        p = device_ms(lambda: mb.xhat_reduce_reference(partial, 128, 128))
+        k_ev, lib_ev = time_ms(kern), time_ms(lib_sum)
+        bnd = bound(B * (S + 1) * 128 * 128 * 4, B * S * 128 * 128,
+                    F32_FLOPS)
+        out[(B, S)] = dict(ms=k, plain_ms=p, bound=bnd, library_ms=lib)
+        log(f"  time xhat_reduce ({B}, {S}, 128, 128), device time: kernel "
+            f"{k:.4f} ms, plain {p:.4f} ms, torch.sum of the slots "
+            f"{lib:.4f} ms ({lib / k:.2f}x the kernel's time); bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}), roofline share {bnd[0] / k:.4f}; "
+            f"CUDA events around back-to-back calls: kernel {k_ev:.4f} ms, "
+            f"torch.sum {lib_ev:.4f} ms [{card}]")
+    return out
 
 
 def phase_dropout(mb):
@@ -764,7 +854,8 @@ F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 B5_TOL = 5e-6      # B5 against its plain version, times max |plain|: f32
-                   # sums of the same panel products in another order
+                   # sums of a row's products in the same order, fused
+                   # multiply-adds against a multiply and an add
 C_SUBSPACE = 160   # the solver's block width at k_eig = 128 (k + k // 4)
 ROT_TOL = 1e-6     # device vectors of a cut eigen-cluster inside ARPACK's:
                    # the certified f64 residuals put them there to ~1e-8
@@ -812,42 +903,59 @@ def b5_meshes():
             ("delaunay_sphere(100000)", mg.delaunay_sphere(100_000))]
 
 
+def hub_matrix(V=700, hub=600):
+    """A symmetric matrix with one hub row of degree > hub (a slice that
+    wide), a path, and 60 empty rows: B5's widest-slice case."""
+    import numpy as np
+    import scipy.sparse
+    rs = np.random.RandomState(0)
+    nbrs = rs.choice(np.arange(1, V - 60), hub, replace=False)
+    path = np.arange(1, V - 60)
+    r = np.concatenate([np.zeros(hub, np.int64), path[:-1]])
+    c = np.concatenate([nbrs, path[1:]])
+    A = scipy.sparse.coo_matrix((rs.rand(r.size) + 0.1, (r, c)),
+                                shape=(V, V))
+    A = A + A.T
+    return scipy.sparse.csr_matrix(
+        scipy.sparse.diags(np.asarray(A.sum(1)).ravel()) - A)
+
+
 def phase_b5(be, lap):
-    """B5 against its plain version. Returns the largest max abs error at
-    the main path's plans (nb 8)."""
-    log("== phase 10: B5 (blocked-ELL SpMM) against its plain version")
+    """B5 against its plain version, and bit-identical across launches.
+    Returns the largest max abs error at the main path's width (C = 160)."""
+    log("== phase 10: B5 (sliced-ELL SpMM) against its plain version")
     err = 0.0
-    for name, L in lap:
+    for name, L in lap + [("hub matrix", hub_matrix())]:
         V = L.shape[0]
-        for nb, widths in ((8, (C_SUBSPACE, 96)), (2, (C_SUBSPACE,))):
-            b = be.blocked_ell_from_sparse(L, nb=nb, device="cuda")
-            n_ov = int((b.ov_vals != 0).sum())
-            log(f"  {name}: V={V} nnz={L.nnz} nb={nb}: n_pad {b.n_pad}, "
-                f"{b.nused.numel()} groups of {b.group_rows} rows, used "
-                f"panels per group {b.nused.float().mean().item():.3f} "
-                f"(max {int(b.nused.max())}), {n_ov} overflow entries, "
-                f"format {b.nbytes() / 1e6:.1f} MB")
-            if nb == 2:
-                check(n_ov > 0, f"{name}: nb=2 should overflow")
-            g = torch.Generator(device="cuda").manual_seed(V + nb)
-            for C in widths:
-                x = torch.zeros(b.n_pad, C, device="cuda")
-                x[:V] = torch.randn(V, C, generator=g, device="cuda")
-                be.reset_launches()
-                y = be.blocked_ell_matvec(b, x)
-                torch.cuda.synchronize()
-                check(be.LAUNCHES["blocked_ell"] == 1,
-                      f"B5 launches {be.LAUNCHES}")
-                ref = be.blocked_ell_matvec_reference(b, x)
-                torch.cuda.synchronize()
-                e = compare(f"{name} nb={nb} C={C}", y, ref,
-                            dict(rtol=0.0, atol=B5_TOL), scaled=True)
-                pad = y[V:].abs().max().item() if b.n_pad > V else 0.0
-                check(pad == 0.0, f"{name}: padded rows {pad}")
-                if nb == 8 and C == C_SUBSPACE:
-                    err = max(err, e)
-                del x, y, ref
-            del b
+        b = be.blocked_ell_from_sparse(L, device="cuda")
+        w = b.widths().float()
+        log(f"  {name}: V={V} nnz={L.nnz}: n_pad {b.n_pad}, {b.n_slices} "
+            f"slices of 32 rows, width mean {w.mean().item():.3f} max "
+            f"{int(w.max().item())}, slots per nonzero "
+            f"{b.cols.numel() / L.nnz:.3f}; format {b.nbytes() / 1e6:.3f} "
+            f"MB against {b.n_pad * 8 * 128 * 4 / 1e6:.1f} MB of the dense "
+            "panels it replaced (n_pad x 8 x 128 x 4 bytes)")
+        g = torch.Generator(device="cuda").manual_seed(V)
+        for C in (C_SUBSPACE, 96, 97):
+            x = torch.zeros(b.n_pad, C, device="cuda")
+            x[:V] = torch.randn(V, C, generator=g, device="cuda")
+            be.reset_launches()
+            y = be.blocked_ell_matvec(b, x)
+            again = be.blocked_ell_matvec(b, x)
+            torch.cuda.synchronize()
+            check(be.LAUNCHES["blocked_ell"] == 2,
+                  f"B5 launches {be.LAUNCHES}")
+            check(torch.equal(y, again), f"{name} C={C}: two launches differ")
+            ref = be.blocked_ell_matvec_reference(b, x)
+            torch.cuda.synchronize()
+            e = compare(f"{name} C={C} (bit-identical over two launches)", y,
+                        ref, dict(rtol=0.0, atol=B5_TOL), scaled=True)
+            pad = y[V:].abs().max().item() if b.n_pad > V else 0.0
+            check(pad == 0.0, f"{name}: padded rows {pad}")
+            if C == C_SUBSPACE and name != "hub matrix":
+                err = max(err, e)
+            del x, y, again, ref
+        del b
     return err
 
 
@@ -855,8 +963,8 @@ def phase_b5_times(be, lap, card):
     """B5, its plain version and torch.sparse.mm (cuSPARSE CSR SpMM, a
     yardstick only) on the same permuted matrix at C = 160."""
     import scipy.sparse
-    log("== phase 11: B5 times (CUDA events, median of 10 runs of 10 "
-        "calls), C = 160")
+    log("== phase 11: B5 times (device time: median of 5 runs of 20 calls "
+        "queued behind a spin kernel; and CUDA events), C = 160")
     rows = {}
     for name, L in lap:
         V, C = L.shape[0], C_SUBSPACE
@@ -875,15 +983,22 @@ def phase_b5_times(be, lap, card):
         torch.cuda.synchronize()
         compare(f"{name} torch.sparse.mm against B5", lib_y, y[:V],
                 dict(rtol=0.0, atol=B5_TOL), scaled=True)
-        k = time_ms(lambda: be.blocked_ell_matvec(b, x))
-        p = time_ms(lambda: be.blocked_ell_matvec_reference(b, x))
-        lib = time_ms(lambda: torch.sparse.mm(csr, xv))
+        def kern():
+            return be.blocked_ell_matvec(b, x)
+        def lib_mm():
+            return torch.sparse.mm(csr, xv)
+        k, lib = device_ms(kern), device_ms(lib_mm)
+        p = device_ms(lambda: be.blocked_ell_matvec_reference(b, x))
+        k_ev, lib_ev = time_ms(kern), time_ms(lib_mm)
         bms, by = b5_bound(Lp.nnz, V, C)
         rows[name] = dict(ms=k, plain_ms=p, library_ms=lib, bound_ms=bms,
                           bound_by=by)
-        log(f"  time B5 {name} V={V} nnz={Lp.nnz} C={C}: kernel {k:.4f} ms, "
-            f"plain {p:.4f} ms, torch.sparse.mm CSR {lib:.4f} ms; bound "
-            f"{bms:.4f} ms ({by}), roofline share {bms / k:.4f} [{card}]")
+        log(f"  time B5 {name} V={V} nnz={Lp.nnz} C={C}, device time: "
+            f"kernel {k:.4f} ms, plain {p:.4f} ms, torch.sparse.mm CSR "
+            f"{lib:.4f} ms ({lib / k:.2f}x the kernel's time); bound "
+            f"{bms:.4f} ms ({by}), roofline share {bms / k:.4f}; CUDA "
+            f"events around back-to-back calls: kernel {k_ev:.4f} ms, "
+            f"torch.sparse.mm {lib_ev:.4f} ms [{card}]")
         del b, csr, x, xv, y, lib_y
     return rows
 
@@ -993,6 +1108,10 @@ def phase_precompute(be, card):
                 f"[{card}], B5 launches {rise}, fallbacks to ARPACK {fell}; "
                 "stages (s): "
                 + ", ".join(f"{k} {v:.3f}" for k, v in tm.items()))
+            log(f"    {name}: eigen_band_build "
+                f"{tm.get('eigen_band_build', 0.0):.3f} s, eigen_sweeps "
+                f"{tm.get('eigen_sweeps', 0.0):.3f} s, B5 launches {rise} "
+                f"[{card}]")
             log(f"    converge: {eig.LAST_CONVERGE_INFO}")
             for w in caught:
                 log(f"    warning: {w.message}")
@@ -1461,13 +1580,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or "entry function" in line:
             log("  " + line.strip())
 
-    errs, partial = phase_kernels(mb)
+    errs, partials = phase_kernels(mb)
     serve_launches = phase_slice(mb)
     times = phase_times(mb, card)
-    xr_ms = time_ms(lambda: mb.xhat_reduce(partial, 128, 128))
-    xr_plain = time_ms(lambda: mb.xhat_reduce_reference(partial, 128, 128))
-    log(f"  time xhat_reduce (1, {partial.shape[1]}, 128, 128): kernel "
-        f"{xr_ms:.4f} ms, plain {xr_plain:.4f} ms [{card}]")
+    xr1 = xhat_reduce_times(mb, partials, card)[(1, partials[0].shape[1])]
     errs["megablock_fwd"] = max(errs["megablock_fwd"], phase_dropout(mb))
     errs["megablock_bwd"], errs["grad_reduce"], slots, lay = \
         phase_backward(mb)
@@ -1500,25 +1616,23 @@ def main() -> int:
     log(f"  launches of the fused slice: 5 train steps {fused_launches}; "
         f"one request {served_launches}; the B3 op's 3 steps {b3_launches}")
 
-    # library yardsticks of the partial sums: one torch.sum over the slots
-    S = partial.shape[1]
-    xr_lib = time_ms(lambda: partial[:, :, :128, :128].sum(1))
+    # the library yardstick of grad_reduce: one torch.sum over the slots
     gr_lib = time_ms(lambda: slots[:, :, lay["are"]:lay["P"]].sum(1))
-    log(f"  time torch.sum of the slots: xhat_reduce's {xr_lib:.4f} ms, "
-        f"grad_reduce's {gr_lib:.4f} ms [{card}]")
+    log(f"  time torch.sum of the slots: grad_reduce's {gr_lib:.4f} ms "
+        f"[{card}]")
     widths = (3 * 128, 128, 128, 128)
     k_ms, p_ms = times[(1, 32768, "f32")]
     kb_ms, pb_ms = bwd_times[(1, 32768, "f32")]
     fwd_b = megablock_bound(1, 32768, 128, 128, widths, True, False)
     bwd_b = megablock_bound(1, 32768, 128, 128, widths, True, True)
-    xr_b = bound((S + 1) * 128 * 128 * 4, S * 128 * 128, F32_FLOPS)
     n_gr = lay["P"] - lay["are"]
     gr_b = bound((slots.shape[1] + 1) * n_gr * 4, slots.shape[1] * n_gr,
                  F32_FLOPS)
     t5 = b5_ms["torus(144, 140)"]
     log(f"  bounds (H100 SXM peaks, [{card}]): B1 B=1 V=32768 f32 "
         f"{fwd_b[0]:.4f} ms ({fwd_b[1]}, three TF32 passes), B2 "
-        f"{bwd_b[0]:.4f} ms ({bwd_b[1]}), xhat_reduce {xr_b[0]:.4f} ms, "
+        f"{bwd_b[0]:.4f} ms ({bwd_b[1]}), xhat_reduce "
+        f"{xr1['bound'][0]:.4f} ms, "
         f"grad_reduce {gr_b[0]:.4f} ms, B5 torus C=160 "
         f"{t5['bound_ms']:.4f} ms ({t5['bound_by']})")
 
@@ -1534,8 +1648,8 @@ def main() -> int:
             launches["megablock_fwd"], errs["megablock_fwd"], k_ms, p_ms,
             fwd_b, None),
         row("xhat_reduce", "megablock_fwd.cu", "pallas_megablock.py:305",
-            launches["xhat_reduce"], errs["xhat_reduce"], xr_ms, xr_plain,
-            xr_b, xr_lib),
+            launches["xhat_reduce"], errs["xhat_reduce"], xr1["ms"],
+            xr1["plain_ms"], xr1["bound"], xr1["library_ms"]),
         row("megablock_bwd", "megablock_bwd.cu", "pallas_megablock.py:379",
             launches["megablock_bwd"], errs["megablock_bwd"], kb_ms, pb_ms,
             bwd_b, None),

@@ -8,7 +8,7 @@ DiffusionNet, and the megakernel fast path on the hand-written CUDA block
 kernel, csrc/megablock_fwd.cu), the training step (padded batching, the
 block's backward kernel csrc/megablock_bwd.cu, dropout, Adam with step
 decay), the device eigensolver of the operator precompute (on the
-blocked-ELL SpMM kernel csrc/blocked_ell.cu) and the rest of the model
+sliced-ELL SpMM kernel csrc/blocked_ell.cu) and the rest of the model
 surface (implicit_dense diffusion, ELL gradients, compute_dtype, remat, the
 fused spectral block on csrc/spectral_fused.cu, the one-block op
 `megablock`, the functional-maps head). ROADMAP.md lists what is still to

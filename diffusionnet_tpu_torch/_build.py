@@ -121,7 +121,7 @@ def load() -> ctypes.CDLL:
         lib.mb_grad_reduce_launch.restype = i
         lib.mb_error_string.argtypes = [i]
         lib.mb_error_string.restype = ctypes.c_char_p
-        lib.bell_matvec_launch.argtypes = [p] * 6 + [i] * 7 + [p]
+        lib.bell_matvec_launch.argtypes = [p] * 5 + [i] * 3 + [p]
         lib.bell_matvec_launch.restype = i
         lib.bell_error_string.argtypes = [i]
         lib.bell_error_string.restype = ctypes.c_char_p

@@ -1,200 +1,145 @@
-// Kernel B5: the blocked-ELL SpMM y = (P A P^T) x of the device eigensolver
-// (geometry/eigen.py: every Chebyshev step and every rotate/apply stage).
+// Kernel B5: the sparse product y = (P A P^T) x of the device eigensolver
+// (geometry/eigen.py: every Chebyshev step and every rotate/apply stage), on
+// the sliced-ELL format of ops/blocked_ell.py.
 //
-// Replaces diffusionnet_tpu/ops/blocked_ell.py::_blocked_kernel (the Pallas
-// body `kernel` at blocked_ell.py:278, launched by pl.pallas_call at :331).
+// Replaces diffusionnet_tpu/ops/blocked_ell.py::_blocked_kernel (the planner
+// at blocked_ell.py:128, the Pallas body `kernel` at :278, launched by
+// pl.pallas_call at :331) and the COO overflow its wrapper adds at :365-367.
 //
-// The format (ops/blocked_ell.py): rows, in the RCM order, are cut into
-// groups of G (32 or 64) rows; group i stores up to NB dense (G x 128)
-// panels, and panel b multiplies the 128 x rows that start at
-// starts[t] + offs[i, b] (t = the group's row tile). The planner opens a
-// group's panels in order, so its used panels are the first nused[i]; the
-// rest are zero and skipped here.
+// The format: rows, in the RCM order, are cut into slices of 32; slice s
+// stores its w_s slots (w_s = its longest row) slot-major, so slot j of the
+// slice's 32 rows is cols[offsets[s] + 32 j + r] and vals[...] for r < 32.
+// A short row's padding slots hold its own index and 0.
 //
-// What the TPU kernel does: one core walks the row tiles in order, DMAs the
-// tile's whole x window (W x 128 lanes, ~3 MB at 1M vertices) into VMEM,
-// double-buffered by hand, and runs one MXU product per (group, panel)
-// against that window. What this kernel does instead: one CTA per (row
-// group, 32-column tile of x). CTAs run in no order on 132 SMs and each
-// owns its output rows, so there is no cross-CTA sum, no atomic, and the
-// result is deterministic. A CTA loops over its group's used panels; for
-// each it stages the panel (G x 128 f32) and the matching x slab (128 x 32)
-// into shared memory with cp.async, double-buffered over the panels, and
-// accumulates in registers with f32 FFMA (f32-accurate: the eigensolver's
-// wanted band has relative gaps ~1e-5, geometry/eigen.py). No whole window
-// is staged: each panel's x rows are read straight from device memory (the
-// iterate, at most a few tens of MB, stays in the 50 MB L2 across groups).
-// x rows at or past n_x read as zero, so x needs no padding to n_pad_x.
-// The CTAs of one group are adjacent in launch order, so a panel read from
-// device memory by the first column tile is found in L2 by the others.
+// What the TPU kernel does: one core walks the row tiles in order, DMAs a
+// whole x window into VMEM and runs one MXU product per (row group, dense
+// 128-column panel), because the TPU has a 128 x 128 matrix unit and no
+// fast gather. On this card the same panels cost 60-70x the arithmetic and
+// bytes the ~7 nonzeros a row need. So this kernel gathers x rows instead:
+// y[row] = sum over the row's slots j of vals * x[cols], per row, in
+// ascending j, with f32 FFMA, stored once. No atomics, no second pass, no
+// overflow: every output is summed by one thread in a fixed order, so the
+// result is the same bit for bit on every run.
 //
-// What bounds it on this card: the format stores NB * 128 = 1,024 slots per
-// row against ~7 nonzeros of a triangle-mesh Laplacian, so it streams the
-// panels' bytes (G x 128 x 4 B per used panel) and does their FLOPs
-// (2 x G x 128 x 32 per panel and column tile), some 50-140x what the
-// nonzeros need. Against the panels alone it is bound by shared-memory
-// loads: per k step a thread issues one 16-byte x load and G/16 panel
-// loads for 4 G/16 FMAs. The row scaling and masking of the Chebyshev step
-// (r x before, r y + eps r^2 x after, bound x on padded rows) stay outside,
-// as plain torch elementwise ops; the COO overflow is added outside too.
+// The mapping: one CTA per slice (32 rows) and per 40 column chunks of x
+// (a chunk is a float4, or one float on the scalar path). Each row gets 8
+// threads and each thread 5 chunks, lane + 8 i, so C = 160 (40 chunks, the
+// eigensolver's width at k = 128) keeps every lane busy, and the 8 lanes of
+// a row read one 128-byte line of an x row per load: a warp's load is four
+// whole lines. The CTA stages JB slots of its slice's columns and values in
+// shared memory with coalesced loads, then each thread walks them.
+//
+// What bounds it on this card: not device memory but the gather from L2 to
+// the SMs. The matrix (8 bytes a slot), x and y cross device memory once,
+// about 26 MB on torus(144, 140) and 130 MB on delaunay_sphere(100000) at
+// C = 160. But every row reads its ~7 neighbours' x rows, 7 V C 4 bytes
+// (450 MB on the Delaunay sphere), and these come from L2 (or L1). The RCM
+// order keeps a row's neighbours within a few hundred rows, and CTAs start
+// in slice order, so the slices in flight share their x rows in L2, and a
+// row's 8 lanes read whole lines. Two slices a CTA (64 rows, so that more
+// of a row's neighbours hit the SM's L1) measured 8% slower on the Delaunay
+// sphere and 10% on the torus (chip_compare.py, H100 80GB HBM3, 700 W), so
+// a CTA takes one slice.
+// The row scaling, eps term and mask of the Chebyshev step
+// (geometry/eigen.py::_scaled_matvec) stay outside, as plain torch
+// elementwise ops, as the JAX package has them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace bell {
 
-constexpr int NT = 128;      // threads per CTA
-constexpr int PW = 128;      // panel width: columns of A = rows of the x slab
-constexpr int CT = 32;       // output columns per CTA
-constexpr int LDA = PW + 4;  // row stride of a staged panel (floats):
-                             // the panel loads of a warp's four rows fall
-                             // in distinct banks
+constexpr int SR = 32;             // rows per slice
+constexpr int TPR = 8;             // threads per row
+constexpr int IPT = 5;             // column chunks per thread
+constexpr int CHUNKS = TPR * IPT;  // column chunks per CTA
+constexpr int JB = 16;             // slots staged per round
+constexpr int NT = SR * TPR;       // threads per CTA
 
 enum { BE_BAD_SHAPE = -1 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = valid ? 16 : 0;  // 0: nothing read, 16 zero bytes written
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-// one float, zero when !valid
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
-                                          bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// VEC: C a multiple of 4 and x, y 16-byte aligned, so x slabs move in
-// 16-byte chunks and y is stored as float4; else element by element.
-template <int G, bool VEC>
+// VEC: C a multiple of 4 and x, y 16-byte aligned, so a chunk is a float4;
+// else a chunk is one float.
+template <bool VEC>
 __global__ void __launch_bounds__(NT)
-    blocked_ell_kernel(const float* __restrict__ blocks,
-                       const int* __restrict__ offs,
-                       const int* __restrict__ starts,
-                       const int* __restrict__ nused,
-                       const float* __restrict__ x, float* __restrict__ y,
-                       int n_ct, int groups_per_tile, int nb, int n_x, int C) {
-  constexpr int EPC = 4;  // floats per 16-byte chunk
-  extern __shared__ float4 smem4[];
-  float* const sa0 = reinterpret_cast<float*>(smem4);
-  float* const sx0 = sa0 + 2 * G * LDA;
-  constexpr int RPT = G / 16;  // output rows per thread
+    sell_spmm_kernel(const int* __restrict__ cols,
+                     const float* __restrict__ vals,
+                     const int* __restrict__ offsets,
+                     const float* __restrict__ x, float* __restrict__ y,
+                     int C) {
+  constexpr int EPC = VEC ? 4 : 1;  // floats per chunk
+  __shared__ int s_col[JB * SR];
+  __shared__ float s_val[JB * SR];
 
-  const int tid = threadIdx.x;
-  const int gi = blockIdx.x / n_ct;        // row group
-  const int c0 = (blockIdx.x % n_ct) * CT;  // first output column
-  const int n_used = nused[gi];
-  const float* const gblocks = blocks + (size_t)gi * nb * G * PW;
-  const int* const goffs = offs + (size_t)gi * nb;
-  const int start = starts[gi / groups_per_tile];
-  const int cq = tid & 7;   // columns c0 + 4 cq .. + 3
-  const int rq = tid >> 3;  // rows rq + 16 i, i < RPT
+  const int t = threadIdx.x;
+  const int r = t / TPR, lane = t % TPR;
+  const int slice = blockIdx.x;
+  const int n_chunks = (C + EPC - 1) / EPC;
+  const int c0 = blockIdx.y * CHUNKS + lane;  // this thread's first chunk
+  const int off = offsets[slice];
+  const int width = (offsets[slice + 1] - off) / SR;
 
-  float acc[RPT][4];
+  float acc[IPT][EPC];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
+  for (int i = 0; i < IPT; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int e = 0; e < EPC; ++e) acc[i][e] = 0.f;
 
-  auto stage = [&](int b, int buf) {
-    const float* src = gblocks + (size_t)b * G * PW;
-    float* dA = sa0 + buf * G * LDA;
-    for (int ch = tid; ch < G * (PW / EPC); ch += NT) {
-      const int r = ch / (PW / EPC), k = ch % (PW / EPC) * EPC;
-      cp_async16(dA + r * LDA + k, src + r * PW + k, true);
-    }
-    const int row0 = start + goffs[b];
-    float* dX = sx0 + buf * PW * CT;
-    if constexpr (VEC) {
-      for (int ch = tid; ch < PW * (CT / EPC); ch += NT) {
-        const int k = ch / (CT / EPC), j = ch % (CT / EPC) * EPC;
-        const int row = row0 + k, col = c0 + j;
-        const bool ok = row < n_x && col < C;  // C % EPC == 0: whole chunks
-        cp_async16(dX + k * CT + j, ok ? x + (size_t)row * C + col : x, ok);
-      }
-    } else {
-      for (int e = tid; e < PW * CT; e += NT) {
-        const int k = e / CT, j = e % CT;
-        const int row = row0 + k, col = c0 + j;
-        const bool ok = row < n_x && col < C;
-        cp_async4(dX + k * CT + j, ok ? x + (size_t)row * C + col : x, ok);
-      }
-    }
-    cp_commit();
-  };
-
-  if (n_used > 0) stage(0, 0);
-  for (int b = 0; b < n_used; ++b) {
-    const int buf = b & 1;
-    if (b + 1 < n_used) {
-      stage(b + 1, buf ^ 1);  // buf ^ 1 was last read before the barrier
-      cp_wait<1>();           // closing iteration b - 1
-    } else {
-      cp_wait<0>();
+  // the slice's slots in rounds of JB, staged by coalesced loads
+  for (int j0 = 0; j0 < width; j0 += JB) {
+    const int jn = min(JB, width - j0);
+    __syncthreads();  // the previous round's reads are done
+    for (int e = t; e < jn * SR; e += NT) {
+      const size_t src = (size_t)off + (size_t)j0 * SR + e;
+      s_col[e] = __ldg(cols + src);
+      s_val[e] = __ldg(vals + src);
     }
     __syncthreads();
-    const float* A = sa0 + buf * G * LDA + rq * LDA;
-    const float* X = sx0 + buf * PW * CT + 4 * cq;
-#pragma unroll 8
-    for (int k = 0; k < PW; ++k) {
-      const float4 xv = *reinterpret_cast<const float4*>(X + k * CT);
+#pragma unroll 4
+    for (int j = 0; j < jn; ++j) {
+      const int col = s_col[j * SR + r];
+      const float a = s_val[j * SR + r];
+      const float* xr = x + (size_t)col * C;
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float a = A[16 * i * LDA + k];
-        acc[i][0] = fmaf(a, xv.x, acc[i][0]);
-        acc[i][1] = fmaf(a, xv.y, acc[i][1]);
-        acc[i][2] = fmaf(a, xv.z, acc[i][2]);
-        acc[i][3] = fmaf(a, xv.w, acc[i][3]);
+      for (int i = 0; i < IPT; ++i) {
+        const int ch = c0 + TPR * i;
+        if (ch < n_chunks) {
+          if constexpr (VEC) {
+            const float4 v = __ldg(reinterpret_cast<const float4*>(xr) + ch);
+            acc[i][0] = fmaf(a, v.x, acc[i][0]);
+            acc[i][1] = fmaf(a, v.y, acc[i][1]);
+            acc[i][2] = fmaf(a, v.z, acc[i][2]);
+            acc[i][3] = fmaf(a, v.w, acc[i][3]);
+          } else {
+            acc[i][0] = fmaf(a, __ldg(xr + ch), acc[i][0]);
+          }
+        }
       }
     }
-    __syncthreads();
   }
-
-  // every row of the group and every column is written, zero where the
-  // group has no panel
-  const int col = c0 + 4 * cq;
+  float* yr = y + ((size_t)slice * SR + r) * C;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const size_t row = (size_t)gi * G + rq + 16 * i;
-    float* dst = y + row * C + col;
-    if constexpr (VEC) {  // C % 4 == 0: col < C means col + 3 < C
-      if (col < C)
-        *reinterpret_cast<float4*>(dst) =
+  for (int i = 0; i < IPT; ++i) {
+    const int ch = c0 + TPR * i;
+    if (ch < n_chunks) {
+      if constexpr (VEC)
+        reinterpret_cast<float4*>(yr)[ch] =
             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (col + j < C) dst[j] = acc[i][j];
+      else
+        yr[ch] = acc[i][0];
     }
   }
 }
 
-template <int G, bool VEC>
-int launch(const float* blocks, const int* offs, const int* starts,
-           const int* nused, const float* x, float* y, int n_groups,
-           int groups_per_tile, int nb, int n_x, int C, cudaStream_t stream) {
-  const size_t smem = (size_t)2 * (G * LDA + PW * CT) * sizeof(float);
-  auto kernel = blocked_ell_kernel<G, VEC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_ct = (C + CT - 1) / CT;
-  kernel<<<dim3((unsigned)n_groups * n_ct), NT, smem, stream>>>(
-      blocks, offs, starts, nused, x, y, n_ct, groups_per_tile, nb, n_x, C);
+template <bool VEC>
+int launch(const int* cols, const float* vals, const int* offsets,
+           const float* x, float* y, int n_slices, int C,
+           cudaStream_t stream) {
+  const int n_chunks = VEC ? C / 4 : C;
+  const dim3 grid((unsigned)n_slices,
+                  (unsigned)((n_chunks + CHUNKS - 1) / CHUNKS));
+  sell_spmm_kernel<VEC><<<grid, NT, 0, stream>>>(cols, vals, offsets, x, y,
+                                                  C);
   return (int)cudaGetLastError();
 }
 
@@ -202,32 +147,20 @@ int launch(const float* blocks, const int* offs, const int* starts,
 
 extern "C" {
 
-// y (n_groups * G, C) = the panels times x (n_x, C), all row-major f32.
-// blocks (n_groups, nb, G, 128); offs (n_groups, nb) and nused (n_groups,)
-// int32; starts (n_groups / groups_per_tile,) int32. vec: the caller found
-// C a multiple of 4 and x, y 16-byte aligned.
-int bell_matvec_launch(const float* blocks, const int* offs,
-                       const int* starts, const int* nused, const float* x,
-                       float* y, int n_groups, int groups_per_tile, int G,
-                       int nb, int n_x, int C, int vec, void* stream) {
+// y (n_slices * 32, C) = the sliced-ELL matrix times x (n_slices * 32, C),
+// both row-major f32. cols, vals: the slots; offsets (n_slices + 1,) int32.
+// vec: the caller found C a multiple of 4 and x, y 16-byte aligned.
+int bell_matvec_launch(const int* cols, const float* vals, const int* offsets,
+                       const float* x, float* y, int n_slices, int C, int vec,
+                       void* stream) {
   using namespace bell;
-  if (n_groups < 1 || groups_per_tile < 1 || nb < 1 || n_x < 1 || C < 1 ||
-      n_groups % groups_per_tile != 0 || (long long)n_groups * G > INT32_MAX)
+  if (n_slices < 1 || C < 1 || (long long)n_slices * SR > INT32_MAX ||
+      (vec && C % 4 != 0))
     return BE_BAD_SHAPE;
-  if ((long long)n_groups * ((C + CT - 1) / CT) > INT32_MAX)
-    return BE_BAD_SHAPE;
+  if (((vec ? C / 4 : C) + CHUNKS - 1) / CHUNKS > 65535) return BE_BAD_SHAPE;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (G == 32)
-    return vec ? launch<32, true>(blocks, offs, starts, nused, x, y, n_groups,
-                                  groups_per_tile, nb, n_x, C, s)
-               : launch<32, false>(blocks, offs, starts, nused, x, y,
-                                   n_groups, groups_per_tile, nb, n_x, C, s);
-  if (G == 64)
-    return vec ? launch<64, true>(blocks, offs, starts, nused, x, y, n_groups,
-                                  groups_per_tile, nb, n_x, C, s)
-               : launch<64, false>(blocks, offs, starts, nused, x, y,
-                                   n_groups, groups_per_tile, nb, n_x, C, s);
-  return BE_BAD_SHAPE;
+  return vec ? launch<true>(cols, vals, offsets, x, y, n_slices, C, s)
+             : launch<false>(cols, vals, offsets, x, y, n_slices, C, s);
 }
 
 const char* bell_error_string(int code) {

@@ -346,19 +346,60 @@ __global__ void __launch_bounds__(NT, 1) megablock_fwd_kernel(const Args p) {
   }
 }
 
-// x_hat_next[b][k][c] = sum over s of partial[b, s, k, c] in the order
-// s = 0, 1, ...; partial slots are (MAX_KC, MAX_KC).
-__global__ void xhat_reduce_kernel(const float* __restrict__ partial,
-                                   float* __restrict__ out, int B, int nsplit,
-                                   int K, int C) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * K * C) return;
-  const int b = i / (K * C), k = (i / C) % K, c = i % C;
-  const float* src =
-      partial + (size_t)b * nsplit * MAX_KC * MAX_KC + k * MAX_KC + c;
-  float acc = 0.f;
-  for (int s = 0; s < nsplit; ++s) acc += src[(size_t)s * MAX_KC * MAX_KC];
-  out[i] = acc;
+// x_hat_next[b][k][c] = sum over s of partial[b, s, k, c], partial slots
+// (MAX_KC, MAX_KC) of which the (K, C) corner is used. Replaces the TPU
+// kernel's in-VMEM carry of x_hat across its sequential grid
+// (pallas_megablock.py:305); torch.sum of the slots is the library yardstick.
+//
+// The order, fixed and the same in ops/megablock.py::xhat_reduce_reference:
+// the S slots are cut into XR_CHUNKS chunks of L = ceil(S / XR_CHUNKS)
+// consecutive slots (the last ones may be short or empty); each chunk is
+// summed from +0 in ascending s, and the chunk sums are added from +0 in
+// ascending chunk order. No atomics: the result is the same bit for bit on
+// every run, and equal to the plain version's.
+//
+// What bounds it: the S (K, C) slots, read once (8.7 MB at S = 132,
+// K = C = 128, from L2 when the kernel that wrote them has just run). One
+// CTA per (batch element, row k, 64 columns): 256 CTAs at B = 1, K = C =
+// 128, over 132 SMs. Its 256 threads are 16 chunks x 16 float4 columns, so
+// each thread issues L independent 16-byte loads, a warp reading two whole
+// 256-byte slot rows per load; the 16 chunk sums of each column meet in
+// shared memory, and 64 threads add them in order and store 64 floats.
+constexpr int XR_CHUNKS = 16;
+constexpr int XR_COLS = 64;  // columns per CTA
+
+__global__ void __launch_bounds__(XR_CHUNKS * XR_COLS / 4)
+    xhat_reduce_kernel(const float* __restrict__ partial,
+                       float* __restrict__ out, int nsplit, int K, int C) {
+  __shared__ float4 part[XR_CHUNKS][XR_COLS / 4];
+  const int f = threadIdx.x % (XR_COLS / 4);  // float4 column in the tile
+  const int g = threadIdx.x / (XR_COLS / 4);  // chunk
+  const int k = blockIdx.y, b = blockIdx.z;
+  const int c0 = blockIdx.x * XR_COLS;
+  const int len = (nsplit + XR_CHUNKS - 1) / XR_CHUNKS;
+  const int s0 = g * len;
+  const int s1 = min(nsplit, s0 + len);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (c0 + 4 * f < C) {  // c0 + 4 f + 3 < MAX_KC: the slot row holds it
+    const float4* src = reinterpret_cast<const float4*>(
+        partial + ((size_t)b * nsplit * MAX_KC + k) * MAX_KC + c0) + f;
+    constexpr size_t stride = (size_t)MAX_KC * MAX_KC / 4;
+#pragma unroll 4
+    for (int s = s0; s < s1; ++s) {
+      const float4 v = __ldg(src + (size_t)s * stride);
+      acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
+    }
+  }
+  part[g][f] = acc;
+  __syncthreads();
+  const int q = threadIdx.x;
+  if (q < XR_COLS && c0 + q < C) {
+    const float* p = reinterpret_cast<const float*>(&part[0][0]) + q;
+    float tot = 0.f;
+#pragma unroll
+    for (int h = 0; h < XR_CHUNKS; ++h) tot += p[h * XR_COLS];
+    out[((size_t)b * K + k) * C + c0 + q] = tot;
+  }
 }
 
 size_t smem_bytes(int ldc, int ldp) {
@@ -436,16 +477,18 @@ int mb_fwd_launch(const void* x, const void* evecs, const void* gx,
   return (int)cudaGetLastError();
 }
 
-// partial: (B, nsplit, MAX_KC, MAX_KC) slots; out: (B, K, C).
+// partial: (B, nsplit, MAX_KC, MAX_KC) slots, 16-byte aligned; out:
+// (B, K, C).
 int mb_xhat_reduce_launch(const void* partial, void* out, int B, int nsplit,
                           int K, int C, void* stream) {
-  if (B < 1 || nsplit < 1 || K < 1 || K > MAX_KC || C < 1 || C > MAX_KC)
+  if (B < 1 || B > 65535 || nsplit < 1 || K < 1 || K > MAX_KC || C < 1 ||
+      C > MAX_KC)
     return MB_BAD_SHAPE;
-  const int threads = 256;
-  const int blocks = (B * K * C + threads - 1) / threads;
-  xhat_reduce_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(partial), static_cast<float*>(out), B, nsplit,
-      K, C);
+  const dim3 grid((C + XR_COLS - 1) / XR_COLS, K, B);
+  xhat_reduce_kernel<<<grid, XR_CHUNKS * XR_COLS / 4, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), nsplit, K,
+      C);
   return (int)cudaGetLastError();
 }
 

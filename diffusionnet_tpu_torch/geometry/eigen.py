@@ -20,9 +20,11 @@ The counterpart of diffusionnet_tpu/geometry/eigen.py. Two paths:
     One outer iteration is four device stages with host (n, n) float64
     factorizations between them (`_split_sweep`): only (n, n) matrices
     cross to the host, the (V, n) blocks stay on the device. The SpMM is
-    kernel B5 (ops/blocked_ell.py) on a CUDA device, or the ELL gather
-    (ops/sparse.py::ell_matvec) when the panels exceed the memory budget;
-    on the CPU the ELL gather is the default, as in the JAX package. A
+    kernel B5 on the sliced-ELL format (ops/blocked_ell.py: the JAX
+    package's RCM order and row padding, about 8 bytes a nonzero) on a
+    CUDA device, or the ELL gather (ops/sparse.py::ell_matvec) when the
+    format exceeds the memory budget; on the CPU the ELL gather is the
+    default, as in the JAX package. A
     basis that does not converge, or that the f64 certification rejects,
     raises EigenSolveNotConverged, and compute_operators falls back to
     host ARPACK, as in the JAX package.
@@ -414,7 +416,7 @@ def _mv_ell(L_idx, L_val, inv_sqrt_m, mask, bound, eps, col_chunk=None):
 
 
 def _mv_blocked(b, inv_sqrt_m, mask, bound, eps):
-    """C x on the blocked-ELL SpMM (kernel B5 on a CUDA device), in the
+    """C x on the sliced-ELL SpMM (kernel B5 on a CUDA device), in the
     RCM-permuted, tile-padded row order."""
     from ..ops.blocked_ell import blocked_ell_matvec
     return _scaled_matvec(lambda x: blocked_ell_matvec(b, x), inv_sqrt_m,
@@ -529,10 +531,11 @@ def _converge(sweep_fn, X, lo0: float, k_eig: int, eps: float, tol: float,
 
 
 def _format_budget(V: int, n_cols: int, device: torch.device) -> int:
-    """Bytes the blocked-ELL panels may take. On a CUDA device: 80% of the
-    free memory less twelve (V, n_cols) f32 blocks (the recurrence's three
-    and the matvec's temporaries). Elsewhere the JAX package's figure for
-    a 16 GB chip."""
+    """Bytes the sliced-ELL format may take (8 bytes a slot, about 1.4
+    slots a nonzero on a Delaunay mesh: some 8 MB at 100k vertices). On a
+    CUDA device: 80% of the free memory less twelve (V, n_cols) f32 blocks
+    (the recurrence's three and the matvec's temporaries). Elsewhere the
+    JAX package's figure for a 16 GB chip."""
     block = V * n_cols * 4
     if device.type == "cuda":
         free, _ = torch.cuda.mem_get_info(device)
@@ -570,9 +573,9 @@ def eigensolve_device(L_ell: Ell, massvec, k_eig: int,
     lambda_cut), rounded up to a multiple of 32). seed: the start block
     X0 ~ N(0, 1) comes from a torch.Generator seeded with it (not the JAX
     package's bits). banded: operator format. None: on a CUDA device the
-    blocked-ELL SpMM (kernel B5), or the ELL gather when the panels exceed
+    sliced-ELL SpMM (kernel B5), or the ELL gather when the format exceeds
     the memory budget; on the CPU the ELL gather. 'blocked' requires the
-    blocked format (its plain version on the CPU) and raises if it does
+    sliced format (its plain version on the CPU) and raises if it does
     not fit; False forces the ELL gather; True and 'dia' (the dense band,
     DIA) are not ported (ROADMAP item A.8). timings: optional dict of wall
     seconds per stage (eigen_band_build, eigen_sweeps, eigen_polish,
@@ -634,8 +637,8 @@ def eigensolve_device(L_ell: Ell, massvec, k_eig: int,
                 perm=rcm_permutation(L_host), device=dev)
         _mark("eigen_band_build", t0)
         if blocked_rep is None and banded == "blocked":
-            raise RuntimeError("banded='blocked' but the blocked-ELL panels "
-                               "exceed the memory budget")
+            raise RuntimeError("banded='blocked' but the sliced-ELL format "
+                               "exceeds the memory budget")
 
     if blocked_rep is not None:
         name = "eigensolve_device[blocked]"

@@ -255,14 +255,30 @@ def relu_margin(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs, x_hat_in,
     return out if out is not None else torch.ones_like(mass)
 
 
+XR_CHUNKS = 16  # chunks of the x_hat partial sum (XR_CHUNKS in the kernel)
+
+
 def xhat_reduce_reference(partial: torch.Tensor, K: int, C: int
                           ) -> torch.Tensor:
     """Plain version of the partial-sum kernel: the (K, C) corners of the
-    per-CTA slots (B, S, SLOT, SLOT), summed in the kernel's order s = 0, 1,
-    ... -> (B, K, C)."""
-    out = partial[:, 0, :K, :C].clone()
-    for s in range(1, partial.shape[1]):
-        out += partial[:, s, :K, :C]
+    per-CTA slots (B, S, SLOT, SLOT) -> (B, K, C), in the kernel's order:
+    the S slots cut into XR_CHUNKS chunks of L = ceil(S / XR_CHUNKS)
+    consecutive slots (the last ones short or empty), each chunk summed from
+    +0 in ascending s, then the chunk sums added from +0 in ascending chunk
+    order. The empty tail is summed as zeros, which leaves every sum as it
+    is (a sum from +0 is never -0), so on the card this equals the kernel
+    bit for bit."""
+    B, S = partial.shape[:2]
+    L = -(-S // XR_CHUNKS)
+    p = partial[:, :, :K, :C]
+    p = torch.cat([p, p.new_zeros((B, XR_CHUNKS * L - S, K, C))], dim=1)
+    p = p.view(B, XR_CHUNKS, L, K, C)
+    chunk = p.new_zeros((B, XR_CHUNKS, K, C))
+    for j in range(L):
+        chunk += p[:, :, j]
+    out = p.new_zeros((B, K, C))
+    for g in range(XR_CHUNKS):
+        out += chunk[:, g]
     return out
 
 
@@ -321,13 +337,16 @@ def _up(n: int, m: int) -> int:
 
 def xhat_reduce(partial: torch.Tensor, K: int, C: int) -> torch.Tensor:
     """Sum per-CTA x_hat partials, slots (B, S, SLOT, SLOT) of which the
-    (K, C) corner is used, -> (B, K, C) in a fixed order."""
+    (K, C) corner is used, -> (B, K, C) in the fixed order that
+    `xhat_reduce_reference` states (bit-equal to it on the card)."""
     if partial.device.type == "cpu":
         return xhat_reduce_reference(partial, K, C)
     _check(partial.device.type == "cuda", f"unsupported device {partial.device}")
     _check(partial.dtype == torch.float32 and partial.ndim == 4
-           and partial.shape[2:] == (SLOT, SLOT) and partial.is_contiguous(),
-           f"partial must be contiguous f32 (B,S,{SLOT},{SLOT})")
+           and partial.shape[2:] == (SLOT, SLOT) and partial.is_contiguous()
+           and partial.data_ptr() % 16 == 0,
+           f"partial must be contiguous, 16-byte aligned f32 "
+           f"(B,S,{SLOT},{SLOT})")
     _check(1 <= K <= SLOT and 1 <= C <= SLOT, f"K={K}, C={C} past {SLOT}")
     from .. import _build
     lib = _build.load()

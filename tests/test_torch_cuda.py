@@ -221,7 +221,7 @@ def test_dropout_and_backward_refusals(cuda):
     assert all(v == 0 for v in mb.LAUNCHES.values())
 
 
-# --- B5: the blocked-ELL SpMM (csrc/blocked_ell.cu) --------------------------
+# --- B5: the sliced-ELL SpMM (csrc/blocked_ell.cu) --------------------------
 
 def _torus_laplacian(with_mass=False):
     """The cotan Laplacian of torus(40, 30) (numpy and scipy only, so the
@@ -237,20 +237,39 @@ def _torus_laplacian(with_mass=False):
     return (L, vertex_areas(v, f)) if with_mass else L
 
 
+def _hub_matrix(V=700, hub=600):
+    """A symmetric matrix with one hub row of degree > hub (a slice that
+    wide), a path through the rows after it, and 60 empty rows (numpy and
+    scipy only; tests/test_torch_blocked_ell.py uses it too)."""
+    import scipy.sparse
+    rs = np.random.RandomState(0)
+    nbrs = rs.choice(np.arange(1, V - 60), hub, replace=False)
+    path = np.arange(1, V - 60)
+    r = np.concatenate([np.zeros(hub, np.int64), path[:-1]])
+    c = np.concatenate([nbrs, path[1:]])
+    A = scipy.sparse.coo_matrix((rs.rand(r.size) + 0.1, (r, c)),
+                                shape=(V, V))
+    A = A + A.T
+    return scipy.sparse.csr_matrix(
+        scipy.sparse.diags(np.asarray(A.sum(1)).ravel()) - A)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb,G,C", [(8, 32, 160), (8, 64, 96), (2, 32, 96),
-                                    (8, 32, 18), (8, 32, 150), (8, 64, 100)],
-                         ids=["C160", "G64", "overflow", "ragged-C",
-                              "ragged-C150", "C100-G64"])
-def test_blocked_ell_kernel_matches_plain(cuda, nb, G, C):
+@pytest.mark.parametrize("mat,C", [
+    ("torus", 160), ("torus", 96), ("torus", 18), ("torus", 150),
+    ("torus", 100), ("torus", 1), ("torus", 328), ("hub", 97), ("hub", 160)],
+    ids=["C160", "C96", "ragged-C18", "ragged-C150", "C100", "C1", "C328",
+         "hub-C97", "hub-C160"])
+def test_blocked_ell_kernel_matches_plain(cuda, mat, C):
     """B5 against its plain version within 5e-6 of max |plain| (f32 sums of
-    the same products in another order); padded rows exactly 0; one launch.
-    C=18 and C=150 take the kernel's element-by-element path, C=100 the
-    16-byte path with a partial last column tile."""
+    the same products, FMA against multiply-add); padded rows exactly 0;
+    one launch; a second launch bit-identical. C=18, 150, 1 and 97 take the
+    kernel's scalar path, C=96 and 100 the float4 path with idle lanes,
+    C=328 two column tiles; the hub matrix has a slice over 500 slots wide
+    and rows with no entries."""
     from diffusionnet_tpu_torch.ops import blocked_ell as be
-    L = _torus_laplacian()
-    b = be.blocked_ell_from_sparse(L, group_rows=G, tile_rows=256, nb=nb,
-                                   device=cuda)
+    L = _torus_laplacian() if mat == "torus" else _hub_matrix()
+    b = be.blocked_ell_from_sparse(L, tile_rows=256, device=cuda)
     V = L.shape[0]
     g = torch.Generator(device=cuda).manual_seed(C)
     x = torch.zeros(b.n_pad, C, device=cuda)
@@ -259,6 +278,7 @@ def test_blocked_ell_kernel_matches_plain(cuda, nb, G, C):
     y = be.blocked_ell_matvec(b, x)
     torch.cuda.synchronize()
     assert be.LAUNCHES == {"blocked_ell": 1}
+    assert torch.equal(y, be.blocked_ell_matvec(b, x))
     ref = be.blocked_ell_matvec_reference(b, x)
     scale = ref.abs().max().item()
     assert (y - ref).abs().max().item() <= 5e-6 * scale
@@ -267,8 +287,9 @@ def test_blocked_ell_kernel_matches_plain(cuda, nb, G, C):
 
 @pytest.mark.cuda
 def test_blocked_ell_kernel_refusals(cuda):
-    """An f64 or f16 x, an f64 format, a non-contiguous x and a format on
-    another device are refused before any launch."""
+    """An f64 or f16 x, an f64 format, a non-contiguous x, an x of other
+    rows than n_pad and a format on another device are refused before any
+    launch."""
     from diffusionnet_tpu_torch.ops import blocked_ell as be
     b = be.blocked_ell_from_sparse(_torus_laplacian(), device=cuda)
     x = torch.zeros(b.n_pad, 32, device=cuda)
@@ -278,13 +299,33 @@ def test_blocked_ell_kernel_refusals(cuda):
     with pytest.raises(ValueError, match="contiguous f32"):
         be.blocked_ell_matvec(b, x.half())
     with pytest.raises(ValueError, match="must be f32"):
-        be.blocked_ell_matvec(b._replace(blocks=b.blocks.double()), x)
+        be.blocked_ell_matvec(b._replace(vals=b.vals.double()), x)
     with pytest.raises(ValueError, match="contiguous"):
         be.blocked_ell_matvec(b, torch.zeros(32, b.n_pad, device=cuda).T)
-    cpu_fmt = b._replace(blocks=b.blocks.cpu())
+    with pytest.raises(ValueError, match="expected"):
+        be.blocked_ell_matvec(b, x[:-32])
+    cpu_fmt = b._replace(cols=b.cols.cpu())
     with pytest.raises(ValueError, match="different devices"):
         be.blocked_ell_matvec(cpu_fmt, x)
     assert be.LAUNCHES == {"blocked_ell": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,K,C", [(1, 132, 128, 128), (8, 16, 128, 128),
+                                     (2, 37, 24, 10), (3, 5, 128, 72)])
+def test_xhat_reduce_bit_equal_to_plain(cuda, B, S, K, C):
+    """The partial-sum kernel equals its plain version bit for bit (the
+    same f32 additions in the same order), and itself across launches."""
+    g = torch.Generator(device=cuda).manual_seed(S)
+    partial = torch.randn(B, S, mb.SLOT, mb.SLOT, generator=g, device=cuda)
+    mb.reset_launches()
+    got = mb.xhat_reduce(partial, K, C)
+    again = mb.xhat_reduce(partial, K, C)
+    torch.cuda.synchronize()
+    assert mb.LAUNCHES["xhat_reduce"] == 2
+    assert got.shape == (B, K, C)
+    assert torch.equal(got, again)
+    assert torch.equal(got, mb.xhat_reduce_reference(partial, K, C))
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """The port's device eigensolver (geometry/eigen.py::eigensolve_device) on
 the CPU against the JAX package's and against host ARPACK.
 
-Routes: the blocked-ELL SpMM (B5's plain version here) and the ELL gather.
+Routes: the sliced-ELL SpMM (B5's plain version here; the JAX package's
+blocked-ELL panels on its side) and the ELL gather.
 Tolerances: eigenvalues within 1e-6 of the largest, relative; M-weighted
 principal angles on a cluster-closed cut within 1e-8 (both after the f64
 polish, as tests/test_blocked_ell.py holds the JAX solver); one sweep fed
@@ -97,9 +98,9 @@ def test_one_sweep_same_start_block_matches_jax(ico4, route):
     if route == "blocked":
         b = tbe.blocked_ell_from_sparse(L, device="cpu")
         jb = jbe.blocked_ell_from_sparse(L, device=False,
-                                         group_rows=b.group_rows,
                                          tile_rows=b.tile_rows, perm=b.perm)
         n = b.n_pad
+        assert n == jb.n_pad
         imp = np.zeros(n, np.float32)
         imp[:V] = ism[b.perm]
         mkp = np.zeros(n, bool)

@@ -100,7 +100,8 @@ def test_plain_b1_general_mlp_depth():
 
 
 def test_xhat_reduce_plain_sums_partials_in_order():
-    """The (K, C) corners of the per-CTA slots, summed s = 0, 1, ..."""
+    """The (K, C) corners of the per-CTA slots; with no more slots than
+    chunks each chunk holds one slot, so the sum runs s = 0, 1, ..."""
     rs = np.random.RandomState(2)
     part = torch.from_numpy(
         rs.randn(2, 5, mb.SLOT, mb.SLOT).astype(np.float32))
@@ -110,6 +111,34 @@ def test_xhat_reduce_plain_sums_partials_in_order():
         want = want + part[:, s, :4, :3]
     assert got.shape == (2, 4, 3) and torch.equal(got, want)
     assert mb.LAUNCHES["xhat_reduce"] == 0
+
+
+@pytest.mark.parametrize("S", [132, 16, 37])
+def test_xhat_reduce_reference_follows_documented_order(S):
+    """The plain version (the CPU route of xhat_reduce) is bit-equal to a
+    numpy loop in the documented order: XR_CHUNKS chunks of
+    ceil(S / XR_CHUNKS) consecutive slots, each summed from +0 in ascending
+    s, then the chunk sums added from +0 in chunk order. Past XR_CHUNKS
+    slots that order differs from one pass over s."""
+    rs = np.random.RandomState(S)
+    B, K, C = 2, 24, 10
+    part = rs.randn(B, S, mb.SLOT, mb.SLOT).astype(np.float32)
+    L = -(-S // mb.XR_CHUNKS)
+    want = np.zeros((B, K, C), np.float32)
+    for g in range(mb.XR_CHUNKS):
+        acc = np.zeros((B, K, C), np.float32)
+        for s in range(g * L, min(S, (g + 1) * L)):
+            acc = acc + part[:, s, :K, :C]
+        want = want + acc
+    mb.reset_launches()
+    got = mb.xhat_reduce(torch.from_numpy(part), K, C)
+    assert mb.LAUNCHES["xhat_reduce"] == 0
+    assert got.shape == (B, K, C) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    one_pass = np.zeros((B, K, C), np.float32)
+    for s in range(S):
+        one_pass = one_pass + part[:, s, :K, :C]
+    assert np.array_equal(one_pass, want) == (S <= mb.XR_CHUNKS)
 
 
 @pytest.mark.parametrize("shape,padded", [((384, 128), (384, 128)),
