@@ -1,15 +1,27 @@
 #!/usr/bin/env python3
-"""Times the PyTorch port's kernel B5 (the sliced-ELL SpMM), its x_hat
-partial sum `xhat_reduce` and the device eigensolver's sweeps, for the
-package of a given tree, on one CUDA card.
+"""Times kernels of the PyTorch port for the package of a given tree, on one
+CUDA card.
 
-    python3 chip_compare.py [TREE]
+    python3 chip_compare.py [--block] [TREE]
 
 TREE (default: this checkout) is a directory that holds a
 diffusionnet_tpu_torch package, such as an unpacked `git archive` of another
 commit; its package is imported in place of this checkout's, and its
 kernels are built there. To compare two trees, run both on one card in
-turns (A, B, B, A): each run prints one JSON line. Measured, on the card:
+turns (A, B, B, A): each run prints one JSON line. Measured, on the card,
+with --block (the block kernels and the train step they carry):
+
+  * B1 (megablock_chained_fwd, emit_next) and B2 (megablock_chained_bwd,
+    emit_next) at K = C = 128, hidden [128, 128], B=1, V=32768 and B=8,
+    V=20480, f32 and bf16 operands (chip_smoke.time_ms); where the tree's
+    B2 is two kernels (megablock_bwd_rows, megablock_bwd_grads), each of
+    them and the three partial sums of its partials, beside the bounds of
+    chip_smoke.b2_bounds;
+  * the train step at bench.py's shapes (chip_smoke.phase_step_times,
+    without its profile), f32 and bf16 operands, on torus(144, 140)'s
+    operators from the host eigensolver, cached under build/dev/.
+
+Without --block:
 
   * B5 at C = 160 on the cotan Laplacians of torus(144, 140) and
     delaunay_sphere(100000): device time (chip_smoke.device_ms) and CUDA
@@ -34,13 +46,67 @@ import numpy as np
 import torch
 
 
+def block_times(cs, out):
+    """B1, B2 (and B2's kernels where the tree has them) and the bench-shape
+    train step, into `out`."""
+    from diffusionnet_tpu_torch.geometry import operators as ops_mod
+    from diffusionnet_tpu_torch.ops import megablock as mb
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    widths = (384, 128, 128, 128)
+    split = hasattr(mb, "megablock_bwd_rows")
+    for B, V in ((1, 32768), (cs.BENCH_B, cs.BENCH_V)):
+        for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            lowp = kind == "bf16"
+            args = cs.block_inputs(B, V, 128, 128, (128, 128), dtype, seed=B)
+            g = torch.Generator(device="cuda").manual_seed(3)
+            dout = torch.randn(B, V, 128, generator=g, device="cuda").to(dtype)
+            dxn = torch.randn(B, 128, 128, generator=g, device="cuda")
+            r = dict(
+                b1_ms=cs.time_ms(lambda: mb.megablock_chained_fwd(
+                    *args, emit_next=True, lowp=lowp)),
+                b2_ms=cs.time_ms(lambda: mb.megablock_chained_bwd(
+                    *args, dout, dxn, lowp=lowp)))
+            if split:
+                _, R, dbp = mb.megablock_bwd_rows(*args, dout, dxn, lowp=lowp)
+                sp = mb.grads_splits(B, V, 128, 128, widths, sms)
+                pp, pd = mb.megablock_bwd_grads(R, *args[1:4], 128, widths,
+                                                sp, lowp)
+                rb, gb = cs.b2_bounds(B, V, 128, 128, widths, lowp)
+                r.update(
+                    rows_ms=cs.time_ms(lambda: mb.megablock_bwd_rows(
+                        *args, dout, dxn, lowp=lowp)),
+                    grads_ms=cs.time_ms(lambda: mb.megablock_bwd_grads(
+                        R, *args[1:4], 128, widths, sp, lowp)),
+                    sums_device_ms=cs.device_ms(lambda: (
+                        mb.grad_reduce(pd, 0, 128 * 128),
+                        mb.grad_reduce(pp.unsqueeze(0), 0, pp.shape[1]),
+                        mb.grad_reduce(dbp.unsqueeze(0), 0, dbp.shape[1]))),
+                    rows_bound_ms=rb[0], grads_bound_ms=gb[0], splits=sp)
+                del R, dbp, pp, pd
+            out[f"block B={B} V={V} {kind}"] = r
+            del args, dout, dxn
+    mg = cs.meshgen()
+    verts, faces = mg.torus(n_major=144, n_minor=140)
+    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "dev", "compare_cache")
+    torus_ops = ops_mod.get_operators(verts, faces, k_eig=cs.K_EIG,
+                                      op_cache_dir=cache,
+                                      eigensolver="host")
+    steps = cs.phase_step_times(mb, out["card"], torus_ops, verts,
+                                profiled=False)
+    out["train step ms"] = steps
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_compare: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
     here = os.path.dirname(os.path.abspath(__file__))
-    tree = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else here)
+    argv = sys.argv[1:]
+    block = "--block" in argv
+    argv = [a for a in argv if a != "--block"]
+    tree = os.path.abspath(argv[0] if argv else here)
     import chip_smoke as cs        # this checkout's, whatever the tree
     sys.path.insert(0, tree)       # the tree's package before this one's
     import scipy.sparse
@@ -54,6 +120,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     out = {"tree": tree, "card": cs.card_line()}
+    if block:
+        block_times(cs, out)
+        print(json.dumps(out), flush=True)
+        return 0
     for name, (v, f) in cs.b5_meshes():
         L = cotan_laplacian(v, f, denom_eps=1e-10)
         V, C = L.shape[0], cs.C_SUBSPACE

@@ -8,7 +8,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. device: a CUDA card must be present; prints its name and power limit;
   2. build: compiles the hand-written kernels from csrc/ with nvcc;
   3. kernels against their plain PyTorch versions, at the full width of the
-     segmentation model (B=2, V=32768, K=128, C=128, hidden [128, 128]) and
+     segmentation model (B=2, V=32768, K=128, C=128, hidden [128, 128]), of
+     the sampling_invariance model (B=1, V=32768, C=256, hidden [256, 256],
+     K 128 and 256: B1 on 16-row tiles, x_hat_next in 128 x 128 pieces) and
      at a small ragged shape, f32 and bf16 operands, emit_next on and off;
      the x_hat partial sum bit-equal to its plain version at (1, SMs, 128,
      128) and (8, 16, 128, 128), and timed there beside torch.sum;
@@ -21,18 +23,27 @@ Phases, in order; any failure raises and the script exits non-zero:
   6. B1 with dropout against its plain version (B=2, V=32768, tile_v 2048
      and 1024, f32 and bf16), and with all-ones inputs, where the kept
      pattern must equal the plain masks exactly;
-  7. B2 (the block's backward) and its partial-sum kernel against the plain
-     backward, at full width and at a small ragged shape, f32 and bf16,
-     emit_next on and off, dropout on and off;
+  7. B2 (the block's backward: the rows kernel, the grads kernel and the
+     partial sums) against the plain backward, at full width and at a small
+     ragged shape, f32 and bf16, emit_next on and off, dropout on and off;
+     then each of B2's two kernels against its own plain version at B=1,
+     V=32768, K=128, C=128 and 256, f32 and bf16, with dropout (ReLU-tie
+     rows given zero cotangent), each bit-identical over two launches, and
+     the fixed-order sums of the grads kernel's partials bit-equal to the
+     plain sums;
   8. the training slice: 5 Adam steps of the segmentation model (dropout
      on) on a SurfaceDataset of four synthetic meshes, batch 4, through
      apply_model on the megakernel path; the counters must show 4 B1 and 4
-     B2 launches per step; then one step with dropout off through the fast
+     B2 launches (rows and grads) per step; then one step with dropout off
+     through the fast
      path and through the eager model with autograd, from the same state,
      must agree in loss, every gradient and the updated parameters;
-  9. times: B2 against its plain backward, B1's dropout cost, and the
-     whole train step at bench.py's shapes (B=8, V=20480, f32 and bf16
-     operands), with a profiler breakdown averaged over three steps;
+  9. times: B2 against its plain backward, and its rows kernel, grads
+     kernel and partial sums each beside its plain version and bound, B1's
+     dropout cost, B1 and B2 at C = 256 (K 128 and 256), and the whole
+     train step at bench.py's shapes (B=8, V=20480, f32 and bf16
+     operands) with its peak memory and a profiler breakdown averaged over
+     three steps;
  10. B5 (the sliced-ELL SpMM of the device eigensolver) against its plain
      version, and bit-identical over two launches, on the cotan Laplacians
      of torus(144, 140) and delaunay_sphere(100_000) and on a matrix with
@@ -76,7 +87,13 @@ Phases, in order; any failure raises and the script exits non-zero:
  15. times: B4's kernels and the whole block beside their plain versions
      and bounds at B=4 and B=1, f32 and bf16 x; B3 beside its plain
      version; the fused and the unfused train step of phase 14 with a
-     profiler breakdown.
+     profiler breakdown;
+ 16. the sampling_invariance model (c_width 256, hidden [256, 256], 4
+     blocks, k 128, vertex outputs over 6890 classes, xyz input, dropout
+     on) takes 3 Adam steps at the experiment's default batch of 2 (torus(144, 140) and
+     icosphere(5) padded to 32768) through apply_model(use_megakernel=True):
+     4 B1 and 4 B2 launches a step; one step with dropout off against the
+     eager model with autograd; the step's time.
 
 Since phase 12's slice the port's default eigensolver is the device one,
 so the cold requests of phases 4 and 14 and the dataset precompute of
@@ -102,6 +119,12 @@ import time
 import torch
 
 N_BLOCK = 4
+# launches of a train step of N_BLOCK blocks on the megakernel path: B1 per
+# block (x_hat_next summed for all but the last), B2's two kernels per block
+# and three partial sums each (ds, the parameters, db)
+B2_PER_STEP = {"megablock_fwd": N_BLOCK, "xhat_reduce": N_BLOCK - 1,
+               "megablock_bwd_rows": N_BLOCK, "megablock_bwd_grads": N_BLOCK,
+               "grad_reduce": 3 * N_BLOCK}
 SEG_MODEL = dict(c_in=16, c_out=8, c_width=128, n_block=N_BLOCK,
                  mlp_hidden_dims=[128, 128], dropout=True, outputs_at="faces")
 K_EIG = 128
@@ -302,6 +325,8 @@ def phase_kernels(mb):
     log("== phase 3: kernels against their plain versions")
     errs = {"megablock_fwd": 0.0}
     shapes = [(2, 32768, 128, 128, (128, 128), 0),     # full width
+              (1, 32768, 128, 256, (256, 256), 0),     # C = 256
+              (1, 32768, 256, 256, (256, 256), 0),     # K = C = 256
               (2, 1000, 16, 8, (16, 32, 8), 100)]      # ragged last tile
     for B, V, K, C, hidden, n_pad in shapes:
         for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -327,6 +352,7 @@ def phase_kernels(mb):
                     check(xn is None, f"{tag}: x_hat_next without emit_next")
                 if kind == "f32" and V == 32768:
                     errs["megablock_fwd"] = max(errs["megablock_fwd"], e)
+            del args
     # the partial-sum kernel at the main paths' shapes (B=1: one CTA per SM;
     # B=8: bench.py's batch), bit-equal to its plain version and to itself
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -380,7 +406,8 @@ def phase_slice(mb):
         session = InferenceSession(model, k_eig=K_EIG, op_cache_dir=cache,
                                    use_megakernel=True, device="cuda")
         per_block = {"megablock_fwd": N_BLOCK, "xhat_reduce": N_BLOCK - 1,
-                     "megablock_bwd": 0, "grad_reduce": 0}
+                     "megablock_bwd_rows": 0, "megablock_bwd_grads": 0,
+                     "grad_reduce": 0}
         preds, stamps = [], []
         mb.reset_launches()
         for name, (verts, faces) in requests:
@@ -577,19 +604,111 @@ def phase_backward(mb):
                         err = max(err, e)
                     del got, want
             del args
-    # the partial-sum kernel at the main path's shape: one slot per SM
+    return err
+
+
+def bwd_groups(mb, K, C, widths):
+    """(name, first column, width) of each group of the rows kernel's R."""
+    lay = mb.bwd_layout(K, C, widths)
+    n = len(widths) - 1
+    return ([(f"in{l}", lay["off_in"][l], widths[l]) for l in range(n)]
+            + [(f"dpre{l}", lay["off_dp"][l], widths[l + 1])
+               for l in range(n)]
+            + [("gx|gy", lay["off_gg"], 2 * C), ("dvb", lay["off_dvb"], 2 * C),
+               ("dxd|dgx|dgy", lay["off_ds"], 3 * C)])
+
+
+def phase_b2_kernels(mb):
+    """B2's rows kernel and grads kernel one at a time against their plain
+    versions, at B=1, V=32768, K=128, C=128 and 256 (hidden [C, C]), f32 and
+    bf16, dropout on, emit_next on. The grads kernel and its plain version
+    read the rows kernel's own R, with the same split of V; its partials
+    are products of the same values summed in another order in both
+    types (f32 tolerance). Two launches of each kernel must give the same
+    bits, and the partial sums of the grads kernel's partials equal the
+    plain sums bit for bit. Returns the largest f32 errors at C = 128 and
+    the parameter partials of that case (for grad_reduce's time)."""
+    log("== phase 7b: B2's rows and grads kernels, each against its plain "
+        "version")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    lay = mb.grad_slot_layout(128, 128, (384, 128, 128, 128))
-    g = torch.Generator(device="cuda").manual_seed(8)
-    slots = torch.randn(1, sms, lay["P"], generator=g, device="cuda")
-    n = lay["P"] - lay["are"]
-    got = mb.grad_reduce(slots, lay["are"], n)
-    torch.cuda.synchronize()
-    rerr = compare(f"grad_reduce (1, {sms}, {lay['P']}) [{lay['are']}, "
-                   f"{lay['P']})", got,
-                   mb.grad_reduce_reference(slots, lay["are"], n),
-                   dict(rtol=0.0, atol=0.0))
-    return err, rerr, slots, lay
+    errs = {"megablock_bwd_rows": 0.0, "megablock_bwd_grads": 0.0,
+            "grad_reduce": 0.0}
+    kept = None
+    B, V, K = 1, 32768, 128
+    for C in (128, 256):
+        widths = (3 * C, C, C, C)
+        for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            lowp = kind == "bf16"
+            args = list(block_inputs(B, V, K, C, (C, C), dtype, seed=C + 11))
+            kw = dict(lowp=lowp, seed=4242, tile_v=2048)
+            ties = mb.relu_margin(*args, **kw) < TIE
+            args[4] = args[4].masked_fill(ties, 0.0)
+            g = torch.Generator(device="cuda").manual_seed(C)
+            dout = torch.randn(B, V, C, generator=g, device="cuda").to(
+                dtype).masked_fill(ties[..., None], 0.0)
+            dxn = torch.randn(B, K, C, generator=g, device="cuda")
+            tag = f"B={B} V={V} K={K} C={C} hidden [{C}, {C}] {kind} dropout"
+            rows = mb.megablock_bwd_rows(*args, dout, dxn, **kw)
+            again = mb.megablock_bwd_rows(*args, dout, dxn, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(rows, again)),
+                  f"{tag}: two launches of the rows kernel differ")
+            del again
+            dx, R, dbp = rows
+            dx_r, R_r, dbp_r = mb.megablock_bwd_rows_reference(
+                *args, dout, dxn, **kw)
+            e = compare(f"{tag} rows: dx_direct", dx, dx_r, GRAD_TOL[kind],
+                        scaled=True, quiet=True)
+            for name, o, w in bwd_groups(mb, K, C, widths):
+                e = max(e, compare(f"{tag} rows: R {name}", R[:, o:o + w],
+                                   R_r[:, o:o + w], GRAD_TOL[kind],
+                                   scaled=True, quiet=True))
+            e = max(e, compare(f"{tag} rows: db partials", dbp, dbp_r,
+                               GRAD_TOL[kind], scaled=True, quiet=True))
+            log(f"  {tag} rows kernel: dx_direct, the 11 groups of R and "
+                f"the db partials within tolerance ({kind}), largest max "
+                f"abs err {e:.3e}; {int(ties.sum())} ReLU-tie rows given "
+                f"zero cotangent; two launches bit-identical")
+            del R_r, dx_r, dbp_r
+            splits = mb.grads_splits(B, V, K, C, widths, sms)
+            pp, pd = mb.megablock_bwd_grads(R, *args[1:4], C, widths, splits,
+                                            lowp)
+            pp2, pd2 = mb.megablock_bwd_grads(R, *args[1:4], C, widths,
+                                              splits, lowp)
+            torch.cuda.synchronize()
+            check(torch.equal(pp, pp2) and torch.equal(pd, pd2),
+                  f"{tag}: two launches of the grads kernel differ")
+            del pp2, pd2
+            pp_r, pd_r = mb.megablock_bwd_grads_reference(
+                R, *args[1:4], C, widths, splits, lowp)
+            eg = max(compare(f"{tag} grads: parameter partials {tuple(pp.shape)}",
+                             pp, pp_r, GRAD_TOL["f32"], scaled=True),
+                     compare(f"{tag} grads: ds partials {tuple(pd.shape)}",
+                             pd, pd_r, GRAD_TOL["f32"], scaled=True))
+            got = mb.bwd_grads_finish(pp, pd, dbp, K, C, widths)
+            plain = [mb.grad_reduce_reference(pd, 0, K * C),
+                     mb.grad_reduce_reference(pp.unsqueeze(0), 0, pp.shape[1]),
+                     mb.grad_reduce_reference(dbp.unsqueeze(0), 0,
+                                              dbp.shape[1])]
+            sums = [mb.grad_reduce(pd, 0, K * C),
+                    mb.grad_reduce(pp.unsqueeze(0), 0, pp.shape[1]),
+                    mb.grad_reduce(dbp.unsqueeze(0), 0, dbp.shape[1])]
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(sums, plain))
+            log(f"  {tag} grads kernel: splits (S_par, L_par, S_ds, L_ds) "
+                f"{splits}; two launches bit-identical; grad_reduce of its "
+                f"partials bit-equal to the plain sums: {same}; "
+                f"{len(got[3])} dW, dA, ds, {len(got[4])} db finite")
+            check(same, f"{tag}: grad_reduce differs from the plain sums")
+            check(all(bool(torch.isfinite(t).all()) for t in
+                      [*got[:3], *got[3], *got[4]]), f"{tag}: non-finite")
+            if kind == "f32" and C == 128:
+                errs["megablock_bwd_rows"] = e
+                errs["megablock_bwd_grads"] = eg
+                kept = (args, dout, dxn, splits, pp)
+            del rows, dx, R, dbp, pp, pd, pp_r, pd_r, got, sums, plain
+            del args, dout
+    return errs, kept
 
 
 def segmentation_dataset(cache):
@@ -617,7 +736,8 @@ def segmentation_dataset(cache):
     return ds
 
 
-def step_agreement(name_a, name_b, res, before, checked, exempt=()):
+def step_agreement(name_a, name_b, res, before, checked, exempt=(),
+                   tol=STEP_TOL):
     """Two results of one train step from the same state, res[name] =
     (loss, gradients, parameters after): the loss within STEP_TOL["loss"],
     then for each of gradients, Adam updates (parameters after minus
@@ -626,12 +746,13 @@ def step_agreement(name_a, name_b, res, before, checked, exempt=()):
     whole's), checked for the kinds named in `checked` and printed for the
     others. Tensors whose names contain a string of `exempt` are printed
     but left out of the Adam updates' check (their gradients stay
-    checked)."""
+    checked). tol: STEP_TOL, or a wider `whole` where a phase measures its
+    configuration's own sensitivity."""
     (la, ga, pa), (lb, gb, pb) = res[name_a], res[name_b]
     rel = abs(la - lb) / abs(lb)
     log(f"  dropout off: loss {name_a} {la:.8f}, {name_b} {lb:.8f} "
-        f"(relative difference {rel:.2e}, tolerance {STEP_TOL['loss']})")
-    check(rel <= STEP_TOL["loss"], f"loss: {name_a} and {name_b} differ")
+        f"(relative difference {rel:.2e}, tolerance {tol['loss']})")
+    check(rel <= tol["loss"], f"loss: {name_a} and {name_b} differ")
     kinds = (("gradient", ga, gb),
              ("Adam update", {k: pa[k] - before[k].detach() for k in pa},
               {k: pb[k] - before[k].detach() for k in pb}),
@@ -647,7 +768,7 @@ def step_agreement(name_a, name_b, res, before, checked, exempt=()):
         diff = norm(held, lambda k: a[k].float() - b[k].float())
         log(f"  dropout off, {what}s ({'checked' if gate else 'not checked'}"
             f"): whole {diff / held_whole:.2e} of the whole norm "
-            f"{held_whole:.3e} (tolerance {STEP_TOL['whole']}"
+            f"{held_whole:.3e} (tolerance {tol['whole']}"
             + (f"; {len(b) - len(held)} tensors matching {exempt} printed, "
                "not checked" if len(held) < len(b) else "")
             + "); per tensor, |difference| / |own| (own norm / whole):")
@@ -657,13 +778,13 @@ def step_agreement(name_a, name_b, res, before, checked, exempt=()):
             e = (a[k].float() - b[k].float()).norm().item()
             rows.append(f"{k.split('/', 1)[1]} {e / max(own, 1e-30):.1e} "
                         f"({own / whole:.1e})")
-            if k in held and e > (STEP_TOL["own"] * own
-                                  + STEP_TOL["whole"] * held_whole):
+            if k in held and e > (tol["own"] * own
+                                  + tol["whole"] * held_whole):
                 bad.append(k)
         for i in range(0, len(rows), 4):
             log("    " + "; ".join(rows[i:i + 4]))
         if gate:
-            check(diff <= STEP_TOL["whole"] * held_whole,
+            check(diff <= tol["whole"] * held_whole,
                   f"{what}s as a whole")
             check(not bad, f"{what}s of {bad} past their tolerance")
 
@@ -709,8 +830,7 @@ def phase_train(mb):
         log(f"  step {i}: loss {losses[-1]:.6f}, correct {int(correct)} of "
             f"{int(total)} faces, {1e3 * (time.perf_counter() - t0):.1f} ms")
     launches = dict(mb.LAUNCHES)
-    per_step = {"megablock_fwd": N_BLOCK, "xhat_reduce": N_BLOCK - 1,
-                "megablock_bwd": N_BLOCK, "grad_reduce": 2 * N_BLOCK}
+    per_step = B2_PER_STEP
     log(f"  launches in 5 steps: {launches}")
     check(launches == {k: 5 * v for k, v in per_step.items()},
           f"launches {launches} != 5 x {per_step}")
@@ -736,8 +856,70 @@ def phase_train(mb):
     return launches, ds.ops_list[0], ds.verts_list[0], batch
 
 
+def phase_wide_times(mb, card):
+    """B1 and B2 at C = 256 (hidden [256, 256], K 128 and 256, B=1,
+    V=32768, emit_next), f32 and bf16, beside their plain versions and
+    bounds: the widths that C.1's repair opened."""
+    log("== phase 9b: B1 and B2 at C = 256 (CUDA events, median of 10 runs "
+        "of 10 calls)")
+    out = {}
+    for K in (128, 256):
+        widths = (768, 256, 256, 256)
+        for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            lowp = kind == "bf16"
+            args = block_inputs(1, 32768, K, 256, (256, 256), dtype, seed=K)
+            g = torch.Generator(device="cuda").manual_seed(4)
+            dout = torch.randn(1, 32768, 256, generator=g, device="cuda").to(
+                dtype)
+            dxn = torch.randn(1, K, 256, generator=g, device="cuda")
+            f = time_ms(lambda: mb.megablock_chained_fwd(*args, lowp=lowp))
+            fp = time_ms(lambda: mb.megablock_chained_reference(*args,
+                                                               lowp=lowp))
+            b = time_ms(lambda: mb.megablock_chained_bwd(*args, dout, dxn,
+                                                         lowp=lowp))
+            bp = time_ms(lambda: mb.megablock_chained_bwd_reference(
+                *args, dout, dxn, lowp=lowp), reps=3)
+            fb = megablock_bound(1, 32768, K, 256, widths, True, False, lowp)
+            bb = megablock_bound(1, 32768, K, 256, widths, True, True, lowp)
+            out[(K, kind)] = dict(fwd=(f, fp, fb), bwd=(b, bp, bb))
+            log(f"  time B=1 V=32768 K={K} C=256 hidden [256, 256] {kind}: "
+                f"B1 {f:.4f} ms (plain {fp:.4f}, bound {fb[0]:.4f} ms, "
+                f"{fb[1]}, share {fb[0] / f:.3f}); B2 {b:.4f} ms (plain "
+                f"{bp:.4f}, bound {bb[0]:.4f} ms, {bb[1]}, share "
+                f"{bb[0] / b:.3f}) [{card}]")
+            del args, dout, dxn
+    return out
+
+
+def b2_bounds(B, V, K, C, widths, lowp, emit_next=True):
+    """Least times of B2's two kernels, splitting megablock_bound's backward
+    count. rows: the forward recompute up to the last layer's input (3 2KC,
+    8C^2, the MLP but its last layer), 2KC for m Phi dx_hat, the MLP's
+    backward products d = dpre W^T (2 sum w_l w_l+1) and dvb cmap^T (8C^2);
+    bytes x, dout and dx, Phi, GX, GY and mass once, and R written once
+    (and, under lowp, its f32 side scratch). grads: the V-reductions dW
+    (2 sum w_l w_l+1), P (8C^2) and ds (3 2KC); bytes R and the operators
+    read once. Operations at three TF32 passes (f32) or the bf16 rate."""
+    mlp = [2 * a * b for a, b in zip(widths[:-1], widths[1:])]
+    xb = 2 if lowp else 4
+    peak = BF16_FLOPS if lowp else TF32_FLOPS / 3
+    r_vals = 3 * C + sum(widths[1:-1]) + sum(widths[1:]) + 7 * C
+    rows_flops = (6 * K * C + (2 * K * C if emit_next else 0) + 16 * C * C
+                  + sum(mlp[:-1]) + sum(mlp))
+    rows_bytes = (3 * C + 3 * K + r_vals) * xb + 4 + (24 * C if lowp else 0)
+    grads_flops = sum(mlp) + 8 * C * C + 6 * K * C
+    grads_bytes = (r_vals + 3 * K) * xb
+    return (bound(B * V * rows_bytes, B * V * rows_flops, peak),
+            bound(B * V * grads_bytes, B * V * grads_flops, peak))
+
+
 def phase_bwd_times(mb, card):
+    """B2's time, end to end and kernel by kernel: the rows kernel, the
+    grads kernel on its R and the three partial sums, each beside its plain
+    version and bound (K = C = 128, hidden [128, 128], emit_next)."""
     log("== phase 9: times (CUDA events, median of 10 runs of 10 calls)")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    widths = (384, 128, 128, 128)
     ms = {}
     for B, V in ((1, 32768), (BENCH_B, BENCH_V)):
         for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -750,9 +932,40 @@ def phase_bwd_times(mb, card):
                                                          lowp=lowp))
             p = time_ms(lambda: mb.megablock_chained_bwd_reference(
                 *args, dout, dxn, lowp=lowp))
-            ms[(B, V, kind)] = (k, p)
+            rows = lambda: mb.megablock_bwd_rows(*args, dout, dxn, lowp=lowp)
+            rk = time_ms(rows)
+            rp = time_ms(lambda: mb.megablock_bwd_rows_reference(
+                *args, dout, dxn, lowp=lowp), reps=3)
+            _, R, dbp = rows()
+            splits = mb.grads_splits(B, V, 128, 128, widths, sms)
+            grads = lambda: mb.megablock_bwd_grads(R, *args[1:4], 128, widths,
+                                                   splits, lowp)
+            gk = time_ms(grads)
+            gp = time_ms(lambda: mb.megablock_bwd_grads_reference(
+                R, *args[1:4], 128, widths, splits, lowp), reps=3)
+            pp, pd = grads()
+            sums = lambda: (mb.grad_reduce(pd, 0, 128 * 128),
+                            mb.grad_reduce(pp.unsqueeze(0), 0, pp.shape[1]),
+                            mb.grad_reduce(dbp.unsqueeze(0), 0, dbp.shape[1]))
+            sk = device_ms(sums)
+            sp = device_ms(lambda: (
+                mb.grad_reduce_reference(pd, 0, 128 * 128),
+                mb.grad_reduce_reference(pp.unsqueeze(0), 0, pp.shape[1]),
+                mb.grad_reduce_reference(dbp.unsqueeze(0), 0, dbp.shape[1])))
+            rb, gb = b2_bounds(B, V, 128, 128, widths, lowp)
+            sb = bound(4 * (pp.numel() + pp.shape[1] + pd.numel() + B * 128
+                            * 128 + dbp.numel() + dbp.shape[1]),
+                       pp.numel() + pd.numel() + dbp.numel(), F32_FLOPS)
+            ms[(B, V, kind)] = dict(total=(k, p), rows=(rk, rp, rb),
+                                    grads=(gk, gp, gb), sums=(sk, sp, sb))
             log(f"  time megablock_chained_bwd emit_next B={B} V={V} K=128 "
-                f"C=128 {kind}: kernel {k:.4f} ms, plain {p:.4f} ms [{card}]")
+                f"C=128 {kind}: kernels {k:.4f} ms, plain {p:.4f} ms; rows "
+                f"kernel {rk:.4f} ms (plain {rp:.4f}, bound {rb[0]:.4f} ms, "
+                f"{rb[1]}, share {rb[0] / rk:.3f}), grads kernel {gk:.4f} ms "
+                f"(plain {gp:.4f}, bound {gb[0]:.4f} ms, {gb[1]}, share "
+                f"{gb[0] / gk:.3f}; splits {splits}), the three partial sums "
+                f"{sk:.4f} ms device (plain {sp:.4f}, bound {sb[0]:.4f} ms) "
+                f"[{card}]")
             if B == 1:
                 on = time_ms(lambda: mb.megablock_chained_fwd(
                     *args, lowp=lowp, seed=5, tile_v=2048))
@@ -760,14 +973,17 @@ def phase_bwd_times(mb, card):
                                                                lowp=lowp))
                 log(f"  time megablock_chained emit_next B=1 V={V} {kind}: "
                     f"dropout on {on:.4f} ms, off {off:.4f} ms [{card}]")
-            del args, dout, dxn
+            del args, dout, dxn, R, dbp, pp, pd
     return ms
 
 
-def phase_step_times(mb, card, torus_ops, torus_verts):
+def phase_step_times(mb, card, torus_ops, torus_verts, profiled=True):
     """The whole train step at bench.py's shapes: B=8 copies of the torus
     padded to V=20480, k 128, 4 blocks of width 128, c_in 3 (xyz), c_out 8,
-    dropout off, vertex outputs, the masked sum-of-squares loss."""
+    dropout off, vertex outputs, the masked sum-of-squares loss. Returns
+    the ms per step and the peak device memory of a step (GiB,
+    torch.cuda.max_memory_allocated), f32 and bf16 operands; profiled: also
+    a profiler breakdown of three steps."""
     import numpy as np
     from diffusionnet_tpu_torch.geometry import stack_operators
     from diffusionnet_tpu_torch.models import (DiffusionNet, flat_params,
@@ -801,9 +1017,19 @@ def phase_step_times(mb, card, torus_ops, torus_verts):
         state = opt.init(params)
         t = time_ms(lambda: step(params, state, None, None), reps=5)
         step_ms[kind] = t
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(params, state, None, None)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_ms[kind + " peak GiB"] = peak
         log(f"  time train step B={BENCH_B} V={BENCH_V} K=128 4x128 {kind} "
             f"operands: {t:.3f} ms per step, {BENCH_B / (t / 1e3):.1f} "
-            f"meshes/s [{card}]")
+            f"meshes/s; peak device memory of a step {peak:.3f} GiB "
+            f"[{card}]")
+        if not profiled:
+            del params, state, consts
+            continue
         # where a step's time goes: three steps under the profiler
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -813,7 +1039,7 @@ def phase_step_times(mb, card, torus_ops, torus_verts):
                 step(params, state, None, None)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / 3 * 1e3
-        groups = {"B1 megablock_fwd": 0.0, "B2 megablock_bwd": 0.0,
+        groups = {"B1 megablock_fwd": 0.0, "B2 rows": 0.0, "B2 grads": 0.0,
                   "reduces": 0.0, "Adam": 0.0, "other": 0.0}
         top = []
         for e in prof.key_averages():
@@ -825,8 +1051,10 @@ def phase_step_times(mb, card, torus_ops, torus_verts):
             top.append((us, name))
             if "megablock_fwd_kernel" in name:
                 groups["B1 megablock_fwd"] += us
-            elif "megablock_bwd_kernel" in name:
-                groups["B2 megablock_bwd"] += us
+            elif "megablock_bwd_rows_kernel" in name:
+                groups["B2 rows"] += us
+            elif "megablock_bwd_grads_kernel" in name:
+                groups["B2 grads"] += us
             elif "reduce_kernel" in name and ("xhat" in name or "grad" in name):
                 groups["reduces"] += us
             elif "adam" in name.lower() or "multi_tensor" in name:
@@ -1328,7 +1556,8 @@ def phase_fused_slice(mb, fu, batch):
     launches = {**fu.LAUNCHES, **mb.LAUNCHES}
     per_step = {"spectral_project": N_BLOCK, "spectral_apply": N_BLOCK,
                 "megablock_fwd": 0, "xhat_reduce": N_BLOCK,
-                "megablock_bwd": 0, "grad_reduce": 0}
+                "megablock_bwd_rows": 0, "megablock_bwd_grads": 0,
+                "grad_reduce": 0}
     log(f"  launches in 5 steps (B={B}, V={V}): {launches}")
     check(launches == {k: 5 * v for k, v in per_step.items()},
           f"launches {launches} != 5 x {per_step}")
@@ -1371,7 +1600,8 @@ def phase_fused_slice(mb, fu, batch):
                                device="cuda")(verts, faces)
     per_req = {"spectral_project": N_BLOCK, "spectral_apply": N_BLOCK,
                "megablock_fwd": 0, "xhat_reduce": N_BLOCK,
-               "megablock_bwd": 0, "grad_reduce": 0}
+               "megablock_bwd_rows": 0, "megablock_bwd_grads": 0,
+               "grad_reduce": 0}
     log(f"  warm request torus(144, 140) (V={verts.shape[0]}, bucket "
         f"32768): forward {sess.timings['forward_s'] * 1e3:.2f} ms, "
         f"launches {served}")
@@ -1409,7 +1639,8 @@ def phase_fused_slice(mb, fu, batch):
         log(f"    step {i}: loss {loss.item():.6f}")
     one = {**fu.LAUNCHES, **mb.LAUNCHES}
     want = {"spectral_project": 3, "spectral_apply": 0, "megablock_fwd": 3,
-            "xhat_reduce": 3, "megablock_bwd": 3, "grad_reduce": 6}
+            "xhat_reduce": 3, "megablock_bwd_rows": 3,
+            "megablock_bwd_grads": 3, "grad_reduce": 9}
     log(f"    launches: {one}")
     check(one == want, f"B3 path launches {one} != {want}")
     return launches, served, one
@@ -1554,6 +1785,124 @@ def phase_fused_times(mb, fu, card, batch):
 
 
 
+# the sampling_invariance experiment's model (experiments/sampling_invariance:
+# build_model(n_class, c_width=256, outputs_at="vertices", dropout=True),
+# hidden [256, 256] by default, xyz input), over FAUST's 6890 template
+# vertices as classes
+SI_MODEL = dict(c_in=3, c_out=6890, c_width=256, n_block=N_BLOCK,
+                mlp_hidden_dims=[256, 256], dropout=True,
+                outputs_at="vertices")
+
+
+def phase_c256_train(mb, card):
+    """The path that B1 and B2 at C = 256 open: the sampling_invariance
+    model takes 3 Adam steps (dropout on) at the experiment's default batch of 2 through
+    apply_model(use_megakernel=True); the counters must show 4 B1 and 4 B2
+    launches a step. Then one step with dropout off from the same state,
+    through the fast path and through the eager model with autograd. Returns
+    the launch counts of the 3 steps."""
+    import numpy as np
+    from diffusionnet_tpu_torch.data import SurfaceDataset, make_padded_batches
+    from diffusionnet_tpu_torch.models import DiffusionNet, flat_params
+    from diffusionnet_tpu_torch.training import (
+        TaskConfig, adam_state_from_flat, adam_state_to_flat,
+        adam_with_step_decay, apply_model, loss_and_counts, make_train_step)
+
+    log("== phase 16: the sampling_invariance model (C = 256), 3 Adam steps "
+        "through apply_model(use_megakernel=True) on cuda")
+    mg = meshgen()
+    ds = SurfaceDataset(labels_kind="vertex")
+    for v, f in (mg.torus(n_major=144, n_minor=140),
+                 mg.icosphere(subdivisions=5)):
+        ds.add(v, f, np.arange(v.shape[0]) % SI_MODEL["c_out"])
+    with tempfile.TemporaryDirectory() as cache:
+        ds.precompute(K_EIG, op_cache_dir=cache, verbose=False)
+    batch = next(make_padded_batches(ds, 2)).to("cuda")
+    B, V = batch.verts.shape[:2]
+    check((B, V) == (2, 32768), f"batch shape {(B, V)}")
+    model = DiffusionNet(**SI_MODEL,
+                         generator=torch.Generator().manual_seed(16),
+                         last_activation=functools.partial(torch.log_softmax,
+                                                           dim=-1))
+    params = flat_params(model, "cuda", requires_grad=True)
+    opt = adam_with_step_decay(1e-3, 50, 0.5)
+    state = opt.init(params)
+
+    def make_step(c, deterministic):
+        return make_train_step(
+            lambda p, b, g: loss_and_counts(
+                apply_model(model, p, b, g, c, deterministic), b, c), opt)
+    cfg = TaskConfig(input_features="xyz", labels_kind="vertex")
+    step = make_step(cfg, False)
+    before = {k: v.detach().clone() for k, v in params.items()}
+    gen = torch.Generator().manual_seed(2)
+    torch.cuda.synchronize()
+    mb.reset_launches()
+    losses, times = [], []
+    for i in range(3):
+        t0 = time.perf_counter()
+        _, _, loss, (correct, total) = step(params, state, batch, gen)
+        losses.append(loss.item())
+        times.append(1e3 * (time.perf_counter() - t0))
+        log(f"  step {i}: loss {losses[-1]:.6f}, correct {int(correct)} of "
+            f"{int(total)} vertices, {times[-1]:.1f} ms (host clock to the "
+            f"loss on the host) [{card}]")
+    launches = dict(mb.LAUNCHES)
+    log(f"  launches in 3 steps (B={B}, V={V}, C=256): {launches}")
+    check(launches == {k: 3 * v for k, v in B2_PER_STEP.items()},
+          f"launches {launches} != 3 x {B2_PER_STEP}")
+    check(all(map(math.isfinite, losses)), f"losses {losses}")
+    still = [k for k in params if torch.equal(params[k].detach(), before[k])]
+    check(not still, f"parameters that did not move: {still}")
+    t = time_ms(lambda: step(params, state, batch, gen), reps=3, calls=3,
+                warmup=1)
+    log(f"  time train step B={B} V={V} sampling_invariance model (C=256, "
+        f"dropout on), megakernel path: {t:.3f} ms per step [{card}]")
+
+    flat_state = adam_state_to_flat(state)
+    res = {}
+    for name, use_mk in (("fast path", True), ("eager model", False)):
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params.items()}
+        s = adam_state_from_flat(opt.init(p), flat_state)
+        c = TaskConfig(input_features="xyz", labels_kind="vertex",
+                       use_megakernel=use_mk)
+        _, _, loss, _ = make_step(c, True)(p, s, batch, None)
+        res[name] = (loss.item(), {k: v.grad for k, v in p.items()},
+                     {k: v.detach() for k, v in p.items()})
+    # This configuration's gradient moves by about 1e-3 of its norm under a
+    # rounding-level change of the input (xyz features through first_lin
+    # put many ReLU inputs by 0): the eager model against itself with
+    # first_lin's kernel scaled by 1 + 1e-6, printed below, moves about as
+    # far as the fast path does from it. So the step is held to 4x what the
+    # same change does to the eager model's own step, measured here, where
+    # that exceeds STEP_TOL's `whole`.
+    p = {k: (v.detach() * (1 + 1e-6) if k.endswith("first_lin/kernel")
+             else v.detach()).clone().requires_grad_(True)
+         for k, v in params.items()}
+    s = adam_state_from_flat(opt.init(p), flat_state)
+    c = TaskConfig(input_features="xyz", labels_kind="vertex",
+                   use_megakernel=False)
+    make_step(c, True)(p, s, batch, None)
+    ge, gp = res["eager model"][1], {k: v.grad for k, v in p.items()}
+    ue = {k: res["eager model"][2][k] - params[k].detach() for k in ge}
+    up = {k: p[k].detach() - params[k].detach() for k in ge}
+
+    def rel(a, b):
+        return math.sqrt(sum((a[k].float() - b[k].float()).norm().item() ** 2
+                             for k in a)
+                         / sum(b[k].float().norm().item() ** 2 for k in b))
+    sens = max(rel(gp, ge), rel(up, ue))
+    tol = dict(STEP_TOL, whole=max(STEP_TOL["whole"], 4 * sens))
+    log(f"  the eager model against itself with first_lin's kernel scaled by "
+        f"1 + 1e-6: gradients {rel(gp, ge):.2e}, Adam updates "
+        f"{rel(up, ue):.2e} of the whole; tolerance of the fast path's "
+        f"whole: {tol['whole']:.2e}")
+    step_agreement("fast path", "eager model", res, params,
+                   checked=("gradient", "Adam update"), tol=tol)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -1585,17 +1934,27 @@ def main() -> int:
     times = phase_times(mb, card)
     xr1 = xhat_reduce_times(mb, partials, card)[(1, partials[0].shape[1])]
     errs["megablock_fwd"] = max(errs["megablock_fwd"], phase_dropout(mb))
-    errs["megablock_bwd"], errs["grad_reduce"], slots, lay = \
-        phase_backward(mb)
+    phase_backward(mb)
+    b2_errs, (b2_args, _, _, _, slots) = phase_b2_kernels(mb)
+    errs.update(b2_errs)
+    del b2_args
     launches, torus_ops, torus_verts, seg_batch = phase_train(mb)
     log(f"  launches of the inference slice: {serve_launches}; of the "
         f"training slice: {launches}")
     bwd_times = phase_bwd_times(mb, card)
-    n = lay["P"] - lay["are"]
-    gr_ms = time_ms(lambda: mb.grad_reduce(slots, lay["are"], n))
-    gr_plain = time_ms(lambda: mb.grad_reduce_reference(slots, lay["are"], n))
-    log(f"  time grad_reduce {tuple(slots.shape)} [{lay['are']}, {lay['P']}): "
-        f"kernel {gr_ms:.4f} ms, plain {gr_plain:.4f} ms [{card}]")
+    phase_wide_times(mb, card)
+    # grad_reduce over the parameter partials of the grads kernel at B=1,
+    # V=32768, f32 (phase 7b), beside its plain version and torch.sum
+    par = slots.unsqueeze(0)
+    n_par = par.shape[2]
+    gr_ms = device_ms(lambda: mb.grad_reduce(par, 0, n_par))
+    gr_plain = device_ms(lambda: mb.grad_reduce_reference(par, 0, n_par))
+    gr_lib = device_ms(lambda: par.sum(1))
+    gr_b = bound((par.shape[1] + 1) * n_par * 4, par.shape[1] * n_par,
+                 F32_FLOPS)
+    log(f"  time grad_reduce {tuple(par.shape)}, device time: kernel "
+        f"{gr_ms:.4f} ms, plain {gr_plain:.4f} ms, torch.sum {gr_lib:.4f} "
+        f"ms; bound {gr_b[0]:.4f} ms ({gr_b[1]}) [{card}]")
     phase_step_times(mb, card, torus_ops, torus_verts)
 
     from diffusionnet_tpu_torch.ops import blocked_ell as be
@@ -1616,25 +1975,23 @@ def main() -> int:
     log(f"  launches of the fused slice: 5 train steps {fused_launches}; "
         f"one request {served_launches}; the B3 op's 3 steps {b3_launches}")
 
-    # the library yardstick of grad_reduce: one torch.sum over the slots
-    gr_lib = time_ms(lambda: slots[:, :, lay["are"]:lay["P"]].sum(1))
-    log(f"  time torch.sum of the slots: grad_reduce's {gr_lib:.4f} ms "
-        f"[{card}]")
+    si_launches = phase_c256_train(mb, card)
+
     widths = (3 * 128, 128, 128, 128)
     k_ms, p_ms = times[(1, 32768, "f32")]
-    kb_ms, pb_ms = bwd_times[(1, 32768, "f32")]
+    b2 = bwd_times[(1, 32768, "f32")]
     fwd_b = megablock_bound(1, 32768, 128, 128, widths, True, False)
     bwd_b = megablock_bound(1, 32768, 128, 128, widths, True, True)
-    n_gr = lay["P"] - lay["are"]
-    gr_b = bound((slots.shape[1] + 1) * n_gr * 4, slots.shape[1] * n_gr,
-                 F32_FLOPS)
     t5 = b5_ms["torus(144, 140)"]
     log(f"  bounds (H100 SXM peaks, [{card}]): B1 B=1 V=32768 f32 "
         f"{fwd_b[0]:.4f} ms ({fwd_b[1]}, three TF32 passes), B2 "
-        f"{bwd_b[0]:.4f} ms ({bwd_b[1]}), xhat_reduce "
-        f"{xr1['bound'][0]:.4f} ms, "
-        f"grad_reduce {gr_b[0]:.4f} ms, B5 torus C=160 "
-        f"{t5['bound_ms']:.4f} ms ({t5['bound_by']})")
+        f"{bwd_b[0]:.4f} ms ({bwd_b[1]}; its rows kernel "
+        f"{b2['rows'][2][0]:.4f} ms, grads kernel {b2['grads'][2][0]:.4f} "
+        f"ms), xhat_reduce {xr1['bound'][0]:.4f} ms, grad_reduce "
+        f"{gr_b[0]:.4f} ms, B5 torus C=160 {t5['bound_ms']:.4f} ms "
+        f"({t5['bound_by']})")
+    log(f"  launches of the sampling_invariance model's 3 steps (phase 16): "
+        f"{si_launches}")
 
     def row(name, source, replaces, n, err, ms, plain, bnd, lib):
         return {"name": name, "route": "cuda",
@@ -1650,9 +2007,14 @@ def main() -> int:
         row("xhat_reduce", "megablock_fwd.cu", "pallas_megablock.py:305",
             launches["xhat_reduce"], errs["xhat_reduce"], xr1["ms"],
             xr1["plain_ms"], xr1["bound"], xr1["library_ms"]),
-        row("megablock_bwd", "megablock_bwd.cu", "pallas_megablock.py:379",
-            launches["megablock_bwd"], errs["megablock_bwd"], kb_ms, pb_ms,
-            bwd_b, None),
+        # B2 at B=1, V=32768, f32: its two kernels (the plain version of
+        # each on the same inputs) and the partial sums
+        row("megablock_bwd_rows", "megablock_bwd.cu",
+            "pallas_megablock.py:379", launches["megablock_bwd_rows"],
+            errs["megablock_bwd_rows"], *b2["rows"], None),
+        row("megablock_bwd_grads", "megablock_bwd.cu",
+            "pallas_megablock.py:379", launches["megablock_bwd_grads"],
+            errs["megablock_bwd_grads"], *b2["grads"], None),
         row("grad_reduce", "megablock_bwd.cu", "pallas_megablock.py:486",
             launches["grad_reduce"], errs["grad_reduce"], gr_ms, gr_plain,
             gr_b, gr_lib),

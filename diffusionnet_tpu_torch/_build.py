@@ -25,7 +25,7 @@ SOURCES = (_PKG / "csrc" / "megablock_fwd.cu",
            _PKG / "csrc" / "megablock_bwd.cu",
            _PKG / "csrc" / "blocked_ell.cu",
            _PKG / "csrc" / "spectral_fused.cu")
-HEADERS = (_PKG / "csrc" / "megablock_common.cuh",)
+HEADERS = (_PKG / "csrc" / "megablock_common.cuh", _PKG / "csrc" / "wgmma.cuh")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -105,18 +105,22 @@ def load() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
+        pp, pi, ll = ctypes.POINTER(p), ctypes.POINTER(i), ctypes.c_longlong
         lib.mb_fwd_launch.argtypes = (
-            [p] * 7 + [i, ctypes.POINTER(p), ctypes.POINTER(i),
-                       ctypes.POINTER(p), ctypes.POINTER(i), i, p, p, p]
-            + [i] * 11 + [p])
+            [p] * 6 + [i, p, i, pp, pi, pp, pi, i, p, p] + [i] * 13 + [p])
         lib.mb_fwd_launch.restype = i
         lib.mb_xhat_reduce_launch.argtypes = [p, p, i, i, i, i, p]
         lib.mb_xhat_reduce_launch.restype = i
-        ll, pi = ctypes.c_longlong, ctypes.POINTER(i)
-        lib.mb_bwd_launch.argtypes = (
-            [p] * 6 + [i, p, i, ctypes.POINTER(p), pi, ctypes.POINTER(p), pi,
-                       i, p, p, p, p, ll, i, i, pi, pi] + [i] * 11 + [p])
-        lib.mb_bwd_launch.restype = i
+        lib.mb_smem_optin.argtypes = []
+        lib.mb_smem_optin.restype = i
+        lib.mb_bwd_rows_launch.argtypes = (
+            [p] * 9 + [pp, pp, pp, pi, i, p, p, p, i, pi, pi, i, i, i, p, p,
+                       i, pi] + [i] * 10 + [p])
+        lib.mb_bwd_rows_launch.restype = i
+        lib.mb_bwd_grads_launch.argtypes = [
+            p, i, p, p, p, i, ctypes.POINTER(ll), i, p, ll, i, ll, p, i, ll,
+            i, i, i, i, i, i, p]
+        lib.mb_bwd_grads_launch.restype = i
         lib.mb_grad_reduce_launch.argtypes = [p, p, i, i, ll, ll, i, p]
         lib.mb_grad_reduce_launch.restype = i
         lib.mb_error_string.argtypes = [i]

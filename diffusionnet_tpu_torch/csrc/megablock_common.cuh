@@ -1,12 +1,12 @@
 // Pieces shared by the block kernels B1 (megablock_fwd.cu) and B2
-// (megablock_bwd.cu): tile constants, TF32 tensor-core operand handling,
-// the weight product that streams its B operand from L2, and the dropout
-// hash.
+// (megablock_bwd.cu), and by spectral_fused.cu: element loads, bf16
+// rounding, B1's TF32 tensor-core operand handling and weight product, and
+// the dropout hash.
 //
-// Products run on the tensor cores (WMMA, TF32 16x16x8, f32 accumulation).
-// f32 operands are split into TF32 hi + lo parts and multiplied in three
-// passes (near-f32 accuracy); bf16-rounded operands (LOWP) are exact in
-// TF32 and take one pass.
+// B1's products run on the tensor cores (WMMA, TF32 16x16x8, f32
+// accumulation). f32 operands are split into TF32 hi + lo parts and
+// multiplied in three passes (near-f32 accuracy); bf16-rounded operands
+// (LOWP) are exact in TF32 and take one pass. B2 runs on wgmma (wgmma.cuh).
 
 #pragma once
 
@@ -15,22 +15,28 @@
 #include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
 
 namespace mb {
 
 using namespace nvcuda;
 
-constexpr int NT = 512;        // threads per CTA: 16 warps
-constexpr int TV = 32;         // vertex rows per tile
-constexpr int NP = 128;        // output columns per pass of a tile product
+constexpr int NT = 512;        // B1's threads per CTA: 16 warps
 constexpr int PAD = 4;         // row padding of shared buffers (floats)
-constexpr int LDC = NP + PAD;  // output patches of the warps: TV x NP
 constexpr int DEPTH = 4;       // k-steps of weight fragments in flight
-constexpr int MAX_DENSE = 8;   // MLP layers
-constexpr int MAX_KC = 128;    // bound on K and C
-constexpr int MAX_WIDTH = 512; // bound on hidden widths
-static_assert(2 * NP / 16 == NT / 32, "one 16x16 output block per warp");
+constexpr int MAX_DENSE = 16;  // MLP layers a launch's arguments hold
+constexpr int SLOT = 128;      // side of an x_hat partial slot: (K, C) are
+                               // covered in SLOT x SLOT pieces
+
+// B1's row tile of TV rows (32, or 16 where 32 rows' buffers do not fit in
+// shared memory): RB 16-row blocks, and the 16 warps' 16x16 output blocks
+// cover NP = 16 * (16 / RB) columns per pass of a product.
+template <int TV>
+struct Tile {
+  static_assert(TV == 16 || TV == 32, "row tile of 16 or 32");
+  static constexpr int RB = TV / 16;
+  static constexpr int NP = 16 * (NT / 32 / RB);
+  static constexpr int LDC = NP + PAD;  // the warps' output patches
+};
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 8, wmma::precision::tf32,
                              wmma::row_major>;
@@ -38,8 +44,6 @@ using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 8,
                               wmma::precision::tf32, wmma::col_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32,
                              wmma::row_major>;
-using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 8,
-                              wmma::precision::tf32, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 8, float>;
 
 // Error codes beyond cudaError_t's: the wrapper turns them into messages.
@@ -111,10 +115,11 @@ __device__ __forceinline__ void mma3(FragC& acc, const FA& a_hi, const FA& a_lo,
 
 // Hands warp (rb, cb)'s 16x16 output block, whose first column is c0, to
 // epi(m, n, v) for columns n < N, through the warp's own patch of sC.
-template <class EPI>
+template <int TV, class EPI>
 __device__ __forceinline__ void warp_epilogue(const FragC& acc, int rb, int cb,
                                               int c0, int N, EPI epi,
                                               float* sC) {
+  constexpr int LDC = Tile<TV>::LDC;
   const int lane = threadIdx.x % 32;
   float* patch = sC + rb * 16 * LDC + cb * 16;
   wmma::store_matrix_sync(patch, acc, LDC, wmma::mem_row_major);
@@ -126,22 +131,21 @@ __device__ __forceinline__ void warp_epilogue(const FragC& acc, int rb, int cb,
   __syncwarp();
 }
 
-// A weight product of one tile: epi(m, n, sum_k A[m][k] W'[k][n]) for
-// m < TV, n < N, with W' = W (TRANS false) or W^T (TRANS true, read through
-// col-major fragments: no transposed copy). A is resident in shared memory
-// (row stride lda, finite values past Kd up to a multiple of 8). W stays in
-// global memory (L2-resident), row stride ldw, zero past Kd up to a multiple
-// of 8 along the contraction, readable up to a multiple of 16 along N. N is
-// covered in passes of NP columns; in a pass warp w owns the 16x16 output
-// block (w % 2, w / 2) and streams its own fragments of W, DEPTH k-steps
-// ahead, so the contraction has no barrier. Two accumulators make two
-// independent chains of products.
-template <bool LOWP, bool TRANS, class EPI>
+// A weight product of one tile: epi(m, n, sum_k A[m][k] W[k][n]) for
+// m < TV, n < N. A is resident in shared memory (row stride lda, finite
+// values past Kd up to a multiple of 8). W stays in global memory
+// (L2-resident), row stride ldw, zero past Kd up to a multiple of 8 along
+// the contraction, readable up to a multiple of 16 along N. N is covered in
+// passes of NP columns; in a pass warp w owns the 16x16 output block
+// (w % RB, w / RB) and streams its own fragments of W, DEPTH k-steps ahead,
+// so the contraction has no barrier. Two accumulators make two independent
+// chains of products.
+template <bool LOWP, int TV, class EPI>
 __device__ __forceinline__ void weight_gemm(int Kd, int N, const float* A,
                                             int lda, const float* W, int ldw,
                                             EPI epi, float* sC) {
-  using FB = typename std::conditional<TRANS, FragBT, FragB>::type;
-  const int warp = threadIdx.x / 32, rb = warp % 2, cb = warp / 2;
+  constexpr int RB = Tile<TV>::RB, NP = Tile<TV>::NP;
+  const int warp = threadIdx.x / 32, rb = warp % RB, cb = warp / RB;
   const int steps = (Kd + 7) / 8;
   __syncthreads();  // A's writers are done, and so are the last readers of
                     // what epi overwrites
@@ -149,10 +153,8 @@ __device__ __forceinline__ void weight_gemm(int Kd, int N, const float* A,
     const int c0 = n0 + cb * 16;
     if (c0 >= N) continue;  // warp-uniform
     const float* a = A + rb * 16 * lda;
-    auto wfrag = [&](int s) {
-      return TRANS ? W + (size_t)c0 * ldw + s * 8 : W + (size_t)s * 8 * ldw + c0;
-    };
-    FB ring[DEPTH];
+    auto wfrag = [&](int s) { return W + (size_t)s * 8 * ldw + c0; };
+    FragB ring[DEPTH];
 #pragma unroll
     for (int j = 0; j < DEPTH; ++j)
       if (j < steps) wmma::load_matrix_sync(ring[j], wfrag(j), ldw);
@@ -164,7 +166,7 @@ __device__ __forceinline__ void weight_gemm(int Kd, int N, const float* A,
       for (int j = 0; j < DEPTH; ++j) {
         const int s = s0 + j;
         if (s >= steps) break;
-        FB b_hi = ring[j], b_lo;
+        FragB b_hi = ring[j], b_lo;
         if (s + DEPTH < steps)
           wmma::load_matrix_sync(ring[j], wfrag(s + DEPTH), ldw);
         FragA a_hi, a_lo;
@@ -183,7 +185,7 @@ __device__ __forceinline__ void weight_gemm(int Kd, int N, const float* A,
     }
 #pragma unroll
     for (int i = 0; i < acc.num_elements; ++i) acc.x[i] += acc2.x[i];
-    warp_epilogue(acc, rb, cb, c0, N, epi, sC);
+    warp_epilogue<TV>(acc, rb, cb, c0, N, epi, sC);
   }
 }
 

@@ -27,7 +27,21 @@
 // so each warp owns one 16x16 output block and its products are short
 // dependent chains. On an H100 80GB HBM3 at a 700 W power limit, one block
 // at B = 1, V = 32768 ran at 14 TFLOP/s in f32 (about 9% of what three TF32
-// passes allow) and 21 TFLOP/s with bf16 operands.
+// passes allow) and 21 TFLOP/s with bf16 operands. Its redesign on wgmma is
+// queued; this version takes any K, C and widths whose buffers fit:
+//
+//  * The row tile TV is 32 rows, or 16 where 32 rows' buffers exceed the
+//    card's shared memory (a template parameter; the wrapper picks it from
+//    the same byte count as `smem_bytes` here). At TV = 16 a warp's 16x16
+//    block sits in one row block, so a product pass covers 256 columns.
+//  * Shared memory per CTA, in floats: TV (36 + 132 + NP + 4) for the
+//    staged operator chunk, the Phi tile of the x_hat product and the
+//    warps' output patches, TV (round8(3C) + 4) for [x | xd | feat],
+//    2 TV (round8(max(2C, widths)) + 4) for the MLP's ping-pong buffers,
+//    and 128 x 132 for a resident s. At K = C = 128, hidden [128, 128] and
+//    TV = 32 that is 217 KB (s resident, as before the lift); at
+//    K = C = 256, hidden [256, 256] 263 KB at TV = 32 and 140 KB at
+//    TV = 16; at C = 256 and hidden 1024, 204 KB at TV = 16.
 //
 // What the design does about the two things that do not carry over from the
 // TPU kernel:
@@ -38,14 +52,18 @@
 //    no barrier inside the contraction. The activations (the A operands of
 //    the complex map and the MLP) are resident in shared memory. Only the
 //    operator rows (Phi, GX, GY: the A operands of the spectral products) are
-//    staged through shared memory, against s = coefs (.) x_hat (K x C, one
-//    per batch element), which is resident.
+//    staged through shared memory, in 32-column chunks, against s = coefs
+//    (.) x_hat (K x C per batch element). Where K, C <= 128 s is resident
+//    in shared memory (66 KB); wider, it is read like the weights, as
+//    fragments from L2 (256 KB at K = C = 256), each chunk's four fetched
+//    before the chunk's barrier.
 //  * The x_hat_next sum crosses tiles, and tiles run in parallel. Each CTA
-//    owns a fixed, strided set of tiles of one batch element and a private
-//    (MAX_KC, MAX_KC) f32 slot in device memory (L2-resident), which it
-//    updates tile after tile with no other writer. A second launch in this
-//    file (`xhat_reduce_kernel`) sums the nsplit slots in a fixed order.
-//    Deterministic: no floating-point atomics.
+//    owns a fixed, strided set of tiles of one batch element and, for each
+//    128 x 128 piece of (K, C), a private f32 slot in device memory
+//    (L2-resident, the slot layout of spectral_project), which it updates
+//    tile after tile with no other writer. A second launch in this file
+//    (`xhat_reduce_kernel`) sums the nsplit slots of each piece in a fixed
+//    order. Deterministic: no floating-point atomics.
 //
 // bf16 ("lowp"): as in the TPU kernel's `_dot`, both operands of every
 // product are rounded to bf16 (round to nearest even) and accumulated in
@@ -59,7 +77,7 @@
 // kernel's interpret-mode hash over (seed, batch, tile of tile_v rows,
 // layer) (`Dropout` in megablock_common.cuh), so it is bit-identical to
 // `interpret_dropout_mask` and to the plain version's. The kernel's own
-// 32-row tile lies inside one tile_v tile (the wrapper checks tile_v % 32
+// TV-row tile lies inside one tile_v tile (the wrapper checks tile_v % TV
 // == 0), and the mask is applied to the f32 activation before it is rounded
 // for the next product, as `_mlp_fwd` does.
 //
@@ -72,34 +90,30 @@ namespace {
 
 using namespace mb;
 
-constexpr int KC = 32;         // operator columns staged per chunk
-constexpr int LDA = KC + PAD;  // staged operator chunk: TV x KC
-constexpr int LDB = NP + PAD;  // staged Phi tile for the x_hat product
-constexpr int LDS = NP + PAD;  // resident s: MAX_KC x NP
-static_assert(KC == TV && NP == MAX_KC,
-              "the x_hat product stages Phi^T in sB and m (.) out in sC");
-static_assert((MAX_KC / 16) * (MAX_KC / 16) == 4 * (NT / 32),
-              "four 16x16 blocks of the x_hat partial per warp");
+constexpr int KC = 32;           // operator columns staged per chunk
+constexpr int LDA = KC + PAD;    // staged operator chunk: TV x KC
+constexpr int LDB = SLOT + PAD;  // staged Phi piece for the x_hat product
+constexpr int LDS = SLOT + PAD;  // resident s (K, C <= SLOT): SLOT x LDS
 
 struct Args {
   const void* x;      // (B,V,C) f32 or bf16
   const void* evecs;  // (B,V,K) f32 or bf16 (gx, gy the same dtype)
   const void* gx;
   const void* gy;
-  const float* mass;   // (B,V)
-  const float* coefs;  // (B,K,C)
-  const float* cmap;   // [[A_re, A_im], [-A_im, A_re]], row stride ld_cmap
+  const float* mass;  // (B,V)
+  const float* s;     // (B,K32,ld_s): coefs (.) x_hat_in, zero-padded
+  int ld_s;
+  const float* cmap;  // [[A_re, A_im], [-A_im, A_re]], row stride ld_cmap
   int ld_cmap;
   const float* w[MAX_DENSE];  // (width[l], width[l+1]), row stride ldw[l]
   int ldw[MAX_DENSE];
   const float* b[MAX_DENSE];  // (width[l+1],)
   int width[MAX_DENSE + 1];
   int n_dense;
-  const float* xhat_in;  // (B,K,C)
-  void* out;             // (B,V,C) in x's dtype
-  float* partial;        // (B,nsplit,MAX_KC,MAX_KC) slots, or null
+  void* out;       // (B,V,C) in x's dtype
+  float* partial;  // (B,nkt,nct,nsplit,SLOT,SLOT) slots, or null
   int B, V, K, C;
-  int n_tiles, nsplit;
+  int n_tiles, nsplit, nkt, nct;
   int x_bf16, ops_bf16;
   int ldc, ldp;  // row strides of [x | xd | feat] and the activation buffers
   Dropout drop;
@@ -109,16 +123,21 @@ struct Args {
 // m < TV, n < C. fetchA(m, k) loads a raw operator element (0 outside the
 // mesh). The operator rows are staged through sA in KC-column chunks; the
 // next chunk's loads are in flight while the tensor cores work on this one.
-// s is resident (row stride LDS, zero past K and C). Warp w owns the 16x16
-// output block (w % 2, w / 2).
-template <bool LOWP, class FA, class EPI>
+// RES (K, C <= SLOT): s is resident in shared memory (sS, row stride LDS,
+// rounded for LOWP, zero past K and C). Else s stays in global memory (row
+// stride ld_s, zero past K up to a multiple of KC and past C up to one of
+// 16); each warp fetches its chunk's KC / 8 fragments of it before the
+// chunk's barrier. C is covered in passes of NP columns; warp w owns the
+// 16x16 output block (w % RB, w / RB).
+template <bool LOWP, int TV, bool RES, class FA, class EPI>
 __device__ __forceinline__ void spectral_gemm(int K, int C, FA fetchA,
-                                              int ops_bf16, const float* sS,
+                                              int ops_bf16, const float* s,
+                                              int ld_s, const float* sS,
                                               EPI epi, float* sA, float* sC) {
   constexpr int PA = TV * KC / NT;  // staged elements per thread
+  constexpr int RB = Tile<TV>::RB, NP = Tile<TV>::NP;
   const int tid = threadIdx.x, warp = tid / 32;
-  const int rb = warp % 2, cb = warp / 2;
-  const bool live = cb * 16 < C;  // warp-uniform
+  const int rb = warp % RB, cb = warp / RB;
   float ra[PA];
   auto fetch = [&](int k0) {
 #pragma unroll
@@ -127,43 +146,84 @@ __device__ __forceinline__ void spectral_gemm(int K, int C, FA fetchA,
       ra[r] = fetchA(i / KC, k0 + i % KC);
     }
   };
-  FragC acc;
-  wmma::fill_fragment(acc, 0.f);
-  fetch(0);
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    __syncthreads();  // the previous chunk's readers of sA are done
+  if constexpr (RES) {  // one pass: C <= SLOT = NP
+    const int c0 = cb * 16;
+    const bool live = c0 < C;  // warp-uniform
+    FragC acc;
+    wmma::fill_fragment(acc, 0.f);
+    fetch(0);
+    for (int k0 = 0; k0 < K; k0 += KC) {
+      __syncthreads();  // the previous chunk's readers of sA are done
 #pragma unroll
-    for (int r = 0; r < PA; ++r) {
-      const int i = tid + r * NT;
-      sA[(i / KC) * LDA + i % KC] = rnd<LOWP>(from_raw(ra[r], ops_bf16));
-    }
-    __syncthreads();
-    if (k0 + KC < K) fetch(k0 + KC);
-    if (!live) continue;
+      for (int r = 0; r < PA; ++r) {
+        const int i = tid + r * NT;
+        sA[(i / KC) * LDA + i % KC] = rnd<LOWP>(from_raw(ra[r], ops_bf16));
+      }
+      __syncthreads();
+      if (k0 + KC < K) fetch(k0 + KC);
+      if (!live) continue;
 #pragma unroll
-    for (int kk = 0; kk < KC; kk += 8) {
-      FragA a_hi, a_lo;
-      wmma::load_matrix_sync(a_hi, sA + rb * 16 * LDA + kk, LDA);
-      split<LOWP>(a_hi, a_lo);
-      FragB b_hi, b_lo;
-      wmma::load_matrix_sync(b_hi, sS + (k0 + kk) * LDS + cb * 16, LDS);
-      split<LOWP>(b_hi, b_lo);
-      mma3<LOWP>(acc, a_hi, a_lo, b_hi, b_lo);
+      for (int kk = 0; kk < KC; kk += 8) {
+        FragA a_hi, a_lo;
+        wmma::load_matrix_sync(a_hi, sA + rb * 16 * LDA + kk, LDA);
+        split<LOWP>(a_hi, a_lo);
+        FragB b_hi, b_lo;
+        wmma::load_matrix_sync(b_hi, sS + (k0 + kk) * LDS + c0, LDS);
+        split<LOWP>(b_hi, b_lo);
+        mma3<LOWP>(acc, a_hi, a_lo, b_hi, b_lo);
+      }
     }
+    if (live) warp_epilogue<TV>(acc, rb, cb, c0, C, epi, sC);
+    return;
   }
-  if (live) warp_epilogue(acc, rb, cb, cb * 16, C, epi, sC);
+  for (int n0 = 0; n0 < C; n0 += NP) {
+    const int c0 = n0 + cb * 16;
+    const bool live = c0 < C;  // warp-uniform
+    FragC acc;
+    wmma::fill_fragment(acc, 0.f);
+    fetch(0);
+    for (int k0 = 0; k0 < K; k0 += KC) {
+      FragB bf[KC / 8];
+      if (live) {
+#pragma unroll
+        for (int j = 0; j < KC / 8; ++j)
+          wmma::load_matrix_sync(bf[j], s + (size_t)(k0 + 8 * j) * ld_s + c0,
+                                 ld_s);
+      }
+      __syncthreads();  // the previous chunk's readers of sA are done
+#pragma unroll
+      for (int r = 0; r < PA; ++r) {
+        const int i = tid + r * NT;
+        sA[(i / KC) * LDA + i % KC] = rnd<LOWP>(from_raw(ra[r], ops_bf16));
+      }
+      __syncthreads();
+      if (k0 + KC < K) fetch(k0 + KC);
+      if (!live) continue;
+#pragma unroll
+      for (int j = 0; j < KC / 8; ++j) {
+        FragA a_hi, a_lo;
+        wmma::load_matrix_sync(a_hi, sA + rb * 16 * LDA + 8 * j, LDA);
+        split<LOWP>(a_hi, a_lo);
+        FragB b_lo;
+        operands<LOWP>(bf[j], b_lo);
+        mma3<LOWP>(acc, a_hi, a_lo, bf[j], b_lo);
+      }
+    }
+    if (live) warp_epilogue<TV>(acc, rb, cb, c0, C, epi, sC);
+  }
 }
 
-template <bool LOWP>
+template <bool LOWP, int TV, bool RES>
 __global__ void __launch_bounds__(NT, 1) megablock_fwd_kernel(const Args p) {
   extern __shared__ __align__(128) float smem[];
+  constexpr int LDC = Tile<TV>::LDC;
   const int C = p.C, K = p.K, V = p.V;
   const int ldc = p.ldc, ldp = p.ldp;
   float* sA = smem;                 // TV x LDA: staged operator chunk
-  float* sB = sA + TV * LDA;        // TV x LDB: Phi tile for the x_hat product
+  float* sB = sA + TV * LDA;        // TV x LDB: Phi piece for the x_hat product
   float* sC = sB + TV * LDB;        // TV x LDC: output patches
-  float* sS = sC + TV * LDC;        // MAX_KC x LDS: s = coefs (.) x_hat
-  float* cat = sS + MAX_KC * LDS;   // TV x ldc: [x | xd | feat]
+  float* sS = sC + TV * LDC;        // RES: SLOT x LDS, s resident
+  float* cat = sS + (RES ? SLOT * LDS : 0);  // TV x ldc: [x | xd | feat]
   float* p0 = cat + TV * ldc;       // TV x ldp: [gx | gy], then MLP ping
   float* p1 = p0 + TV * ldp;        // TV x ldp: [vb_re | vb_im], MLP pong
 
@@ -171,36 +231,27 @@ __global__ void __launch_bounds__(NT, 1) megablock_fwd_kernel(const Args p) {
   const int warp = tid / 32;
   const int ops_bf16 = p.ops_bf16, x_bf16 = p.x_bf16;
   const size_t vbase = (size_t)b * V;
+  const float* s = p.s + (size_t)b * round_up(K, KC) * p.ld_s;
 
-  {  // s for this CTA's batch element, resident for all its tiles
-    const float* coefs = p.coefs + (size_t)b * K * C;
-    const float* xhat = p.xhat_in + (size_t)b * K * C;
+  if (RES) {  // s of this CTA's batch element, resident for all its tiles
     constexpr int R = 16;
-    for (int base = 0; base < MAX_KC * LDS; base += R * NT) {
-      float rc[R], rx[R];
+    for (int base = 0; base < SLOT * LDS; base += R * NT) {
+      float rs[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int i = base + tid + r * NT, k = i / LDS, n = i % LDS;
-        const bool in = i < MAX_KC * LDS && k < K && n < C;
-        rc[r] = in ? coefs[k * C + n] : 0.f;
-        rx[r] = in ? xhat[k * C + n] : 0.f;
+        rs[r] = (i < SLOT * LDS && k < K && n < C) ? s[k * p.ld_s + n] : 0.f;
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int i = base + tid + r * NT;
-        if (i < MAX_KC * LDS) sS[i] = rnd<LOWP>(rc[r] * rx[r]);
+        if (i < SLOT * LDS) sS[i] = rnd<LOWP>(rs[r]);
       }
     }
   }
   // the weight products read their A operands up to a multiple of 8
   // columns: what lies past a width must be finite
   for (int i = tid; i < TV * (ldc + 2 * ldp); i += NT) cat[i] = 0.f;
-
-  // this CTA's (MAX_KC, MAX_KC) slot of the x_hat partials; warp w owns the
-  // 16x16 blocks (w % 8, 4 (w / 8) + {0..3}). The slot stays in L2 between
-  // tiles.
-  float* xpart =
-      p.partial + ((size_t)b * p.nsplit + split_id) * MAX_KC * MAX_KC;
 
   for (int tile = split_id; tile < p.n_tiles; tile += p.nsplit) {
     const int row0 = tile * TV;
@@ -213,8 +264,8 @@ __global__ void __launch_bounds__(NT, 1) megablock_fwd_kernel(const Args p) {
     };
 
     __syncthreads();  // the previous tile is done with cat/p0/p1, sB, sC
-    {
-      constexpr int R = TV * MAX_KC / NT;
+    if constexpr (RES) {  // C <= SLOT: TV * SLOT / NT loads a thread
+      constexpr int R = TV * SLOT / NT;
       float rx[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -228,22 +279,37 @@ __global__ void __launch_bounds__(NT, 1) megablock_fwd_kernel(const Args p) {
         const int i = tid + r * NT;
         if (i < TV * C) cat[(i / C) * ldc + i % C] = from_raw(rx[r], x_bf16);
       }
+    } else for (int base = 0; base < TV * C; base += 4 * NT) {
+      float rx[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = base + tid + r * NT, row = row0 + i / C;
+        rx[r] = (i < TV * C && row < V)
+                    ? raw_load(p.x, (vbase + row) * C + i % C, x_bf16)
+                    : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = base + tid + r * NT;
+        if (i < TV * C) cat[(i / C) * ldc + i % C] = from_raw(rx[r], x_bf16);
+      }
     }
 
-    // spectral products Phi s, GX s, GY s; s resident
-    spectral_gemm<LOWP>(K, C, op_rows(p.evecs), ops_bf16, sS,
-                        [&](int m, int n, float v) { cat[m * ldc + C + n] = v; },
-                        sA, sC);
-    spectral_gemm<LOWP>(K, C, op_rows(p.gx), ops_bf16, sS,
-                        [&](int m, int n, float v) { p0[m * ldp + n] = v; }, sA,
-                        sC);
-    spectral_gemm<LOWP>(K, C, op_rows(p.gy), ops_bf16, sS,
-                        [&](int m, int n, float v) { p0[m * ldp + C + n] = v; },
-                        sA, sC);
+    // spectral products Phi s, GX s, GY s
+    spectral_gemm<LOWP, TV, RES>(
+        K, C, op_rows(p.evecs), ops_bf16, s, p.ld_s, sS,
+        [&](int m, int n, float v) { cat[m * ldc + C + n] = v; }, sA, sC);
+    spectral_gemm<LOWP, TV, RES>(
+        K, C, op_rows(p.gx), ops_bf16, s, p.ld_s, sS,
+        [&](int m, int n, float v) { p0[m * ldp + n] = v; }, sA, sC);
+    spectral_gemm<LOWP, TV, RES>(
+        K, C, op_rows(p.gy), ops_bf16, s, p.ld_s, sS,
+        [&](int m, int n, float v) { p0[m * ldp + C + n] = v; }, sA, sC);
 
     // [vb_re | vb_im] = [gx | gy] [[A_re, A_im], [-A_im, A_re]]
-    weight_gemm<LOWP, false>(2 * C, 2 * C, p0, ldp, p.cmap, p.ld_cmap,
-                      [&](int m, int n, float v) { p1[m * ldp + n] = v; }, sC);
+    weight_gemm<LOWP, TV>(2 * C, 2 * C, p0, ldp, p.cmap, p.ld_cmap,
+                          [&](int m, int n, float v) { p1[m * ldp + n] = v; },
+                          sC);
 
     __syncthreads();
     for (int i = tid; i < TV * C; i += NT) {
@@ -261,7 +327,7 @@ __global__ void __launch_bounds__(NT, 1) megablock_fwd_kernel(const Args p) {
       const float* bias = p.b[l];
       const bool last = l == p.n_dense - 1;
       const int width = p.width[l + 1];
-      weight_gemm<LOWP, false>(
+      weight_gemm<LOWP, TV>(
           p.width[l], width, src, lds, p.w[l], p.ldw[l],
           [&](int m, int n, float v) {
             v += bias[n];
@@ -286,40 +352,51 @@ __global__ void __launch_bounds__(NT, 1) megablock_fwd_kernel(const Args p) {
         reinterpret_cast<float*>(p.out)[o] = v;
     }
 
-    if (p.partial != nullptr) {
-      // x_hat_next partial += Phi_tile^T (m (.) out_tile): a (K x TV) (TV x C)
-      // product; Phi_tile (TV x K) goes to sB, read as Phi^T (col-major A),
-      // and m (.) out to sC. Unused rows and columns are zero.
-      constexpr int R = TV * MAX_KC / NT;
-      float rp[R], rm[R];
+    if (p.partial == nullptr) continue;
+    // x_hat_next partial += Phi_tile^T (m (.) out_tile), one SLOT x SLOT
+    // piece of (K, C) at a time: a (SLOT x TV) (TV x SLOT) product; the
+    // piece's Phi columns go to sB, read as Phi^T (col-major A), and its
+    // m (.) out columns to sC. Unused rows and columns are zero. Warp w
+    // owns the 16x16 blocks (w % 8, 4 (w / 8) + {0..3}) of the piece.
+    constexpr int R = TV * SLOT / NT;
+    const int nkt = RES ? 1 : p.nkt, nct = RES ? 1 : p.nct;
+    for (int kt = 0; kt < nkt; ++kt) {
+      for (int ct = 0; ct < nct; ++ct) {
+        const int k0 = kt * SLOT, c0 = ct * SLOT;
+        float rp[R], rm[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int i = tid + r * NT, kk = i / MAX_KC, n = i % MAX_KC;
-        const int row = row0 + kk;
-        rp[r] = (row < V && n < K)
-                    ? raw_load(p.evecs, (vbase + row) * K + n, ops_bf16)
-                    : 0.f;
-        rm[r] = (row < V && n < C) ? p.mass[vbase + row] : 0.f;
-      }
+        for (int r = 0; r < R; ++r) {
+          const int i = tid + r * NT, kk = i / SLOT, n = i % SLOT;
+          const int row = row0 + kk;
+          rp[r] = (row < V && k0 + n < K)
+                      ? raw_load(p.evecs, (vbase + row) * K + k0 + n, ops_bf16)
+                      : 0.f;
+          rm[r] = (row < V && c0 + n < C) ? p.mass[vbase + row] : 0.f;
+        }
+        if (kt | ct) __syncthreads();  // the last piece's readers are done
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int i = tid + r * NT, kk = i / MAX_KC, n = i % MAX_KC;
-        sB[kk * LDB + n] = rnd<LOWP>(from_raw(rp[r], ops_bf16));
-        sC[kk * LDC + n] = rnd<LOWP>(n < C ? rm[r] * src[kk * ldp + n] : 0.f);
-      }
-      __syncthreads();
-      const int kb = warp % 8, cb0 = (warp / 8) * 4;
-      if (kb * 16 < K) {  // warp-uniform
+        for (int r = 0; r < R; ++r) {
+          const int i = tid + r * NT, kk = i / SLOT, n = i % SLOT;
+          sB[kk * LDB + n] = rnd<LOWP>(from_raw(rp[r], ops_bf16));
+          sC[kk * LDC + n] =
+              rnd<LOWP>(c0 + n < C ? rm[r] * src[kk * ldp + c0 + n] : 0.f);
+        }
+        __syncthreads();
+        const int kb = warp % 8, cb0 = (warp / 8) * 4;
+        if (k0 + kb * 16 >= K) continue;  // warp-uniform
         const bool first = tile == split_id;
-        float* slot = xpart + kb * 16 * MAX_KC;
+        float* slot = p.partial +
+                      ((((size_t)b * nkt + kt) * nct + ct) * p.nsplit +
+                       split_id) * SLOT * SLOT +
+                      kb * 16 * SLOT;
         FragC xacc[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          if ((cb0 + j) * 16 >= C) continue;
+          if (c0 + (cb0 + j) * 16 >= C) continue;
           if (first)
             wmma::fill_fragment(xacc[j], 0.f);
           else
-            wmma::load_matrix_sync(xacc[j], slot + (cb0 + j) * 16, MAX_KC,
+            wmma::load_matrix_sync(xacc[j], slot + (cb0 + j) * 16, SLOT,
                                    wmma::mem_row_major);
         }
 #pragma unroll
@@ -329,7 +406,7 @@ __global__ void __launch_bounds__(NT, 1) megablock_fwd_kernel(const Args p) {
           split<LOWP>(a_hi, a_lo);
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            if ((cb0 + j) * 16 >= C) continue;
+            if (c0 + (cb0 + j) * 16 >= C) continue;
             FragB b_hi, b_lo;
             wmma::load_matrix_sync(b_hi, sC + kk * LDC + (cb0 + j) * 16, LDC);
             split<LOWP>(b_hi, b_lo);
@@ -338,8 +415,8 @@ __global__ void __launch_bounds__(NT, 1) megablock_fwd_kernel(const Args p) {
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if ((cb0 + j) * 16 < C)
-            wmma::store_matrix_sync(slot + (cb0 + j) * 16, xacc[j], MAX_KC,
+          if (c0 + (cb0 + j) * 16 < C)
+            wmma::store_matrix_sync(slot + (cb0 + j) * 16, xacc[j], SLOT,
                                     wmma::mem_row_major);
       }
     }
@@ -347,7 +424,7 @@ __global__ void __launch_bounds__(NT, 1) megablock_fwd_kernel(const Args p) {
 }
 
 // x_hat_next[b][k][c] = sum over s of partial[b, s, k, c], partial slots
-// (MAX_KC, MAX_KC) of which the (K, C) corner is used. Replaces the TPU
+// (SLOT, SLOT) of which the (K, C) corner is used. Replaces the TPU
 // kernel's in-VMEM carry of x_hat across its sequential grid
 // (pallas_megablock.py:305); torch.sum of the slots is the library yardstick.
 //
@@ -380,10 +457,10 @@ __global__ void __launch_bounds__(XR_CHUNKS * XR_COLS / 4)
   const int s0 = g * len;
   const int s1 = min(nsplit, s0 + len);
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (c0 + 4 * f < C) {  // c0 + 4 f + 3 < MAX_KC: the slot row holds it
+  if (c0 + 4 * f < C) {  // c0 + 4 f + 3 < SLOT: the slot row holds it
     const float4* src = reinterpret_cast<const float4*>(
-        partial + ((size_t)b * nsplit * MAX_KC + k) * MAX_KC + c0) + f;
-    constexpr size_t stride = (size_t)MAX_KC * MAX_KC / 4;
+        partial + ((size_t)b * nsplit * SLOT + k) * SLOT + c0) + f;
+    constexpr size_t stride = (size_t)SLOT * SLOT / 4;
 #pragma unroll 4
     for (int s = s0; s < s1; ++s) {
       const float4 v = __ldg(src + (size_t)s * stride);
@@ -402,46 +479,64 @@ __global__ void __launch_bounds__(XR_CHUNKS * XR_COLS / 4)
   }
 }
 
-size_t smem_bytes(int ldc, int ldp) {
-  return sizeof(float) * ((size_t)TV * LDA + (size_t)TV * LDB +
-                          (size_t)TV * LDC + (size_t)MAX_KC * LDS +
-                          (size_t)TV * ldc + 2 * (size_t)TV * ldp);
+// Shared memory of B1's CTA, in bytes (ops/megablock.py::fwd_smem_bytes
+// computes the same from the shapes).
+size_t smem_bytes(int tv, int res, int ldc, int ldp) {
+  const int np = tv == 16 ? Tile<16>::NP : Tile<32>::NP;
+  return sizeof(float) *
+         ((size_t)tv * ((size_t)LDA + LDB + (np + PAD) + ldc + 2 * (size_t)ldp) +
+          (res ? (size_t)SLOT * LDS : 0));
+}
+
+template <bool LOWP>
+void* fwd_kernel(int tv, int res) {
+  if (tv == 16) return (void*)megablock_fwd_kernel<LOWP, 16, false>;
+  return res ? (void*)megablock_fwd_kernel<LOWP, 32, true>
+             : (void*)megablock_fwd_kernel<LOWP, 32, false>;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the block kernel on `stream`. `partial` null: emit_next off.
-// cmap is [[A_re, A_im], [-A_im, A_re]] and each ws[l] the l-th MLP kernel,
-// laid out as weight_gemm reads them (zero rows up to a multiple of 8).
-// dropout 0: off; else masks from (seed, b, row / tile_v, layer).
+// Launches the block kernel on `stream`. `partial` null: emit_next off;
+// else (B, nkt, nct, nsplit, SLOT, SLOT) with nkt = ceil(K / SLOT) and
+// nct = ceil(C / SLOT). s is (B, round_up(K, 32), ld_s), zero-padded; cmap
+// is [[A_re, A_im], [-A_im, A_re]] and each ws[l] the l-th MLP kernel, laid
+// out as weight_gemm reads them (zero rows up to a multiple of 8). tv: the
+// row tile, 32 or 16; res (tv 32, K, C <= SLOT): s resident in shared
+// memory, else read from L2. dropout 0: off; else masks from (seed, b,
+// row / tile_v, layer).
 int mb_fwd_launch(const void* x, const void* evecs, const void* gx,
-                  const void* gy, const void* mass, const void* coefs,
+                  const void* gy, const void* mass, const void* s, int ld_s,
                   const void* cmap, int ld_cmap, const void* const* ws,
                   const int* ldw, const void* const* bs, const int* widths,
-                  int n_dense, const void* xhat_in, void* out, void* partial,
-                  int B, int V, int K, int C, int nsplit, int x_bf16,
+                  int n_dense, void* out, void* partial, int B, int V, int K,
+                  int C, int nsplit, int tv, int res, int x_bf16,
                   int ops_bf16, int lowp, int dropout, int seed, int tile_v,
                   void* stream) {
-  if (dropout && (tile_v < TV || tile_v % TV != 0 || V % tile_v != 0 ||
+  if ((tv != 16 && tv != 32) || (res && (tv != 32 || K > SLOT || C > SLOT)))
+    return MB_BAD_SHAPE;
+  if (dropout && (tile_v < tv || tile_v % tv != 0 || V % tile_v != 0 ||
                   seed < 0 || B > 2048 || V / tile_v > 65536 ||
                   n_dense - 1 > 16))
     return MB_BAD_SHAPE;
-  if (n_dense < 1 || n_dense > MAX_DENSE || K < 1 || K > MAX_KC || C < 1 ||
-      C > MAX_KC || B < 1 || V < 1 || nsplit < 1)
+  if (n_dense < 1 || n_dense > MAX_DENSE || K < 1 || C < 1 || B < 1 ||
+      V < 1 || nsplit < 1)
     return MB_BAD_SHAPE;
   if (widths[0] != 3 * C || widths[n_dense] != C) return MB_BAD_SHAPE;
-  if (!weight_layout_ok(cmap, ld_cmap, 2 * C)) return MB_BAD_LAYOUT;
+  if (!weight_layout_ok(cmap, ld_cmap, 2 * C) || !weight_layout_ok(s, ld_s, C))
+    return MB_BAD_LAYOUT;
   Args p = {};
   p.x = x; p.evecs = evecs; p.gx = gx; p.gy = gy;
   p.mass = static_cast<const float*>(mass);
-  p.coefs = static_cast<const float*>(coefs);
+  p.s = static_cast<const float*>(s);
+  p.ld_s = ld_s;
   p.cmap = static_cast<const float*>(cmap);
   p.ld_cmap = ld_cmap;
   int widest = 2 * C;
   for (int l = 0; l < n_dense; ++l) {
-    if (widths[l + 1] < 1 || widths[l + 1] > MAX_WIDTH) return MB_BAD_SHAPE;
+    if (widths[l + 1] < 1) return MB_BAD_SHAPE;
     if (!weight_layout_ok(ws[l], ldw[l], widths[l + 1])) return MB_BAD_LAYOUT;
     p.w[l] = static_cast<const float*>(ws[l]);
     p.ldw[l] = ldw[l];
@@ -450,13 +545,14 @@ int mb_fwd_launch(const void* x, const void* evecs, const void* gx,
   }
   for (int l = 0; l <= n_dense; ++l) p.width[l] = widths[l];
   p.n_dense = n_dense;
-  p.xhat_in = static_cast<const float*>(xhat_in);
   p.out = out;
   p.partial = static_cast<float*>(partial);
   p.B = B; p.V = V; p.K = K; p.C = C;
-  p.n_tiles = (V + TV - 1) / TV;
+  p.n_tiles = (V + tv - 1) / tv;
   p.nsplit = nsplit < p.n_tiles ? nsplit : p.n_tiles;
   if (p.nsplit != nsplit) return MB_BAD_SHAPE;  // partial is sized by nsplit
+  p.nkt = (K + SLOT - 1) / SLOT;
+  p.nct = (C + SLOT - 1) / SLOT;
   p.x_bf16 = x_bf16; p.ops_bf16 = ops_bf16;
   p.drop = {dropout, seed, tile_v};
   // padded to 4 mod 32 floats: the rows of a fragment fall in other banks
@@ -467,22 +563,25 @@ int mb_fwd_launch(const void* x, const void* evecs, const void* gx,
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
-  const size_t smem = smem_bytes(p.ldc, p.ldp);
+  const size_t smem = smem_bytes(tv, res, p.ldc, p.ldp);
   if (smem > (size_t)max_smem) return MB_SMEM;
-  auto kernel = lowp ? megablock_fwd_kernel<true> : megablock_fwd_kernel<false>;
+  void* kernel = lowp ? fwd_kernel<true>(tv, res) : fwd_kernel<false>(tv, res);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(nsplit, B), NT, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  void* args[] = {&p};
+  err = cudaLaunchKernel(kernel, dim3(nsplit, B), dim3(NT), args, smem,
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// partial: (B, nsplit, MAX_KC, MAX_KC) slots, 16-byte aligned; out:
-// (B, K, C).
+// partial: (G, nsplit, SLOT, SLOT) slots, 16-byte aligned; out: (G, K, C)
+// with K, C <= SLOT (one piece).
 int mb_xhat_reduce_launch(const void* partial, void* out, int B, int nsplit,
                           int K, int C, void* stream) {
-  if (B < 1 || B > 65535 || nsplit < 1 || K < 1 || K > MAX_KC || C < 1 ||
-      C > MAX_KC)
+  if (B < 1 || B > 65535 || nsplit < 1 || K < 1 || K > SLOT || C < 1 ||
+      C > SLOT)
     return MB_BAD_SHAPE;
   const dim3 grid((C + XR_COLS - 1) / XR_COLS, K, B);
   xhat_reduce_kernel<<<grid, XR_CHUNKS * XR_COLS / 4, 0,
@@ -490,6 +589,16 @@ int mb_xhat_reduce_launch(const void* partial, void* out, int B, int nsplit,
       static_cast<const float*>(partial), static_cast<float*>(out), nsplit, K,
       C);
   return (int)cudaGetLastError();
+}
+
+// The card's opt-in shared memory per block, in bytes (the wrapper's
+// refusals name it).
+int mb_smem_optin() {
+  int dev = 0, max_smem = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  return max_smem;
 }
 
 const char* mb_error_string(int code) {

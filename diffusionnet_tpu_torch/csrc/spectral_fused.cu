@@ -51,7 +51,7 @@ namespace {
 using namespace mb;
 
 constexpr int ST = 256;        // threads per CTA (16 x 16)
-constexpr int PIECE = MAX_KC;  // side of a (K, C) piece: the x_hat slot side
+constexpr int PIECE = SLOT;    // side of a (K, C) piece: the x_hat slot side
 constexpr int LDP = PIECE + 4; // padded row of a staged 128-wide tile
 constexpr int PR = 32;         // rows per tile of spectral_project
 constexpr int AR = 128;        // rows per CTA of spectral_apply

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from .megablock import (SLOT, _cdt, _mm, _mm_t, _nsplit, _raise_on,
-                        xhat_reduce)
+                        reduce_pieces)
 
 DEFAULT_TILE_V = 1024
 
@@ -134,13 +134,7 @@ def spectral_project(x, evecs, mass, lowp: bool = False) -> torch.Tensor:
     _raise_on(lib, code, "spectral_project launch")
     LAUNCHES["spectral_project"] += 1
     # one slot per (b, 128-row piece of K, 128-column piece of C)
-    kr = K if nkt == 1 else SLOT
-    cr = C if nct == 1 else SLOT
-    x_hat = xhat_reduce(partial, kr, cr)
-    if nkt == nct == 1:
-        return x_hat
-    return (x_hat.view(B, nkt, nct, kr, cr).permute(0, 1, 3, 2, 4)
-            .reshape(B, nkt * kr, nct * cr)[:, :K, :C].contiguous())
+    return reduce_pieces(partial, B, K, C)
 
 
 def spectral_apply(x_hat, coefs, evecs, gX, gY, out_dtype):

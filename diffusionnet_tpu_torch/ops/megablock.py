@@ -13,14 +13,20 @@ Given this block's x_hat = Phi^T (m x), the forward computes
     out   = MLP([x, xd, feat]) + x     (Dense, [Dropout]-ReLU-Dense, ...)
 
 and, with emit_next, the next block's x_hat = Phi^T (m out). The backward
-recomputes the forward per row tile and returns (dx_direct, ds, dA_re,
-dA_im, dW_l, db_l); `megablock_chained` wraps both in a
-torch.autograd.Function.
+returns (dx_direct, ds, dA_re, dA_im, dW_l, db_l); `megablock_chained` wraps
+both in a torch.autograd.Function. On the card the backward is two kernels
+and a partial sum: `megablock_bwd_rows` recomputes the forward per 64-row
+tile and writes dx_direct, a row scratch R of the V-reductions' operands
+and db's per-tile partials; `megablock_bwd_grads` runs the V-reductions
+(dW, dA, ds) on a split-V grid; `grad_reduce` sums the partials in a fixed
+order (csrc/megablock_bwd.cu).
 
 Dispatch: tensors on the CPU go to the plain PyTorch versions
 (`megablock_chained_reference`, `megablock_chained_bwd_reference`); tensors
 on a CUDA device go to the hand-written kernels (csrc/megablock_fwd.cu,
-csrc/megablock_bwd.cu) or raise. There is no fallback between the two.
+csrc/megablock_bwd.cu) or raise. There is no fallback between the two. The
+plain versions of the two backward kernels (`megablock_bwd_rows_reference`,
+`megablock_bwd_grads_reference`) are what the card's kernels are held to.
 
 lowp (bf16 operands) is an argument: both operands of every product are
 rounded to bf16 and accumulated in f32, as the TPU kernel's `_dot` does.
@@ -48,8 +54,8 @@ _SCALE = 1.0 / (1.0 - DROPOUT_RATE)
 
 # launches per kernel since the last reset_launches(); each wrapper adds one
 # where it launches its kernel, and nowhere else
-LAUNCHES = {"megablock_fwd": 0, "xhat_reduce": 0, "megablock_bwd": 0,
-            "grad_reduce": 0}
+LAUNCHES = {"megablock_fwd": 0, "xhat_reduce": 0, "megablock_bwd_rows": 0,
+            "megablock_bwd_grads": 0, "grad_reduce": 0}
 
 
 def reset_launches() -> None:
@@ -144,17 +150,30 @@ def _mm_t(a, b, lowp: bool):
     return _mm(a.transpose(-1, -2), b, lowp)
 
 
+def cmap_of(A_re, A_im) -> torch.Tensor:
+    """The complex map as one (2C, 2C) matrix: [vb_re | vb_im] = [gx | gy]
+    cmap."""
+    return torch.cat((torch.cat((A_re, A_im), 1), torch.cat((-A_im, A_re), 1)))
+
+
 def _forward_parts(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
-                   x_hat_in, lowp, seed, tile_v):
-    """The block's forward with everything the backward reads."""
+                   x_hat_in, lowp, seed, tile_v, one_cmap=False):
+    """The block's forward with everything the backward reads. one_cmap:
+    the complex map as one product over [gx | gy] (as the backward's rows
+    kernel runs it), else as the JAX kernel writes it, four products."""
     dt = _cdt(x, coefs, x_hat_in, *Ws)
     s = coefs.to(dt) * x_hat_in.to(dt)
     xf = x.to(dt)
     xd = _mm(evecs, s, lowp)
     gx = _mm(gX, s, lowp)
     gy = _mm(gY, s, lowp)
-    vb_re = _mm(gx, A_re, lowp) - _mm(gy, A_im, lowp)
-    vb_im = _mm(gy, A_re, lowp) + _mm(gx, A_im, lowp)
+    if one_cmap:
+        vb = _mm(torch.cat((gx, gy), -1), cmap_of(A_re, A_im).to(dt), lowp)
+        C = x.shape[-1]
+        vb_re, vb_im = vb[..., :C], vb[..., C:]
+    else:
+        vb_re = _mm(gx, A_re, lowp) - _mm(gy, A_im, lowp)
+        vb_im = _mm(gy, A_re, lowp) + _mm(gx, A_im, lowp)
     feat = torch.tanh(gx * vb_re + gy * vb_im)
     h = torch.cat([xf, xd, feat], dim=-1)
     B, V = x.shape[:2]
@@ -255,6 +274,176 @@ def relu_margin(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs, x_hat_in,
     return out if out is not None else torch.ones_like(mass)
 
 
+# ---------------------------------------------------------------------------
+# B2 on the card: the rows kernel's scratch, and the plain versions of the
+# two backward kernels
+# ---------------------------------------------------------------------------
+
+ROW_TILE = 64  # rows per CTA of the rows kernel (RT in csrc/megablock_bwd.cu)
+GRAD_BLOCK = 128  # side of an output block of the grads kernel
+
+
+def bwd_layout(K: int, C: int, widths) -> dict:
+    """Where the rows kernel keeps each V-reduction operand in a row of its
+    scratch R (column offsets; each group padded to a multiple of 32), the
+    column of each layer's db partial, and the grads kernel's parameter
+    products (A's and B's first columns in R, M, N, and the product's offset
+    in a parameter slot): dW_l = in_l^T dpre_l for every layer, then
+    P = [gx | gy]^T [dvb_re | dvb_im]. Mirrors csrc/megablock_bwd.cu."""
+    n = len(widths) - 1
+    off = 0
+
+    def grp(w):
+        nonlocal off
+        o, off = off, off + _up(w, 32)
+        return o
+    off_in = [grp(3 * C)] + [grp(widths[l]) for l in range(1, n)]
+    off_dp = [grp(widths[l + 1]) for l in range(n)]
+    off_gg, off_dvb, off_ds = grp(2 * C), grp(2 * C), grp(3 * C)
+    prods, o = [], 0
+    for l in range(n):
+        prods.append((off_in[l], off_dp[l], widths[l], widths[l + 1], o))
+        o += widths[l] * widths[l + 1]
+    prods.append((off_gg, off_dvb, 2 * C, 2 * C, o))
+    return dict(off_in=off_in, off_dp=off_dp, off_gg=off_gg, off_dvb=off_dvb,
+                off_ds=off_ds, ldr=off,
+                off_db=[sum(widths[1:l + 1]) for l in range(n)],
+                ld_db=sum(widths[1:]), prods=prods, P_par=o + 4 * C * C)
+
+
+def grads_splits(B: int, V: int, K: int, C: int, widths, n_sm: int):
+    """(S_par, L_par, S_ds, L_ds): the grads kernel's V ranges. Split s of a
+    parameter product covers rows [s L_par, (s + 1) L_par) of all B V rows,
+    split s of ds rows [s L_ds, (s + 1) L_ds) of one batch element's V (the
+    last ones short or empty). L is chosen so that about 4 CTAs per SM share
+    the work (ds reads three operand pairs per row), a multiple of 32."""
+    def blocks(m, n):
+        return -(-m // GRAD_BLOCK) * -(-n // GRAD_BLOCK)
+    nb_par = (sum(blocks(a, b) for a, b in zip(widths[:-1], widths[1:]))
+              + blocks(2 * C, 2 * C))
+    work = nb_par * B * V + 3 * B * blocks(K, C) * V
+    L = max(32, _up(-(-work // (4 * n_sm)), 32))
+    S_ds = max(1, -(-3 * V // L))
+    L_ds = _up(-(-V // S_ds), 32)
+    return -(-(B * V) // L), L, -(-V // L_ds), L_ds
+
+
+def megablock_bwd_rows_reference(x, evecs, gX, gY, mass, coefs, A_re, A_im,
+                                 Ws, bs, x_hat_in, dout, dx_hat_next=None,
+                                 lowp: bool = False, seed=None,
+                                 tile_v: int = DEFAULT_TILE_V):
+    """Plain version of the rows kernel, with its products (the complex map
+    as one product over [gx | gy], dvb cmap^T as one) and casts. Returns
+    (dx_direct (B,V,C) in x's dtype, R (B V, ldr) in the product type
+    (bf16 with lowp, else f32; `bwd_layout` places the groups, padding
+    zero), dbp (B n_tiles, ld_db) f32: each 64-row tile's column sums of
+    every dpre_l)."""
+    f = _forward_parts(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
+                       x_hat_in, lowp, seed, tile_v, one_cmap=True)
+    dt = f["xf"].dtype
+    B, V, C = x.shape
+    n = len(Ws)
+    widths = [W.shape[0] for W in Ws] + [Ws[-1].shape[1]]
+    lay = bwd_layout(evecs.shape[-1], C, widths)
+    g = dout.to(dt)
+    if dx_hat_next is not None:
+        g = g + mass[..., None].to(dt) * _mm(evecs, dx_hat_next, lowp)
+    dpres = [None] * n
+    d = g
+    for l in range(n - 1, -1, -1):
+        dpres[l] = (d if l == n - 1
+                    else torch.where(f["pres"][l] > 0, d, torch.zeros_like(d)))
+        d = _mm(dpres[l], Ws[l].transpose(0, 1), lowp)
+        if l > 0 and seed is not None:
+            d = torch.where(f["masks"][l - 1], d * _SCALE, torch.zeros_like(d))
+    dx_direct = d[..., :C] + g
+    ddots = d[..., 2 * C:] * (1.0 - f["feat"] * f["feat"])
+    dvb = torch.cat((ddots * f["gx"], ddots * f["gy"]), -1)
+    dgxy = (torch.cat((ddots * f["vb_re"], ddots * f["vb_im"]), -1)
+            + _mm(dvb, cmap_of(A_re, A_im).transpose(0, 1).to(dt), lowp))
+    rdt = torch.bfloat16 if lowp else torch.float32
+    R = torch.zeros((B * V, lay["ldr"]), dtype=rdt, device=x.device)
+
+    def put(off, t):
+        R[:, off:off + t.shape[-1]] = t.reshape(B * V, -1).to(rdt)
+    for l in range(n):
+        put(lay["off_in"][l], f["inputs"][l])
+        put(lay["off_dp"][l], dpres[l])
+    put(lay["off_gg"], torch.cat((f["gx"], f["gy"]), -1))
+    put(lay["off_dvb"], dvb)
+    put(lay["off_ds"], torch.cat((d[..., C:2 * C], dgxy), -1))
+    n_tiles = -(-V // ROW_TILE)
+    dbp = torch.zeros((B * n_tiles, lay["ld_db"]), dtype=torch.float32,
+                      device=x.device)
+    for l in range(n):
+        w = widths[l + 1]
+        t = torch.zeros((B, n_tiles * ROW_TILE, w), dtype=dt, device=x.device)
+        t[:, :V] = dpres[l]
+        o = lay["off_db"][l]
+        dbp[:, o:o + w] = t.view(B * n_tiles, ROW_TILE, w).sum(1).float()
+    return dx_direct.to(x.dtype), R, dbp
+
+
+def _split_tn(a, b, S, L):
+    """(S, M, N): per split of L consecutive rows (the last ones short or
+    empty), a^T b over its rows, in f32."""
+    pad = S * L - a.shape[0]
+    a = torch.nn.functional.pad(a, (0, 0, 0, pad)).view(S, L, -1)
+    b = torch.nn.functional.pad(b, (0, 0, 0, pad)).view(S, L, -1)
+    return a.transpose(1, 2) @ b
+
+
+def megablock_bwd_grads_reference(R, evecs, gX, gY, C: int, widths, splits,
+                                  lowp: bool = False):
+    """Plain version of the grads kernel: (part_par (S_par, P_par),
+    part_ds (B, S_ds, K C)), f32. Split s of each product is its rows'
+    product, as the kernel's CTAs split V (`grads_splits`): the parameter
+    products of `bwd_layout` over all B V rows of R, and ds_b = Phi_b^T dxd
+    + GX_b^T dgx + GY_b^T dgy over batch element b's rows (operators rounded
+    to bf16 with lowp; R is already in the product type)."""
+    B, V, K = evecs.shape
+    lay = bwd_layout(K, C, widths)
+    S_par, L_par, S_ds, L_ds = splits
+    Rf = R.float()
+    part_par = torch.zeros((S_par, lay["P_par"]), dtype=torch.float32,
+                           device=R.device)
+    for a_off, b_off, M, N, o in lay["prods"]:
+        part_par[:, o:o + M * N] = _split_tn(
+            Rf[:, a_off:a_off + M], Rf[:, b_off:b_off + N], S_par,
+            L_par).reshape(S_par, -1)
+    ops = [(op.to(torch.bfloat16) if lowp else op).float()
+           for op in (evecs, gX, gY)]
+    part_ds = torch.zeros((B, S_ds, K * C), dtype=torch.float32,
+                          device=R.device)
+    off = lay["off_ds"]
+    for b in range(B):
+        rows = Rf[b * V:(b + 1) * V]
+        acc = sum(_split_tn(ops[t][b], rows[:, off + t * C:off + (t + 1) * C],
+                            S_ds, L_ds) for t in range(3))
+        part_ds[b] = acc.reshape(S_ds, -1)
+    return part_par, part_ds
+
+
+def bwd_grads_finish(part_par, part_ds, dbp, K: int, C: int, widths):
+    """(ds (B,K,C), dA_re, dA_im, dWs, dbs) from the partials: `grad_reduce`
+    sums ds over its splits per batch element, the parameters over their
+    splits and db over the row tiles (kernels for CUDA tensors); dA_re =
+    P00 + P11, dA_im = P01 - P10."""
+    lay = bwd_layout(K, C, widths)
+    n = len(widths) - 1
+    B = part_ds.shape[0]
+    ds = grad_reduce(part_ds, 0, K * C).view(B, K, C)
+    par = grad_reduce(part_par.unsqueeze(0), 0, lay["P_par"])[0]
+    db = grad_reduce(dbp.unsqueeze(0), 0, lay["ld_db"])[0]
+    dWs = [par[o:o + M * N].view(M, N) for _, _, M, N, o in lay["prods"][:n]]
+    o = lay["prods"][n][4]
+    P = par[o:o + 4 * C * C].view(2 * C, 2 * C)
+    dA_re = P[:C, :C] + P[C:, C:]
+    dA_im = P[:C, C:] - P[C:, :C]
+    dbs = [db[o:o + widths[l + 1]] for l, o in enumerate(lay["off_db"])]
+    return ds, dA_re, dA_im, dWs, dbs
+
+
 XR_CHUNKS = 16  # chunks of the x_hat partial sum (XR_CHUNKS in the kernel)
 
 
@@ -327,8 +516,8 @@ def _nsplit(dev: torch.device, B: int, n_tiles: int) -> int:
     return max(1, min(n_tiles, _sm_count(dev.index) // B))
 
 
-TILE_ROWS = 32  # the kernels' row tile (TV in csrc/megablock_common.cuh)
-SLOT = 128      # side of a CTA's x_hat partial slot (MAX_KC there)
+SLOT = 128  # side of an x_hat partial slot: (K, C) in SLOT x SLOT pieces
+MAX_DENSE = 16  # MLP layers a launch's arguments hold (MAX_DENSE there)
 
 
 def _up(n: int, m: int) -> int:
@@ -336,8 +525,8 @@ def _up(n: int, m: int) -> int:
 
 
 def xhat_reduce(partial: torch.Tensor, K: int, C: int) -> torch.Tensor:
-    """Sum per-CTA x_hat partials, slots (B, S, SLOT, SLOT) of which the
-    (K, C) corner is used, -> (B, K, C) in the fixed order that
+    """Sum per-CTA x_hat partials, slots (G, S, SLOT, SLOT) of which the
+    (K, C) corner is used, -> (G, K, C) in the fixed order that
     `xhat_reduce_reference` states (bit-equal to it on the card)."""
     if partial.device.type == "cpu":
         return xhat_reduce_reference(partial, K, C)
@@ -383,13 +572,26 @@ def grad_reduce(partial: torch.Tensor, off: int, n: int) -> torch.Tensor:
     return out
 
 
+def reduce_pieces(partial: torch.Tensor, B: int, K: int, C: int
+                  ) -> torch.Tensor:
+    """x_hat (B, K, C) from per-CTA slots (B, nkt, nct, S, SLOT, SLOT), one
+    slot per (b, 128-row piece of K, 128-column piece of C): one
+    `xhat_reduce` launch over every piece, then the pieces put together."""
+    nkt, nct = -(-K // SLOT), -(-C // SLOT)
+    kr = K if nkt == 1 else SLOT
+    cr = C if nct == 1 else SLOT
+    x_hat = xhat_reduce(partial.view(B * nkt * nct, -1, SLOT, SLOT), kr, cr)
+    if nkt == nct == 1:
+        return x_hat
+    return (x_hat.view(B, nkt, nct, kr, cr).permute(0, 1, 3, 2, 4)
+            .reshape(B, nkt * kr, nct * cr)[:, :K, :C].contiguous())
+
+
 def _weight_layout(W: torch.Tensor, rows: int = 8, cols: int = 16
                    ) -> torch.Tensor:
-    """W (k, n) as a kernel reads its weights from global memory: rows 32-byte
+    """W (k, n) as B1 reads its weights from global memory: rows 32-byte
     aligned, zero rows up to a multiple of `rows` and columns up to one of
-    `cols` (B1 reads W in 8-row, 16-column fragments; B2 also reads W^T, so
-    it pads both to 16). W itself where it already is so, else a zero-padded
-    copy."""
+    `cols`. W itself where it already is so, else a zero-padded copy."""
     k, n = W.shape
     kp, np_ = _up(k, rows), _up(n, cols)
     if (kp, np_) == (k, n) and W.data_ptr() % 32 == 0:
@@ -399,9 +601,62 @@ def _weight_layout(W: torch.Tensor, rows: int = 8, cols: int = 16
     return out
 
 
+def _padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """(B, k, n) -> contiguous, 32-byte aligned (B, rows, cols), zero past
+    (k, n)."""
+    B, k, n = t.shape
+    if ((k, n) == (rows, cols) and t.is_contiguous()
+            and t.data_ptr() % 32 == 0):
+        return t
+    out = t.new_zeros((B, rows, cols))
+    out[:, :k, :n] = t
+    return out
+
+
+# B1's shared memory (csrc/megablock_fwd.cu, smem_bytes): per row of its
+# tile, in floats, the staged operator chunk (32 + 4), the Phi piece of the
+# x_hat product (128 + 4), the warps' output patches (NP + 4, NP = 128 at
+# 32 rows and 256 at 16), [x | xd | feat] (round8(3C) + 4) and two MLP
+# buffers (round8(max(2C, widths)) + 4 each); with res, s resident
+# (SLOT x (SLOT + 4)).
+def fwd_smem_bytes(tv: int, C: int, widths, res: bool = False) -> int:
+    ldc = _up(3 * C, 8) + 4
+    ldp = _up(max([2 * C] + list(widths[1:])), 8) + 4
+    np_ = 128 if tv == 32 else 256
+    return 4 * (tv * (36 + 132 + np_ + 4 + ldc + 2 * ldp)
+                + (SLOT * (SLOT + 4) if res else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_limit(index: int) -> int:
+    """The card's opt-in shared memory per block, in bytes."""
+    from .. import _build
+    with torch.cuda.device(index):
+        return int(_build.load().mb_smem_optin())
+
+
+def fwd_row_tile(K: int, C: int, widths, limit: int) -> tuple[int, bool]:
+    """B1's (row tile, s resident) at these shapes: 32 rows with s resident
+    in shared memory where K, C <= SLOT and that fits in `limit` bytes, else
+    32 rows with s read from L2, else 16; raises where 16 rows' buffers
+    exceed the limit too."""
+    for tv, res in ((32, True), (32, False), (16, False)):
+        if ((not res or max(K, C) <= SLOT)
+                and fwd_smem_bytes(tv, C, widths, res) <= limit):
+            return tv, res
+    raise ValueError(
+        f"megablock_chained: the block kernel needs "
+        f"{fwd_smem_bytes(16, C, widths)} bytes of shared memory at its "
+        f"smallest row tile (16 rows; C={C}, widths={list(widths)}), more "
+        f"than the card's {limit} bytes")
+
+
 def _check_block(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
                  x_hat_in, seed, tile_v):
-    """The checks both kernels share; returns (B, V, K, C, widths)."""
+    """The checks both kernels share; returns (B, V, K, C, widths, B1's row
+    tile, whether B1 keeps s resident). Shapes are refused only where B1's shared memory, computed from
+    them, exceeds the card's (B2's kernels take the same shared memory at
+    every width)."""
     f32, bf16 = torch.float32, torch.bfloat16
     _check(x.ndim == 3, "x must be (B,V,C)")
     B, V, C = x.shape
@@ -422,6 +677,8 @@ def _check_block(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
         _check(t.dtype == dtype, f"{name} dtype {t.dtype} != {dtype}")
     n_dense = len(Ws)
     _check(n_dense == len(bs) and n_dense >= 1, "need matching Ws and bs")
+    _check(n_dense <= MAX_DENSE, f"{n_dense} dense layers: a launch's "
+           f"arguments hold {MAX_DENSE}")
     widths = [W.shape[0] for W in Ws] + [Ws[-1].shape[1]]
     _check(widths[0] == 3 * C and widths[-1] == C,
            f"MLP widths {widths} must run 3C -> ... -> C")
@@ -432,17 +689,20 @@ def _check_block(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
         _check(W.dtype == f32 and b.dtype == f32, f"layer {l} dtype")
     tensors = [x, evecs, gX, gY, mass, coefs, A_re, A_im, x_hat_in, *Ws, *bs]
     _check(all(t.is_contiguous() for t in tensors), "inputs must be contiguous")
-    _check(K <= 128 and C <= 128 and n_dense <= 8 and max(widths) <= 512,
-           f"kernel supports K, C <= 128, <= 8 layers, widths <= 512 "
-           f"(got K={K}, C={C}, widths={widths})")
+    tv, res = fwd_row_tile(K, C, widths, _smem_limit(x.device.index or 0))
     if seed is not None:
-        _check(tile_v % TILE_ROWS == 0,
+        # the JAX package's key packing (pallas_megablock.py:90-104)
+        _check(B <= 2048 and V // tile_v <= 65536 and n_dense - 1 <= 16,
+               f"dropout keys pack batch <= 2048, tiles <= 65536 and <= 16 "
+               f"dropout layers (got B={B}, {V // tile_v} tiles, "
+               f"{n_dense - 1} layers)")
+        _check(tile_v % tv == 0,
                f"tile_v={tile_v} must be a multiple of the kernel's "
-               f"{TILE_ROWS}-row tile, so each lies inside one dropout tile")
+               f"{tv}-row tile, so each lies inside one dropout tile")
         _check(V % tile_v == 0, f"V={V} must be a multiple of "
                f"tile_v={tile_v} with dropout (pad to a bucket)")
         _check(0 <= int(seed) < 2 ** 31, f"seed {seed} outside [0, 2^31)")
-    return B, V, K, C, widths
+    return B, V, K, C, widths, tv, res
 
 
 def _dropout_args(seed, tile_v):
@@ -452,20 +712,22 @@ def _dropout_args(seed, tile_v):
 
 def _megablock_fwd_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
                         x_hat_in, emit_next, lowp, seed, tile_v):
-    B, V, K, C, widths = _check_block(x, evecs, gX, gY, mass, coefs, A_re,
-                                      A_im, Ws, bs, x_hat_in, seed, tile_v)
+    B, V, K, C, widths, tv, res = _check_block(
+        x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs, x_hat_in, seed,
+        tile_v)
     n_dense = len(Ws)
     from .. import _build
     lib = _build.load()
     dev = x.device
     out = torch.empty_like(x)
-    n_tiles = -(-V // TILE_ROWS)
-    nsplit = _nsplit(dev, B, n_tiles)
-    partial = (torch.empty((B, nsplit, SLOT, SLOT), dtype=torch.float32,
-                           device=dev) if emit_next else None)
-    # the complex map as one product: [vb_re | vb_im] = [gx | gy] cmap
-    cmap = _weight_layout(torch.cat((torch.cat((A_re, A_im), 1),
-                                     torch.cat((-A_im, A_re), 1))))
+    nsplit = _nsplit(dev, B, -(-V // tv))
+    nkt, nct = -(-K // SLOT), -(-C // SLOT)
+    partial = (torch.empty((B, nkt, nct, nsplit, SLOT, SLOT),
+                           dtype=torch.float32, device=dev)
+               if emit_next else None)
+    # s = coefs (.) x_hat is read like a weight: zero-padded to 32 rows
+    s = _padded(coefs * x_hat_in, _up(K, 32), _up(C, 16))
+    cmap = _weight_layout(cmap_of(A_re, A_im))
     Wk = [_weight_layout(W) for W in Ws]
     vp, ci = ctypes.c_void_p, ctypes.c_int
     ws = (vp * n_dense)(*[W.data_ptr() for W in Wk])
@@ -476,58 +738,165 @@ def _megablock_fwd_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.mb_fwd_launch(
             x.data_ptr(), evecs.data_ptr(), gX.data_ptr(), gY.data_ptr(),
-            mass.data_ptr(), coefs.data_ptr(), cmap.data_ptr(),
-            cmap.shape[1], ws, ldw, bsp, wid, n_dense, x_hat_in.data_ptr(),
-            out.data_ptr(), None if partial is None else partial.data_ptr(),
-            B, V, K, C, nsplit, int(x.dtype == torch.bfloat16),
+            mass.data_ptr(), s.data_ptr(), s.shape[-1], cmap.data_ptr(),
+            cmap.shape[1], ws, ldw, bsp, wid, n_dense, out.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            B, V, K, C, nsplit, tv, int(res), int(x.dtype == torch.bfloat16),
             int(evecs.dtype == torch.bfloat16), int(lowp),
             *_dropout_args(seed, tile_v), stream)
     _raise_on(lib, code, "megablock_fwd launch")
     LAUNCHES["megablock_fwd"] += 1
     if not emit_next:
         return out, None
-    return out, xhat_reduce(partial, K, C)
+    return out, reduce_pieces(partial, B, K, C)
 
 
-def grad_slot_layout(K: int, C: int, widths) -> dict:
-    """Where B2's per-CTA gradient slot keeps each partial, in floats: ds
-    (K16, C16), dA_re and dA_im (C16, C16), each dW_l (w16_l, w16_{l+1})
-    and each db_l (w16_{l+1},), every side rounded up to 16 (the kernel
-    accumulates 16x16 blocks). Mirrors csrc/megablock_bwd.cu."""
-    K16, C16 = _up(K, 16), _up(C, 16)
-    w16 = [_up(w, 16) for w in widths]
-    off = K16 * C16
-    lay = {"K16": K16, "C16": C16, "w16": w16, "are": off,
-           "aim": off + C16 * C16}
-    off += 2 * C16 * C16
-    lay["dw"] = []
-    for l in range(len(widths) - 1):
-        lay["dw"].append(off)
-        off += w16[l] * w16[l + 1]
-    lay["db"] = []
-    for l in range(len(widths) - 1):
-        lay["db"].append(off)
-        off += w16[l + 1]
-    lay["P"] = off
-    return lay
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 rounds."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
-    """(B, k, n) f32 -> contiguous, 32-byte aligned (B, rows, cols), zero
-    past (k, n)."""
-    B, k, n = t.shape
-    if ((k, n) == (rows, cols) and t.is_contiguous()
-            and t.data_ptr() % 32 == 0):
-        return t
-    out = t.new_zeros((B, rows, cols))
-    out[:, :k, :n] = t
-    return out
+def _chunk_order(lowp: bool) -> list:
+    """The rows kernel's contraction order inside a chunk of 32 values
+    (wg::RowA): logical value j of the chunk is physical column order[j],
+    so that a thread's 16-byte loads are its wgmma fragments. tf32, step s
+    of 8 values: j = 8 s + q is column 8 q + 2 s (q < 4) or 8 (q - 4) +
+    2 s + 1; bf16, step s of 16: j = 16 s + q is column 8 (q % 8 // 2) +
+    4 s + q % 2, plus 2 for q >= 8."""
+    if lowp:
+        return [8 * (q % 8 // 2) + 4 * s + q % 2 + (2 if q >= 8 else 0)
+                for s in range(2) for q in range(16)]
+    return [8 * (q % 4) + 2 * s + q // 4 for s in range(4) for q in range(8)]
 
 
-def _megablock_bwd_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
-                        x_hat_in, dout, dx_hat_next, lowp, seed, tile_v):
-    B, V, K, C, widths = _check_block(x, evecs, gX, gY, mass, coefs, A_re,
-                                      A_im, Ws, bs, x_hat_in, seed, tile_v)
+@functools.lru_cache(maxsize=None)
+def _tile_index(N: int, k: int, lowp: bool, device) -> torch.Tensor:
+    """For each value of `b_tiles`' output of one (N, k) matrix, its flat
+    index in the matrix, or N k (a zero appended) for padding."""
+    npass, nk = -(-N // 128), -(-k // 32)
+    rows = torch.arange(npass * 128)[:, None, None]
+    cols = (torch.arange(nk)[None, :, None] * 32
+            + torch.tensor(_chunk_order(lowp))[None, None, :])
+    flat = torch.where((rows < N) & (cols < k), rows * k + cols, N * k)
+    e = 8 if lowp else 4
+    flat = (flat.reshape(npass, 16, 8, nk, 32 // e, e)
+            .permute(0, 3, 1, 4, 2, 5).reshape(-1))
+    return flat.to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _interleave(C: int, device) -> torch.Tensor:
+    """[0, C, 1, C + 1, ...]: the rows re_c, im_c of cmap^T in turn."""
+    return torch.stack((torch.arange(C), torch.arange(C) + C), 1).reshape(
+        -1).to(device)
+
+
+def b_tiles(bt: torch.Tensor, lowp: bool) -> torch.Tensor:
+    """A B operand of the rows kernel, given as B^T (..., N, k), laid out as
+    the kernel copies it into shared memory: N in passes of 128 rows and k
+    in chunks of 32 (zero-padded), each (pass, chunk) one stage: the chunk's
+    values in the kernel's contraction order (`_chunk_order`), as wgmma's
+    K-major core matrices of 8 rows x 16 bytes in (row group, k group)
+    order. f32: each stage holds the TF32 hi part, then the lo part, of
+    every value (..., passes, chunks, 2, 4096); lowp: bf16 (..., passes,
+    chunks, 4096)."""
+    *lead, N, k = bt.shape
+    npass, nk = -(-N // 128), -(-k // 32)
+    flat = torch.cat((bt.reshape(-1, N * k).float(),
+                      bt.new_zeros((max(1, bt.numel() // max(1, N * k)), 1),
+                                   dtype=torch.float32)), 1)
+    x = flat[:, _tile_index(N, k, lowp, bt.device)].view(
+        *lead, npass, nk, 128 * 32)
+    if lowp:
+        return x.to(torch.bfloat16).contiguous()
+    hi = tf32_round(x)
+    return torch.stack((hi, tf32_round(x - hi)), -2).contiguous()
+
+
+@functools.lru_cache(maxsize=64)
+def _rows_b_plan(B: int, K: int, C: int, widths: tuple, lowp: bool,
+                 emit_next: bool, device) -> tuple:
+    """One gather that tiles every B operand of the rows kernel at once, as
+    `b_tiles` tiles each: from the concatenated sources [s (B,K,C),
+    dx_hat_next (B,K,C) with emit_next, cmap (2C,2C), W_0 .. W_{n-1}] and
+    a zero after them, the values of the operands' stages in the order sT,
+    dxnT, cmapF, cmapB, wf[0..n-2], wb[0..n-1]. Returns (index, the first
+    stage of each operand, the sources' length)."""
+    pieces, firsts, stage = [], [], 0
+    src_lens = [B * K * C] * (2 if emit_next else 1) + [4 * C * C] + [
+        a * b for a, b in zip(widths[:-1], widths[1:])]
+    src_off = [sum(src_lens[:i]) for i in range(len(src_lens))]
+    zero = sum(src_lens)
+    il = _interleave(C, "cpu")
+
+    def add(off, lead, R0, R1, trans, colmap=None):
+        # B^T is (N, k): M[k][n] (trans) or M[n][k] of the (R0, R1) source
+        nonlocal stage
+        N, k = (R1, R0) if trans else (R0, R1)
+        base = _tile_index(N, k, lowp, "cpu")
+        pad = base == N * k
+        n, kk = (base // k).clamp(max=N - 1), base % k
+        if colmap is not None:
+            n = colmap[n]
+        m = kk * R1 + n if trans else n * R1 + kk
+        firsts.append(stage)
+        for li in range(lead):
+            pieces.append(torch.where(pad, zero, off + li * R0 * R1 + m))
+            stage += base.numel() // 4096
+    add(src_off[0], B, K, C, True)                      # sT = s^T
+    if emit_next:
+        add(src_off[1], B, K, C, True)                  # dxnT
+    else:
+        firsts.append(None)
+    q = 2 if emit_next else 1
+    add(src_off[q], 1, 2 * C, 2 * C, True, il)          # cmapF = cmap^T, il
+    add(src_off[q], 1, 2 * C, 2 * C, False)             # cmapB = cmap
+    for l in range(len(widths) - 2):                   # wf = W_l^T
+        add(src_off[q + 1 + l], 1, widths[l], widths[l + 1], True)
+    for l in range(len(widths) - 1):                   # wb = W_l
+        add(src_off[q + 1 + l], 1, widths[l], widths[l + 1], False)
+    return torch.cat(pieces).to(device), tuple(firsts), zero
+
+
+def _rows_b_operands(coefs, x_hat_in, dx_hat_next, A_re, A_im, Ws, lowp):
+    """The rows kernel's B operands, tiled by one gather (`_rows_b_plan`):
+    (the tiles, the first byte of each operand in them, or None)."""
+    B, K, C = coefs.shape
+    widths = tuple([W.shape[0] for W in Ws] + [Ws[-1].shape[1]])
+    index, firsts, zero = _rows_b_plan(B, K, C, widths, lowp,
+                                       dx_hat_next is not None, coefs.device)
+    srcs = [(coefs * x_hat_in).reshape(-1)]
+    if dx_hat_next is not None:
+        srcs.append(dx_hat_next.reshape(-1))
+    srcs += [cmap_of(A_re, A_im).reshape(-1)] + [W.reshape(-1) for W in Ws]
+    srcs.append(coefs.new_zeros(1))
+    x = torch.cat(srcs)[index].view(-1, 4096)
+    if lowp:
+        tiles = x.to(torch.bfloat16)
+    else:
+        hi = tf32_round(x)
+        tiles = torch.stack((hi, tf32_round(x - hi)), 1)
+    sb = 4096 * (2 if lowp else 8)  # bytes of a stage
+    return tiles, [None if f is None else tiles.data_ptr() + f * sb
+                   for f in firsts]
+
+
+def _ptrs(ts):
+    return (ctypes.c_void_p * len(ts))(*[None if t is None else t.data_ptr()
+                                         for t in ts])
+
+
+def _ints(vals):
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+def _check_bwd(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs, x_hat_in,
+               dout, dx_hat_next, seed, tile_v):
+    B, V, K, C, widths, _, _ = _check_block(x, evecs, gX, gY, mass, coefs,
+                                            A_re, A_im, Ws, bs, x_hat_in,
+                                            seed, tile_v)
     _check(C % 8 == 0, f"the backward kernel needs C % 8 == 0 (got C={C})")
     _check(tuple(dout.shape) == (B, V, C) and dout.dtype == x.dtype
            and dout.device == x.device, "dout must be (B,V,C) in x's dtype")
@@ -536,61 +905,120 @@ def _megablock_bwd_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
                and dx_hat_next.dtype == torch.float32
                and dx_hat_next.device == x.device,
                "dx_hat_next must be (B,K,C) f32")
-    n_dense = len(Ws)
-    lay = grad_slot_layout(K, C, widths)
-    K16, C16, P = lay["K16"], lay["C16"], lay["P"]
+    return B, V, K, C, widths
+
+
+def _bwd_rows_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
+                   x_hat_in, dout, dx_hat_next, lowp, seed, tile_v):
+    B, V, K, C, widths = _check_bwd(x, evecs, gX, gY, mass, coefs, A_re,
+                                    A_im, Ws, bs, x_hat_in, dout, dx_hat_next,
+                                    seed, tile_v)
+    n = len(Ws)
+    lay = bwd_layout(K, C, widths)
     from .. import _build
     lib = _build.load()
     dev = x.device
+    pdt = torch.bfloat16 if lowp else torch.float32  # the product type
     dout = dout.contiguous()
     dx = torch.empty_like(x)
-    n_tiles = -(-V // TILE_ROWS)
-    nsplit = _nsplit(dev, B, n_tiles)
-    partial = torch.empty((B, nsplit, P), dtype=torch.float32, device=dev)
-    # s = coefs (.) x_hat and dx_hat_next are read like weights (16-padded)
-    s = _padded(coefs * x_hat_in, K16, C16)
-    dxn = (None if dx_hat_next is None
-           else _padded(dx_hat_next, K16, C16))
-    cmap = _weight_layout(torch.cat((torch.cat((A_re, A_im), 1),
-                                     torch.cat((-A_im, A_re), 1))), 16, 16)
-    Wk = [_weight_layout(W, 16, 16) for W in Ws]
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    ws = (vp * n_dense)(*[W.data_ptr() for W in Wk])
-    ldw = (ci * n_dense)(*[W.shape[1] for W in Wk])
-    bsp = (vp * n_dense)(*[b.data_ptr() for b in bs])
-    wid = (ci * (n_dense + 1))(*widths)
-    off_dw = (ci * n_dense)(*lay["dw"])
-    off_db = (ci * n_dense)(*lay["db"])
+    R = torch.empty((B * V, lay["ldr"]), dtype=pdt, device=dev)
+    E = (torch.empty((B * V, 6 * C), dtype=torch.float32, device=dev)
+         if lowp else None)
+    n_tiles = -(-V // ROW_TILE)
+    dbp = torch.empty((B * n_tiles, lay["ld_db"]), dtype=torch.float32,
+                      device=dev)
+    # the B operands, tiled once per call by one gather
+    tiles, ptr = _rows_b_operands(coefs, x_hat_in, dx_hat_next, A_re, A_im,
+                                  Ws, lowp)
+    sT, dxnT, cmapF, cmapB = ptr[:4]
+    wf = ptr[4:4 + n - 1] + [None]
+    wb = ptr[4 + n - 1:]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.mb_bwd_launch(
+        code = lib.mb_bwd_rows_launch(
             x.data_ptr(), evecs.data_ptr(), gX.data_ptr(), gY.data_ptr(),
-            mass.data_ptr(), s.data_ptr(), s.shape[-1], cmap.data_ptr(),
-            cmap.shape[1],
-            ws, ldw, bsp, wid, n_dense, dout.data_ptr(),
-            None if dxn is None else dxn.data_ptr(), dx.data_ptr(),
-            partial.data_ptr(), P, lay["are"], lay["aim"], off_dw, off_db,
-            B, V, K, C, nsplit, int(x.dtype == torch.bfloat16),
+            mass.data_ptr(), sT, dxnT, cmapF, cmapB,
+            (ctypes.c_void_p * n)(*wf), (ctypes.c_void_p * n)(*wb),
+            _ptrs(bs), _ints(widths), n,
+            dout.data_ptr(), dx.data_ptr(), R.data_ptr(), lay["ldr"],
+            _ints(lay["off_in"]), _ints(lay["off_dp"]), lay["off_gg"],
+            lay["off_dvb"], lay["off_ds"],
+            None if E is None else E.data_ptr(), dbp.data_ptr(),
+            lay["ld_db"], _ints(lay["off_db"]), B, V, K, C,
+            int(x.dtype == torch.bfloat16),
             int(evecs.dtype == torch.bfloat16), int(lowp),
             *_dropout_args(seed, tile_v), stream)
-    _raise_on(lib, code, "megablock_bwd launch")
-    LAUNCHES["megablock_bwd"] += 1
-    # ds per batch element; parameter gradients over every CTA of the batch
-    ds = grad_reduce(partial, 0, K16 * C16).view(B, K16, C16)[:, :K, :C]
-    par = grad_reduce(partial.view(1, B * nsplit, P), lay["are"],
-                      P - lay["are"])[0]
+    _raise_on(lib, code, "megablock_bwd_rows launch")
+    LAUNCHES["megablock_bwd_rows"] += 1
+    return dx, R, dbp
 
-    def region(off, rows, cols, r, c):
-        o = off - lay["are"]
-        return par[o:o + rows * cols].view(rows, cols)[:r, :c]
-    dA_re = region(lay["are"], C16, C16, C, C)
-    dA_im = region(lay["aim"], C16, C16, C, C)
-    w16 = lay["w16"]
-    dWs = [region(lay["dw"][l], w16[l], w16[l + 1], widths[l], widths[l + 1])
-           for l in range(n_dense)]
-    dbs = [region(lay["db"][l], 1, w16[l + 1], 1, widths[l + 1])[0]
-           for l in range(n_dense)]
-    return dx, ds, dA_re, dA_im, dWs, dbs
+
+def megablock_bwd_rows(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
+                       x_hat_in, dout, dx_hat_next=None, lowp: bool = False,
+                       seed=None, tile_v: int = DEFAULT_TILE_V):
+    """B2's rows kernel for CUDA tensors, its plain version for CPU ones:
+    (dx_direct, R, dbp) as `megablock_bwd_rows_reference` states them."""
+    Ws, bs = tuple(Ws), tuple(bs)
+    extra = [dout] + ([] if dx_hat_next is None else [dx_hat_next])
+    dev = _device_of([x, evecs, gX, gY, mass, coefs, A_re, A_im, x_hat_in,
+                      *Ws, *bs, *extra])
+    fn = megablock_bwd_rows_reference if dev.type == "cpu" else _bwd_rows_cuda
+    return fn(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs, x_hat_in,
+              dout, dx_hat_next, lowp, seed, tile_v)
+
+
+def megablock_bwd_grads(R, evecs, gX, gY, C: int, widths, splits,
+                        lowp: bool = False):
+    """B2's grads kernel for CUDA tensors, its plain version for CPU ones:
+    (part_par, part_ds) as `megablock_bwd_grads_reference` states them."""
+    dev = _device_of([R, evecs, gX, gY])
+    if dev.type == "cpu":
+        return megablock_bwd_grads_reference(R, evecs, gX, gY, C, widths,
+                                             splits, lowp)
+    B, V, K = evecs.shape
+    lay = bwd_layout(K, C, widths)
+    S_par, L_par, S_ds, L_ds = splits
+    _check(R.dtype == (torch.bfloat16 if lowp else torch.float32)
+           and tuple(R.shape) == (B * V, lay["ldr"]) and R.is_contiguous(),
+           f"R must be contiguous (B V, {lay['ldr']}) in the product type")
+    _check(gX.shape == evecs.shape == gY.shape and gX.dtype == evecs.dtype
+           == gY.dtype and all(t.is_contiguous() for t in (evecs, gX, gY)),
+           "operators must be contiguous (B,V,K) of one dtype")
+    _check(S_par * L_par >= B * V and S_ds * L_ds >= V,
+           f"splits {splits} do not cover the rows")
+    from .. import _build
+    lib = _build.load()
+    part_par = torch.empty((S_par, lay["P_par"]), dtype=torch.float32,
+                           device=dev)
+    part_ds = torch.empty((B, S_ds, K * C), dtype=torch.float32, device=dev)
+    prods = [v for a, b, M, N, o in lay["prods"] for v in (a, b, M, N, o, 0, 0)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.mb_bwd_grads_launch(
+            R.data_ptr(), lay["ldr"], evecs.data_ptr(), gX.data_ptr(),
+            gY.data_ptr(), lay["off_ds"],
+            (ctypes.c_longlong * len(prods))(*prods), len(lay["prods"]),
+            part_par.data_ptr(), lay["P_par"], S_par, L_par,
+            part_ds.data_ptr(), S_ds, L_ds, B, V, K, C,
+            int(evecs.dtype == torch.bfloat16), int(lowp), stream)
+    _raise_on(lib, code, "megablock_bwd_grads launch")
+    LAUNCHES["megablock_bwd_grads"] += 1
+    return part_par, part_ds
+
+
+def _megablock_bwd_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
+                        x_hat_in, dout, dx_hat_next, lowp, seed, tile_v):
+    dx, R, dbp = _bwd_rows_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im,
+                                Ws, bs, x_hat_in, dout, dx_hat_next, lowp,
+                                seed, tile_v)
+    B, V, C = x.shape
+    K = evecs.shape[-1]
+    widths = [W.shape[0] for W in Ws] + [Ws[-1].shape[1]]
+    splits = grads_splits(B, V, K, C, widths, _sm_count(x.device.index or 0))
+    part_par, part_ds = megablock_bwd_grads(R, evecs, gX, gY, C, widths,
+                                            splits, lowp)
+    del R
+    return (dx, *bwd_grads_finish(part_par, part_ds, dbp, K, C, widths))
 
 
 # ---------------------------------------------------------------------------
@@ -678,8 +1106,9 @@ def megablock_chained(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
     (w_in, w_out) kernels and (w_out,) biases, f32, first input 3C, last
     output C; x_hat_in (B,K,C) f32. seed: None (dropout off) or an int in
     [0, 2^31) keying the dropout masks, whose tiles are tile_v rows (V must
-    then be a multiple of tile_v). The CUDA kernels keep their own 32-row
-    tiles either way.
+    then be a multiple of tile_v, and tile_v one of B1's row tile). The
+    CUDA kernels keep their own row tiles either way (B1 32 or 16 rows, B2
+    64).
     Returns (out (B,V,C) in x's dtype, x_hat_next (B,K,C) f32 or None)."""
     Ws, bs = tuple(Ws), tuple(bs)
     res = _MegablockChained.apply(x, evecs, gX, gY, mass, coefs, A_re, A_im,

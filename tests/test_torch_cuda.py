@@ -60,7 +60,8 @@ def test_block_kernel_matches_plain(cuda, emit_next, lowp):
     out, xn = mb.megablock_chained(*args, emit_next=emit_next, lowp=lowp)
     torch.cuda.synchronize()
     assert mb.LAUNCHES == {"megablock_fwd": 1, "xhat_reduce": int(emit_next),
-                           "megablock_bwd": 0, "grad_reduce": 0}
+                           "megablock_bwd_rows": 0, "megablock_bwd_grads": 0,
+                           "grad_reduce": 0}
     ref, ref_xn = mb.megablock_chained_reference(*args, emit_next=emit_next,
                                                  lowp=lowp)
     assert out.dtype == args[0].dtype
@@ -73,8 +74,9 @@ def test_block_kernel_matches_plain(cuda, emit_next, lowp):
 
 @pytest.mark.cuda
 def test_block_kernel_refuses_what_it_does_not_take(cuda):
-    """Wrong dtype, non-contiguous input, widths past the kernel's bounds:
-    the wrapper raises before launching."""
+    """Wrong dtype, non-contiguous input, widths whose buffers exceed the
+    card's shared memory even at 16-row tiles (the message names the
+    bytes): the wrapper raises before launching."""
     args = list(_block(cuda, False))
     mb.reset_launches()
     bad = list(args)
@@ -85,11 +87,145 @@ def test_block_kernel_refuses_what_it_does_not_take(cuda):
     bad[1] = bad[1].transpose(1, 2).contiguous().transpose(1, 2)  # evecs
     with pytest.raises(ValueError, match="contiguous"):
         mb.megablock_chained(*bad)
-    big = _block(cuda, False, V=64, K=256, C=8, hidden=(8,))
-    with pytest.raises(ValueError, match="K, C <= 128"):
+    big = _block(cuda, False, V=64, K=256, C=256, hidden=(2048,))
+    need = mb.fwd_smem_bytes(16, 256, (768, 2048, 256))
+    with pytest.raises(ValueError, match=f"needs {need} bytes of shared "
+                       r"memory .* more than the card's \d+ bytes"):
         mb.megablock_chained(*big)
     assert mb.LAUNCHES == {"megablock_fwd": 0, "xhat_reduce": 0,
-                           "megablock_bwd": 0, "grad_reduce": 0}
+                           "megablock_bwd_rows": 0, "megablock_bwd_grads": 0,
+                           "grad_reduce": 0}
+
+
+def _close_grad(name, got, want, lowp):
+    """f32: as `_close`. bf16: relative L2 error within 2e-2, as
+    chip_smoke.py holds B2 in bf16: where an f32 sum lands next to a bf16
+    rounding boundary the two sides round it apart (2^-8 relative), and a
+    ReLU input downstream can then change sign, which moves that row's
+    whole contribution, so no elementwise bound holds on every row."""
+    if not lowp:
+        return _close(name, got, want, False)
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all(), name
+    rel = ((got - want).norm() / want.norm().clamp(min=1e-30)).item()
+    assert rel <= 2e-2, f"{name}: relative L2 error {rel:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lowp", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("K", [128, 256])
+def test_block_kernels_at_c256(cuda, K, lowp):
+    """B1 and B2 at C = 256, hidden [256, 256] (the sampling_invariance
+    model's widths), K 128 and 256, with dropout, against their plain
+    versions: B1 on 16-row tiles, its x_hat_next in 128 x 128 pieces; B2's
+    rows and grads kernels. ReLU-tie rows get zero cotangent."""
+    args = list(_block(cuda, lowp, V=512, K=K, C=256, hidden=(256, 256)))
+    assert mb.fwd_row_tile(K, 256, (768, 256, 256, 256),
+                           mb._smem_limit(0)) == (16, False)
+    kw = dict(lowp=lowp, seed=321, tile_v=128)
+    out, xn = mb.megablock_chained_fwd(*args, emit_next=True, **kw)
+    ref, ref_xn = mb.megablock_chained_reference(*args, emit_next=True, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[lowp])
+    _close("x_hat_next", xn, ref_xn, lowp)
+    ties = mb.relu_margin(*args, **kw) < 1e-5
+    args[4] = args[4].masked_fill(ties, 0.0)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    dout = torch.randn(args[0].shape, generator=g, device=cuda).to(
+        args[0].dtype).masked_fill(ties[..., None], 0.0)
+    dxn = torch.randn(args[-1].shape, generator=g, device=cuda)
+    mb.reset_launches()
+    got = mb.megablock_chained_bwd(*args, dout, dxn, **kw)
+    torch.cuda.synchronize()
+    assert mb.LAUNCHES["megablock_bwd_rows"] == 1
+    assert mb.LAUNCHES["megablock_bwd_grads"] == 1
+    want = mb.megablock_chained_bwd_reference(*args, dout, dxn, **kw)
+    for name, a, b in zip(("dx_direct", "ds", "dA_re", "dA_im"), got[:4],
+                          want[:4]):
+        _close_grad(name, a, b, lowp)
+    for l in range(3):
+        _close_grad(f"dW{l}", got[4][l], want[4][l], lowp)
+        _close_grad(f"db{l}", got[5][l], want[5][l], lowp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lowp", [False, True], ids=["f32", "bf16"])
+def test_block_kernels_at_odd_widths(cuda, lowp):
+    """K = 19 (operator rows not 16-byte aligned: B2's element-wise loads)
+    and hidden widths 13 and 7 (partial quads in B2's epilogues), at a
+    ragged V: B1 and B2 against their plain versions."""
+    args = list(_block(cuda, lowp, V=1000, K=19, C=8, hidden=(13, 7)))
+    out, xn = mb.megablock_chained_fwd(*args, emit_next=True, lowp=lowp)
+    ref, ref_xn = mb.megablock_chained_reference(*args, emit_next=True,
+                                                 lowp=lowp)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[lowp])
+    _close("x_hat_next", xn, ref_xn, lowp)
+    ties = mb.relu_margin(*args, lowp=lowp) < 1e-5
+    args[4] = args[4].masked_fill(ties, 0.0)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    dout = torch.randn(args[0].shape, generator=g, device=cuda).to(
+        args[0].dtype).masked_fill(ties[..., None], 0.0)
+    dxn = torch.randn(args[-1].shape, generator=g, device=cuda)
+    got = mb.megablock_chained_bwd(*args, dout, dxn, lowp=lowp)
+    want = mb.megablock_chained_bwd_reference(*args, dout, dxn, lowp=lowp)
+    for name, a, b in zip(("dx_direct", "ds", "dA_re", "dA_im"), got[:4],
+                          want[:4]):
+        _close_grad(name, a, b, lowp)
+    for l in range(3):
+        _close_grad(f"dW{l}", got[4][l], want[4][l], lowp)
+        _close_grad(f"db{l}", got[5][l], want[5][l], lowp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lowp", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("emit_next", [True, False])
+def test_backward_kernels_each_match_plain(cuda, emit_next, lowp):
+    """B2's two kernels one at a time: the rows kernel against its plain
+    version (dx_direct, every group of the scratch R, db's partials), and
+    the grads kernel against its plain version on the rows kernel's own R
+    (the same split of V into ranges); two launches of the grads kernel
+    give the same bits, and the fixed-order sum of its partials equals the
+    plain sum bit for bit."""
+    args = list(_block(cuda, lowp, V=1056, hidden=(16, 32, 8)))
+    kw = dict(lowp=lowp, seed=777, tile_v=352)  # a ragged last 64-row tile
+    ties = mb.relu_margin(*args, **kw) < 1e-5
+    args[4] = args[4].masked_fill(ties, 0.0)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    dout = torch.randn(args[0].shape, generator=g, device=cuda).to(
+        args[0].dtype).masked_fill(ties[..., None], 0.0)
+    dxn = (torch.randn(args[-1].shape, generator=g, device=cuda)
+           if emit_next else None)
+    mb.reset_launches()
+    dx, R, dbp = mb.megablock_bwd_rows(*args, dout, dxn, **kw)
+    torch.cuda.synchronize()
+    assert mb.LAUNCHES["megablock_bwd_rows"] == 1
+    dx_r, R_r, dbp_r = mb.megablock_bwd_rows_reference(*args, dout, dxn,
+                                                       **kw)
+    _close_grad("dx_direct", dx, dx_r, lowp)
+    widths = (24, 16, 32, 8, 8)
+    lay = mb.bwd_layout(16, 8, widths)
+    groups = [(f"in{l}", lay["off_in"][l], widths[l]) for l in range(4)]
+    groups += [(f"dpre{l}", lay["off_dp"][l], widths[l + 1])
+               for l in range(4)]
+    groups += [("gx|gy", lay["off_gg"], 16), ("dvb", lay["off_dvb"], 16),
+               ("dxd|dgx|dgy", lay["off_ds"], 24)]
+    for name, o, w in groups:
+        _close_grad(name, R[:, o:o + w], R_r[:, o:o + w], lowp)
+    _close_grad("db partials", dbp, dbp_r, lowp)
+    splits = mb.grads_splits(2, 1056, 16, 8, widths, 4)
+    pp, pd = mb.megablock_bwd_grads(R, *args[1:4], 8, widths, splits, lowp)
+    pp2, pd2 = mb.megablock_bwd_grads(R, *args[1:4], 8, widths, splits, lowp)
+    torch.cuda.synchronize()
+    assert mb.LAUNCHES["megablock_bwd_grads"] == 2
+    assert torch.equal(pp, pp2) and torch.equal(pd, pd2)
+    pp_r, pd_r = mb.megablock_bwd_grads_reference(R, *args[1:4], 8, widths,
+                                                  splits, lowp)
+    _close("parameter partials", pp, pp_r, False)
+    _close("ds partials", pd, pd_r, False)
+    got = mb.bwd_grads_finish(pp, pd, dbp, 16, 8, widths)
+    plain = mb.bwd_grads_finish(pp.cpu(), pd.cpu(), dbp.cpu(), 16, 8, widths)
+    for a, b in zip([*got[:3], *got[3], *got[4]],
+                    [*plain[:3], *plain[3], *plain[4]]):
+        assert torch.equal(a.cpu(), b)
 
 
 def _close(name, got, want, lowp):
@@ -155,8 +291,9 @@ def test_backward_kernel_matches_plain(cuda, V, seed, emit_next, lowp):
     got = mb.megablock_chained_bwd(*args, dout, dxn, lowp=lowp, seed=seed,
                                    tile_v=256)
     torch.cuda.synchronize()
-    assert mb.LAUNCHES["megablock_bwd"] == 1
-    assert mb.LAUNCHES["grad_reduce"] == 2
+    assert mb.LAUNCHES["megablock_bwd_rows"] == 1
+    assert mb.LAUNCHES["megablock_bwd_grads"] == 1
+    assert mb.LAUNCHES["grad_reduce"] == 3
     want = mb.megablock_chained_bwd_reference(*args, dout, dxn, lowp=lowp,
                                               seed=seed, tile_v=256)
     assert got[0].dtype == args[0].dtype
@@ -452,7 +589,9 @@ def test_megablock_one_matches_plain(cuda, lowp, seed):
         if k == 0:
             torch.cuda.synchronize()
             assert mb.LAUNCHES == {"megablock_fwd": 1, "xhat_reduce": 1,
-                                   "megablock_bwd": 1, "grad_reduce": 2}
+                                   "megablock_bwd_rows": 1,
+                                   "megablock_bwd_grads": 1,
+                                   "grad_reduce": 3}
         res.append([out] + [args[i].grad for i in (0, 5, 6, 7)]
                    + [t.grad for t in args[8] + args[9]])
     for k, (a, b) in enumerate(zip(*res)):

@@ -70,7 +70,8 @@ def test_megablock_dispatch_by_device():
     ref, rxn = mb.megablock_chained_reference(*args, emit_next=True)
     assert torch.equal(out, ref) and torch.equal(xn, rxn)
     assert mb.LAUNCHES == {"megablock_fwd": 0, "xhat_reduce": 0,
-                           "megablock_bwd": 0, "grad_reduce": 0}
+                           "megablock_bwd_rows": 0,
+                           "megablock_bwd_grads": 0, "grad_reduce": 0}
     meta = [a.to("meta") if torch.is_tensor(a) else [t.to("meta") for t in a]
             for a in args]
     with pytest.raises(ValueError, match="unsupported device"):

@@ -234,13 +234,20 @@ def test_plain_backward_equals_autograd_float64(emit_next, dropout):
 
 
 def test_grad_slot_layout_and_reduce_order():
-    """The per-CTA slot layout is 16-aligned and the plain reduce sums
-    slots in order."""
-    lay = mb.grad_slot_layout(16, 8, (24, 16, 32, 8))
-    assert lay["K16"] == 16 and lay["C16"] == 16
-    assert lay["are"] == 256 and lay["aim"] == 512
-    assert lay["dw"] == [768, 768 + 32 * 16, 768 + 32 * 16 + 16 * 32]
-    assert all(o % 16 == 0 for o in lay["dw"] + lay["db"] + [lay["P"]])
+    """The rows kernel's scratch layout (groups 32-aligned, in the order the
+    kernel writes them), the grads kernel's parameter products and their
+    slot offsets, and the plain reduce summing slots in order."""
+    lay = mb.bwd_layout(16, 8, (24, 16, 32, 8))
+    assert lay["off_in"] == [0, 32, 64]
+    assert lay["off_dp"] == [96, 128, 160]
+    assert (lay["off_gg"], lay["off_dvb"], lay["off_ds"], lay["ldr"]) == \
+        (192, 224, 256, 288)
+    assert lay["off_db"] == [0, 16, 48] and lay["ld_db"] == 56
+    assert lay["prods"] == [(0, 96, 24, 16, 0), (32, 128, 16, 32, 384),
+                            (64, 160, 32, 8, 896), (192, 224, 16, 16, 1152)]
+    assert lay["P_par"] == 1152 + 256
+    # K = C = 128, hidden [128, 128]: 1,920 values a vertex
+    assert mb.bwd_layout(128, 128, (384, 128, 128, 128))["ldr"] == 1920
     rs = np.random.RandomState(3)
     part = torch.from_numpy(rs.randn(2, 5, 40).astype(np.float32))
     got = mb.grad_reduce(part, 8, 20)
@@ -248,3 +255,116 @@ def test_grad_slot_layout_and_reduce_order():
     for s in range(1, 5):
         want += part[:, s, 8:28]
     assert torch.equal(got, want) and mb.LAUNCHES["grad_reduce"] == 0
+
+
+@pytest.mark.parametrize("B,V", [(1, 32768), (8, 20480), (2, 1000), (3, 64)])
+def test_grads_splits_cover_every_row(B, V):
+    """The grads kernel's V ranges: multiples of 32 rows that cover B V
+    (parameters) and V (ds) with no range wholly past the end."""
+    S_par, L_par, S_ds, L_ds = mb.grads_splits(B, V, 128, 128,
+                                               (384, 128, 128, 128), 132)
+    assert L_par % 32 == 0 and L_ds % 32 == 0
+    assert S_par * L_par >= B * V > (S_par - 1) * L_par
+    assert S_ds * L_ds >= V > (S_ds - 1) * L_ds
+
+
+@pytest.mark.parametrize("lowp", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dropout", [False, True], ids=["nodrop", "drop"])
+@pytest.mark.parametrize("emit_next", [True, False], ids=["emit", "last"])
+def test_rows_and_grads_references_compose_to_plain_backward(emit_next,
+                                                             dropout, lowp):
+    """The plain versions of B2's two kernels (rows: dx_direct, the scratch
+    R, db's per-tile partials; grads: the split-V partials) and the
+    fixed-order sums give the plain backward: dx_direct equal, every
+    gradient within the bound of sums taken in another order (f32), or of
+    R's values rounded to bf16 once more (bf16: relative to the gradient's
+    largest entry). R's groups hold the values the backward reads."""
+    a = _inputs(4, V=300, hidden=(16, 32, 8))
+    args = _torch_args(a, lowp)
+    dout = torch.from_numpy(a["dout"]).to(args[0].dtype)
+    dxn = torch.from_numpy(a["dxn"]) if emit_next else None
+    kw = dict(lowp=lowp, seed=1234 if dropout else None, tile_v=100)
+    want = mb.megablock_chained_bwd_reference(*args, dout, dxn, **kw)
+    dx, R, dbp = mb.megablock_bwd_rows(*args, dout, dxn, **kw)
+    widths = (24, 16, 32, 8, 8)
+    splits = mb.grads_splits(2, 300, 16, 8, widths, 3)
+    assert splits[0] > 1 and splits[2] > 1
+    part_par, part_ds = mb.megablock_bwd_grads(R, *args[1:4], 8, widths,
+                                               splits, lowp)
+    got = mb.bwd_grads_finish(part_par, part_ds, dbp, 16, 8, widths)
+    assert mb.LAUNCHES["megablock_bwd_rows"] == 0
+    assert mb.LAUNCHES["megablock_bwd_grads"] == 0
+    assert dx.dtype == args[0].dtype
+    if not lowp:
+        torch.testing.assert_close(dx, want[0], rtol=1e-5, atol=1e-6)
+    names = ["ds", "dA_re", "dA_im"] + [f"dW{l}" for l in range(4)] + \
+        [f"db{l}" for l in range(4)]
+    for name, g, w in zip(names, [*got[:3], *got[3], *got[4]],
+                          [*want[1:4], *want[4], *want[5]]):
+        scale = max(w.abs().max().item(), 1e-6)
+        err = (g - w).abs().max().item() / scale
+        assert err <= (2e-2 if lowp else 1e-5), f"{name}: {err:.3e}"
+    lay = mb.bwd_layout(16, 8, widths)
+    gx = R[:, lay["off_gg"]:lay["off_gg"] + 8].float().view(2, 300, 8)
+    f = mb._forward_parts(*args, lowp, kw["seed"], 100)
+    torch.testing.assert_close(gx, f["gx"].to(R.dtype).float())
+
+
+@pytest.mark.parametrize("lowp", [False, True], ids=["tf32", "bf16"])
+@pytest.mark.parametrize("N,k", [(128, 32), (200, 70), (8, 19)])
+def test_b_tiles_read_as_the_rows_kernel_reads_them(N, k, lowp):
+    """The rows kernel's B stages, read back as wgmma reads them (K-major
+    core matrices of 8 rows x 16 bytes in (row group, k group) order) with
+    the chunk's contraction order (`_chunk_order`, the order of a thread's
+    A fragments), give back B^T: hi + lo within TF32's split (f32), the
+    bf16 rounding of B^T (lowp)."""
+    rs = np.random.RandomState(N + k)
+    bt = torch.from_numpy(rs.randn(N, k).astype(np.float32))
+    t = mb.b_tiles(bt, lowp).float()
+    npass, nk = -(-N // 128), -(-k // 32)
+    e = 8 if lowp else 4
+    order = mb._chunk_order(lowp)
+    assert sorted(order) == list(range(32))
+    got = torch.zeros(npass * 128, nk * 32)
+    for p in range(npass):
+        for c in range(nk):
+            stage = t[p, c] if lowp else t[p, c, 0] + t[p, c, 1]
+            for j in range(32):
+                n = torch.arange(128)
+                o = ((n // 8) * (32 // e) + j // e) * 8 * e + (n % 8) * e + j % e
+                got[p * 128 + n, c * 32 + order[j]] = stage[o]
+    want = bt.to(torch.bfloat16).float() if lowp else bt
+    torch.testing.assert_close(got[:N, :k], want, rtol=2 ** -21, atol=0)
+    assert not got[N:].any() and not got[:, k:].any()
+
+
+@pytest.mark.parametrize("lowp", [False, True], ids=["tf32", "bf16"])
+@pytest.mark.parametrize("emit_next", [True, False], ids=["emit", "last"])
+def test_rows_b_operands_gather_equals_b_tiles(emit_next, lowp):
+    """The one gather that tiles every B operand of the rows kernel gives,
+    operand by operand, what `b_tiles` gives for it: s^T and dx_hat_next^T
+    per batch element, cmap^T with its rows re_c, im_c interleaved, cmap,
+    W_l^T for all but the last layer, W_l."""
+    a = _inputs(5, hidden=(16, 32, 8))
+    args = _torch_args(a, False)
+    x_hat, coefs, A_re, A_im, Ws = args[10], args[5], args[6], args[7], args[8]
+    dxn = torch.from_numpy(a["dxn"]) if emit_next else None
+    tiles, ptr = mb._rows_b_operands(coefs, x_hat, dxn, A_re, A_im, Ws, lowp)
+    C = coefs.shape[-1]
+    cmap = mb.cmap_of(A_re, A_im)
+    il = torch.stack((torch.arange(C), torch.arange(C) + C), 1).reshape(-1)
+    want = [mb.b_tiles((coefs * x_hat).transpose(1, 2), lowp),
+            None if dxn is None else mb.b_tiles(dxn.transpose(1, 2), lowp),
+            mb.b_tiles(cmap.transpose(0, 1)[il], lowp),
+            mb.b_tiles(cmap, lowp)]
+    want += [mb.b_tiles(W.transpose(0, 1), lowp) for W in Ws[:-1]]
+    want += [mb.b_tiles(W, lowp) for W in Ws]
+    assert len(ptr) == len(want)
+    base, size = tiles.data_ptr(), tiles.element_size()
+    flat = tiles.reshape(-1)
+    for i, (p, w) in enumerate(zip(ptr, want)):
+        if w is None:
+            assert p is None
+            continue
+        o = (p - base) // size
+        assert torch.equal(flat[o:o + w.numel()], w.reshape(-1)), i

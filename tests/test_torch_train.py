@@ -247,13 +247,18 @@ def test_make_padded_batches_bit_equal(datasets, buckets, shuffle):
 
 # --- (f) one train step against the JAX step -------------------------------
 
-def _step_against_jax(tb, jb, jmodel, model, use_megakernel):
+def _step_against_jax(tb, jb, jmodel, model, use_megakernel,
+                      through_adam=False):
     """One train step of the port (apply_model + loss_and_counts + Adam with
     step decay, dropout off) against the JAX step (exp_common._apply_model
     + _loss_and_counts + make_train_step), from one numpy train state
     (params and an Adam state at count 3, so the schedule has decayed once):
     loss, every gradient, the updated parameters and the Adam state within
-    rtol 1e-4."""
+    rtol 1e-4. through_adam: the updated parameters and moments may also
+    differ by what the gradient's own tolerance becomes through Adam's
+    update (first order, from the JAX state); at C = 256 an MLP kernel has
+    2e5 entries, and where the state's nu is near 0 the update divides a
+    gradient difference inside its tolerance by sqrt(nu)."""
     cfg = exp_common.FitConfig(labels_kind="face",
                                use_megakernel=use_megakernel,
                                input_features="hks")
@@ -319,12 +324,26 @@ def _step_against_jax(tb, jb, jmodel, model, use_megakernel):
         scale = max(np.abs(jg[k]).max(), 1e-3)
         np.testing.assert_allclose(g, jg[k], rtol=1e-4, atol=1e-6 * scale,
                                    err_msg="grad " + k)
-        np.testing.assert_allclose(p2[k].detach().numpy(), jp[k], rtol=1e-4,
-                                   atol=1e-7, err_msg="param " + k)
-        np.testing.assert_allclose(back["mu/" + k], jmu[k], rtol=1e-4,
-                                   atol=1e-7, err_msg="mu " + k)
-        np.testing.assert_allclose(back["nu/" + k], jnu[k], rtol=1e-4,
-                                   atol=1e-10, err_msg="nu " + k)
+        dp = dm = dv = 0.0
+        if through_adam:
+            dg = 1e-4 * np.abs(jg[k]) + 1e-6 * scale  # the gradient's bound
+            b1, b2, lr = 0.9, 0.999, 5e-4               # count 3 -> 4
+            m_hat = (b1 * mu[k] + (1 - b1) * jg[k]) / (1 - b1 ** 4)
+            sv = np.sqrt((b2 * nu[k] + (1 - b2) * jg[k] ** 2) / (1 - b2 ** 4))
+            dm = (1 - b1) * dg
+            dv = 2 * (1 - b2) * np.abs(jg[k]) * dg
+            dp = lr * (dm / (1 - b1 ** 4) / (sv + 1e-8)
+                       + np.abs(m_hat) * dv / (1 - b2 ** 4)
+                       / (2 * np.maximum(sv, 1e-30) * (sv + 1e-8) ** 2))
+        for what, a, b, atol in (("param", p2[k].detach().numpy(), jp[k],
+                                  1e-7 + dp),
+                                 ("mu", back["mu/" + k], jmu[k], 1e-7 + dm),
+                                 ("nu", back["nu/" + k], jnu[k], 1e-10 + dv)):
+            assert a.shape == b.shape, f"{what} {k}"
+            err = np.abs(a - b) - (atol + 1e-4 * np.abs(b))
+            i = np.unravel_index(np.argmax(err), err.shape)
+            assert err[i] <= 0, (f"{what} {k}{list(i)}: {a[i]} against "
+                                 f"{b[i]}, allowed {(err[i] + np.abs(a - b)[i])}")
 
 
 def _first_batches(datasets):
@@ -349,6 +368,23 @@ def test_train_step_matches_jax_step(datasets):
                                     dropout=False, input_features="hks",
                                     n_block=2)
     _step_against_jax(tb, jb, jmodel, _port_model(), use_megakernel=True)
+
+
+def test_train_step_matches_jax_step_at_c256(datasets):
+    """The megakernel path at the sampling_invariance experiment's width
+    (c_width 256, hidden [256, 256]: B1 and B2 at C = 256) against the JAX
+    step, whose Pallas kernels run there in interpret mode."""
+    tb, jb = _first_batches(datasets)
+    jmodel = exp_common.build_model(n_class=4, c_width=256,
+                                    outputs_at="faces", dropout=False,
+                                    input_features="hks", n_block=2)
+    model = DiffusionNet(c_in=16, c_out=4, c_width=256, n_block=2,
+                         mlp_hidden_dims=[256, 256], dropout=False,
+                         outputs_at="faces",
+                         last_activation=functools.partial(torch.log_softmax,
+                                                           dim=-1))
+    _step_against_jax(tb, jb, jmodel, model, use_megakernel=True,
+                      through_adam=True)
 
 
 def test_fused_train_step_matches_jax_step(datasets):
