@@ -16,7 +16,15 @@ with --block (the block kernels and the train step they carry):
     V=20480, f32 and bf16 operands (chip_smoke.time_ms); where the tree's
     B2 is two kernels (megablock_bwd_rows, megablock_bwd_grads), each of
     them and the three partial sums of its partials, beside the bounds of
-    chip_smoke.b2_bounds;
+    chip_smoke.b2_bounds; where the tree's B1 is a row kernel and an x_hat
+    kernel (megablock_fwd_xhat), each of them (the row kernel as B1 without
+    emit_next; the x_hat kernel on the f32 out and the mass) beside its
+    bound (chip_smoke.megablock_bound without emit_next,
+    chip_smoke.xhat_bound);
+  * B1 at C = 256, hidden [256, 256], K = 128, B=1, V=32768 (the
+    sampling_invariance model's widths), the same way;
+  * xhat_reduce at B1's split counts (1, 128) and (8, 16), and at
+    (1, 132), in device time (chip_smoke.device_ms);
   * the train step at bench.py's shapes (chip_smoke.phase_step_times,
     without its profile), f32 and bf16 operands, on torus(144, 140)'s
     operators from the host eigensolver, cached under build/dev/.
@@ -47,13 +55,36 @@ import torch
 
 
 def block_times(cs, out):
-    """B1, B2 (and B2's kernels where the tree has them) and the bench-shape
-    train step, into `out`."""
+    """B1 and B2 (and their kernels where the tree has them), B1 at C = 256,
+    xhat_reduce and the bench-shape train step, into `out`."""
     from diffusionnet_tpu_torch.geometry import operators as ops_mod
     from diffusionnet_tpu_torch.ops import megablock as mb
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     widths = (384, 128, 128, 128)
     split = hasattr(mb, "megablock_bwd_rows")
+    fwd_split = hasattr(mb, "megablock_fwd_xhat")
+
+    def b1(r, args, B, V, C, widths, lowp):
+        r["b1_ms"] = cs.time_ms(lambda: mb.megablock_chained_fwd(
+            *args, emit_next=True, lowp=lowp))
+        if not fwd_split:
+            return
+        src = mb.megablock_chained_reference(
+            *args, emit_next=False, lowp=lowp)[0].float().contiguous()
+        sp = mb.xhat_splits(B, V, 128, C, sms)
+        r.update(
+            b1_rows_ms=cs.time_ms(lambda: mb.megablock_chained_fwd(
+                *args, emit_next=False, lowp=lowp)),
+            b1_xhat_ms=cs.time_ms(lambda: mb.megablock_fwd_xhat(
+                args[1], src, args[4], sp, lowp)),
+            b1_rows_bound_ms=cs.megablock_bound(B, V, 128, C, widths, False,
+                                                False, lowp)[0],
+            b1_xhat_bound_ms=cs.xhat_bound(B, V, 128, C, sp[0], lowp)[0],
+            b1_route=list(mb.fwd_route(128, C, widths, lowp,
+                                       mb._smem_limit(0))),
+            xhat_splits=sp)
+        del src
+
     for B, V in ((1, 32768), (cs.BENCH_B, cs.BENCH_V)):
         for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             lowp = kind == "bf16"
@@ -61,11 +92,10 @@ def block_times(cs, out):
             g = torch.Generator(device="cuda").manual_seed(3)
             dout = torch.randn(B, V, 128, generator=g, device="cuda").to(dtype)
             dxn = torch.randn(B, 128, 128, generator=g, device="cuda")
-            r = dict(
-                b1_ms=cs.time_ms(lambda: mb.megablock_chained_fwd(
-                    *args, emit_next=True, lowp=lowp)),
-                b2_ms=cs.time_ms(lambda: mb.megablock_chained_bwd(
-                    *args, dout, dxn, lowp=lowp)))
+            r = {}
+            b1(r, args, B, V, 128, widths, lowp)
+            r["b2_ms"] = cs.time_ms(lambda: mb.megablock_chained_bwd(
+                *args, dout, dxn, lowp=lowp))
             if split:
                 _, R, dbp = mb.megablock_bwd_rows(*args, dout, dxn, lowp=lowp)
                 sp = mb.grads_splits(B, V, 128, 128, widths, sms)
@@ -85,6 +115,18 @@ def block_times(cs, out):
                 del R, dbp, pp, pd
             out[f"block B={B} V={V} {kind}"] = r
             del args, dout, dxn
+    for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        args = cs.block_inputs(1, 32768, 128, 256, (256, 256), dtype, seed=1)
+        r = {}
+        b1(r, args, 1, 32768, 256, (768, 256, 256, 256), kind == "bf16")
+        out[f"block C=256 B=1 V=32768 K=128 {kind}"] = r
+        del args
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for B, S in ((1, 128), (8, 16), (1, 132)):
+        p = torch.randn(B, S, mb.SLOT, mb.SLOT, generator=g, device="cuda")
+        out[f"xhat_reduce ({B}, {S})"] = dict(
+            device_ms=cs.device_ms(lambda: mb.xhat_reduce(p, 128, 128)))
+        del p
     mg = cs.meshgen()
     verts, faces = mg.torus(n_major=144, n_minor=140)
     cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),

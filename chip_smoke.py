@@ -10,19 +10,26 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. kernels against their plain PyTorch versions, at the full width of the
      segmentation model (B=2, V=32768, K=128, C=128, hidden [128, 128]), of
      the sampling_invariance model (B=1, V=32768, C=256, hidden [256, 256],
-     K 128 and 256: B1 on 16-row tiles, x_hat_next in 128 x 128 pieces) and
-     at a small ragged shape, f32 and bf16 operands, emit_next on and off;
-     the x_hat partial sum bit-equal to its plain version at (1, SMs, 128,
-     128) and (8, 16, 128, 128), and timed there beside torch.sum;
+     K 128 and 256: B1's row kernel with one warpgroup a CTA and feat in a
+     device scratch in f32, x_hat_next in 128 x 128 pieces), at a small ragged shape, and on B1's
+     wide route (C=256 with hidden [1024, 1024]; C % 8 != 0), f32 and bf16
+     operands, emit_next on and off, each launched twice and bit-identical;
+     B1's x_hat kernel alone against its plain version (the same split of
+     V) with the fixed-order sum of its partials bit-equal to the plain
+     sum; the x_hat partial sum bit-equal to its plain version at the
+     split counts of B=1, V=32768 and B=8, V=20480, and timed there beside
+     torch.sum;
   4. the slice: InferenceSession(use_megakernel=True) on the card serves
      three meshes with the segmentation model (seeded weights); the launch
      counters show each request ran n_block block kernels, and the eager
      DiffusionNet on the same card agrees;
-  5. times of the block kernel against its plain version (CUDA events
-     around 10 calls back to back, median of 10 such runs after warm-up);
+  5. times of B1 against its plain version (CUDA events around 10 calls
+     back to back, median of 10 such runs after warm-up): the whole block,
+     its row kernel and its x_hat kernel (beside one torch.einsum), each
+     first held to its plain version with two launches bit-identical;
   6. B1 with dropout against its plain version (B=2, V=32768, tile_v 2048
-     and 1024, f32 and bf16), and with all-ones inputs, where the kept
-     pattern must equal the plain masks exactly;
+     and 1024, f32 and bf16, two launches bit-identical), and with all-ones
+     inputs, where the kept pattern must equal the plain masks exactly;
   7. B2 (the block's backward: the rows kernel, the grads kernel and the
      partial sums) against the plain backward, at full width and at a small
      ragged shape, f32 and bf16, emit_next on and off, dropout on and off;
@@ -40,7 +47,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      must agree in loss, every gradient and the updated parameters;
   9. times: B2 against its plain backward, and its rows kernel, grads
      kernel and partial sums each beside its plain version and bound, B1's
-     dropout cost, B1 and B2 at C = 256 (K 128 and 256), and the whole
+     dropout cost, B1 and B2 at C = 256 (K 128 and 256) and B1's wide
+     route (C = 256, hidden [1024, 1024]), B1 held to its plain version
+     with two launches bit-identical before each time, and the whole
      train step at bench.py's shapes (B=8, V=20480, f32 and bf16
      operands) with its peak memory and a profiler breakdown averaged over
      three steps;
@@ -119,10 +128,12 @@ import time
 import torch
 
 N_BLOCK = 4
-# launches of a train step of N_BLOCK blocks on the megakernel path: B1 per
-# block (x_hat_next summed for all but the last), B2's two kernels per block
-# and three partial sums each (ds, the parameters, db)
-B2_PER_STEP = {"megablock_fwd": N_BLOCK, "xhat_reduce": N_BLOCK - 1,
+# launches of a train step of N_BLOCK blocks on the megakernel path: B1's
+# row kernel per block and its x_hat kernel and partial sum for all but the
+# last, B2's two kernels per block and three partial sums each (ds, the
+# parameters, db)
+B2_PER_STEP = {"megablock_fwd": N_BLOCK, "megablock_fwd_xhat": N_BLOCK - 1,
+               "megablock_fwd_wide": 0, "xhat_reduce": N_BLOCK - 1,
                "megablock_bwd_rows": N_BLOCK, "megablock_bwd_grads": N_BLOCK,
                "grad_reduce": 3 * N_BLOCK}
 SEG_MODEL = dict(c_in=16, c_out=8, c_width=128, n_block=N_BLOCK,
@@ -321,27 +332,91 @@ def device_ms(fn, calls=20, reps=5, warmup=3) -> float:
     return statistics.median(runs)
 
 
+def b1_twice(mb, tag, args, **kw):
+    """B1 launched twice on the same inputs: the two results must be the
+    same bits. Returns the first (out, x_hat_next) and the launch counts of
+    one call."""
+    mb.reset_launches()
+    out, xn = mb.megablock_chained_fwd(*args, **kw)
+    again = mb.megablock_chained_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(out, again[0]), f"{tag}: two launches differ in out")
+    check(xn is None or torch.equal(xn, again[1]),
+          f"{tag}: two launches differ in x_hat_next")
+    return out, xn, {k: v // 2 for k, v in mb.LAUNCHES.items()}
+
+
+def b1_launches(mb, K, C, hidden, lowp, emit):
+    """The launches of one B1 call: the row kernel (and with emit_next its
+    x_hat kernel and partial sum), or the wide route (and its sum)."""
+    route = mb.fwd_route(K, C, (3 * C, *hidden, C), lowp, mb._smem_limit(0))
+    want = dict.fromkeys(mb.LAUNCHES, 0)
+    want["xhat_reduce"] = int(emit)
+    if route[0] == "rows":
+        want.update(megablock_fwd=1, megablock_fwd_xhat=int(emit))
+    else:
+        want["megablock_fwd_wide"] = 1
+    return route, want
+
+
+def xhat_kernel_check(mb, tag, args, out, lowp):
+    """B1's x_hat kernel alone on the row kernel's out (f32) and the mass,
+    against its plain version with the same split of V; two launches give
+    the same bits, and the fixed-order sum of its partials equals the plain
+    sum of the same partials bit for bit. Returns the largest error of the
+    written (K, C) corners."""
+    B, V, K = args[1].shape
+    C = out.shape[-1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = mb.xhat_splits(B, V, K, C, sms)
+    src = out.float().contiguous()
+    part = mb.megablock_fwd_xhat(args[1], src, args[4], splits, lowp)
+    again = mb.megablock_fwd_xhat(args[1], src, args[4], splits, lowp)
+    plain = mb.megablock_fwd_xhat_reference(args[1], src, args[4], splits,
+                                            lowp)
+    torch.cuda.synchronize()
+    kr, cr = min(K, mb.SLOT), min(C, mb.SLOT)
+    got, want = part[..., :kr, :cr], plain[..., :kr, :cr]
+    check(torch.equal(got, again[..., :kr, :cr]),
+          f"{tag}: two launches of the x_hat kernel differ")
+    e = compare(f"{tag} x_hat kernel partials {tuple(part.shape[:4])} "
+                f"(splits {splits})", got, want, GRAD_TOL["f32"], scaled=True)
+    total = mb.reduce_pieces(part, B, K, C)
+    check(torch.equal(total.cpu(), mb.reduce_pieces(part.cpu(), B, K, C)),
+          f"{tag}: xhat_reduce of the kernel's partials is not the plain sum")
+    return e
+
+
 def phase_kernels(mb):
     log("== phase 3: kernels against their plain versions")
-    errs = {"megablock_fwd": 0.0}
+    errs = {"megablock_fwd": 0.0, "megablock_fwd_xhat": 0.0,
+            "megablock_fwd_wide": 0.0}
     shapes = [(2, 32768, 128, 128, (128, 128), 0),     # full width
               (1, 32768, 128, 256, (256, 256), 0),     # C = 256
               (1, 32768, 256, 256, (256, 256), 0),     # K = C = 256
-              (2, 1000, 16, 8, (16, 32, 8), 100)]      # ragged last tile
+              (2, 1000, 16, 8, (16, 32, 8), 100),      # ragged last tile
+              (1, 8192, 128, 256, (1024, 1024), 0),    # the wide route
+              (2, 1000, 16, 12, (12,), 100)]           # C % 8 != 0: wide
     for B, V, K, C, hidden, n_pad in shapes:
         for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             args = block_inputs(B, V, K, C, hidden, dtype, seed=V + K,
                                 n_pad=n_pad)
             lowp = kind == "bf16"
             for emit in (True, False):
-                out, xn = mb.megablock_chained(*args, emit_next=emit,
-                                               lowp=lowp)
-                torch.cuda.synchronize()
+                tag = (f"B={B} V={V} K={K} C={C} hidden={list(hidden)} "
+                       f"{kind} emit_next={emit}")
+                route, want = b1_launches(mb, K, C, hidden, lowp, emit)
+                out, xn, got = b1_twice(mb, tag, args, emit_next=emit,
+                                        lowp=lowp)
+                check(got == want, f"{tag}: launches {got} != {want}")
                 ref, ref_xn = mb.megablock_chained_reference(
                     *args, emit_next=emit, lowp=lowp)
                 torch.cuda.synchronize()
-                tag = (f"B={B} V={V} K={K} C={C} hidden={list(hidden)} "
-                       f"{kind} emit_next={emit}")
+                lay = route[1]
+                lay = (f"rows route, {lay[0]} warpgroups a CTA"
+                       + (", feat spilled" if lay[1] else "")
+                       if route[0] == "rows" else "wide route")
+                tag += f" ({lay}; two launches bit-identical)"
                 check(out.dtype == args[0].dtype and out.shape == ref.shape,
                       f"{tag}: out dtype/shape")
                 e = compare(f"{tag} out", out, ref, TOL[kind])
@@ -350,22 +425,32 @@ def phase_kernels(mb):
                                        TOL[kind]))
                 else:
                     check(xn is None, f"{tag}: x_hat_next without emit_next")
-                if kind == "f32" and V == 32768:
-                    errs["megablock_fwd"] = max(errs["megablock_fwd"], e)
+                name = ("megablock_fwd" if route[0] == "rows"
+                        else "megablock_fwd_wide")
+                if kind == "f32" and V >= 8192:
+                    errs[name] = max(errs[name], e)
+                if route[0] == "rows" and not emit:
+                    ex = xhat_kernel_check(mb, tag, args, out, lowp)
+                    if kind == "f32" and V >= 8192:
+                        errs["megablock_fwd_xhat"] = max(
+                            errs["megablock_fwd_xhat"], ex)
             del args
-    # the partial-sum kernel at the main paths' shapes (B=1: one CTA per SM;
-    # B=8: bench.py's batch), bit-equal to its plain version and to itself
+    # the partial-sum kernel at the main paths' shapes (B1's split counts at
+    # B=1, V=32768 and at bench.py's B=8, V=20480), bit-equal to its plain
+    # version and to itself
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     g = torch.Generator(device="cuda").manual_seed(7)
-    partials = [torch.randn(B, S, mb.SLOT, mb.SLOT, generator=g,
-                            device="cuda") for B, S in ((1, sms), (8, 16))]
+    partials = [torch.randn(B, mb.xhat_splits(B, V, 128, 128, sms)[0],
+                            mb.SLOT, mb.SLOT, generator=g, device="cuda")
+                for B, V in ((1, 32768), (BENCH_B, BENCH_V))]
     errs["xhat_reduce"] = 0.0
     for partial in partials:
         got = mb.xhat_reduce(partial, 128, 128)
         again = mb.xhat_reduce(partial, 128, 128)
         ref = mb.xhat_reduce_reference(partial, 128, 128)
         torch.cuda.synchronize()
-        tag = f"xhat_reduce {tuple(partial.shape)}"
+        tag = (f"xhat_reduce {tuple(partial.shape)} "
+               f"({mb.xhat_chunks(partial.shape[1])} chunks)")
         check(torch.equal(got, again), f"{tag}: two launches differ")
         errs["xhat_reduce"] = max(errs["xhat_reduce"], compare(
             f"{tag} (bit-equal, and over two launches)", got, ref,
@@ -405,7 +490,9 @@ def phase_slice(mb):
     with tempfile.TemporaryDirectory() as cache:
         session = InferenceSession(model, k_eig=K_EIG, op_cache_dir=cache,
                                    use_megakernel=True, device="cuda")
-        per_block = {"megablock_fwd": N_BLOCK, "xhat_reduce": N_BLOCK - 1,
+        per_block = {"megablock_fwd": N_BLOCK,
+                     "megablock_fwd_xhat": N_BLOCK - 1,
+                     "megablock_fwd_wide": 0, "xhat_reduce": N_BLOCK - 1,
                      "megablock_bwd_rows": 0, "megablock_bwd_grads": 0,
                      "grad_reduce": 0}
         preds, stamps = [], []
@@ -443,29 +530,64 @@ def phase_slice(mb):
     return launches
 
 
+def xhat_bound(B, V, K, C, S, lowp):
+    """B1's x_hat kernel's least time: Phi (B V K), out (B V C, f32) and
+    the mass read once, the partial slots' (K, C) corners (B S K C, f32)
+    written once; 2 B V K C operations at three TF32 passes or the bf16
+    rate."""
+    n_bytes = B * V * (K * (2 if lowp else 4) + 4 * C + 4) + 4 * B * S * K * C
+    return bound(n_bytes, 2 * B * V * K * C,
+                 BF16_FLOPS if lowp else TF32_FLOPS / 3)
+
+
 def phase_times(mb, card):
-    log("== phase 5: block kernel against its plain version, CUDA events, "
-        "median of 10 runs of 10 calls")
+    log("== phase 5: B1 against its plain version, CUDA events, median of "
+        "10 runs of 10 calls")
     ms = {}
-    for B, V in ((1, 32768), (8, 20480)):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    widths = (384, 128, 128, 128)
+    for B, V in ((1, 32768), (BENCH_B, BENCH_V)):
         for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             args = block_inputs(B, V, 128, 128, (128, 128), dtype, seed=B)
             lowp = kind == "bf16"
-            out, xn = mb.megablock_chained(*args, emit_next=True, lowp=lowp)
-            torch.cuda.synchronize()
+            tag = f"B={B} V={V} {kind}"
+            out, xn, _ = b1_twice(mb, tag, args, emit_next=True, lowp=lowp)
             ref, ref_xn = mb.megablock_chained_reference(*args, emit_next=True,
                                                          lowp=lowp)
-            compare(f"B={B} V={V} {kind} out", out, ref, TOL[kind])
-            compare(f"B={B} V={V} {kind} x_hat_next", xn, ref_xn, TOL[kind])
-            del out, xn, ref, ref_xn
+            compare(f"{tag} out (two launches bit-identical)", out, ref,
+                    TOL[kind])
+            compare(f"{tag} x_hat_next", xn, ref_xn, TOL[kind])
+            del out, xn, ref_xn
             k = time_ms(lambda: mb.megablock_chained(*args, emit_next=True,
                                                      lowp=lowp))
             p = time_ms(lambda: mb.megablock_chained_reference(
                 *args, emit_next=True, lowp=lowp))
-            ms[(B, V, kind)] = (k, p)
+            rk = time_ms(lambda: mb.megablock_chained_fwd(
+                *args, emit_next=False, lowp=lowp))
+            rp = time_ms(lambda: mb.megablock_chained_reference(
+                *args, emit_next=False, lowp=lowp))
+            # the x_hat kernel on the f32 out and the mass (an f32 x's
+            # operands), beside its plain version and one torch.einsum of
+            # the same x_hat_next
+            src, evecs, mass = ref.float().contiguous(), args[1], args[4]
+            splits = mb.xhat_splits(B, V, 128, 128, sms)
+            xk = time_ms(lambda: mb.megablock_fwd_xhat(evecs, src, mass,
+                                                       splits, lowp))
+            xp = time_ms(lambda: mb.megablock_fwd_xhat_reference(
+                evecs, src, mass, splits, lowp), reps=3)
+            lib = (evecs, mass.to(evecs.dtype), src.to(evecs.dtype))
+            xl = time_ms(lambda: torch.einsum("bvk,bv,bvc->bkc", *lib))
+            rb = megablock_bound(B, V, 128, 128, widths, False, False, lowp)
+            xb = xhat_bound(B, V, 128, 128, splits[0], lowp)
+            ms[(B, V, kind)] = dict(total=(k, p), rows=(rk, rp, rb),
+                                    xhat=(xk, xp, xb, xl))
             log(f"  time megablock_chained emit_next B={B} V={V} K=128 C=128 "
-                f"{kind}: kernel {k:.4f} ms, plain {p:.4f} ms [{card}]")
-            del args
+                f"{kind}: kernels {k:.4f} ms, plain {p:.4f} ms; row kernel "
+                f"{rk:.4f} ms (plain {rp:.4f}, bound {rb[0]:.4f} ms, {rb[1]}, "
+                f"share {rb[0] / rk:.3f}); x_hat kernel {xk:.4f} ms (plain "
+                f"{xp:.4f}, torch.einsum {xl:.4f}, bound {xb[0]:.4f} ms, "
+                f"{xb[1]}, share {xb[0] / xk:.3f}; splits {splits}) [{card}]")
+            del args, ref, src, lib
     return ms
 
 
@@ -509,14 +631,13 @@ def phase_dropout(mb):
         for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             lowp = kind == "bf16"
             args = block_inputs(B, V, K, C, (128, 128), dtype, seed=tile_v)
-            out, xn = mb.megablock_chained_fwd(*args, emit_next=True,
-                                               lowp=lowp, seed=seed,
-                                               tile_v=tile_v)
-            torch.cuda.synchronize()
+            tag = f"dropout B={B} V={V} tile_v={tile_v} {kind}"
+            out, xn, _ = b1_twice(mb, tag, args, emit_next=True, lowp=lowp,
+                                  seed=seed, tile_v=tile_v)
             ref, ref_xn = mb.megablock_chained_reference(
                 *args, emit_next=True, lowp=lowp, seed=seed, tile_v=tile_v)
-            tag = f"dropout B={B} V={V} tile_v={tile_v} {kind}"
-            e = max(compare(f"{tag} out", out, ref, TOL[kind]),
+            e = max(compare(f"{tag} out (two launches bit-identical)", out,
+                            ref, TOL[kind]),
                     compare(f"{tag} x_hat_next", xn, ref_xn, TOL[kind]))
             if kind == "f32":
                 err = max(err, e)
@@ -859,30 +980,52 @@ def phase_train(mb):
 def phase_wide_times(mb, card):
     """B1 and B2 at C = 256 (hidden [256, 256], K 128 and 256, B=1,
     V=32768, emit_next), f32 and bf16, beside their plain versions and
-    bounds: the widths that C.1's repair opened."""
-    log("== phase 9b: B1 and B2 at C = 256 (CUDA events, median of 10 runs "
-        "of 10 calls)")
+    bounds: the sampling_invariance model's widths; then B1's wide route
+    at C = 256 with hidden [1024, 1024]. B1 is first held to its plain
+    version, two launches bit-identical. Returns the times, and the wide
+    route's (kernel, plain, bound, error) in f32."""
+    log("== phase 9b: B1 and B2 at C = 256, and B1's wide route (CUDA "
+        "events, median of 10 runs of 10 calls)")
     out = {}
-    for K in (128, 256):
-        widths = (768, 256, 256, 256)
+    for K, hidden in ((128, (256, 256)), (256, (256, 256)),
+                      (128, (1024, 1024))):
+        widths = (768, *hidden, 256)
+        wide = hidden[0] == 1024
         for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             lowp = kind == "bf16"
-            args = block_inputs(1, 32768, K, 256, (256, 256), dtype, seed=K)
+            args = block_inputs(1, 32768, K, 256, hidden, dtype, seed=K)
+            route, want = b1_launches(mb, K, 256, hidden, lowp, True)
+            tag = (f"B=1 V=32768 K={K} C=256 hidden {list(hidden)} {kind} "
+                   f"({route[0]} route)")
+            o, xn, got = b1_twice(mb, tag, args, lowp=lowp)
+            check(got == want, f"{tag}: launches {got} != {want}")
+            ref, ref_xn = mb.megablock_chained_reference(*args, lowp=lowp)
+            err = max(compare(f"{tag} out (two launches bit-identical)", o,
+                              ref, TOL[kind]),
+                      compare(f"{tag} x_hat_next", xn, ref_xn, TOL[kind]))
+            del o, xn, ref, ref_xn
+            f = time_ms(lambda: mb.megablock_chained_fwd(*args, lowp=lowp))
+            fp = time_ms(lambda: mb.megablock_chained_reference(*args,
+                                                               lowp=lowp))
+            fb = megablock_bound(1, 32768, K, 256, widths, True, False, lowp)
+            if wide:
+                out[("wide", kind)] = (f, fp, fb, err)
+                log(f"  time {tag}: B1 {f:.4f} ms (plain {fp:.4f}, bound "
+                    f"{fb[0]:.4f} ms, {fb[1]}, share {fb[0] / f:.3f}) "
+                    f"[{card}]")
+                del args
+                continue
             g = torch.Generator(device="cuda").manual_seed(4)
             dout = torch.randn(1, 32768, 256, generator=g, device="cuda").to(
                 dtype)
             dxn = torch.randn(1, K, 256, generator=g, device="cuda")
-            f = time_ms(lambda: mb.megablock_chained_fwd(*args, lowp=lowp))
-            fp = time_ms(lambda: mb.megablock_chained_reference(*args,
-                                                               lowp=lowp))
             b = time_ms(lambda: mb.megablock_chained_bwd(*args, dout, dxn,
                                                          lowp=lowp))
             bp = time_ms(lambda: mb.megablock_chained_bwd_reference(
                 *args, dout, dxn, lowp=lowp), reps=3)
-            fb = megablock_bound(1, 32768, K, 256, widths, True, False, lowp)
             bb = megablock_bound(1, 32768, K, 256, widths, True, True, lowp)
             out[(K, kind)] = dict(fwd=(f, fp, fb), bwd=(b, bp, bb))
-            log(f"  time B=1 V=32768 K={K} C=256 hidden [256, 256] {kind}: "
+            log(f"  time {tag}: "
                 f"B1 {f:.4f} ms (plain {fp:.4f}, bound {fb[0]:.4f} ms, "
                 f"{fb[1]}, share {fb[0] / f:.3f}); B2 {b:.4f} ms (plain "
                 f"{bp:.4f}, bound {bb[0]:.4f} ms, {bb[1]}, share "
@@ -967,6 +1110,15 @@ def phase_bwd_times(mb, card):
                 f"{sk:.4f} ms device (plain {sp:.4f}, bound {sb[0]:.4f} ms) "
                 f"[{card}]")
             if B == 1:
+                tag = f"B1 with dropout B=1 V={V} {kind}"
+                out, xn, _ = b1_twice(mb, tag, args, lowp=lowp, seed=5,
+                                      tile_v=2048)
+                ref, ref_xn = mb.megablock_chained_reference(
+                    *args, lowp=lowp, seed=5, tile_v=2048)
+                compare(f"{tag} out (two launches bit-identical)", out, ref,
+                        TOL[kind])
+                compare(f"{tag} x_hat_next", xn, ref_xn, TOL[kind])
+                del out, xn, ref, ref_xn
                 on = time_ms(lambda: mb.megablock_chained_fwd(
                     *args, lowp=lowp, seed=5, tile_v=2048))
                 off = time_ms(lambda: mb.megablock_chained_fwd(*args,
@@ -1039,8 +1191,8 @@ def phase_step_times(mb, card, torus_ops, torus_verts, profiled=True):
                 step(params, state, None, None)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / 3 * 1e3
-        groups = {"B1 megablock_fwd": 0.0, "B2 rows": 0.0, "B2 grads": 0.0,
-                  "reduces": 0.0, "Adam": 0.0, "other": 0.0}
+        groups = {"B1 rows": 0.0, "B1 x_hat": 0.0, "B2 rows": 0.0,
+                  "B2 grads": 0.0, "reduces": 0.0, "Adam": 0.0, "other": 0.0}
         top = []
         for e in prof.key_averages():
             if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1049,8 +1201,10 @@ def phase_step_times(mb, card, torus_ops, torus_verts, profiled=True):
             us = us if us is not None else e.self_cuda_time_total
             name = e.key
             top.append((us, name))
-            if "megablock_fwd_kernel" in name:
-                groups["B1 megablock_fwd"] += us
+            if "megablock_fwd_rows_kernel" in name:
+                groups["B1 rows"] += us
+            elif "megablock_fwd_xhat_kernel" in name:
+                groups["B1 x_hat"] += us
             elif "megablock_bwd_rows_kernel" in name:
                 groups["B2 rows"] += us
             elif "megablock_bwd_grads_kernel" in name:
@@ -1555,7 +1709,8 @@ def phase_fused_slice(mb, fu, batch):
             f"{int(total)} faces, {1e3 * (time.perf_counter() - t0):.1f} ms")
     launches = {**fu.LAUNCHES, **mb.LAUNCHES}
     per_step = {"spectral_project": N_BLOCK, "spectral_apply": N_BLOCK,
-                "megablock_fwd": 0, "xhat_reduce": N_BLOCK,
+                "megablock_fwd": 0, "megablock_fwd_xhat": 0,
+                "megablock_fwd_wide": 0, "xhat_reduce": N_BLOCK,
                 "megablock_bwd_rows": 0, "megablock_bwd_grads": 0,
                 "grad_reduce": 0}
     log(f"  launches in 5 steps (B={B}, V={V}): {launches}")
@@ -1599,7 +1754,8 @@ def phase_fused_slice(mb, fu, batch):
         ref = InferenceSession(plain_model, k_eig=K_EIG, op_cache_dir=cache,
                                device="cuda")(verts, faces)
     per_req = {"spectral_project": N_BLOCK, "spectral_apply": N_BLOCK,
-               "megablock_fwd": 0, "xhat_reduce": N_BLOCK,
+               "megablock_fwd": 0, "megablock_fwd_xhat": 0,
+               "megablock_fwd_wide": 0, "xhat_reduce": N_BLOCK,
                "megablock_bwd_rows": 0, "megablock_bwd_grads": 0,
                "grad_reduce": 0}
     log(f"  warm request torus(144, 140) (V={verts.shape[0]}, bucket "
@@ -1639,6 +1795,7 @@ def phase_fused_slice(mb, fu, batch):
         log(f"    step {i}: loss {loss.item():.6f}")
     one = {**fu.LAUNCHES, **mb.LAUNCHES}
     want = {"spectral_project": 3, "spectral_apply": 0, "megablock_fwd": 3,
+            "megablock_fwd_xhat": 0, "megablock_fwd_wide": 0,
             "xhat_reduce": 3, "megablock_bwd_rows": 3,
             "megablock_bwd_grads": 3, "grad_reduce": 9}
     log(f"    launches: {one}")
@@ -1942,7 +2099,7 @@ def main() -> int:
     log(f"  launches of the inference slice: {serve_launches}; of the "
         f"training slice: {launches}")
     bwd_times = phase_bwd_times(mb, card)
-    phase_wide_times(mb, card)
+    wide_ms = phase_wide_times(mb, card)
     # grad_reduce over the parameter partials of the grads kernel at B=1,
     # V=32768, f32 (phase 7b), beside its plain version and torch.sum
     par = slots.unsqueeze(0)
@@ -1978,13 +2135,16 @@ def main() -> int:
     si_launches = phase_c256_train(mb, card)
 
     widths = (3 * 128, 128, 128, 128)
-    k_ms, p_ms = times[(1, 32768, "f32")]
+    b1 = times[(1, 32768, "f32")]
     b2 = bwd_times[(1, 32768, "f32")]
+    wide = wide_ms[("wide", "f32")]
     fwd_b = megablock_bound(1, 32768, 128, 128, widths, True, False)
     bwd_b = megablock_bound(1, 32768, 128, 128, widths, True, True)
     t5 = b5_ms["torus(144, 140)"]
     log(f"  bounds (H100 SXM peaks, [{card}]): B1 B=1 V=32768 f32 "
-        f"{fwd_b[0]:.4f} ms ({fwd_b[1]}, three TF32 passes), B2 "
+        f"{fwd_b[0]:.4f} ms ({fwd_b[1]}, three TF32 passes; its row kernel "
+        f"{b1['rows'][2][0]:.4f} ms, x_hat kernel {b1['xhat'][2][0]:.4f} "
+        f"ms), B2 "
         f"{bwd_b[0]:.4f} ms ({bwd_b[1]}; its rows kernel "
         f"{b2['rows'][2][0]:.4f} ms, grads kernel {b2['grads'][2][0]:.4f} "
         f"ms), xhat_reduce {xr1['bound'][0]:.4f} ms, grad_reduce "
@@ -2001,9 +2161,18 @@ def main() -> int:
                 "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": lib}
     summary = {"kernels": [
+        # B1 at B=1, V=32768, f32: its row kernel, its x_hat kernel (the
+        # plain version of each on the same inputs), the wide route at its
+        # own widths (C=256, hidden [1024, 1024]; not on the main path)
         row("megablock_fwd", "megablock_fwd.cu", "pallas_megablock.py:259",
-            launches["megablock_fwd"], errs["megablock_fwd"], k_ms, p_ms,
-            fwd_b, None),
+            launches["megablock_fwd"], errs["megablock_fwd"], *b1["rows"],
+            None),
+        row("megablock_fwd_xhat", "megablock_fwd.cu",
+            "pallas_megablock.py:309", launches["megablock_fwd_xhat"],
+            errs["megablock_fwd_xhat"], *b1["xhat"]),
+        row("megablock_fwd_wide", "megablock_fwd_wide.cu",
+            "pallas_megablock.py:259", launches["megablock_fwd_wide"],
+            max(errs["megablock_fwd_wide"], wide[3]), *wide[:3], None),
         row("xhat_reduce", "megablock_fwd.cu", "pallas_megablock.py:305",
             launches["xhat_reduce"], errs["xhat_reduce"], xr1["ms"],
             xr1["plain_ms"], xr1["bound"], xr1["library_ms"]),

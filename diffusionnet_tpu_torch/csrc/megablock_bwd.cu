@@ -63,12 +63,13 @@
 //    products, bound this kernel. What a later product reads comes back
 //    from L2 where it is still there (a 64-row tile's share of R is 480 KB
 //    in f32 at C = 128).
-//  * Grads kernel: each 32-row chunk of the two operands' columns is copied
-//    as it lies into a ring of 3 raw stages by cp.async (zero-filled past
-//    the valid rows and columns), two chunks ahead; the threads then
-//    transpose a stage into the K-major tiles that wgmma's tf32 needs (it
-//    takes K-major operands only), splitting hi / lo on the way, into the
-//    second of two tile buffers while the products read the first.
+//  * Grads kernel (splitv.cuh, shared with B1's x_hat kernel): each 32-row
+//    chunk of the two operands' columns is copied as it lies into a ring of
+//    3 raw stages by cp.async (zero-filled past the valid rows and
+//    columns), two chunks ahead; the threads then transpose a stage into
+//    the K-major tiles that wgmma's tf32 needs (it takes K-major operands
+//    only), splitting hi / lo on the way, into the second of two tile
+//    buffers while the products read the first.
 //
 // Scratch and shared memory (R's row, per vertex, in R's type: f32, or bf16
 // under lowp, where every one of its values enters its product rounded to
@@ -115,6 +116,7 @@
 // mass 0 and zero operator rows.
 
 #include "megablock_common.cuh"
+#include "splitv.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -122,12 +124,14 @@ namespace {
 using namespace mb;
 using wg::KCH;
 using wg::NB;
+using sv::GM;
+using sv::GNT;
+using sv::grads_block;
+using sv::grads_smem;
 
 constexpr int RT = 64;    // rows per CTA of the rows kernel
 constexpr int RNT = 128;  // its threads: one warpgroup
 constexpr int NS = 3;     // its ring of B stages
-constexpr int GM = 128;   // output rows per CTA of the grads kernel
-constexpr int GNT = 256;  // its threads: two warpgroups of 64 output rows
 constexpr int MAX_PROD = MAX_DENSE + 1;  // dW per layer, then P
 
 struct RowsArgs {
@@ -243,20 +247,6 @@ __device__ __forceinline__ float4 f4(const float (&p)[4]) {
   return make_float4(p[0], p[1], p[2], p[3]);
 }
 
-// f(m, n, v0, v1) for the thread's accumulator pairs of a 64 x 128 block:
-// row m, columns n and n + 1 from the block's first column.
-template <class F>
-__device__ __forceinline__ void for_pairs(float (&d)[64], F f) {
-  const int t = threadIdx.x % wg::NTH, w = t / 32, g = (t % 32) / 4;
-  const int c = t % 4;
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      f(16 * w + g + 8 * h, 8 * j + 2 * c, d[4 * j + 2 * h],
-        d[4 * j + 2 * h + 1]);
-}
-
 // The rows kernel's epilogues run on its 64 x 128 output block in shared
 // memory (row stride LDT), a quad of 4 columns at a time: thread t takes
 // quad t % 32 of rows t / 32 + 4 k, so a warp reads and writes whole
@@ -354,7 +344,7 @@ __device__ __forceinline__ void row_product(char* smem, const void* A,
       wg::pin(d);
     }
     __syncthreads();  // every warp's products are done with the stages
-    for_pairs(d, [&](int m, int nn, float& v0, float& v1) {
+    wg::for_pairs(d, [&](int m, int nn, float& v0, float& v1) {
       *reinterpret_cast<float2*>(tile + m * LDT + nn) = make_float2(v0, v1);
     });
     __syncthreads();
@@ -681,170 +671,6 @@ __global__ void __launch_bounds__(RNT, 2)
       });
 }
 
-// The grads kernel stages its operands in two steps. First each 32-row
-// chunk of a source's 128 columns is copied as it lies (row-major, the
-// source's type) into a ring of NSR raw stages by cp.async, 16 bytes at a
-// time, zero-filled past the valid rows and columns; where an operator's
-// rows are not 16-byte aligned (K % 8 != 0) plain loads fill the stage.
-// Then the threads transpose a stage into the K-major wgmma tiles (hi and
-// lo for tf32, bf16 under LOWP): a warp reads 32 consecutive columns of a
-// raw row and writes whole 128-byte rows of core matrices.
-constexpr int NSR = 3;
-constexpr int RAW_OP = KCH * NB * 4;  // bytes of one operand's raw chunk
-
-template <bool BF16>
-__device__ __forceinline__ void raw_issue(char* dst, const void* src,
-                                          long long ld, long long v0,
-                                          int rows_valid, int col0,
-                                          int cols_valid, bool aligned) {
-  constexpr int ES = BF16 ? 2 : 4, PER = 16 / ES, CH = NB / PER;
-  const char* s = reinterpret_cast<const char*>(src);
-  for (int i = threadIdx.x; i < KCH * CH; i += GNT) {
-    const int r = i / CH, c = col0 + (i % CH) * PER;
-    const int nval = r < rows_valid ? min(PER, max(0, cols_valid - c)) : 0;
-    char* d = dst + (r * NB + (i % CH) * PER) * ES;
-    const char* sp = s + ((v0 + r) * ld + c) * ES;
-    if (aligned) {
-      const uint32_t da = (uint32_t)__cvta_generic_to_shared(d);
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(da),
-                   "l"(nval ? sp : s), "r"(nval * ES)
-                   : "memory");
-    } else {
-#pragma unroll
-      for (int e = 0; e < PER; ++e) {
-        if constexpr (BF16)
-          reinterpret_cast<unsigned short*>(d)[e] =
-              e < nval ? reinterpret_cast<const unsigned short*>(sp)[e] : 0;
-        else
-          reinterpret_cast<float*>(d)[e] =
-              e < nval ? reinterpret_cast<const float*>(sp)[e] : 0.f;
-      }
-    }
-  }
-}
-
-// A raw chunk (32 rows x 128 columns) as the K-major tile of 128 rows
-// (the columns) x 32 (the rows): unit (m, k group) of thread t is
-// m = t % 32 + 32 ((t / 32) % 4), k groups t / 128 + 2 u.
-template <bool LOWP, bool SRC_BF16>
-__device__ __forceinline__ void raw_to_tile(const char* raw, char* hi,
-                                            char* lo) {
-  constexpr int UK = LOWP ? 8 : 4, UPR = KCH / UK;
-  const int t = threadIdx.x;
-  const int m = t % 32 + 32 * ((t / 32) % 4);
-  auto at = [&](int v) {
-    return SRC_BF16
-               ? wg::bf16_bits_to_float(
-                     reinterpret_cast<const unsigned short*>(raw)[v * NB + m])
-               : reinterpret_cast<const float*>(raw)[v * NB + m];
-  };
-#pragma unroll
-  for (int u = 0; u < UPR / 2; ++u) {
-    const int kg = t / 128 + 2 * u;
-    const int i = ((m / 8) * UPR + kg) * 8 + m % 8;  // 16-byte unit
-    if constexpr (LOWP) {
-      uint4 v;
-      v.x = wg::pack_bf16(at(kg * 8), at(kg * 8 + 1));
-      v.y = wg::pack_bf16(at(kg * 8 + 2), at(kg * 8 + 3));
-      v.z = wg::pack_bf16(at(kg * 8 + 4), at(kg * 8 + 5));
-      v.w = wg::pack_bf16(at(kg * 8 + 6), at(kg * 8 + 7));
-      reinterpret_cast<uint4*>(hi)[i] = v;
-    } else {
-      float h[4], l[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = at(kg * 4 + e);
-        h[e] = wg::tf32r(x);
-        l[e] = wg::tf32r(x - h[e]);
-      }
-      reinterpret_cast<float4*>(hi)[i] = make_float4(h[0], h[1], h[2], h[3]);
-      reinterpret_cast<float4*>(lo)[i] = make_float4(l[0], l[1], l[2], l[3]);
-    }
-  }
-}
-
-// One output block of a V-reduction: the CTA's two warpgroups hold rows
-// m0 + 64 w.. of sum over its rows of A_t^T B_t, t < nterms. A_t and B_t
-// are columns of row-major sources (row stride lda, ldb) from row rbase:
-// tile row i of A is column a_col0 + i (valid below a_cols), of B column
-// b_col0 + i (valid below b_cols); the contraction runs over the rows
-// [r_lo, r_hi) (relative to rbase), in chunks of 32, NSR - 1 ahead in the
-// raw ring. Writes the block, once, to out[m * ld_out + n] for m < M,
-// n < N (relative to the block's corner).
-template <bool LOWP, bool A_BF16>
-__device__ __forceinline__ void grads_block(
-    char* smem, const void* const* As, long long lda, bool a_aligned,
-    const void* const* Bs, long long ldb, int nterms, long long rbase,
-    long long r_lo, long long r_hi, int a_col0, int a_cols, int b_col0,
-    int b_cols, float* out, long long ld_out, int M, int N) {
-  constexpr int TA = wg::tile_bytes<LOWP>(GM), TB = wg::tile_bytes<LOWP>(NB);
-  static_assert(GM == NB, "A's and B's tiles of one size");
-  constexpr int TILES = TA;
-  // A's tiles: hi of buffers 0 and 1, then lo of buffers 0 and 1 (tf32);
-  // then B's the same
-  char* raw = smem;  // NSR stages of A's and B's raw chunks
-  char* ah = smem + NSR * 2 * RAW_OP;
-  char* bh = ah + 4 * TA;
-  const int w = threadIdx.x / wg::NTH;
-  const int a_half = w * wg::tile_bytes<LOWP>(64);
-  const long long rows = r_hi > r_lo ? r_hi - r_lo : 0;
-  const int nkc = (int)((rows + KCH - 1) / KCH);
-  const int total = nterms * nkc;
-  auto issue = [&](int it) {  // one commit group per chunk, empty past total
-    if (it < total) {
-      const int t = it / nkc;
-      const long long v0 = r_lo + (long long)(it % nkc) * KCH;
-      const int valid = (int)min((long long)KCH, r_hi - v0);
-      char* st = raw + (it % NSR) * 2 * RAW_OP;
-      raw_issue<A_BF16>(st, As[t], lda, rbase + v0, valid, a_col0, a_cols,
-                        a_aligned);
-      raw_issue<LOWP>(st + RAW_OP, Bs[t], ldb, rbase + v0, valid, b_col0,
-                      b_cols, true);
-    }
-    wg::cp_async_commit();
-  };
-  // chunk it's tiles: buffer it % 2 of each (the next chunk's transpose
-  // runs while this chunk's products do)
-  auto tiles = [&](int it, int which) {
-    return (which ? bh : ah) + (it % 2) * TILES;
-  };
-  auto transpose = [&](int it) {
-    wg::cp_async_wait<NSR - 2>();  // chunk it's raw stage has landed
-    __syncthreads();  // ... for every thread; and the products of chunk
-                      // it - 2, which read the tiles it refills, are done
-    issue(it + NSR - 1);
-    const char* st = raw + (it % NSR) * 2 * RAW_OP;
-    raw_to_tile<LOWP, A_BF16>(st, tiles(it, 0), tiles(it, 0) + 2 * TA);
-    raw_to_tile<LOWP, LOWP>(st + RAW_OP, tiles(it, 1), tiles(it, 1) + 2 * TB);
-    wg::fence_smem_for_wgmma();
-  };
-  float d[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) d[i] = 0.f;
-#pragma unroll
-  for (int st = 0; st < NSR - 1; ++st) issue(st);
-  if (total) transpose(0);
-  for (int it = 0; it < total; ++it) {
-    __syncthreads();  // chunk it's tiles are written
-    wg::fence_operands();
-    wg::pin(d);
-    char* a_t = tiles(it, 0) + a_half;
-    char* b_t = tiles(it, 1);
-    wg::mma_chunk<LOWP>(d, a_t, a_t + 2 * TA, b_t, b_t + 2 * TB);
-    wg::commit();
-    if (it + 1 < total) transpose(it + 1);
-    wg::wait_all();
-    wg::pin(d);
-  }
-  for_pairs(d, [&](int m, int nn, float& v0, float& v1) {
-    const int mm = 64 * w + m;
-    if (mm >= M) return;
-    float* o = out + mm * ld_out + nn;
-    if (nn < N) o[0] = v0;
-    if (nn + 1 < N) o[1] = v1;
-  });
-}
-
 template <bool LOWP, bool OPS_BF16>
 __global__ void __launch_bounds__(GNT, 1)
     megablock_bwd_grads_kernel(const GradsArgs p) {
@@ -915,10 +741,6 @@ constexpr int rows_smem() {
   return NS * wg::b_stage_bytes<LOWP>() > RT * LDT * (int)sizeof(float)
              ? NS * wg::b_stage_bytes<LOWP>()
              : RT * LDT * (int)sizeof(float);
-}
-template <bool LOWP>
-constexpr int grads_smem() {  // the raw ring, then two buffers of tiles
-  return NSR * 2 * RAW_OP + 8 * wg::tile_bytes<LOWP>(GM);
 }
 
 template <class T>

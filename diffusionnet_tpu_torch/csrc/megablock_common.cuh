@@ -1,12 +1,13 @@
-// Pieces shared by the block kernels B1 (megablock_fwd.cu) and B2
-// (megablock_bwd.cu), and by spectral_fused.cu: element loads, bf16
-// rounding, B1's TF32 tensor-core operand handling and weight product, and
-// the dropout hash.
+// Pieces shared by the block kernels B1 (megablock_fwd.cu, and its wide
+// route megablock_fwd_wide.cu) and B2 (megablock_bwd.cu), and by
+// spectral_fused.cu: element loads, bf16 rounding, the wide route's TF32
+// tensor-core operand handling and weight product, and the dropout hash.
 //
-// B1's products run on the tensor cores (WMMA, TF32 16x16x8, f32
-// accumulation). f32 operands are split into TF32 hi + lo parts and
+// The wide route's products run on the tensor cores (WMMA, TF32 16x16x8,
+// f32 accumulation). f32 operands are split into TF32 hi + lo parts and
 // multiplied in three passes (near-f32 accuracy); bf16-rounded operands
-// (LOWP) are exact in TF32 and take one pass. B2 runs on wgmma (wgmma.cuh).
+// (LOWP) are exact in TF32 and take one pass. B1's row kernel and B2 run on
+// wgmma (wgmma.cuh).
 
 #pragma once
 
@@ -20,16 +21,16 @@ namespace mb {
 
 using namespace nvcuda;
 
-constexpr int NT = 512;        // B1's threads per CTA: 16 warps
+constexpr int NT = 512;        // the wide route's threads per CTA: 16 warps
 constexpr int PAD = 4;         // row padding of shared buffers (floats)
 constexpr int DEPTH = 4;       // k-steps of weight fragments in flight
 constexpr int MAX_DENSE = 16;  // MLP layers a launch's arguments hold
 constexpr int SLOT = 128;      // side of an x_hat partial slot: (K, C) are
                                // covered in SLOT x SLOT pieces
 
-// B1's row tile of TV rows (32, or 16 where 32 rows' buffers do not fit in
-// shared memory): RB 16-row blocks, and the 16 warps' 16x16 output blocks
-// cover NP = 16 * (16 / RB) columns per pass of a product.
+// The wide route's row tile of TV rows (32, or 16 where 32 rows' buffers
+// do not fit in shared memory): RB 16-row blocks, and the 16 warps' 16x16
+// output blocks cover NP = 16 * (16 / RB) columns per pass of a product.
 template <int TV>
 struct Tile {
   static_assert(TV == 16 || TV == 32, "row tile of 16 or 32");

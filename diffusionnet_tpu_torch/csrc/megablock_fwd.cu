@@ -1,8 +1,10 @@
-// Whole-DiffusionNet-block forward for Hopper (sm_90a), chained form.
+// Whole-DiffusionNet-block forward for Hopper (sm_90a), chained form: a
+// 64-row wgmma row kernel, a split-V kernel for the next block's x_hat, and
+// a fixed-order partial sum.
 //
 // Replaces the TPU kernel `_make_fwd_kernel_chained`
 // (diffusionnet_tpu/ops/pallas_megablock.py:259, launched at :366). Given this
-// block's x_hat (B,K,C) it computes, per batch element b and row tile of V:
+// block's x_hat (B,K,C) it computes, per batch element b and row v:
 //
 //   s     = coefs (.) x_hat
 //   xd    = Phi s;   gx = GX s;   gy = GY s
@@ -10,426 +12,448 @@
 //   feat  = tanh(gx (.) vb_re + gy (.) vb_im)
 //   out   = MLP([x, xd, feat]) + x   (Dense, [Dropout]-ReLU-Dense, ...)
 //
-// and, with emit_next, the next block's x_hat = Phi^T (m (.) out). Only `out`
-// and the x_hat partials reach device memory; every intermediate of a tile
-// stays in shared memory.
+// and, with emit_next, the next block's x_hat = Phi^T (m (.) out). The TPU
+// kernel does both per tile and carries the x_hat sum across its sequential
+// grid in VMEM. Here they are split:
 //
-// What bounds it on this card. At K = C = 128 with hidden [128, 128] a vertex
-// costs 212,992 multiply-adds (Phi/GX/GY products 3KC, the complex map 4C^2,
-// the MLP 5C^2, the x_hat product KC), 426 kflop, against ~2.6 KB of device
-// memory traffic in f32 (operator rows, x, out) or ~1.3 KB with bf16
-// operands: 165 to 330 flop per byte. Arithmetic bounds it, so every product
-// runs on the tensor cores (WMMA, TF32 16x16x8, f32 accumulation). f32
-// operands are split into TF32 hi + lo parts and multiplied in three passes
-// (near-f32 accuracy); bf16-rounded operands (lowp) are exact in TF32 and
-// take one pass. In this version the tensor cores are not the limit: latency
-// is. A tile is only 32 rows (shared memory holds one CTA of 16 warps per SM),
-// so each warp owns one 16x16 output block and its products are short
-// dependent chains. On an H100 80GB HBM3 at a 700 W power limit, one block
-// at B = 1, V = 32768 ran at 14 TFLOP/s in f32 (about 9% of what three TF32
-// passes allow) and 21 TFLOP/s with bf16 operands. Its redesign on wgmma is
-// queued; this version takes any K, C and widths whose buffers fit:
+//  * megablock_fwd_rows_kernel: one CTA per W (1 or 2) 64-row tiles of one
+//    batch element, one warpgroup (128 threads) a tile; 1,280 CTAs at
+//    B = 8, V = 20480, K = C = 128. Every product runs on wgmma m64n128
+//    (wgmma.cuh): A from registers, read by each thread straight into its
+//    fragments (wg::RowF), B from a ring of NS shared-memory stages filled
+//    by cp.async, NS - 1 chunks of 32 ahead of the products and shared by
+//    the W warpgroups, which run the same products in step. B is s per
+//    batch element, the complex map and the MLP's W_l, tiled once per call
+//    by the wrapper in the order of a thread's A fragments
+//    (ops/megablock.py::b_tiles: wgmma's tf32 takes K-major operands only).
+//    A of the spectral products is the operator rows, read once from device
+//    memory; A of the complex map and the MLP is the tile's activations,
+//    resident in shared memory ([gx | gy], then [x | xd | feat], then the
+//    hidden layers; x itself is read from device memory), so no product's
+//    output makes a round trip through device memory. The epilogues work on
+//    the accumulators in registers: gx, gy, xd and the hidden layers go to
+//    shared memory; the complex map's B columns are interleaved (re_c,
+//    im_c), so a thread's accumulator pair is (vb_re, vb_im) of one column
+//    and feat is computed where it lands; the last layer writes `out` (and,
+//    for a bf16 x with emit_next, y = m (.) out in f32, the x_hat kernel's
+//    operand).
+//  * megablock_fwd_xhat_kernel: x_hat_next = Phi^T (m (.) out) as TN
+//    products over V on a split-V grid (splitv.cuh, shared with B2's grads
+//    kernel): each CTA owns one 128 x 128 piece of (K, C) of one batch
+//    element and one fixed range of rows and writes one partial slot, once;
+//    m scales out's rows in f32 before the split (or the rounding). Then
+//    `xhat_reduce_kernel` sums the slots in a fixed order.
 //
-//  * The row tile TV is 32 rows, or 16 where 32 rows' buffers exceed the
-//    card's shared memory (a template parameter; the wrapper picks it from
-//    the same byte count as `smem_bytes` here). At TV = 16 a warp's 16x16
-//    block sits in one row block, so a product pass covers 256 columns.
-//  * Shared memory per CTA, in floats: TV (36 + 132 + NP + 4) for the
-//    staged operator chunk, the Phi tile of the x_hat product and the
-//    warps' output patches, TV (round8(3C) + 4) for [x | xd | feat],
-//    2 TV (round8(max(2C, widths)) + 4) for the MLP's ping-pong buffers,
-//    and 128 x 132 for a resident s. At K = C = 128, hidden [128, 128] and
-//    TV = 32 that is 217 KB (s resident, as before the lift); at
-//    K = C = 256, hidden [256, 256] 263 KB at TV = 32 and 140 KB at
-//    TV = 16; at C = 256 and hidden 1024, 204 KB at TV = 16.
+// No slot is read, modified and written per tile, and nothing is summed with
+// floating-point atomics: two launches give the same bits.
 //
-// What the design does about the two things that do not carry over from the
-// TPU kernel:
-//  * The weights do not fit in shared memory (7 C^2 values = 448 KiB in f32
-//    at C = 128; a CTA addresses 227 KB). They stay in global memory, where
-//    they are L2-resident for every CTA, and each warp streams its own
-//    fragments of them straight into registers, a few k-steps ahead, with
-//    no barrier inside the contraction. The activations (the A operands of
-//    the complex map and the MLP) are resident in shared memory. Only the
-//    operator rows (Phi, GX, GY: the A operands of the spectral products) are
-//    staged through shared memory, in 32-column chunks, against s = coefs
-//    (.) x_hat (K x C per batch element). Where K, C <= 128 s is resident
-//    in shared memory (66 KB); wider, it is read like the weights, as
-//    fragments from L2 (256 KB at K = C = 256), each chunk's four fetched
-//    before the chunk's barrier.
-//  * The x_hat_next sum crosses tiles, and tiles run in parallel. Each CTA
-//    owns a fixed, strided set of tiles of one batch element and, for each
-//    128 x 128 piece of (K, C), a private f32 slot in device memory
-//    (L2-resident, the slot layout of spectral_project), which it updates
-//    tile after tile with no other writer. A second launch in this file
-//    (`xhat_reduce_kernel`) sums the nsplit slots of each piece in a fixed
-//    order. Deterministic: no floating-point atomics.
+// Shared memory of the row kernel: the B ring (NS stages of 32 KB in f32,
+// hi and lo, or 8 KB under lowp) and, per warpgroup, three activation
+// buffers of 64 rows, each round32(max(C, hidden widths)) + 4 floats wide (a
+// row stride of 4 mod 32 floats keeps a quarter-warp's fragment loads in
+// distinct banks): buffer 0 holds gx, then xd, then every other hidden
+// layer; buffer 1 gy, then the other hidden layers; buffer 2 feat. Where
+// the third buffer does not fit, feat goes to a device-memory scratch (B V,
+// C) f32, written once and read once, from L2, by the first MLP layer. The
+// wrapper chooses the layout from these byte counts, before launch
+// (ops/megablock.py::fwd_route), two warpgroups before one and feat in
+// shared memory before the scratch: at K = C = 128, hidden [128, 128],
+// two warpgroups with feat spilled in f32 (2 x 66 KB + 64 KB, NS = 2), with
+// feat resident under lowp (2 x 99 KB + 16 KB); at C = 256, hidden [256,
+// 256], one warpgroup with feat spilled in f32 (130 KB + 96 KB, NS = 3),
+// resident under lowp. Shapes one warpgroup's two buffers do not take go
+// to the wide route (megablock_fwd_wide.cu). One CTA per SM.
+//
+// What bounds it on this card. At K = C = 128 with hidden [128, 128] a
+// vertex costs 212,992 multiply-adds (Phi/GX/GY products 3KC, the complex
+// map 4C^2, the MLP 5C^2, the x_hat product KC), 426 kflop, against ~2.6 KB
+// of device memory traffic in f32 (operator rows, x, out) or ~1.3 KB with
+// bf16 operands: arithmetic bounds it. f32 products take three TF32 passes
+// (a_lo b_hi + a_hi b_lo + a_hi b_hi; hi = tf32(v), lo = tf32(v - hi)), the
+// f32 tolerances need them; lowp rounds both operands to bf16 and takes one
+// pass. The row kernel waits on each chunk's products before the next
+// chunk's (its A fragments are registers that the next chunk rebuilds), so
+// a chunk's fixed latency (barrier, fragment build, the products' own
+// latency) is paid once per chunk; two warpgroups a CTA halve it per tile.
+// Three things that cost more than the products did, found with cycle
+// counters in the kernel (NVIDIA H100 80GB HBM3, 700 W): a copy of the
+// product loop per product (the code several times larger, the kernel
+// slower; so the products run through one loop, below); epilogues that
+// read device memory between their stores (so the MLP's products start from
+// the bias, and the last from bias + x, read while the first stage lands);
+// and the dropout test inside the per-element loop, which let the compiler
+// compute every mask's hash and select (so it is tested once per pass).
 //
 // bf16 ("lowp"): as in the TPU kernel's `_dot`, both operands of every
 // product are rounded to bf16 (round to nearest even) and accumulated in
 // f32: s, Phi/GX/GY, gx and gy before the complex map, the MLP activations,
 // the weights, and m (.) out for the x_hat sum. Operands are rounded where
-// they enter a product, so elementwise work (tanh, bias, ReLU, residual)
-// sees f32; `out` is stored in x's dtype while x_hat_next accumulates from
-// the f32 `out`.
+// they enter a product (the activations stay f32 in shared memory), so
+// elementwise work (tanh, bias, ReLU, residual) sees f32; `out` is stored in
+// x's dtype while x_hat_next accumulates from the f32 `out`.
 //
 // Dropout (training): the mask of a hidden activation comes from the JAX
 // kernel's interpret-mode hash over (seed, batch, tile of tile_v rows,
 // layer) (`Dropout` in megablock_common.cuh), so it is bit-identical to
-// `interpret_dropout_mask` and to the plain version's. The kernel's own
-// TV-row tile lies inside one tile_v tile (the wrapper checks tile_v % TV
-// == 0), and the mask is applied to the f32 activation before it is rounded
-// for the next product, as `_mlp_fwd` does.
+// `interpret_dropout_mask` and to the plain version's; it is applied to the
+// f32 activation before it is rounded for the next product, as `_mlp_fwd`
+// does.
 //
-// Padding: rows at or past V are masked inside the kernel (any V works);
-// padded rows inside V carry mass 0 and zero operator rows.
+// Contraction layout. The complex map contracts over [gx | gy] and the
+// first MLP layer over [x | xd | feat]; each C-wide segment is padded to a
+// multiple of 32 (c32), so a 32-value chunk lies in one segment, and the
+// wrapper tiles cmap's and W_0's rows to match (zero rows in the gaps).
+//
+// Padding: rows at or past V are masked (loads give 0, stores are skipped),
+// and every x_hat partial gets exactly 0 from them. Padded rows inside V
+// carry mass 0 and zero operator rows.
+
+#include <type_traits>
 
 #include "megablock_common.cuh"
+#include "splitv.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using namespace mb;
+using wg::KCH;
+using wg::NB;
 
-constexpr int KC = 32;           // operator columns staged per chunk
-constexpr int LDA = KC + PAD;    // staged operator chunk: TV x KC
-constexpr int LDB = SLOT + PAD;  // staged Phi piece for the x_hat product
-constexpr int LDS = SLOT + PAD;  // resident s (K, C <= SLOT): SLOT x LDS
+constexpr int RT = 64;    // rows of a warpgroup's tile in the row kernel
+constexpr int RNT = 128;  // threads of a warpgroup
 
-struct Args {
-  const void* x;      // (B,V,C) f32 or bf16
-  const void* evecs;  // (B,V,K) f32 or bf16 (gx, gy the same dtype)
-  const void* gx;
-  const void* gy;
-  const float* mass;  // (B,V)
-  const float* s;     // (B,K32,ld_s): coefs (.) x_hat_in, zero-padded
-  int ld_s;
-  const float* cmap;  // [[A_re, A_im], [-A_im, A_re]], row stride ld_cmap
-  int ld_cmap;
-  const float* w[MAX_DENSE];  // (width[l], width[l+1]), row stride ldw[l]
-  int ldw[MAX_DENSE];
-  const float* b[MAX_DENSE];  // (width[l+1],)
+// The row kernel's ring of B stages with W warpgroups a CTA: 3 for one (the
+// next two chunks' B in flight), 2 for two, whose shared memory holds two
+// tiles' buffers (and whose chunks carry twice the products).
+template <int W>
+__host__ __device__ constexpr int stages() {
+  return W == 1 ? 3 : 2;
+}
+
+struct FwdArgs {
+  const void* x;       // (B,V,C) f32 or bf16
+  const void* ops[3];  // Phi, GX, GY: (B,V,K), one dtype
+  const float* mass;   // (B,V)
+  // the B operands' tiles (ops/megablock.py::b_tiles), in the product type
+  const void* sT;      // per batch element: s^T
+  const void* cmapF;   // cmap^T, rows interleaved re, im; contraction c32-padded
+  const void* wf[MAX_DENSE];  // W_l^T; W_0's contraction c32-padded
+  const float* bias[MAX_DENSE];
   int width[MAX_DENSE + 1];
   int n_dense;
-  void* out;       // (B,V,C) in x's dtype
-  float* partial;  // (B,nkt,nct,nsplit,SLOT,SLOT) slots, or null
-  int B, V, K, C;
-  int n_tiles, nsplit, nkt, nct;
-  int x_bf16, ops_bf16;
-  int ldc, ldp;  // row strides of [x | xd | feat] and the activation buffers
+  void* out;    // (B,V,C) in x's dtype
+  float* feat;  // (B V, C) f32 scratch, or null: feat in shared memory
+  float* y;     // (B V, C) f32 m (.) out, or null
+  int V, K, C, c32;
+  int ldb;      // row stride of the shared activation buffers, floats
+  int x_bf16, ops_bf16, x_vec, ops_vec;
   Dropout drop;
 };
 
-// A spectral product of one tile: epi(m, n, sum_k Op[m][k] s[k][n]) for
-// m < TV, n < C. fetchA(m, k) loads a raw operator element (0 outside the
-// mesh). The operator rows are staged through sA in KC-column chunks; the
-// next chunk's loads are in flight while the tensor cores work on this one.
-// RES (K, C <= SLOT): s is resident in shared memory (sS, row stride LDS,
-// rounded for LOWP, zero past K and C). Else s stays in global memory (row
-// stride ld_s, zero past K up to a multiple of KC and past C up to one of
-// 16); each warp fetches its chunk's KC / 8 fragments of it before the
-// chunk's barrier. C is covered in passes of NP columns; warp w owns the
-// 16x16 output block (w % RB, w / RB).
-template <bool LOWP, int TV, bool RES, class FA, class EPI>
-__device__ __forceinline__ void spectral_gemm(int K, int C, FA fetchA,
-                                              int ops_bf16, const float* s,
-                                              int ld_s, const float* sS,
-                                              EPI epi, float* sA, float* sC) {
-  constexpr int PA = TV * KC / NT;  // staged elements per thread
-  constexpr int RB = Tile<TV>::RB, NP = Tile<TV>::NP;
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int rb = warp % RB, cb = warp / RB;
-  float ra[PA];
-  auto fetch = [&](int k0) {
+// One product of the row kernel: for each 128-column pass n0 of N,
+// epi(n0, d) with d the thread's accumulators of the block A (64 x 32 nk)
+// B[.., n0..n0+127]. loada(a, kc) loads the A rows' chunk kc into a. Bt: B's
+// tiles as ops/megablock.py::b_tiles lays them out, one stage of
+// wg::b_stage_bytes per (pass, 32-value chunk), copied by cp.async into the
+// ring, NS - 1 chunks ahead of the products. init(n0, d) sets the
+// accumulators' first value, its loads in flight while the first stage
+// lands. A pass begins at a barrier, so what the last epilogue wrote is
+// visible and the last products' reads of the ring are done.
+template <bool LOWP, int W, class LOADA, class INIT, class EPI>
+__device__ __forceinline__ void fwd_product(char* ring, int nk,
+                                            const void* Bt, int N,
+                                            LOADA loada, INIT init, EPI epi) {
+  constexpr int SB = wg::b_stage_bytes<LOWP>(), NS = stages<W>();
+  const int tid = threadIdx.x;
+  wg::RowF a;
+  wg::AFrags<LOWP> f;
+  for (int n0 = 0; n0 < N; n0 += NB) {
+    const char* stages =
+        reinterpret_cast<const char*>(Bt) + (size_t)(n0 / NB) * nk * SB;
+    auto issue = [&](int kc) {  // one commit group per chunk, empty past nk
+      if (kc < nk) {
+        const char* src = stages + (size_t)kc * SB;
+        char* dst = ring + (kc % NS) * SB;
+#pragma unroll 4
+        for (int i = tid; i < SB / 16; i += W * RNT)
+          wg::cp_async16(dst + 16 * i, src + 16 * i);
+      }
+      wg::cp_async_commit();
+    };
+    float d[64];
+    __syncthreads();
 #pragma unroll
-    for (int r = 0; r < PA; ++r) {
-      const int i = tid + r * NT;
-      ra[r] = fetchA(i / KC, k0 + i % KC);
+    for (int st = 0; st < NS - 1; ++st) issue(st);
+    loada(a, 0);
+    init(n0, d);
+    for (int kc = 0; kc < nk; ++kc) {
+      wg::cp_async_wait<NS - 2>();  // this chunk's stage has landed
+      wg::fence_smem_for_wgmma();
+      __syncthreads();  // ... for every thread; and the stage that chunk
+                        // kc + NS - 1 reuses was read by chunk kc - 1,
+                        // whose products every warp has waited for
+      issue(kc + NS - 1);
+      f.build(a);
+      if (kc + 1 < nk) loada(a, kc + 1);
+      wg::fence_operands();
+      wg::pin(d);
+      wg::mma_chunk_rs<LOWP>(d, f, ring + (kc % NS) * SB);
+      wg::commit();
+      wg::wait_all();
+      wg::pin(d);
     }
-  };
-  if constexpr (RES) {  // one pass: C <= SLOT = NP
-    const int c0 = cb * 16;
-    const bool live = c0 < C;  // warp-uniform
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    fetch(0);
-    for (int k0 = 0; k0 < K; k0 += KC) {
-      __syncthreads();  // the previous chunk's readers of sA are done
-#pragma unroll
-      for (int r = 0; r < PA; ++r) {
-        const int i = tid + r * NT;
-        sA[(i / KC) * LDA + i % KC] = rnd<LOWP>(from_raw(ra[r], ops_bf16));
-      }
-      __syncthreads();
-      if (k0 + KC < K) fetch(k0 + KC);
-      if (!live) continue;
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 8) {
-        FragA a_hi, a_lo;
-        wmma::load_matrix_sync(a_hi, sA + rb * 16 * LDA + kk, LDA);
-        split<LOWP>(a_hi, a_lo);
-        FragB b_hi, b_lo;
-        wmma::load_matrix_sync(b_hi, sS + (k0 + kk) * LDS + c0, LDS);
-        split<LOWP>(b_hi, b_lo);
-        mma3<LOWP>(acc, a_hi, a_lo, b_hi, b_lo);
-      }
-    }
-    if (live) warp_epilogue<TV>(acc, rb, cb, c0, C, epi, sC);
-    return;
-  }
-  for (int n0 = 0; n0 < C; n0 += NP) {
-    const int c0 = n0 + cb * 16;
-    const bool live = c0 < C;  // warp-uniform
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    fetch(0);
-    for (int k0 = 0; k0 < K; k0 += KC) {
-      FragB bf[KC / 8];
-      if (live) {
-#pragma unroll
-        for (int j = 0; j < KC / 8; ++j)
-          wmma::load_matrix_sync(bf[j], s + (size_t)(k0 + 8 * j) * ld_s + c0,
-                                 ld_s);
-      }
-      __syncthreads();  // the previous chunk's readers of sA are done
-#pragma unroll
-      for (int r = 0; r < PA; ++r) {
-        const int i = tid + r * NT;
-        sA[(i / KC) * LDA + i % KC] = rnd<LOWP>(from_raw(ra[r], ops_bf16));
-      }
-      __syncthreads();
-      if (k0 + KC < K) fetch(k0 + KC);
-      if (!live) continue;
-#pragma unroll
-      for (int j = 0; j < KC / 8; ++j) {
-        FragA a_hi, a_lo;
-        wmma::load_matrix_sync(a_hi, sA + rb * 16 * LDA + 8 * j, LDA);
-        split<LOWP>(a_hi, a_lo);
-        FragB b_lo;
-        operands<LOWP>(bf[j], b_lo);
-        mma3<LOWP>(acc, a_hi, a_lo, bf[j], b_lo);
-      }
-    }
-    if (live) warp_epilogue<TV>(acc, rb, cb, c0, C, epi, sC);
+    epi(n0, d);
   }
 }
 
-template <bool LOWP, int TV, bool RES>
-__global__ void __launch_bounds__(NT, 1) megablock_fwd_kernel(const Args p) {
-  extern __shared__ __align__(128) float smem[];
-  constexpr int LDC = Tile<TV>::LDC;
-  const int C = p.C, K = p.K, V = p.V;
-  const int ldc = p.ldc, ldp = p.ldp;
-  float* sA = smem;                 // TV x LDA: staged operator chunk
-  float* sB = sA + TV * LDA;        // TV x LDB: Phi piece for the x_hat product
-  float* sC = sB + TV * LDB;        // TV x LDC: output patches
-  float* sS = sC + TV * LDC;        // RES: SLOT x LDS, s resident
-  float* cat = sS + (RES ? SLOT * LDS : 0);  // TV x ldc: [x | xd | feat]
-  float* p0 = cat + TV * ldc;       // TV x ldp: [gx | gy], then MLP ping
-  float* p1 = p0 + TV * ldp;        // TV x ldp: [vb_re | vb_im], MLP pong
+// W warpgroups a CTA, each on its own 64-row tile of one batch element:
+// they share the B stages and run the same products in step.
+template <bool LOWP, int W>
+__global__ void __launch_bounds__(W * RNT, 1)
+    megablock_fwd_rows_kernel(const FwdArgs p) {
+  extern __shared__ __align__(128) char smem[];
+  constexpr int SB = wg::b_stage_bytes<LOWP>(), NS = stages<W>();
+  const int C = p.C, K = p.K, V = p.V, n = p.n_dense, ldb = p.ldb;
+  const int b = blockIdx.y, wgi = threadIdx.x / RNT;
+  const int row0 = (blockIdx.x * W + wgi) * RT;
+  const int nv = min(RT, V - row0);                // rows inside V (<= 0:
+                                                   // a tile past V)
+  const long long vr0 = (long long)b * V + row0;   // the tile's first row
+  const bool spill = p.feat != nullptr;
+  char* ring = smem;
+  float* buf0 = reinterpret_cast<float*>(smem + NS * SB) +
+                wgi * (spill ? 2 : 3) * RT * ldb;
+  float* buf1 = buf0 + RT * ldb;
+  // feat: the third buffer, or the tile's rows of the device scratch
+  float* feat = spill ? p.feat + vr0 * C : buf1 + RT * ldb;
+  const long long ldf = spill ? C : ldb;
+  const int feat_rows = spill ? nv : RT;
+  const int nseg = p.c32 / KCH;  // chunks of one C-wide segment
+  const int nk_s = (K + KCH - 1) / KCH;
+  const char* sT = reinterpret_cast<const char*>(p.sT) +
+                   (size_t)b * ((C + NB - 1) / NB) * nk_s * SB;
 
-  const int b = blockIdx.y, split_id = blockIdx.x, tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int ops_bf16 = p.ops_bf16, x_bf16 = p.x_bf16;
-  const size_t vbase = (size_t)b * V;
-  const float* s = p.s + (size_t)b * round_up(K, KC) * p.ld_s;
+  // The block is a sequence of products, run through one product loop:
+  // step 0 gx = GX s, 1 gy = GY s, 2 the complex map and feat, 3 xd = Phi s,
+  // 4 + l the MLP's layer l. Each step sets its A source (up to three
+  // segments of `seg` chunks: the operator rows in device memory, or the
+  // tile's activations in shared memory), its B tiles and its epilogue; the
+  // loop and each epilogue exist once in the kernel's code (inlined per
+  // step, the code was several times larger and the kernel slower).
+  struct Seg {
+    const void* ptr;
+    long long ld, row0;
+    int rows, vec, bf16;
+  };
+  enum { TO_BUF, FEAT, HIDDEN, OUT };
+  float* const hb[2] = {buf1, buf0};  // layer l's output: hb[l % 2]
+  Seg s0{}, s1{}, s2{};
+  int seg = 1, kvalid = 0, nk = 0, N = 0, kind = TO_BUF, l = 0;
+  const void* Bt = nullptr;
+  float* dst = buf0;
+  const float* bias = nullptr;
+  auto smem_seg = [&](const float* buf) {
+    return Seg{buf, ldb, 0, RT, 1, 0};
+  };
 
-  if (RES) {  // s of this CTA's batch element, resident for all its tiles
-    constexpr int R = 16;
-    for (int base = 0; base < SLOT * LDS; base += R * NT) {
-      float rs[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int i = base + tid + r * NT, k = i / LDS, n = i % LDS;
-        rs[r] = (i < SLOT * LDS && k < K && n < C) ? s[k * p.ld_s + n] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int i = base + tid + r * NT;
-        if (i < SLOT * LDS) sS[i] = rnd<LOWP>(rs[r]);
-      }
-    }
-  }
-  // the weight products read their A operands up to a multiple of 8
-  // columns: what lies past a width must be finite
-  for (int i = tid; i < TV * (ldc + 2 * ldp); i += NT) cat[i] = 0.f;
-
-  for (int tile = split_id; tile < p.n_tiles; tile += p.nsplit) {
-    const int row0 = tile * TV;
-    auto op_rows = [&](const void* op) {
-      return [=](int m, int k) {
-        const int row = row0 + m;
-        return (row < V && k < K) ? raw_load(op, (vbase + row) * K + k, ops_bf16)
-                                  : 0.f;
-      };
+  auto load = [&](wg::RowF& a, int kc) {
+    const int g = min(kc / seg, 2);
+    auto sel = [&](auto v0, auto v1, auto v2) {
+      return g == 0 ? v0 : (g == 1 ? v1 : v2);
     };
-
-    __syncthreads();  // the previous tile is done with cat/p0/p1, sB, sC
-    if constexpr (RES) {  // C <= SLOT: TV * SLOT / NT loads a thread
-      constexpr int R = TV * SLOT / NT;
-      float rx[R];
+    a.load(sel(s0.ptr, s1.ptr, s2.ptr), sel(s0.ld, s1.ld, s2.ld),
+           sel(s0.row0, s1.row0, s2.row0), sel(s0.rows, s1.rows, s2.rows),
+           (kc - g * seg) * KCH, kvalid, sel(s0.vec, s1.vec, s2.vec),
+           sel(s0.bf16, s1.bf16, s2.bf16));
+  };
+  // A thread's accumulators hold rows mt and mt + 8 at columns 8 j + ct,
+  // + 1 of each 8-column block j (wg::for_pairs). The MLP's products start
+  // from the bias (and the last one from the bias and the residual x), read
+  // at the start of the pass, so that their epilogues only store: an
+  // epilogue runs while the tensor cores wait, and one that reads device
+  // memory waits out those loads' latency with little else to hide it.
+  const int lane = threadIdx.x % 32;
+  const int mt = 16 * ((threadIdx.x % RNT) / 32) + lane / 4;
+  const int ct = 2 * (lane % 4);
+  auto init = [&](int n0, float(&d)[64]) {
+    if (kind != HIDDEN && kind != OUT) {
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int i = tid + r * NT, row = row0 + i / C;
-        rx[r] = (i < TV * C && row < V)
-                    ? raw_load(p.x, (vbase + row) * C + i % C, x_bf16)
-                    : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int i = tid + r * NT;
-        if (i < TV * C) cat[(i / C) * ldc + i % C] = from_raw(rx[r], x_bf16);
-      }
-    } else for (int base = 0; base < TV * C; base += 4 * NT) {
-      float rx[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = base + tid + r * NT, row = row0 + i / C;
-        rx[r] = (i < TV * C && row < V)
-                    ? raw_load(p.x, (vbase + row) * C + i % C, x_bf16)
-                    : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = base + tid + r * NT;
-        if (i < TV * C) cat[(i / C) * ldc + i % C] = from_raw(rx[r], x_bf16);
-      }
+      for (int i = 0; i < 64; ++i) d[i] = 0.f;
+      return;
     }
-
-    // spectral products Phi s, GX s, GY s
-    spectral_gemm<LOWP, TV, RES>(
-        K, C, op_rows(p.evecs), ops_bf16, s, p.ld_s, sS,
-        [&](int m, int n, float v) { cat[m * ldc + C + n] = v; }, sA, sC);
-    spectral_gemm<LOWP, TV, RES>(
-        K, C, op_rows(p.gx), ops_bf16, s, p.ld_s, sS,
-        [&](int m, int n, float v) { p0[m * ldp + n] = v; }, sA, sC);
-    spectral_gemm<LOWP, TV, RES>(
-        K, C, op_rows(p.gy), ops_bf16, s, p.ld_s, sS,
-        [&](int m, int n, float v) { p0[m * ldp + C + n] = v; }, sA, sC);
-
-    // [vb_re | vb_im] = [gx | gy] [[A_re, A_im], [-A_im, A_re]]
-    weight_gemm<LOWP, TV>(2 * C, 2 * C, p0, ldp, p.cmap, p.ld_cmap,
-                          [&](int m, int n, float v) { p1[m * ldp + n] = v; },
-                          sC);
-
-    __syncthreads();
-    for (int i = tid; i < TV * C; i += NT) {
-      const int m = i / C, c = i % C;
-      const float gxv = p0[m * ldp + c], gyv = p0[m * ldp + C + c];
-      cat[m * ldc + 2 * C + c] =
-          tanhf(gxv * p1[m * ldp + c] + gyv * p1[m * ldp + C + c]);
-    }
-
-    // MLP: cat -> p0 -> p1 -> p0 ...; the last layer adds the residual x
-    const float* src = cat;
-    int lds = ldc;
-    for (int l = 0; l < p.n_dense; ++l) {
-      float* dst = (l % 2 == 0) ? p0 : p1;
-      const float* bias = p.b[l];
-      const bool last = l == p.n_dense - 1;
-      const int width = p.width[l + 1];
-      weight_gemm<LOWP, TV>(
-          p.width[l], width, src, lds, p.w[l], p.ldw[l],
-          [&](int m, int n, float v) {
-            v += bias[n];
-            dst[m * ldp + n] =
-                last ? v + cat[m * ldc + n]
-                     : p.drop.apply(fmaxf(v, 0.f), b, row0 + m, n, width, l);
-          },
-          sC);
-      src = dst;
-      lds = ldp;
-    }
-
-    __syncthreads();
-    for (int i = tid; i < TV * C; i += NT) {
-      const int m = i / C, c = i % C, row = row0 + m;
-      if (row >= V) continue;
-      const float v = src[m * ldp + c];
-      const size_t o = (vbase + row) * C + c;
-      if (x_bf16)
-        reinterpret_cast<__nv_bfloat16*>(p.out)[o] = __float2bfloat16_rn(v);
-      else
-        reinterpret_cast<float*>(p.out)[o] = v;
-    }
-
-    if (p.partial == nullptr) continue;
-    // x_hat_next partial += Phi_tile^T (m (.) out_tile), one SLOT x SLOT
-    // piece of (K, C) at a time: a (SLOT x TV) (TV x SLOT) product; the
-    // piece's Phi columns go to sB, read as Phi^T (col-major A), and its
-    // m (.) out columns to sC. Unused rows and columns are zero. Warp w
-    // owns the 16x16 blocks (w % 8, 4 (w / 8) + {0..3}) of the piece.
-    constexpr int R = TV * SLOT / NT;
-    const int nkt = RES ? 1 : p.nkt, nct = RES ? 1 : p.nct;
-    for (int kt = 0; kt < nkt; ++kt) {
-      for (int ct = 0; ct < nct; ++ct) {
-        const int k0 = kt * SLOT, c0 = ct * SLOT;
-        float rp[R], rm[R];
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int i = tid + r * NT, kk = i / SLOT, n = i % SLOT;
-          const int row = row0 + kk;
-          rp[r] = (row < V && k0 + n < K)
-                      ? raw_load(p.evecs, (vbase + row) * K + k0 + n, ops_bf16)
-                      : 0.f;
-          rm[r] = (row < V && c0 + n < C) ? p.mass[vbase + row] : 0.f;
-        }
-        if (kt | ct) __syncthreads();  // the last piece's readers are done
+    for (int j = 0; j < 16; ++j) {
+      const int c = n0 + 8 * j + ct;
+      const float b0 = c < N ? __ldg(bias + c) : 0.f;
+      const float b1 = c + 1 < N ? __ldg(bias + c + 1) : 0.f;
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int i = tid + r * NT, kk = i / SLOT, n = i % SLOT;
-          sB[kk * LDB + n] = rnd<LOWP>(from_raw(rp[r], ops_bf16));
-          sC[kk * LDC + n] =
-              rnd<LOWP>(c0 + n < C ? rm[r] * src[kk * ldp + c0 + n] : 0.f);
-        }
-        __syncthreads();
-        const int kb = warp % 8, cb0 = (warp / 8) * 4;
-        if (k0 + kb * 16 >= K) continue;  // warp-uniform
-        const bool first = tile == split_id;
-        float* slot = p.partial +
-                      ((((size_t)b * nkt + kt) * nct + ct) * p.nsplit +
-                       split_id) * SLOT * SLOT +
-                      kb * 16 * SLOT;
-        FragC xacc[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (c0 + (cb0 + j) * 16 >= C) continue;
-          if (first)
-            wmma::fill_fragment(xacc[j], 0.f);
-          else
-            wmma::load_matrix_sync(xacc[j], slot + (cb0 + j) * 16, SLOT,
-                                   wmma::mem_row_major);
-        }
-#pragma unroll
-        for (int kk = 0; kk < TV; kk += 8) {
-          FragAT a_hi, a_lo;
-          wmma::load_matrix_sync(a_hi, sB + kk * LDB + kb * 16, LDB);
-          split<LOWP>(a_hi, a_lo);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (c0 + (cb0 + j) * 16 >= C) continue;
-            FragB b_hi, b_lo;
-            wmma::load_matrix_sync(b_hi, sC + kk * LDC + (cb0 + j) * 16, LDC);
-            split<LOWP>(b_hi, b_lo);
-            mma3<LOWP>(xacc[j], a_hi, a_lo, b_hi, b_lo);
+      for (int h = 0; h < 2; ++h) {
+        float2 xv = make_float2(0.f, 0.f);
+        const int m = mt + 8 * h;
+        if (kind == OUT && c < C && m < nv) {
+          const long long o = (vr0 + m) * C + c;
+          if (p.x_bf16) {
+            const uint32_t u = __ldg(reinterpret_cast<const unsigned int*>(
+                reinterpret_cast<const unsigned short*>(p.x) + o));
+            xv = make_float2(wg::bf16_bits_to_float(u & 0xFFFFu),
+                             wg::bf16_bits_to_float(u >> 16));
+          } else {
+            xv = __ldg(reinterpret_cast<const float2*>(
+                reinterpret_cast<const float*>(p.x) + o));
           }
         }
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (c0 + (cb0 + j) * 16 < C)
-            wmma::store_matrix_sync(slot + (cb0 + j) * 16, xacc[j], SLOT,
-                                    wmma::mem_row_major);
+        d[4 * j + 2 * h] = b0 + xv.x;
+        d[4 * j + 2 * h + 1] = b1 + xv.y;
       }
     }
+  };
+  auto epi = [&](int n0, float(&d)[64]) {
+    if (kind == TO_BUF) {  // gx, gy, xd into a shared buffer
+      wg::for_pairs(d, [&](int m, int nn, float v0, float v1) {
+        const int c = n0 + nn;
+        if (c < N)
+          *reinterpret_cast<float2*>(dst + m * ldb + c) = make_float2(v0, v1);
+      });
+    } else if (kind == FEAT) {  // B's columns interleaved: the pair
+                                // (2c, 2c + 1) of a block is (vb_re, vb_im)
+                                // of column c
+      wg::for_pairs(d, [&](int m, int nn, float vr, float vi) {
+        const int c = (n0 + nn) / 2;
+        if (c < C && m < feat_rows)
+          feat[m * ldf + c] =
+              tanhf(buf0[m * ldb + c] * vr + buf1[m * ldb + c] * vi);
+      });
+    } else if (kind == HIDDEN) {  // ReLU, dropout (tested once: the
+                                  // compiler would compute every mask's
+                                  // hash, and select)
+      auto hidden = [&](auto drop) {
+        wg::for_pairs(d, [&](int m, int nn, float v0, float v1) {
+          const int c = n0 + nn;
+          if (c >= N) return;
+          v0 = fmaxf(v0, 0.f);
+          v1 = c + 1 < N ? fmaxf(v1, 0.f) : 0.f;
+          if (decltype(drop)::value) {
+            const int r = row0 + m;
+            v0 = p.drop.apply(v0, b, r, c, N, l);
+            v1 = c + 1 < N ? p.drop.apply(v1, b, r, c + 1, N, l) : 0.f;
+          }
+          *reinterpret_cast<float2*>(dst + m * ldb + c) = make_float2(v0, v1);
+        });
+      };
+      if (p.drop.on)
+        hidden(std::true_type());
+      else
+        hidden(std::false_type());
+    } else {  // OUT: out (and y = m out)
+      const float mass2[2] = {
+          p.y != nullptr && mt < nv ? __ldg(p.mass + vr0 + mt) : 0.f,
+          p.y != nullptr && mt + 8 < nv ? __ldg(p.mass + vr0 + mt + 8) : 0.f};
+      wg::for_pairs(d, [&](int m, int nn, float v0, float v1) {
+        const int c = n0 + nn;
+        if (c >= C || m >= nv) return;
+        const long long o = (vr0 + m) * C + c;
+        if (p.x_bf16)
+          *reinterpret_cast<uint32_t*>(
+              reinterpret_cast<unsigned short*>(p.out) + o) =
+              wg::pack_bf16(v0, v1);
+        else
+          *reinterpret_cast<float2*>(reinterpret_cast<float*>(p.out) + o) =
+              make_float2(v0, v1);
+        if (p.y != nullptr) {
+          const float mm = m == mt ? mass2[0] : mass2[1];
+          *reinterpret_cast<float2*>(p.y + o) = make_float2(mm * v0, mm * v1);
+        }
+      });
+    }
+  };
+
+#pragma unroll 1
+  for (int st = 0; st < 4 + n; ++st) {
+    if (st != 2 && st < 4) {  // the spectral products, A the operator rows
+      const int q = st == 0 ? 1 : (st == 1 ? 2 : 0);
+      s0 = Seg{q == 0 ? p.ops[0] : (q == 1 ? p.ops[1] : p.ops[2]), K, vr0,
+               nv, p.ops_vec, p.ops_bf16};
+      seg = nk = nk_s;
+      kvalid = K;
+      Bt = sT;
+      N = C;
+      kind = TO_BUF;
+      dst = st == 1 ? buf1 : buf0;  // xd over gx: the complex map is done
+    } else if (st == 2) {  // [vb_re | vb_im] = [gx | gy] cmap; feat
+      s0 = smem_seg(buf0);
+      s1 = smem_seg(buf1);
+      seg = nseg;
+      nk = 2 * nseg;
+      kvalid = C;
+      Bt = p.cmapF;
+      N = 2 * C;
+      kind = FEAT;
+    } else {  // MLP layer l: [x | xd | feat], then the last layer's output
+      l = st - 4;
+      if (l == 0) {
+        s0 = Seg{p.x, C, vr0, nv, p.x_vec, p.x_bf16};
+        s1 = smem_seg(buf0);
+        s2 = Seg{feat, ldf, 0, feat_rows, 1, 0};
+        seg = nseg;
+        nk = 3 * nseg;
+        kvalid = C;
+      } else {
+        s0 = smem_seg(hb[(l - 1) % 2]);
+        kvalid = p.width[l];
+        seg = nk = (kvalid + KCH - 1) / KCH;
+      }
+      Bt = p.wf[l];
+      N = p.width[l + 1];
+      bias = p.bias[l];
+      kind = l + 1 < n ? HIDDEN : OUT;
+      dst = hb[l % 2];
+    }
+    fwd_product<LOWP, W>(ring, nk, Bt, N, load, init, epi);
   }
 }
 
-// x_hat_next[b][k][c] = sum over s of partial[b, s, k, c], partial slots
+struct XhatArgs {
+  const void* evecs;   // (B,V,K)
+  const float* src;    // (B,V,C) f32: out (scale = mass) or m (.) out
+  const float* scale;  // (B,V) or null
+  float* part;         // (B, nkt, nct, S, SLOT, SLOT)
+  int V, K, C, S, L, nkt, nct, ops_vec;
+};
+
+// x_hat_next partials: CTA (b, kt, ct, split) writes slot
+// part[b][kt][ct][split] = sum over rows [split L, (split + 1) L) of V of
+// Phi_b[v, 128 kt..]^T (scale (.) src)_b[v, 128 ct..] (the (K, C) corner of
+// the piece; the rest of the slot is not written).
+template <bool LOWP, bool OPS_BF16>
+__global__ void __launch_bounds__(sv::GNT, 1)
+    megablock_fwd_xhat_kernel(const XhatArgs p) {
+  extern __shared__ __align__(128) char smem[];
+  int id = blockIdx.x;
+  const int split = id % p.S;
+  id /= p.S;
+  const int ct = id % p.nct;
+  id /= p.nct;
+  const int kt = id % p.nkt, b = id / p.nkt;
+  const long long r_lo = (long long)split * p.L;
+  const long long r_hi = min(r_lo + p.L, (long long)p.V);
+  const void* A[1] = {p.evecs};
+  const void* Bm[1] = {p.src};
+  float* out = p.part + ((((long long)b * p.nkt + kt) * p.nct + ct) * p.S +
+                         split) * SLOT * SLOT;
+  sv::grads_block<LOWP, OPS_BF16, false>(
+      smem, A, p.K, p.ops_vec, Bm, p.C, 1, (long long)b * p.V, r_lo, r_hi,
+      kt * SLOT, p.K, ct * SLOT, p.C, out, SLOT, min(SLOT, p.K - kt * SLOT),
+      min(SLOT, p.C - ct * SLOT), p.scale);
+}
+
+// x_hat[b][k][c] = sum over s of partial[b, s, k, c], partial slots
 // (SLOT, SLOT) of which the (K, C) corner is used. Replaces the TPU
 // kernel's in-VMEM carry of x_hat across its sequential grid
 // (pallas_megablock.py:305); torch.sum of the slots is the library yardstick.
 //
 // The order, fixed and the same in ops/megablock.py::xhat_reduce_reference:
-// the S slots are cut into XR_CHUNKS chunks of L = ceil(S / XR_CHUNKS)
+// the S slots are cut into G = min(16, ceil(S / 8)) chunks of L = ceil(S / G)
 // consecutive slots (the last ones may be short or empty); each chunk is
 // summed from +0 in ascending s, and the chunk sums are added from +0 in
 // ascending chunk order. No atomics: the result is the same bit for bit on
@@ -438,22 +462,31 @@ __global__ void __launch_bounds__(NT, 1) megablock_fwd_kernel(const Args p) {
 // What bounds it: the S (K, C) slots, read once (8.7 MB at S = 132,
 // K = C = 128, from L2 when the kernel that wrote them has just run). One
 // CTA per (batch element, row k, 64 columns): 256 CTAs at B = 1, K = C =
-// 128, over 132 SMs. Its 256 threads are 16 chunks x 16 float4 columns, so
-// each thread issues L independent 16-byte loads, a warp reading two whole
-// 256-byte slot rows per load; the 16 chunk sums of each column meet in
-// shared memory, and 64 threads add them in order and store 64 floats.
-constexpr int XR_CHUNKS = 16;
-constexpr int XR_COLS = 64;  // columns per CTA
+// 128, over 132 SMs. Its threads are G chunks x 16 float4 columns, so each
+// thread issues L independent 16-byte loads, a warp reading two whole
+// 256-byte slot rows per load; the G chunk sums of each column meet in
+// shared memory, and the threads add them in order and store 64 floats.
+// G follows S: 16 chunks of one slot each (S = 16, B1's split count at
+// B = 8) spent more in the second step than they saved in the first.
+constexpr int XR_MAX_CHUNKS = 16;
+constexpr int XR_PER_CHUNK = 8;  // slots a chunk takes before G grows
+constexpr int XR_COLS = 64;      // columns per CTA
 
-__global__ void __launch_bounds__(XR_CHUNKS * XR_COLS / 4)
+int xr_chunks(int S) {
+  const int g = (S + XR_PER_CHUNK - 1) / XR_PER_CHUNK;
+  return g < XR_MAX_CHUNKS ? g : XR_MAX_CHUNKS;
+}
+
+__global__ void __launch_bounds__(XR_MAX_CHUNKS * XR_COLS / 4)
     xhat_reduce_kernel(const float* __restrict__ partial,
                        float* __restrict__ out, int nsplit, int K, int C) {
-  __shared__ float4 part[XR_CHUNKS][XR_COLS / 4];
+  __shared__ float4 part[XR_MAX_CHUNKS][XR_COLS / 4];
+  const int chunks = blockDim.x / (XR_COLS / 4);
   const int f = threadIdx.x % (XR_COLS / 4);  // float4 column in the tile
   const int g = threadIdx.x / (XR_COLS / 4);  // chunk
   const int k = blockIdx.y, b = blockIdx.z;
   const int c0 = blockIdx.x * XR_COLS;
-  const int len = (nsplit + XR_CHUNKS - 1) / XR_CHUNKS;
+  const int len = (nsplit + chunks - 1) / chunks;
   const int s0 = g * len;
   const int s1 = min(nsplit, s0 + len);
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -469,111 +502,141 @@ __global__ void __launch_bounds__(XR_CHUNKS * XR_COLS / 4)
   }
   part[g][f] = acc;
   __syncthreads();
-  const int q = threadIdx.x;
-  if (q < XR_COLS && c0 + q < C) {
-    const float* p = reinterpret_cast<const float*>(&part[0][0]) + q;
+  for (int q = threadIdx.x; q < XR_COLS; q += blockDim.x) {
+    if (c0 + q >= C) break;
+    const float* pp = reinterpret_cast<const float*>(&part[0][0]) + q;
     float tot = 0.f;
-#pragma unroll
-    for (int h = 0; h < XR_CHUNKS; ++h) tot += p[h * XR_COLS];
+    for (int h = 0; h < chunks; ++h) tot += pp[h * XR_COLS];
     out[((size_t)b * K + k) * C + c0 + q] = tot;
   }
 }
 
-// Shared memory of B1's CTA, in bytes (ops/megablock.py::fwd_smem_bytes
-// computes the same from the shapes).
-size_t smem_bytes(int tv, int res, int ldc, int ldp) {
-  const int np = tv == 16 ? Tile<16>::NP : Tile<32>::NP;
-  return sizeof(float) *
-         ((size_t)tv * ((size_t)LDA + LDB + (np + PAD) + ldc + 2 * (size_t)ldp) +
-          (res ? (size_t)SLOT * LDS : 0));
+template <class T>
+int launch(void* kernel, dim3 grid, int threads, int smem, const T& args,
+           void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  void* a[] = {const_cast<T*>(&args)};
+  err = cudaLaunchKernel(kernel, grid, dim3(threads), a, smem,
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
-template <bool LOWP>
-void* fwd_kernel(int tv, int res) {
-  if (tv == 16) return (void*)megablock_fwd_kernel<LOWP, 16, false>;
-  return res ? (void*)megablock_fwd_kernel<LOWP, 32, true>
-             : (void*)megablock_fwd_kernel<LOWP, 32, false>;
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+int max_smem() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  return bytes;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the block kernel on `stream`. `partial` null: emit_next off;
-// else (B, nkt, nct, nsplit, SLOT, SLOT) with nkt = ceil(K / SLOT) and
-// nct = ceil(C / SLOT). s is (B, round_up(K, 32), ld_s), zero-padded; cmap
-// is [[A_re, A_im], [-A_im, A_re]] and each ws[l] the l-th MLP kernel, laid
-// out as weight_gemm reads them (zero rows up to a multiple of 8). tv: the
-// row tile, 32 or 16; res (tv 32, K, C <= SLOT): s resident in shared
-// memory, else read from L2. dropout 0: off; else masks from (seed, b,
-// row / tile_v, layer).
+// The row kernel on `stream`. sT (per batch element), cmapF and wf[l] are
+// B tiles as ops/megablock.py::b_tiles lays them out, in the product type,
+// 16-byte aligned; feat: null (feat in shared memory) or a (B V, C) f32
+// scratch; y: null or (B V, C) f32 for m (.) out; ldb: the activation
+// buffers' row stride in floats (4 mod 32, at least round32(max(C, hidden
+// widths)) + 4); wgs: warpgroups a CTA, 1 or 2. dropout 0: off; else masks
+// from (seed, b, row / tile_v, layer).
 int mb_fwd_launch(const void* x, const void* evecs, const void* gx,
-                  const void* gy, const void* mass, const void* s, int ld_s,
-                  const void* cmap, int ld_cmap, const void* const* ws,
-                  const int* ldw, const void* const* bs, const int* widths,
-                  int n_dense, void* out, void* partial, int B, int V, int K,
-                  int C, int nsplit, int tv, int res, int x_bf16,
-                  int ops_bf16, int lowp, int dropout, int seed, int tile_v,
-                  void* stream) {
-  if ((tv != 16 && tv != 32) || (res && (tv != 32 || K > SLOT || C > SLOT)))
+                  const void* gy, const void* mass, const void* sT,
+                  const void* cmapF, const void* const* wf,
+                  const void* const* bs, const int* widths, int n_dense,
+                  void* out, void* feat, void* y, int B, int V, int K, int C,
+                  int ldb, int wgs, int x_bf16, int ops_bf16, int lowp,
+                  int dropout, int seed, int tile_v, void* stream) {
+  if (n_dense < 1 || n_dense > MAX_DENSE || K < 1 || C < 1 || C % 8 != 0 ||
+      B < 1 || B > 65535 || V < 1 || (wgs != 1 && wgs != 2))
     return MB_BAD_SHAPE;
-  if (dropout && (tile_v < tv || tile_v % tv != 0 || V % tile_v != 0 ||
-                  seed < 0 || B > 2048 || V / tile_v > 65536 ||
-                  n_dense - 1 > 16))
-    return MB_BAD_SHAPE;
-  if (n_dense < 1 || n_dense > MAX_DENSE || K < 1 || C < 1 || B < 1 ||
-      V < 1 || nsplit < 1)
+  if (dropout && (seed < 0 || B > 2048 || tile_v < 1 ||
+                  V / tile_v > 65536 || n_dense - 1 > 16))
     return MB_BAD_SHAPE;
   if (widths[0] != 3 * C || widths[n_dense] != C) return MB_BAD_SHAPE;
-  if (!weight_layout_ok(cmap, ld_cmap, 2 * C) || !weight_layout_ok(s, ld_s, C))
+  int widest = C;
+  for (int l = 1; l < n_dense; ++l) {
+    if (widths[l] < 1) return MB_BAD_SHAPE;
+    if (widths[l] > widest) widest = widths[l];
+  }
+  if (ldb % 32 != 4 || ldb < round_up(widest, 32) + 4) return MB_BAD_LAYOUT;
+  if (!aligned16(sT) || !aligned16(cmapF) || !aligned16(out) ||
+      (feat != nullptr && !aligned16(feat)) || (y != nullptr && !aligned16(y)))
     return MB_BAD_LAYOUT;
-  Args p = {};
-  p.x = x; p.evecs = evecs; p.gx = gx; p.gy = gy;
+  FwdArgs p = {};
+  p.x = x;
+  p.ops[0] = evecs; p.ops[1] = gx; p.ops[2] = gy;
   p.mass = static_cast<const float*>(mass);
-  p.s = static_cast<const float*>(s);
-  p.ld_s = ld_s;
-  p.cmap = static_cast<const float*>(cmap);
-  p.ld_cmap = ld_cmap;
-  int widest = 2 * C;
+  p.sT = sT; p.cmapF = cmapF;
   for (int l = 0; l < n_dense; ++l) {
-    if (widths[l + 1] < 1) return MB_BAD_SHAPE;
-    if (!weight_layout_ok(ws[l], ldw[l], widths[l + 1])) return MB_BAD_LAYOUT;
-    p.w[l] = static_cast<const float*>(ws[l]);
-    p.ldw[l] = ldw[l];
-    p.b[l] = static_cast<const float*>(bs[l]);
-    if (widths[l + 1] > widest) widest = widths[l + 1];
+    if (!aligned16(wf[l])) return MB_BAD_LAYOUT;
+    p.wf[l] = wf[l];
+    p.bias[l] = static_cast<const float*>(bs[l]);
   }
   for (int l = 0; l <= n_dense; ++l) p.width[l] = widths[l];
   p.n_dense = n_dense;
   p.out = out;
-  p.partial = static_cast<float*>(partial);
-  p.B = B; p.V = V; p.K = K; p.C = C;
-  p.n_tiles = (V + tv - 1) / tv;
-  p.nsplit = nsplit < p.n_tiles ? nsplit : p.n_tiles;
-  if (p.nsplit != nsplit) return MB_BAD_SHAPE;  // partial is sized by nsplit
+  p.feat = static_cast<float*>(feat);
+  p.y = static_cast<float*>(y);
+  p.V = V; p.K = K; p.C = C;
+  p.c32 = round_up(C, KCH);
+  p.ldb = ldb;
+  p.x_bf16 = x_bf16; p.ops_bf16 = ops_bf16;
+  p.x_vec = aligned16(x);  // C % 8 == 0: every row is 16-byte aligned too
+  p.ops_vec = aligned16(evecs) && aligned16(gx) && aligned16(gy) &&
+              K % 8 == 0;
+  p.drop = {dropout, seed, tile_v};
+  const int stage = lowp ? wg::b_stage_bytes<true>() : wg::b_stage_bytes<false>();
+  const int ns = wgs == 2 ? stages<2>() : stages<1>();
+  const long long smem =
+      (long long)ns * stage + wgs * (feat ? 2LL : 3LL) * RT * ldb * 4;
+  if (smem > max_smem()) return MB_SMEM;
+  void* kernel =
+      lowp ? (wgs == 2 ? (void*)megablock_fwd_rows_kernel<true, 2>
+                       : (void*)megablock_fwd_rows_kernel<true, 1>)
+           : (wgs == 2 ? (void*)megablock_fwd_rows_kernel<false, 2>
+                       : (void*)megablock_fwd_rows_kernel<false, 1>);
+  const int tiles = (V + RT - 1) / RT;
+  return launch(kernel, dim3((tiles + wgs - 1) / wgs, B), wgs * RNT,
+                (int)smem, p, stream);
+}
+
+// The x_hat_next kernel on `stream`: part (B, nkt, nct, S, SLOT, SLOT) f32
+// with nkt = ceil(K / SLOT), nct = ceil(C / SLOT); split s covers rows
+// [s L, (s + 1) L) of each batch element's V; src (B,V,C) f32, its rows
+// scaled by scale (B,V) where scale is not null.
+int mb_fwd_xhat_launch(const void* evecs, const void* src, const void* scale,
+                       void* part, int B, int V, int K, int C, int S, int L,
+                       int ops_bf16, int lowp, void* stream) {
+  if (B < 1 || V < 1 || K < 1 || C < 1 || C % 4 != 0 || S < 1 || L < 1 ||
+      (long long)S * L < V)
+    return MB_BAD_SHAPE;
+  if (!aligned16(src)) return MB_BAD_LAYOUT;
+  XhatArgs p = {};
+  p.evecs = evecs;
+  p.src = static_cast<const float*>(src);
+  p.scale = static_cast<const float*>(scale);
+  p.part = static_cast<float*>(part);
+  p.V = V; p.K = K; p.C = C; p.S = S; p.L = L;
   p.nkt = (K + SLOT - 1) / SLOT;
   p.nct = (C + SLOT - 1) / SLOT;
-  p.x_bf16 = x_bf16; p.ops_bf16 = ops_bf16;
-  p.drop = {dropout, seed, tile_v};
-  // padded to 4 mod 32 floats: the rows of a fragment fall in other banks
-  p.ldc = round_up(3 * C, 8) + PAD;
-  p.ldp = round_up(widest, 8) + PAD;
-
-  int dev = 0, max_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  const size_t smem = smem_bytes(tv, res, p.ldc, p.ldp);
-  if (smem > (size_t)max_smem) return MB_SMEM;
-  void* kernel = lowp ? fwd_kernel<true>(tv, res) : fwd_kernel<false>(tv, res);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  void* args[] = {&p};
-  err = cudaLaunchKernel(kernel, dim3(nsplit, B), dim3(NT), args, smem,
-                         static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  p.ops_vec = aligned16(evecs) && K % 8 == 0;
+  const long long ctas = (long long)B * p.nkt * p.nct * S;
+  if (ctas > 0x7fffffffLL) return MB_BAD_SHAPE;
+  void* kernel =
+      lowp ? (ops_bf16 ? (void*)megablock_fwd_xhat_kernel<true, true>
+                       : (void*)megablock_fwd_xhat_kernel<true, false>)
+           : (ops_bf16 ? (void*)megablock_fwd_xhat_kernel<false, true>
+                       : (void*)megablock_fwd_xhat_kernel<false, false>);
+  const int smem = lowp ? sv::grads_smem<true>() : sv::grads_smem<false>();
+  return launch(kernel, dim3((unsigned)ctas), sv::GNT, smem, p, stream);
 }
 
 // partial: (G, nsplit, SLOT, SLOT) slots, 16-byte aligned; out: (G, K, C)
@@ -584,27 +647,21 @@ int mb_xhat_reduce_launch(const void* partial, void* out, int B, int nsplit,
       C > SLOT)
     return MB_BAD_SHAPE;
   const dim3 grid((C + XR_COLS - 1) / XR_COLS, K, B);
-  xhat_reduce_kernel<<<grid, XR_CHUNKS * XR_COLS / 4, 0,
+  xhat_reduce_kernel<<<grid, xr_chunks(nsplit) * XR_COLS / 4, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(partial), static_cast<float*>(out), nsplit, K,
       C);
   return (int)cudaGetLastError();
 }
 
-// The card's opt-in shared memory per block, in bytes (the wrapper's
-// refusals name it).
-int mb_smem_optin() {
-  int dev = 0, max_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  return max_smem;
-}
+// The card's opt-in shared memory per block, in bytes (the wrapper's route
+// choice and refusals read it).
+int mb_smem_optin() { return max_smem(); }
 
 const char* mb_error_string(int code) {
   if (code == MB_BAD_SHAPE) return "unsupported shape";
   if (code == MB_SMEM) return "shared memory request exceeds the device limit";
-  if (code == MB_BAD_LAYOUT) return "weights not laid out as the kernel reads them";
+  if (code == MB_BAD_LAYOUT) return "operands not laid out as the kernel reads them";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

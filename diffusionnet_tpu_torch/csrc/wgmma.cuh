@@ -1,6 +1,7 @@
-// Hopper warpgroup products (wgmma, sm_90a) for the block's backward
-// kernels (megablock_bwd.cu): operand tiles in shared memory, the product
-// instructions, register-sourced A fragments and cp.async.
+// Hopper warpgroup products (wgmma, sm_90a) for the block kernels
+// (megablock_fwd.cu, megablock_bwd.cu): operand tiles in shared memory, the
+// product instructions, register-sourced A fragments read from device or
+// shared memory, and cp.async.
 //
 // A tile holds one k-chunk (KCH = 32 values along the contraction) of ROWS
 // rows (M rows of A, or N rows of B^T), K-major, without swizzle: core
@@ -248,25 +249,59 @@ struct RowA {
     else
       return __uint_as_float(raw[h][e]);
   }
+};
 
-  // The fragments of step s: tf32 hi and lo (f32), or bf16 pairs (LOWP).
-  __device__ __forceinline__ void frag(int s, uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) const {
-    if constexpr (LOWP) {
-      hi[0] = pack_bf16(value(0, 4 * s), value(0, 4 * s + 1));
-      hi[1] = pack_bf16(value(1, 4 * s), value(1, 4 * s + 1));
-      hi[2] = pack_bf16(value(0, 4 * s + 2), value(0, 4 * s + 3));
-      hi[3] = pack_bf16(value(1, 4 * s + 2), value(1, 4 * s + 3));
-    } else {
-      const float v[4] = {value(0, 2 * s), value(1, 2 * s),
-                          value(0, 2 * s + 1), value(1, 2 * s + 1)};
+// The same rows and columns as RowA, held as f32 values, from any
+// row-major source given by a generic address: f32 or bf16 (`bf16`, a
+// runtime flag) in device memory, or an f32 tile in shared memory (the
+// row kernel of B1 keeps its activations there; a row stride of 4 mod 32
+// floats puts a quarter-warp's 16-byte loads in distinct banks).
+struct RowF {
+  float v[2][8];
+
+  __device__ __forceinline__ void load(const void* src, long long ld,
+                                       long long arow0, int rows_valid,
+                                       int k0, int kvalid, bool vec,
+                                       bool bf16) {
+    const int t = threadIdx.x % NTH, w = t / 32, g = (t % 32) / 4;
+    const int k = k0 + 8 * (t % 4);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float h = tf32r(v[q]);
-        hi[q] = __float_as_uint(h);
-        lo[q] = __float_as_uint(tf32r(v[q] - h));
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * w + g + 8 * h;
+      const long long o = (arow0 + r) * ld + k;
+      if (r < rows_valid && vec && k + 8 <= kvalid) {
+        if (bf16) {
+          const uint4 u = *reinterpret_cast<const uint4*>(
+              reinterpret_cast<const unsigned short*>(src) + o);
+          const uint32_t w4[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            v[h][2 * q] = bf16_bits_to_float(w4[q] & 0xFFFFu);
+            v[h][2 * q + 1] = bf16_bits_to_float(w4[q] >> 16);
+          }
+        } else {
+          const float4* p =
+              reinterpret_cast<const float4*>(reinterpret_cast<const float*>(src) + o);
+          const float4 a = p[0], b = p[1];
+          v[h][0] = a.x; v[h][1] = a.y; v[h][2] = a.z; v[h][3] = a.w;
+          v[h][4] = b.x; v[h][5] = b.y; v[h][6] = b.z; v[h][7] = b.w;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          float x = 0.f;
+          if (r < rows_valid && k + e < kvalid)
+            x = bf16 ? bf16_bits_to_float(
+                           reinterpret_cast<const unsigned short*>(src)[o + e])
+                     : reinterpret_cast<const float*>(src)[o + e];
+          v[h][e] = x;
+        }
       }
     }
+  }
+
+  __device__ __forceinline__ float value(int h, int e) const {
+    return v[h][e];
   }
 };
 
@@ -276,17 +311,49 @@ __host__ __device__ constexpr int b_stage_bytes() {
   return LOWP ? NB * KCH * 2 : 2 * NB * KCH * 4;
 }
 
-// The A fragments of one k-chunk, every step's (tf32 hi and lo, or bf16).
+// The A fragments of one k-chunk, every step's, from a loaded chunk (RowA
+// or RowF): tf32 hi and lo (f32), or bf16 pairs rounded to nearest even
+// (LOWP).
 template <bool LOWP>
 struct AFrags {
   static constexpr int STEPS = LOWP ? KCH / 16 : KCH / 8;
   uint32_t hi[STEPS][4], lo[STEPS][4];
-  template <bool SRC_BF16>
-  __device__ __forceinline__ void build(const RowA<LOWP, SRC_BF16>& a) {
+  template <class A>
+  __device__ __forceinline__ void build(const A& a) {
 #pragma unroll
-    for (int s = 0; s < STEPS; ++s) a.frag(s, hi[s], lo[s]);
+    for (int s = 0; s < STEPS; ++s) {
+      if constexpr (LOWP) {
+        hi[s][0] = pack_bf16(a.value(0, 4 * s), a.value(0, 4 * s + 1));
+        hi[s][1] = pack_bf16(a.value(1, 4 * s), a.value(1, 4 * s + 1));
+        hi[s][2] = pack_bf16(a.value(0, 4 * s + 2), a.value(0, 4 * s + 3));
+        hi[s][3] = pack_bf16(a.value(1, 4 * s + 2), a.value(1, 4 * s + 3));
+      } else {
+        const float v[4] = {a.value(0, 2 * s), a.value(1, 2 * s),
+                            a.value(0, 2 * s + 1), a.value(1, 2 * s + 1)};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float h = tf32r(v[q]);
+          hi[s][q] = __float_as_uint(h);
+          lo[s][q] = __float_as_uint(tf32r(v[q] - h));
+        }
+      }
+    }
   }
 };
+
+// f(m, n, v0, v1) for the thread's accumulator pairs of a 64 x 128 block:
+// row m, columns n and n + 1 from the block's first column.
+template <class F>
+__device__ __forceinline__ void for_pairs(float (&d)[64], F f) {
+  const int t = threadIdx.x % NTH, w = t / 32, g = (t % 32) / 4;
+  const int c = t % 4;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      f(16 * w + g + 8 * h, 8 * j + 2 * c, d[4 * j + 2 * h],
+        d[4 * j + 2 * h + 1]);
+}
 
 // d += A_chunk B_chunk: A from the fragments in registers, B from a stage
 // of shared memory (hi, then lo for tf32). The products read the fragments

@@ -12,7 +12,14 @@ Given this block's x_hat = Phi^T (m x), the forward computes
     feat  = tanh(gx . vb_re + gy . vb_im)
     out   = MLP([x, xd, feat]) + x     (Dense, [Dropout]-ReLU-Dense, ...)
 
-and, with emit_next, the next block's x_hat = Phi^T (m out). The backward
+and, with emit_next, the next block's x_hat = Phi^T (m out). On the card
+the forward is two kernels and a partial sum (csrc/megablock_fwd.cu):
+`megablock_fwd` runs the block per 64-row tile on wgmma and writes `out`;
+`megablock_fwd_xhat` runs x_hat_next's V-reduction on a split-V grid; and
+`xhat_reduce` sums its partials in a fixed order. Shapes the row kernel does
+not take (C % 8 != 0, or MLP widths whose shared buffers exceed the card's)
+go, by `fwd_route` before launch, to the wide route `megablock_fwd_wide`
+(csrc/megablock_fwd_wide.cu, WMMA on 32- or 16-row tiles). The backward
 returns (dx_direct, ds, dA_re, dA_im, dW_l, db_l); `megablock_chained` wraps
 both in a torch.autograd.Function. On the card the backward is two kernels
 and a partial sum: `megablock_bwd_rows` recomputes the forward per 64-row
@@ -23,9 +30,9 @@ order (csrc/megablock_bwd.cu).
 
 Dispatch: tensors on the CPU go to the plain PyTorch versions
 (`megablock_chained_reference`, `megablock_chained_bwd_reference`); tensors
-on a CUDA device go to the hand-written kernels (csrc/megablock_fwd.cu,
-csrc/megablock_bwd.cu) or raise. There is no fallback between the two. The
-plain versions of the two backward kernels (`megablock_bwd_rows_reference`,
+on a CUDA device go to the hand-written kernels or raise. There is no
+fallback between the two. The plain versions of the split kernels
+(`megablock_fwd_xhat_reference`, `megablock_bwd_rows_reference`,
 `megablock_bwd_grads_reference`) are what the card's kernels are held to.
 
 lowp (bf16 operands) is an argument: both operands of every product are
@@ -54,7 +61,8 @@ _SCALE = 1.0 / (1.0 - DROPOUT_RATE)
 
 # launches per kernel since the last reset_launches(); each wrapper adds one
 # where it launches its kernel, and nowhere else
-LAUNCHES = {"megablock_fwd": 0, "xhat_reduce": 0, "megablock_bwd_rows": 0,
+LAUNCHES = {"megablock_fwd": 0, "megablock_fwd_xhat": 0,
+            "megablock_fwd_wide": 0, "xhat_reduce": 0, "megablock_bwd_rows": 0,
             "megablock_bwd_grads": 0, "grad_reduce": 0}
 
 
@@ -279,7 +287,7 @@ def relu_margin(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs, x_hat_in,
 # two backward kernels
 # ---------------------------------------------------------------------------
 
-ROW_TILE = 64  # rows per CTA of the rows kernel (RT in csrc/megablock_bwd.cu)
+ROW_TILE = 64  # rows per CTA of B1's and B2's row kernels (RT in csrc/)
 GRAD_BLOCK = 128  # side of an output block of the grads kernel
 
 
@@ -444,31 +452,76 @@ def bwd_grads_finish(part_par, part_ds, dbp, K: int, C: int, widths):
     return ds, dA_re, dA_im, dWs, dbs
 
 
-XR_CHUNKS = 16  # chunks of the x_hat partial sum (XR_CHUNKS in the kernel)
+XR_MAX_CHUNKS = 16  # chunks of the x_hat partial sum (as in the kernel)
+XR_PER_CHUNK = 8    # slots a chunk takes before the chunk count grows
+
+
+def xhat_chunks(S: int) -> int:
+    """The partial sum's chunk count for S slots: min(16, ceil(S / 8))."""
+    return min(XR_MAX_CHUNKS, -(-S // XR_PER_CHUNK))
 
 
 def xhat_reduce_reference(partial: torch.Tensor, K: int, C: int
                           ) -> torch.Tensor:
     """Plain version of the partial-sum kernel: the (K, C) corners of the
     per-CTA slots (B, S, SLOT, SLOT) -> (B, K, C), in the kernel's order:
-    the S slots cut into XR_CHUNKS chunks of L = ceil(S / XR_CHUNKS)
+    the S slots cut into G = `xhat_chunks(S)` chunks of L = ceil(S / G)
     consecutive slots (the last ones short or empty), each chunk summed from
     +0 in ascending s, then the chunk sums added from +0 in ascending chunk
     order. The empty tail is summed as zeros, which leaves every sum as it
     is (a sum from +0 is never -0), so on the card this equals the kernel
     bit for bit."""
     B, S = partial.shape[:2]
-    L = -(-S // XR_CHUNKS)
+    G = xhat_chunks(S)
+    L = -(-S // G)
     p = partial[:, :, :K, :C]
-    p = torch.cat([p, p.new_zeros((B, XR_CHUNKS * L - S, K, C))], dim=1)
-    p = p.view(B, XR_CHUNKS, L, K, C)
-    chunk = p.new_zeros((B, XR_CHUNKS, K, C))
+    p = torch.cat([p, p.new_zeros((B, G * L - S, K, C))], dim=1)
+    p = p.view(B, G, L, K, C)
+    chunk = p.new_zeros((B, G, K, C))
     for j in range(L):
         chunk += p[:, :, j]
     out = p.new_zeros((B, K, C))
-    for g in range(XR_CHUNKS):
+    for g in range(G):
         out += chunk[:, g]
     return out
+
+
+def xhat_splits(B: int, V: int, K: int, C: int, n_sm: int) -> tuple:
+    """(S, L): the x_hat_next kernel's V ranges. Split s covers rows
+    [s L, (s + 1) L) of each batch element's V (the last ones short or
+    empty); L, a multiple of 32, is chosen so that the CTAs (one per batch
+    element, 128 x 128 piece of (K, C) and split) make about one wave over
+    the SMs (the kernel runs one CTA per SM)."""
+    pieces = B * -(-K // SLOT) * -(-C // SLOT)
+    L = max(32, _up(-(-V // max(1, n_sm // pieces)), 32))
+    return -(-V // L), L
+
+
+def megablock_fwd_xhat_reference(evecs, src, scale, splits,
+                                 lowp: bool = False) -> torch.Tensor:
+    """Plain version of the x_hat_next kernel: partial slots (B, nkt, nct,
+    S, SLOT, SLOT) f32, nkt = ceil(K / SLOT), nct = ceil(C / SLOT); slot
+    (b, kt, ct, s) holds, in its (K, C) corner, Phi_b^T (scale (.) src)_b
+    over rows [s L, (s + 1) L) of V, for K rows 128 kt.. and C columns
+    128 ct.. (zeros past K and C). src (B,V,C) f32 is `out`, scale (B,V)
+    the mass (or None where src already is m (.) out). lowp: both operands
+    rounded to bf16 (scale (.) src after the product in f32)."""
+    B, V, K = evecs.shape
+    C = src.shape[-1]
+    S, L = splits
+    y = src.float() if scale is None else src.float() * scale[..., None]
+    ph = evecs
+    if lowp:
+        y = y.to(torch.bfloat16)
+        ph = ph.to(torch.bfloat16)
+    nkt, nct = -(-K // SLOT), -(-C // SLOT)
+    part = torch.zeros((B, nkt * SLOT, nct * SLOT, S), dtype=torch.float32,
+                       device=src.device)
+    for b in range(B):
+        part[b, :K, :C] = _split_tn(ph[b].float(), y[b].float(), S,
+                                    L).permute(1, 2, 0)
+    return (part.view(B, nkt, SLOT, nct, SLOT, S)
+            .permute(0, 1, 3, 5, 2, 4).contiguous())
 
 
 def grad_reduce_reference(partial: torch.Tensor, off: int, n: int
@@ -613,11 +666,11 @@ def _padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return out
 
 
-# B1's shared memory (csrc/megablock_fwd.cu, smem_bytes): per row of its
-# tile, in floats, the staged operator chunk (32 + 4), the Phi piece of the
-# x_hat product (128 + 4), the warps' output patches (NP + 4, NP = 128 at
-# 32 rows and 256 at 16), [x | xd | feat] (round8(3C) + 4) and two MLP
-# buffers (round8(max(2C, widths)) + 4 each); with res, s resident
+# The wide route's shared memory (csrc/megablock_fwd_wide.cu, smem_bytes):
+# per row of its tile, in floats, the staged operator chunk (32 + 4), the Phi
+# piece of the x_hat product (128 + 4), the warps' output patches (NP + 4,
+# NP = 128 at 32 rows and 256 at 16), [x | xd | feat] (round8(3C) + 4) and
+# two MLP buffers (round8(max(2C, widths)) + 4 each); with res, s resident
 # (SLOT x (SLOT + 4)).
 def fwd_smem_bytes(tv: int, C: int, widths, res: bool = False) -> int:
     ldc = _up(3 * C, 8) + 4
@@ -625,6 +678,25 @@ def fwd_smem_bytes(tv: int, C: int, widths, res: bool = False) -> int:
     np_ = 128 if tv == 32 else 256
     return 4 * (tv * (36 + 132 + np_ + 4 + ldc + 2 * ldp)
                 + (SLOT * (SLOT + 4) if res else 0))
+
+
+def fwd_rows_ldb(C: int, widths) -> int:
+    """Row stride, in floats, of the row kernel's activation buffers:
+    round32(max(C, hidden widths)) + 4."""
+    return _up(max([C] + list(widths[1:-1])), 32) + 4
+
+
+def fwd_rows_smem_bytes(C: int, widths, lowp: bool, spill: bool = False,
+                        wgs: int = 1) -> int:
+    """The row kernel's shared memory (csrc/megablock_fwd.cu) with `wgs`
+    warpgroups a CTA: a ring of B stages (128 x 32 values, TF32 hi and lo
+    in f32, bf16 under lowp; 3 stages for one warpgroup, 2 for two) and,
+    per warpgroup, three 64-row activation buffers, or two where feat is
+    spilled to a device scratch."""
+    stage = 128 * 32 * (2 if lowp else 8)
+    return ((3 if wgs == 1 else 2) * stage
+            + wgs * (2 if spill else 3) * ROW_TILE * fwd_rows_ldb(C, widths)
+            * 4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -635,28 +707,44 @@ def _smem_limit(index: int) -> int:
         return int(_build.load().mb_smem_optin())
 
 
-def fwd_row_tile(K: int, C: int, widths, limit: int) -> tuple[int, bool]:
-    """B1's (row tile, s resident) at these shapes: 32 rows with s resident
-    in shared memory where K, C <= SLOT and that fits in `limit` bytes, else
-    32 rows with s read from L2, else 16; raises where 16 rows' buffers
-    exceed the limit too."""
+# the row kernel's layouts in the order the route tries them: (warpgroups a
+# CTA, feat spilled)
+FWD_ROWS_ORDER = ((2, False), (2, True), (1, False), (1, True))
+
+
+def fwd_route(K: int, C: int, widths, lowp: bool, limit: int) -> tuple:
+    """B1's route at these shapes, chosen before launch from the shared
+    memory each kernel needs, computed from the shapes: ("rows", (wgs,
+    spill)), the 64-row wgmma row kernel where C % 8 == 0 and its buffers
+    fit in `limit` bytes, with two warpgroups (two tiles) a CTA where they
+    fit, else one, and feat in shared memory where it fits, else in a
+    device scratch (spill); else ("wide", (row tile, s resident)), the WMMA
+    kernel at 32 rows with s resident where K, C <= SLOT, 32 rows, or 16
+    rows. Raises with the bytes needed where 16 rows' buffers exceed the
+    limit too."""
+    if C % 8 == 0:
+        for wgs, spill in FWD_ROWS_ORDER:
+            if fwd_rows_smem_bytes(C, widths, lowp, spill, wgs) <= limit:
+                return "rows", (wgs, spill)
     for tv, res in ((32, True), (32, False), (16, False)):
         if ((not res or max(K, C) <= SLOT)
                 and fwd_smem_bytes(tv, C, widths, res) <= limit):
-            return tv, res
+            return "wide", (tv, res)
     raise ValueError(
         f"megablock_chained: the block kernel needs "
         f"{fwd_smem_bytes(16, C, widths)} bytes of shared memory at its "
-        f"smallest row tile (16 rows; C={C}, widths={list(widths)}), more "
-        f"than the card's {limit} bytes")
+        f"smallest row tile (16 rows; C={C}, widths={list(widths)}) and its "
+        f"row kernel {fwd_rows_smem_bytes(C, widths, lowp, True)}, more than "
+        f"the card's {limit} bytes")
 
 
 def _check_block(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
-                 x_hat_in, seed, tile_v):
-    """The checks both kernels share; returns (B, V, K, C, widths, B1's row
-    tile, whether B1 keeps s resident). Shapes are refused only where B1's shared memory, computed from
-    them, exceeds the card's (B2's kernels take the same shared memory at
-    every width)."""
+                 x_hat_in, seed, tile_v, lowp=False, fwd=False):
+    """The checks both kernels share (fwd: also B1's, that its row tile lies
+    inside one dropout tile); returns (B, V, K, C, widths, B1's route).
+    Shapes are refused only where B1's shared memory, computed from them,
+    exceeds the card's on both routes (B2's kernels take the same shared
+    memory at every width)."""
     f32, bf16 = torch.float32, torch.bfloat16
     _check(x.ndim == 3, "x must be (B,V,C)")
     B, V, C = x.shape
@@ -689,20 +777,21 @@ def _check_block(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
         _check(W.dtype == f32 and b.dtype == f32, f"layer {l} dtype")
     tensors = [x, evecs, gX, gY, mass, coefs, A_re, A_im, x_hat_in, *Ws, *bs]
     _check(all(t.is_contiguous() for t in tensors), "inputs must be contiguous")
-    tv, res = fwd_row_tile(K, C, widths, _smem_limit(x.device.index or 0))
+    route = fwd_route(K, C, widths, lowp, _smem_limit(x.device.index or 0))
     if seed is not None:
         # the JAX package's key packing (pallas_megablock.py:90-104)
         _check(B <= 2048 and V // tile_v <= 65536 and n_dense - 1 <= 16,
                f"dropout keys pack batch <= 2048, tiles <= 65536 and <= 16 "
                f"dropout layers (got B={B}, {V // tile_v} tiles, "
                f"{n_dense - 1} layers)")
-        _check(tile_v % tv == 0,
+        tv = ROW_TILE if route[0] == "rows" else route[1][0]
+        _check(not fwd or tile_v % tv == 0,
                f"tile_v={tile_v} must be a multiple of the kernel's "
                f"{tv}-row tile, so each lies inside one dropout tile")
         _check(V % tile_v == 0, f"V={V} must be a multiple of "
                f"tile_v={tile_v} with dropout (pad to a bucket)")
         _check(0 <= int(seed) < 2 ** 31, f"seed {seed} outside [0, 2^31)")
-    return B, V, K, C, widths, tv, res
+    return B, V, K, C, widths, route
 
 
 def _dropout_args(seed, tile_v):
@@ -712,9 +801,97 @@ def _dropout_args(seed, tile_v):
 
 def _megablock_fwd_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
                         x_hat_in, emit_next, lowp, seed, tile_v):
-    B, V, K, C, widths, tv, res = _check_block(
+    B, V, K, C, widths, route = _check_block(
         x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs, x_hat_in, seed,
-        tile_v)
+        tile_v, lowp, fwd=True)
+    if route[0] == "wide":
+        return _megablock_fwd_wide_cuda(x, evecs, gX, gY, mass, coefs, A_re,
+                                        A_im, Ws, bs, x_hat_in, emit_next,
+                                        lowp, seed, tile_v, *route[1])
+    n = len(Ws)
+    from .. import _build
+    lib = _build.load()
+    dev = x.device
+    out = torch.empty_like(x)
+    wgs, spill = route[1]
+    feat = (torch.empty((B * V, C), dtype=torch.float32, device=dev)
+            if spill else None)
+    # x_hat_next reads the f32 `out`: where out is stored in bf16, the row
+    # kernel also writes y = m (.) out in f32 for it
+    y = (torch.empty((B, V, C), dtype=torch.float32, device=dev)
+         if emit_next and x.dtype == torch.bfloat16 else None)
+    tiles, ptr = _fwd_b_operands(coefs, x_hat_in, A_re, A_im, Ws, lowp)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.mb_fwd_launch(
+            x.data_ptr(), evecs.data_ptr(), gX.data_ptr(), gY.data_ptr(),
+            mass.data_ptr(), ptr[0], ptr[1],
+            (ctypes.c_void_p * n)(*ptr[2:]), _ptrs(bs), _ints(widths), n,
+            out.data_ptr(), None if feat is None else feat.data_ptr(),
+            None if y is None else y.data_ptr(), B, V, K, C,
+            fwd_rows_ldb(C, widths), wgs, int(x.dtype == torch.bfloat16),
+            int(evecs.dtype == torch.bfloat16), int(lowp),
+            *_dropout_args(seed, tile_v), stream)
+    _raise_on(lib, code, "megablock_fwd launch")
+    LAUNCHES["megablock_fwd"] += 1
+    del feat, tiles
+    if not emit_next:
+        return out, None
+    splits = xhat_splits(B, V, K, C, _sm_count(dev.index or 0))
+    part = (megablock_fwd_xhat(evecs, out, mass, splits, lowp) if y is None
+            else megablock_fwd_xhat(evecs, y, None, splits, lowp))
+    return out, reduce_pieces(part, B, K, C)
+
+
+def megablock_fwd_xhat(evecs, src, scale, splits, lowp: bool = False
+                       ) -> torch.Tensor:
+    """x_hat_next's split-V kernel for CUDA tensors, its plain version for
+    CPU ones: the partial slots that `megablock_fwd_xhat_reference` states
+    (on the card only the (K, C) corner of each piece is written), to be
+    summed by `reduce_pieces`. src (B,V,C) f32, scale (B,V) f32 or None."""
+    dev = _device_of([evecs, src] + ([] if scale is None else [scale]))
+    if dev.type == "cpu":
+        return megablock_fwd_xhat_reference(evecs, src, scale, splits, lowp)
+    B, V, K = evecs.shape
+    C = src.shape[-1]
+    S, L = splits
+    _check(src.dtype == torch.float32 and tuple(src.shape) == (B, V, C)
+           and src.is_contiguous() and src.data_ptr() % 16 == 0
+           and C % 4 == 0, "src must be contiguous, 16-byte aligned f32 "
+           "(B,V,C) with C % 4 == 0")
+    _check(scale is None or (scale.dtype == torch.float32
+                             and tuple(scale.shape) == (B, V)
+                             and scale.is_contiguous()),
+           "scale must be contiguous f32 (B,V)")
+    _check(evecs.is_contiguous() and evecs.dtype in (torch.float32,
+                                                     torch.bfloat16),
+           "evecs must be contiguous f32 or bf16")
+    _check(S * L >= V, f"splits {splits} do not cover V={V}")
+    from .. import _build
+    lib = _build.load()
+    nkt, nct = -(-K // SLOT), -(-C // SLOT)
+    part = torch.empty((B, nkt, nct, S, SLOT, SLOT), dtype=torch.float32,
+                       device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.mb_fwd_xhat_launch(
+            evecs.data_ptr(), src.data_ptr(),
+            None if scale is None else scale.data_ptr(), part.data_ptr(),
+            B, V, K, C, S, L, int(evecs.dtype == torch.bfloat16), int(lowp),
+            stream)
+    _raise_on(lib, code, "megablock_fwd_xhat launch")
+    LAUNCHES["megablock_fwd_xhat"] += 1
+    return part
+
+
+def _megablock_fwd_wide_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws,
+                             bs, x_hat_in, emit_next, lowp, seed, tile_v, tv,
+                             res):
+    """The wide route (csrc/megablock_fwd_wide.cu): x_hat_next through its
+    per-CTA slots and `xhat_reduce`."""
+    B, V, C = x.shape
+    K = evecs.shape[-1]
+    widths = [W.shape[0] for W in Ws] + [Ws[-1].shape[1]]
     n_dense = len(Ws)
     from .. import _build
     lib = _build.load()
@@ -736,7 +913,7 @@ def _megablock_fwd_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
     wid = (ci * (n_dense + 1))(*widths)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.mb_fwd_launch(
+        code = lib.mb_fwd_wide_launch(
             x.data_ptr(), evecs.data_ptr(), gX.data_ptr(), gY.data_ptr(),
             mass.data_ptr(), s.data_ptr(), s.shape[-1], cmap.data_ptr(),
             cmap.shape[1], ws, ldw, bsp, wid, n_dense, out.data_ptr(),
@@ -744,8 +921,8 @@ def _megablock_fwd_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
             B, V, K, C, nsplit, tv, int(res), int(x.dtype == torch.bfloat16),
             int(evecs.dtype == torch.bfloat16), int(lowp),
             *_dropout_args(seed, tile_v), stream)
-    _raise_on(lib, code, "megablock_fwd launch")
-    LAUNCHES["megablock_fwd"] += 1
+    _raise_on(lib, code, "megablock_fwd_wide launch")
+    LAUNCHES["megablock_fwd_wide"] += 1
     if not emit_next:
         return out, None
     return out, reduce_pieces(partial, B, K, C)
@@ -815,64 +992,57 @@ def b_tiles(bt: torch.Tensor, lowp: bool) -> torch.Tensor:
     return torch.stack((hi, tf32_round(x - hi)), -2).contiguous()
 
 
-@functools.lru_cache(maxsize=64)
-def _rows_b_plan(B: int, K: int, C: int, widths: tuple, lowp: bool,
-                 emit_next: bool, device) -> tuple:
-    """One gather that tiles every B operand of the rows kernel at once, as
-    `b_tiles` tiles each: from the concatenated sources [s (B,K,C),
-    dx_hat_next (B,K,C) with emit_next, cmap (2C,2C), W_0 .. W_{n-1}] and
-    a zero after them, the values of the operands' stages in the order sT,
-    dxnT, cmapF, cmapB, wf[0..n-2], wb[0..n-1]. Returns (index, the first
-    stage of each operand, the sources' length)."""
-    pieces, firsts, stage = [], [], 0
-    src_lens = [B * K * C] * (2 if emit_next else 1) + [4 * C * C] + [
-        a * b for a, b in zip(widths[:-1], widths[1:])]
-    src_off = [sum(src_lens[:i]) for i in range(len(src_lens))]
-    zero = sum(src_lens)
-    il = _interleave(C, "cpu")
+def _operand_index(N: int, k: int, lowp: bool, off: int, lead: int, R0: int,
+                   R1: int, trans: bool, zero: int, colmap=None, kmap=None
+                   ) -> list:
+    """Indices, into concatenated sources, of the values of one B operand's
+    stages (`b_tiles`' layout of B^T (N, k)), for `lead` copies of an
+    (R0, R1) source matrix M at stride R0 R1 from `off`: B^T[n][j] = M[j][n]
+    (trans) or M[n][j]. colmap: B^T's row n reads M's index colmap[n].
+    kmap: B^T has len(kmap) contraction values, value j reading M's kmap[j]
+    (-1: zero). Padding reads `zero`."""
+    kl = k if kmap is None else len(kmap)
+    base = _tile_index(N, kl, lowp, "cpu")
+    pad = base == N * kl
+    n, kk = (base // kl).clamp(max=N - 1), base % kl
+    if kmap is not None:
+        km = torch.as_tensor(kmap, dtype=torch.int64)[kk]
+        pad = pad | (km < 0)
+        kk = km.clamp(min=0)
+    if colmap is not None:
+        n = colmap[n]
+    m = kk * R1 + n if trans else n * R1 + kk
+    return [torch.where(pad, zero, off + li * R0 * R1 + m)
+            for li in range(lead)]
 
-    def add(off, lead, R0, R1, trans, colmap=None):
-        # B^T is (N, k): M[k][n] (trans) or M[n][k] of the (R0, R1) source
-        nonlocal stage
+
+class _Plan:
+    """One gather that tiles several B operands at once: `add` appends an
+    operand's indices (`_operand_index`) and records its first stage."""
+
+    def __init__(self, src_lens):
+        self.src_off = [sum(src_lens[:i]) for i in range(len(src_lens))]
+        self.zero = sum(src_lens)
+        self.pieces, self.firsts, self.stage = [], [], 0
+
+    def add(self, src, lead, R0, R1, trans, lowp, colmap=None, kmap=None):
         N, k = (R1, R0) if trans else (R0, R1)
-        base = _tile_index(N, k, lowp, "cpu")
-        pad = base == N * k
-        n, kk = (base // k).clamp(max=N - 1), base % k
-        if colmap is not None:
-            n = colmap[n]
-        m = kk * R1 + n if trans else n * R1 + kk
-        firsts.append(stage)
-        for li in range(lead):
-            pieces.append(torch.where(pad, zero, off + li * R0 * R1 + m))
-            stage += base.numel() // 4096
-    add(src_off[0], B, K, C, True)                      # sT = s^T
-    if emit_next:
-        add(src_off[1], B, K, C, True)                  # dxnT
-    else:
-        firsts.append(None)
-    q = 2 if emit_next else 1
-    add(src_off[q], 1, 2 * C, 2 * C, True, il)          # cmapF = cmap^T, il
-    add(src_off[q], 1, 2 * C, 2 * C, False)             # cmapB = cmap
-    for l in range(len(widths) - 2):                   # wf = W_l^T
-        add(src_off[q + 1 + l], 1, widths[l], widths[l + 1], True)
-    for l in range(len(widths) - 1):                   # wb = W_l
-        add(src_off[q + 1 + l], 1, widths[l], widths[l + 1], False)
-    return torch.cat(pieces).to(device), tuple(firsts), zero
+        idx = _operand_index(N, k, lowp, self.src_off[src], lead, R0, R1,
+                             trans, self.zero, colmap, kmap)
+        self.firsts.append(self.stage)
+        self.pieces += idx
+        self.stage += len(idx) * (idx[0].numel() // 4096)
+
+    def done(self, device) -> tuple:
+        return (torch.cat(self.pieces).to(device), tuple(self.firsts),
+                self.zero)
 
 
-def _rows_b_operands(coefs, x_hat_in, dx_hat_next, A_re, A_im, Ws, lowp):
-    """The rows kernel's B operands, tiled by one gather (`_rows_b_plan`):
-    (the tiles, the first byte of each operand in them, or None)."""
-    B, K, C = coefs.shape
-    widths = tuple([W.shape[0] for W in Ws] + [Ws[-1].shape[1]])
-    index, firsts, zero = _rows_b_plan(B, K, C, widths, lowp,
-                                       dx_hat_next is not None, coefs.device)
-    srcs = [(coefs * x_hat_in).reshape(-1)]
-    if dx_hat_next is not None:
-        srcs.append(dx_hat_next.reshape(-1))
-    srcs += [cmap_of(A_re, A_im).reshape(-1)] + [W.reshape(-1) for W in Ws]
-    srcs.append(coefs.new_zeros(1))
-    x = torch.cat(srcs)[index].view(-1, 4096)
+def _gather_tiles(srcs, index, firsts, lowp):
+    """The tiles of a plan from its sources (a zero appended): TF32 hi and
+    lo per stage (f32) or bf16 (lowp); returns (the tiles, the first byte of
+    each operand in them, or None)."""
+    x = torch.cat([*srcs, srcs[0].new_zeros(1)])[index].view(-1, 4096)
     if lowp:
         tiles = x.to(torch.bfloat16)
     else:
@@ -881,6 +1051,88 @@ def _rows_b_operands(coefs, x_hat_in, dx_hat_next, A_re, A_im, Ws, lowp):
     sb = 4096 * (2 if lowp else 8)  # bytes of a stage
     return tiles, [None if f is None else tiles.data_ptr() + f * sb
                    for f in firsts]
+
+
+@functools.lru_cache(maxsize=64)
+def _rows_b_plan(B: int, K: int, C: int, widths: tuple, lowp: bool,
+                 emit_next: bool, device) -> tuple:
+    """One gather that tiles every B operand of B2's rows kernel at once, as
+    `b_tiles` tiles each: from the concatenated sources [s (B,K,C),
+    dx_hat_next (B,K,C) with emit_next, cmap (2C,2C), W_0 .. W_{n-1}] and
+    a zero after them, the values of the operands' stages in the order sT,
+    dxnT, cmapF, cmapB, wf[0..n-2], wb[0..n-1]. Returns (index, the first
+    stage of each operand, the sources' length)."""
+    plan = _Plan([B * K * C] * (2 if emit_next else 1) + [4 * C * C] + [
+        a * b for a, b in zip(widths[:-1], widths[1:])])
+    il = _interleave(C, "cpu")
+    plan.add(0, B, K, C, True, lowp)                    # sT = s^T
+    if emit_next:
+        plan.add(1, B, K, C, True, lowp)                # dxnT
+    else:
+        plan.firsts.append(None)
+    q = 2 if emit_next else 1
+    plan.add(q, 1, 2 * C, 2 * C, True, lowp, il)        # cmapF = cmap^T, il
+    plan.add(q, 1, 2 * C, 2 * C, False, lowp)           # cmapB = cmap
+    for l in range(len(widths) - 2):                   # wf = W_l^T
+        plan.add(q + 1 + l, 1, widths[l], widths[l + 1], True, lowp)
+    for l in range(len(widths) - 1):                   # wb = W_l
+        plan.add(q + 1 + l, 1, widths[l], widths[l + 1], False, lowp)
+    return plan.done(device)
+
+
+def _rows_b_operands(coefs, x_hat_in, dx_hat_next, A_re, A_im, Ws, lowp):
+    """B2's rows kernel's B operands, tiled by one gather (`_rows_b_plan`):
+    (the tiles, the first byte of each operand in them, or None)."""
+    B, K, C = coefs.shape
+    widths = tuple([W.shape[0] for W in Ws] + [Ws[-1].shape[1]])
+    index, firsts, _ = _rows_b_plan(B, K, C, widths, lowp,
+                                    dx_hat_next is not None, coefs.device)
+    srcs = [(coefs * x_hat_in).reshape(-1)]
+    if dx_hat_next is not None:
+        srcs.append(dx_hat_next.reshape(-1))
+    srcs += [cmap_of(A_re, A_im).reshape(-1)] + [W.reshape(-1) for W in Ws]
+    return _gather_tiles(srcs, index, firsts, lowp)
+
+
+def segment_map(C: int, nseg: int) -> list:
+    """The row kernel's contraction over nseg C-wide segments ([gx | gy],
+    [x | xd | feat]), each padded to a multiple of 32: value j reads row
+    (j // c32) C + j % c32 of the source, or -1 (zero) past C in its
+    segment."""
+    c32 = _up(C, 32)
+    return [(j // c32) * C + j % c32 if j % c32 < C else -1
+            for j in range(nseg * c32)]
+
+
+@functools.lru_cache(maxsize=64)
+def _fwd_b_plan(B: int, K: int, C: int, widths: tuple, lowp: bool,
+                device) -> tuple:
+    """One gather that tiles every B operand of B1's row kernel: from the
+    concatenated sources [s (B,K,C), cmap (2C,2C), W_0 .. W_{n-1}] and a
+    zero, the operands sT (per batch element), cmapF (cmap^T, rows
+    interleaved re_c, im_c, contraction over the padded [gx | gy]) and wf[l]
+    = W_l^T (W_0's contraction over the padded [x | xd | feat]). Returns
+    (index, the first stage of each operand, the sources' length)."""
+    plan = _Plan([B * K * C, 4 * C * C] + [
+        a * b for a, b in zip(widths[:-1], widths[1:])])
+    plan.add(0, B, K, C, True, lowp)
+    plan.add(1, 1, 2 * C, 2 * C, True, lowp, _interleave(C, "cpu"),
+             segment_map(C, 2))
+    plan.add(2, 1, widths[0], widths[1], True, lowp, None, segment_map(C, 3))
+    for l in range(1, len(widths) - 1):
+        plan.add(2 + l, 1, widths[l], widths[l + 1], True, lowp)
+    return plan.done(device)
+
+
+def _fwd_b_operands(coefs, x_hat_in, A_re, A_im, Ws, lowp):
+    """B1's row kernel's B operands (sT, cmapF, wf[0..n-1]), tiled by one
+    gather (`_fwd_b_plan`): (the tiles, the first byte of each)."""
+    B, K, C = coefs.shape
+    widths = tuple([W.shape[0] for W in Ws] + [Ws[-1].shape[1]])
+    index, firsts, _ = _fwd_b_plan(B, K, C, widths, lowp, coefs.device)
+    srcs = [(coefs * x_hat_in).reshape(-1), cmap_of(A_re, A_im).reshape(-1)]
+    srcs += [W.reshape(-1) for W in Ws]
+    return _gather_tiles(srcs, index, firsts, lowp)
 
 
 def _ptrs(ts):
@@ -894,9 +1146,9 @@ def _ints(vals):
 
 def _check_bwd(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs, x_hat_in,
                dout, dx_hat_next, seed, tile_v):
-    B, V, K, C, widths, _, _ = _check_block(x, evecs, gX, gY, mass, coefs,
-                                            A_re, A_im, Ws, bs, x_hat_in,
-                                            seed, tile_v)
+    B, V, K, C, widths, _ = _check_block(x, evecs, gX, gY, mass, coefs,
+                                         A_re, A_im, Ws, bs, x_hat_in, seed,
+                                         tile_v)
     _check(C % 8 == 0, f"the backward kernel needs C % 8 == 0 (got C={C})")
     _check(tuple(dout.shape) == (B, V, C) and dout.dtype == x.dtype
            and dout.device == x.device, "dout must be (B,V,C) in x's dtype")
@@ -1107,8 +1359,8 @@ def megablock_chained(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
     output C; x_hat_in (B,K,C) f32. seed: None (dropout off) or an int in
     [0, 2^31) keying the dropout masks, whose tiles are tile_v rows (V must
     then be a multiple of tile_v, and tile_v one of B1's row tile). The
-    CUDA kernels keep their own row tiles either way (B1 32 or 16 rows, B2
-    64).
+    CUDA kernels keep their own row tiles either way (B1 and B2 64 rows; B1's
+    wide route 32 or 16).
     Returns (out (B,V,C) in x's dtype, x_hat_next (B,K,C) f32 or None)."""
     Ws, bs = tuple(Ws), tuple(bs)
     res = _MegablockChained.apply(x, evecs, gX, gY, mass, coefs, A_re, A_im,

@@ -59,7 +59,10 @@ def test_block_kernel_matches_plain(cuda, emit_next, lowp):
     mb.reset_launches()
     out, xn = mb.megablock_chained(*args, emit_next=emit_next, lowp=lowp)
     torch.cuda.synchronize()
-    assert mb.LAUNCHES == {"megablock_fwd": 1, "xhat_reduce": int(emit_next),
+    assert mb.LAUNCHES == {"megablock_fwd": 1,
+                           "megablock_fwd_xhat": int(emit_next),
+                           "megablock_fwd_wide": 0,
+                           "xhat_reduce": int(emit_next),
                            "megablock_bwd_rows": 0, "megablock_bwd_grads": 0,
                            "grad_reduce": 0}
     ref, ref_xn = mb.megablock_chained_reference(*args, emit_next=emit_next,
@@ -75,8 +78,9 @@ def test_block_kernel_matches_plain(cuda, emit_next, lowp):
 @pytest.mark.cuda
 def test_block_kernel_refuses_what_it_does_not_take(cuda):
     """Wrong dtype, non-contiguous input, widths whose buffers exceed the
-    card's shared memory even at 16-row tiles (the message names the
-    bytes): the wrapper raises before launching."""
+    card's shared memory on both routes, even at the wide route's 16-row
+    tiles (the message names the bytes): the wrapper raises before
+    launching."""
     args = list(_block(cuda, False))
     mb.reset_launches()
     bad = list(args)
@@ -92,9 +96,7 @@ def test_block_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match=f"needs {need} bytes of shared "
                        r"memory .* more than the card's \d+ bytes"):
         mb.megablock_chained(*big)
-    assert mb.LAUNCHES == {"megablock_fwd": 0, "xhat_reduce": 0,
-                           "megablock_bwd_rows": 0, "megablock_bwd_grads": 0,
-                           "grad_reduce": 0}
+    assert all(v == 0 for v in mb.LAUNCHES.values())
 
 
 def _close_grad(name, got, want, lowp):
@@ -117,11 +119,13 @@ def _close_grad(name, got, want, lowp):
 def test_block_kernels_at_c256(cuda, K, lowp):
     """B1 and B2 at C = 256, hidden [256, 256] (the sampling_invariance
     model's widths), K 128 and 256, with dropout, against their plain
-    versions: B1 on 16-row tiles, its x_hat_next in 128 x 128 pieces; B2's
-    rows and grads kernels. ReLU-tie rows get zero cotangent."""
+    versions: B1's row kernel (one warpgroup a CTA; feat spilled to a
+    device scratch in f32),
+    its x_hat_next in 128 x 128 pieces; B2's rows and grads kernels.
+    ReLU-tie rows get zero cotangent."""
     args = list(_block(cuda, lowp, V=512, K=K, C=256, hidden=(256, 256)))
-    assert mb.fwd_row_tile(K, 256, (768, 256, 256, 256),
-                           mb._smem_limit(0)) == (16, False)
+    assert mb.fwd_route(K, 256, (768, 256, 256, 256), lowp,
+                        mb._smem_limit(0)) == ("rows", (1, not lowp))
     kw = dict(lowp=lowp, seed=321, tile_v=128)
     out, xn = mb.megablock_chained_fwd(*args, emit_next=True, **kw)
     ref, ref_xn = mb.megablock_chained_reference(*args, emit_next=True, **kw)
@@ -145,6 +149,71 @@ def test_block_kernels_at_c256(cuda, K, lowp):
     for l in range(3):
         _close_grad(f"dW{l}", got[4][l], want[4][l], lowp)
         _close_grad(f"db{l}", got[5][l], want[5][l], lowp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lowp", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("seed", [None, 31], ids=["nodrop", "drop"])
+@pytest.mark.parametrize("C", [128, 256])
+def test_row_and_xhat_kernels_each_match_plain(cuda, C, seed, lowp):
+    """B1's two kernels one at a time at the models' widths (hidden [C, C],
+    K = 128, a ragged last 64-row tile): the row kernel's `out` against the
+    plain forward; the x_hat kernel's partials against their plain version
+    on the same f32 out (the same split of V); two launches of each give the
+    same bits; `xhat_reduce` of the kernel's partials equals the plain
+    fixed-order sum of the same partials bit for bit."""
+    args = _block(cuda, lowp, V=2000, K=128, C=C, hidden=(C, C))
+    kw = dict(lowp=lowp, seed=seed, tile_v=1000)
+    if seed is not None:
+        args = _block(cuda, lowp, V=2048, K=128, C=C, hidden=(C, C))
+        kw["tile_v"] = 1024
+    mb.reset_launches()
+    out, _ = mb.megablock_chained_fwd(*args, emit_next=False, **kw)
+    again, _ = mb.megablock_chained_fwd(*args, emit_next=False, **kw)
+    torch.cuda.synchronize()
+    assert mb.LAUNCHES["megablock_fwd"] == 2
+    assert mb.LAUNCHES["megablock_fwd_xhat"] == 0
+    assert torch.equal(out, again)
+    f = mb._forward_parts(*args, lowp, seed, kw["tile_v"])
+    torch.testing.assert_close(out.float(), f["out"].float(), **TOL[lowp])
+    B, V = out.shape[:2]
+    splits = mb.xhat_splits(B, V, 128, C, mb._sm_count(0))
+    src = f["out"].float().contiguous()
+    part = mb.megablock_fwd_xhat(args[1], src, args[4], splits, lowp)
+    part2 = mb.megablock_fwd_xhat(args[1], src, args[4], splits, lowp)
+    torch.cuda.synchronize()
+    assert mb.LAUNCHES["megablock_fwd_xhat"] == 2
+    # K = 128 and C a multiple of 128: every slot is written whole
+    assert torch.equal(part, part2)
+    plain = mb.megablock_fwd_xhat_reference(args[1], src, args[4], splits,
+                                            lowp)
+    _close("x_hat partials", part, plain, False)
+    got = mb.reduce_pieces(part, B, 128, C)
+    assert torch.equal(got.cpu(), mb.reduce_pieces(part.cpu(), B, 128, C))
+    _close("x_hat_next", got, mb.megablock_chained_reference(
+        *args, emit_next=True, **kw)[1], lowp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lowp", [False, True], ids=["f32", "bf16"])
+def test_wide_route_matches_plain(cuda, lowp):
+    """Widths whose 64-row buffers exceed shared memory (C = 256, hidden
+    [1024, 1024]) and C % 8 != 0 go to the wide route, chosen before
+    launch and counted under its own name, and agree with the plain
+    version."""
+    for C, hidden in ((256, (1024, 1024)), (12, (12,))):
+        args = _block(cuda, lowp, V=512, K=128, C=C, hidden=hidden)
+        assert mb.fwd_route(128, C, (3 * C, *hidden, C), lowp,
+                            mb._smem_limit(0))[0] == "wide"
+        mb.reset_launches()
+        out, xn = mb.megablock_chained_fwd(*args, emit_next=True, lowp=lowp)
+        torch.cuda.synchronize()
+        assert mb.LAUNCHES["megablock_fwd_wide"] == 1
+        assert mb.LAUNCHES["megablock_fwd"] == 0
+        ref, ref_xn = mb.megablock_chained_reference(*args, emit_next=True,
+                                                     lowp=lowp)
+        torch.testing.assert_close(out.float(), ref.float(), **TOL[lowp])
+        _close("x_hat_next", xn, ref_xn, lowp)
 
 
 @pytest.mark.cuda
@@ -339,13 +408,13 @@ def test_function_gradients_match_autograd_of_plain(cuda, seed):
 
 @pytest.mark.cuda
 def test_dropout_and_backward_refusals(cuda):
-    """tile_v not a multiple of the kernel's 32-row tile, V not a multiple
+    """tile_v not a multiple of the kernel's 64-row tile, V not a multiple
     of tile_v with dropout, dout in another dtype, C % 8 != 0: raised before
     any launch."""
     args = _block(cuda, False, V=1024)
     dout = torch.zeros_like(args[0])
     mb.reset_launches()
-    with pytest.raises(ValueError, match="multiple of the kernel's 32-row"):
+    with pytest.raises(ValueError, match="multiple of the kernel's 64-row"):
         mb.megablock_chained_fwd(*args, seed=1, tile_v=48)
     with pytest.raises(ValueError, match="multiple of tile_v"):
         mb.megablock_chained_fwd(*_block(cuda, False, V=1000), seed=1,
@@ -588,7 +657,9 @@ def test_megablock_one_matches_plain(cuda, lowp, seed):
         (out.float() * dout.float()).sum().backward()
         if k == 0:
             torch.cuda.synchronize()
-            assert mb.LAUNCHES == {"megablock_fwd": 1, "xhat_reduce": 1,
+            assert mb.LAUNCHES == {"megablock_fwd": 1,
+                                   "megablock_fwd_xhat": 0,
+                                   "megablock_fwd_wide": 0, "xhat_reduce": 1,
                                    "megablock_bwd_rows": 1,
                                    "megablock_bwd_grads": 1,
                                    "grad_reduce": 3}

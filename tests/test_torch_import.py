@@ -69,7 +69,8 @@ def test_megablock_dispatch_by_device():
     out, xn = mb.megablock_chained(*args, emit_next=True, lowp=False)
     ref, rxn = mb.megablock_chained_reference(*args, emit_next=True)
     assert torch.equal(out, ref) and torch.equal(xn, rxn)
-    assert mb.LAUNCHES == {"megablock_fwd": 0, "xhat_reduce": 0,
+    assert mb.LAUNCHES == {"megablock_fwd": 0, "megablock_fwd_xhat": 0,
+                           "megablock_fwd_wide": 0, "xhat_reduce": 0,
                            "megablock_bwd_rows": 0,
                            "megablock_bwd_grads": 0, "grad_reduce": 0}
     meta = [a.to("meta") if torch.is_tensor(a) else [t.to("meta") for t in a]

@@ -78,7 +78,8 @@ def test_port_session_matches_jax_session(mesh_and_cache, outputs_at):
     assert got.shape == want.shape == (rows, C_OUT)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
     # on the CPU the wrappers take the plain versions and launch nothing
-    assert mb.LAUNCHES == {"megablock_fwd": 0, "xhat_reduce": 0,
+    assert mb.LAUNCHES == {"megablock_fwd": 0, "megablock_fwd_xhat": 0,
+                           "megablock_fwd_wide": 0, "xhat_reduce": 0,
                            "megablock_bwd_rows": 0,
                            "megablock_bwd_grads": 0, "grad_reduce": 0}
 

@@ -100,8 +100,8 @@ def test_plain_b1_general_mlp_depth():
 
 
 def test_xhat_reduce_plain_sums_partials_in_order():
-    """The (K, C) corners of the per-CTA slots; with no more slots than
-    chunks each chunk holds one slot, so the sum runs s = 0, 1, ..."""
+    """The (K, C) corners of the per-CTA slots; at S <= 8 slots there is
+    one chunk, so the sum runs s = 0, 1, ..."""
     rs = np.random.RandomState(2)
     part = torch.from_numpy(
         rs.randn(2, 5, mb.SLOT, mb.SLOT).astype(np.float32))
@@ -113,19 +113,21 @@ def test_xhat_reduce_plain_sums_partials_in_order():
     assert mb.LAUNCHES["xhat_reduce"] == 0
 
 
-@pytest.mark.parametrize("S", [132, 16, 37])
+@pytest.mark.parametrize("S", [132, 16, 37, 5])
 def test_xhat_reduce_reference_follows_documented_order(S):
     """The plain version (the CPU route of xhat_reduce) is bit-equal to a
-    numpy loop in the documented order: XR_CHUNKS chunks of
-    ceil(S / XR_CHUNKS) consecutive slots, each summed from +0 in ascending
-    s, then the chunk sums added from +0 in chunk order. Past XR_CHUNKS
-    slots that order differs from one pass over s."""
+    numpy loop in the documented order: G = min(16, ceil(S / 8)) chunks of
+    ceil(S / G) consecutive slots, each summed from +0 in ascending s, then
+    the chunk sums added from +0 in chunk order. With more than one chunk
+    that order differs from one pass over s."""
     rs = np.random.RandomState(S)
     B, K, C = 2, 24, 10
     part = rs.randn(B, S, mb.SLOT, mb.SLOT).astype(np.float32)
-    L = -(-S // mb.XR_CHUNKS)
+    G = min(16, -(-S // 8))
+    assert mb.xhat_chunks(S) == G
+    L = -(-S // G)
     want = np.zeros((B, K, C), np.float32)
-    for g in range(mb.XR_CHUNKS):
+    for g in range(G):
         acc = np.zeros((B, K, C), np.float32)
         for s in range(g * L, min(S, (g + 1) * L)):
             acc = acc + part[:, s, :K, :C]
@@ -138,7 +140,92 @@ def test_xhat_reduce_reference_follows_documented_order(S):
     one_pass = np.zeros((B, K, C), np.float32)
     for s in range(S):
         one_pass = one_pass + part[:, s, :K, :C]
-    assert np.array_equal(one_pass, want) == (S <= mb.XR_CHUNKS)
+    assert np.array_equal(one_pass, want) == (G == 1)
+
+
+@pytest.mark.parametrize("S,G", [(1, 1), (8, 1), (9, 2), (16, 2), (32, 4),
+                                 (128, 16), (132, 16)])
+def test_xhat_chunks_follow_the_slot_count(S, G):
+    """The partial sum's chunk count grows with S, 8 slots a chunk, up to
+    16: B1's split-V grid gives S = 16 at B = 8 and 128 at B = 1."""
+    assert mb.xhat_chunks(S) == G
+
+
+@pytest.mark.parametrize("B,V,K,C,n_sm", [(8, 20480, 128, 128, 132),
+                                          (1, 32768, 128, 128, 132),
+                                          (2, 1000, 16, 8, 4),
+                                          (1, 64, 256, 256, 132),
+                                          (3, 33, 200, 136, 7)])
+def test_xhat_splits_cover_every_row(B, V, K, C, n_sm):
+    """The x_hat kernel's V ranges: L a multiple of 32, S L >= V with no
+    empty split, and about one CTA per SM over (batch, piece, split)."""
+    S, L = mb.xhat_splits(B, V, K, C, n_sm)
+    assert L % 32 == 0 and S * L >= V and (S - 1) * L < V
+    pieces = B * -(-K // mb.SLOT) * -(-C // mb.SLOT)
+    assert S == 1 or pieces * S <= 2 * n_sm
+
+
+@pytest.mark.parametrize("lowp", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_sm", [1, 4, 132], ids=["S1", "S4", "S16"])
+def test_plain_xhat_split_matches_jax_kernel(n_sm, lowp):
+    """x_hat_next as the card computes it: the split-V kernel's plain
+    version (partials over ranges of V, from the f32 out and the mass) and
+    its finish (`reduce_pieces`, the fixed-order sum) against the Pallas
+    kernel's x_hat_next in interpret mode."""
+    a = _inputs(4)
+    want, want_xn = _run_jax(a, True, lowp)
+    args = _torch_args(a, lowp)
+    f = mb._forward_parts(*args, lowp, None, TILE_V)
+    splits = mb.xhat_splits(2, 512, 16, 8, n_sm)
+    part = mb.megablock_fwd_xhat(args[1], f["out"], args[4], splits, lowp)
+    assert part.shape == (2, 1, 1, splits[0], mb.SLOT, mb.SLOT)
+    assert not part[..., 16:, :].any() and not part[..., 8:].any()
+    xn = mb.reduce_pieces(part, 2, 16, 8)
+    np.testing.assert_allclose(xn.numpy(), want_xn, **TOL[lowp])
+    # m (.) out given whole (a bf16 x's route) gives the same partials
+    same = mb.megablock_fwd_xhat(args[1], f["out"] * args[4][..., None],
+                                 None, splits, lowp)
+    assert torch.equal(same, part)
+    assert mb.LAUNCHES["megablock_fwd_xhat"] == 0
+
+
+@pytest.mark.parametrize("lowp", [False, True], ids=["tf32", "bf16"])
+@pytest.mark.parametrize("C,hidden", [(8, (16, 32, 8)), (40, (13,)),
+                                      (32, (32, 32))])
+def test_fwd_b_operands_gather_equals_b_tiles(C, hidden, lowp):
+    """The one gather that tiles B1's row-kernel operands gives, operand by
+    operand, what `b_tiles` gives (and so what wgmma reads back): s^T per
+    batch element; cmap^T with its rows re_c, im_c interleaved and its
+    contraction over [gx | gy] with each C-wide segment padded to a
+    multiple of 32 by zero columns; W_0^T over [x | xd | feat] padded the
+    same way; W_l^T for the other layers."""
+    a = _inputs(6, K=19, C=C, hidden=hidden)
+    args = _torch_args(a, False)
+    x_hat, coefs, A_re, A_im, Ws = args[10], args[5], args[6], args[7], args[8]
+    tiles, ptr = mb._fwd_b_operands(coefs, x_hat, A_re, A_im, Ws, lowp)
+    c32 = -(-C // 32) * 32
+
+    def segments(bt, nseg):  # (N, nseg C) -> (N, nseg c32), zero columns
+        out = bt.new_zeros((bt.shape[0], nseg * c32))
+        for g in range(nseg):
+            out[:, g * c32:g * c32 + C] = bt[:, g * C:(g + 1) * C]
+        return out
+    cmap = mb.cmap_of(A_re, A_im)
+    il = torch.stack((torch.arange(C), torch.arange(C) + C), 1).reshape(-1)
+    want = [mb.b_tiles((coefs * x_hat).transpose(1, 2), lowp),
+            mb.b_tiles(segments(cmap.transpose(0, 1)[il], 2), lowp),
+            mb.b_tiles(segments(Ws[0].transpose(0, 1), 3), lowp)]
+    want += [mb.b_tiles(W.transpose(0, 1), lowp) for W in Ws[1:]]
+    assert mb.segment_map(C, 2)[C:c32] == [-1] * (c32 - C)
+    assert len(ptr) == len(want)
+    base, size = tiles.data_ptr(), tiles.element_size()
+    flat = tiles.reshape(-1)
+    ends = []
+    for i, (p, w) in enumerate(zip(ptr, want)):
+        o = (p - base) // size
+        assert torch.equal(flat[o:o + w.numel()], w.reshape(-1)), i
+        ends.append(o + w.numel())
+    assert ends[-1] == flat.numel()
 
 
 @pytest.mark.parametrize("shape,padded", [((384, 128), (384, 128)),

@@ -109,18 +109,66 @@ def test_plain_block_matches_jax_kernel_at_c256(K, dropout, emit_next):
         _close(f"db{l}", dbs[l], g_bs[l])
 
 
+@pytest.mark.parametrize("K", [128, 256])
+@pytest.mark.parametrize("dropout", [False, True], ids=["nodrop", "drop"])
+def test_plain_xhat_split_matches_jax_kernel_at_c256(K, dropout):
+    """x_hat_next as the card computes it at C = 256: the split-V kernel's
+    plain version over 128 x 128 pieces of (K, C) (2 x 2 at K = 256) and
+    ranges of V, then `reduce_pieces`, against the Pallas kernel's
+    x_hat_next in interpret mode."""
+    a = _inputs(K + 7 * dropout, K)
+    seed = 20240917
+    out_j, xn_j = jax_megablock_chained(
+        *(jnp.asarray(a[k]) for k in ("x", "evecs", "gX", "gY", "mass",
+                                      "coefs", "A_re", "A_im")),
+        tuple(map(jnp.asarray, a["Ws"])), tuple(map(jnp.asarray, a["bs"])),
+        jnp.asarray(seed, jnp.int32), jnp.asarray(a["x_hat"]), TILE_V,
+        dropout, True, True)
+    t = torch.from_numpy
+    args = (t(a["x"]), t(a["evecs"]), t(a["gX"]), t(a["gY"]), t(a["mass"]),
+            t(a["coefs"]), t(a["A_re"]), t(a["A_im"]),
+            [t(W) for W in a["Ws"]], [t(b) for b in a["bs"]], t(a["x_hat"]))
+    f = mb._forward_parts(*args, False, seed if dropout else None, TILE_V)
+    _close("out", f["out"], out_j)
+    splits = mb.xhat_splits(B, V, K, C, 16)
+    part = mb.megablock_fwd_xhat(args[1], f["out"], args[4], splits)
+    assert part.shape == (B, K // 128, 2, splits[0], 128, 128)
+    _close("x_hat_next", mb.reduce_pieces(part, B, K, C), xn_j)
+
+
 @pytest.mark.parametrize("K,C,widths,want", [
-    (128, 128, (384, 128, 128, 128), (32, True)),
-    (256, 128, (384, 128, 128, 128), (32, False)),
-    (256, 256, (768, 256, 256, 256), (16, False)),
-    (256, 256, (768,) + (1024,) * 7 + (256,), (16, False))],
+    (128, 128, (384, 128, 128, 128), (("rows", (2, True)),
+                                      ("rows", (2, False)))),
+    (256, 128, (384, 128, 128, 128), (("rows", (2, True)),
+                                      ("rows", (2, False)))),
+    (256, 256, (768, 256, 256, 256), (("rows", (1, True)),
+                                      ("rows", (1, False)))),
+    (256, 256, (768,) + (1024,) * 7 + (256,),
+     (("wide", (16, False)), ("wide", (16, False))))],
     ids=["C128", "K256", "C256", "C256-1024x7"])
 def test_block_kernel_takes_c256_and_1024_wide_layers(K, C, widths, want):
-    """B1's row tile and s placement from its shared memory, computed from
-    the shapes with the kernel's formula against an H100's opt-in 232,448
-    bytes: K and C up to 256, hidden widths up to 1024 and 8 layers are
-    taken; a width past that is refused with the bytes it needs."""
-    assert mb.fwd_row_tile(K, C, widths, 232448) == want
+    """B1's route from its shared memory, computed from the shapes with the
+    kernels' formulas against an H100's opt-in 232,448 bytes, f32 and bf16:
+    the 64-row wgmma row kernel takes the segmentation model (K = C = 128)
+    and K = 256 with two warpgroups (two tiles) a CTA, feat spilled to a
+    device scratch in f32 (bf16's smaller B stages leave room for all three
+    buffers); the sampling_invariance model (C = 256, hidden [256, 256])
+    with one warpgroup, feat spilled in f32; hidden widths up to 1024 and 8
+    layers go to the wide route's 16-row tiles; a width past that is
+    refused with the bytes it needs."""
+    limit = 232448
+    for lowp, w in zip((False, True), want):
+        assert mb.fwd_route(K, C, widths, lowp, limit) == w
+    seg = (384, 128, 128, 128)
+    assert mb.fwd_rows_smem_bytes(128, seg, False) \
+        == 3 * 32768 + 3 * 64 * 132 * 4
+    assert mb.fwd_rows_smem_bytes(128, seg, False, True, 2) \
+        == 2 * 32768 + 2 * 2 * 64 * 132 * 4 <= limit
+    assert mb.fwd_rows_smem_bytes(128, seg, False, False, 2) > limit
+    assert mb.fwd_rows_smem_bytes(256, (768, 256, 256, 256), False, True) \
+        == 3 * 32768 + 2 * 64 * 260 * 4 <= limit
+    # C % 8 != 0 is the wide route's
+    assert mb.fwd_route(16, 12, (36, 12, 12), False, limit)[0] == "wide"
     need = mb.fwd_smem_bytes(16, 256, (768, 2048, 256))
     with pytest.raises(ValueError, match=f"needs {need} bytes"):
-        mb.fwd_row_tile(256, 256, (768, 2048, 256), 232448)
+        mb.fwd_route(256, 256, (768, 2048, 256), False, limit)
