@@ -2,7 +2,7 @@
 """Times kernels of the PyTorch port for the package of a given tree, on one
 CUDA card.
 
-    python3 chip_compare.py [--block] [TREE]
+    python3 chip_compare.py [--block | --fused] [TREE]
 
 TREE (default: this checkout) is a directory that holds a
 diffusionnet_tpu_torch package, such as an unpacked `git archive` of another
@@ -20,7 +20,9 @@ with --block (the block kernels and the train step they carry):
     kernel (megablock_fwd_xhat), each of them (the row kernel as B1 without
     emit_next; the x_hat kernel on the f32 out and the mass) beside its
     bound (chip_smoke.megablock_bound without emit_next,
-    chip_smoke.xhat_bound);
+    chip_smoke.xhat_bound); and a digest of the bits of B1's, B2's and the
+    x_hat kernel's results on these inputs (`digest`), which two trees
+    share where their kernels sum in the same order;
   * B1 at C = 256, hidden [256, 256], K = 128, B=1, V=32768 (the
     sampling_invariance model's widths), the same way;
   * xhat_reduce at B1's split counts (1, 128) and (8, 16), and at
@@ -29,7 +31,24 @@ with --block (the block kernels and the train step they carry):
     without its profile), f32 and bf16 operands, on torus(144, 140)'s
     operators from the host eigensolver, cached under build/dev/.
 
-Without --block:
+With --fused (the fused spectral block B4 and the paths that run it):
+
+  * spectral_project, spectral_apply and the whole fused block
+    (fused_spectral_block_batched) at B=4 and B=1, V=32768, K=C=128, a
+    f32 and a bf16 x beside f32 operators (chip_smoke.time_ms), beside the
+    bounds of chip_smoke.fused_bound, the projection also in device time
+    (chip_smoke.device_ms: at B=1 CUDA events time the wrappers' host
+    work) and in host time (`host_ms`); where the tree has it, the
+    backward's ds kernel (spectral_ds);
+  * the B3 op (ops.megablock.megablock, dropout off) at B=1, V=32768,
+    hidden [128, 128], f32 and bf16 operands, in CUDA events, in device
+    time and in host time;
+  * the fused segmentation train step of chip_smoke.py's phase 14 (the
+    segmentation model with use_pallas_fused=True through
+    apply_model(use_megakernel=False), dropout on, B=4 padded to 32768),
+    its dataset's operators cached under build/dev/.
+
+Without --block or --fused:
 
   * B5 at C = 160 on the cotan Laplacians of torus(144, 140) and
     delaunay_sphere(100000): device time (chip_smoke.device_ms) and CUDA
@@ -46,12 +65,49 @@ Without --block:
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
+import statistics
 import sys
+import time
 
 import numpy as np
 import torch
+
+
+def digest(*results) -> str:
+    """The first 16 hex digits of a SHA-256 of the results' bits (tensors,
+    or lists and tuples of them, None skipped), in order."""
+    h = hashlib.sha256()
+
+    def add(r):
+        if isinstance(r, (list, tuple)):
+            for t in r:
+                add(t)
+        elif r is not None:
+            h.update(r.detach().contiguous().cpu().view(torch.uint8)
+                     .numpy().tobytes())
+    add(results)
+    return h.hexdigest()[:16]
+
+
+def host_ms(fn, calls=20, reps=11, warmup=3) -> float:
+    """The host's time to issue one call of fn (the wrappers' Python work
+    and the launches), median of `reps` runs of `calls` calls issued while
+    a spin kernel holds the device, so that no call waits on it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        torch.cuda._sleep(1 << 27)  # about 0.07-0.1 s at 1.4-2 GHz
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(runs)
 
 
 def block_times(cs, out):
@@ -67,11 +123,15 @@ def block_times(cs, out):
     def b1(r, args, B, V, C, widths, lowp):
         r["b1_ms"] = cs.time_ms(lambda: mb.megablock_chained_fwd(
             *args, emit_next=True, lowp=lowp))
+        r["b1_digest"] = digest(mb.megablock_chained_fwd(
+            *args, emit_next=True, lowp=lowp))
         if not fwd_split:
             return
         src = mb.megablock_chained_reference(
             *args, emit_next=False, lowp=lowp)[0].float().contiguous()
         sp = mb.xhat_splits(B, V, 128, C, sms)
+        r["b1_xhat_digest"] = digest(mb.reduce_pieces(mb.megablock_fwd_xhat(
+            args[1], src, args[4], sp, lowp), B, 128, C))
         r.update(
             b1_rows_ms=cs.time_ms(lambda: mb.megablock_chained_fwd(
                 *args, emit_next=False, lowp=lowp)),
@@ -95,6 +155,8 @@ def block_times(cs, out):
             r = {}
             b1(r, args, B, V, 128, widths, lowp)
             r["b2_ms"] = cs.time_ms(lambda: mb.megablock_chained_bwd(
+                *args, dout, dxn, lowp=lowp))
+            r["b2_digest"] = digest(mb.megablock_chained_bwd(
                 *args, dout, dxn, lowp=lowp))
             if split:
                 _, R, dbp = mb.megablock_bwd_rows(*args, dout, dxn, lowp=lowp)
@@ -139,6 +201,69 @@ def block_times(cs, out):
     out["train step ms"] = steps
 
 
+def fused_times(cs, out):
+    """B4's kernels and whole block, the B3 op and the fused train step,
+    into `out`."""
+    from diffusionnet_tpu_torch.data import make_padded_batches
+    from diffusionnet_tpu_torch.models import flat_params
+    from diffusionnet_tpu_torch.ops import fused as fu
+    from diffusionnet_tpu_torch.ops import megablock as mb
+    from diffusionnet_tpu_torch.training import (
+        TaskConfig, adam_with_step_decay, apply_model, loss_and_counts,
+        make_train_step)
+    for B in (4, 1):
+        for kind, dt in (("f32", torch.float32), ("bf16 x", torch.bfloat16)):
+            x, evecs, gX, gY, mass, coefs = cs.fused_inputs(
+                B, 32768, 128, 128, dt, seed=B)
+            xb = 2 if dt == torch.bfloat16 else 4
+            x_hat = fu.spectral_project(x, evecs, mass)
+            r = out[f"B4 B={B} V=32768 {kind}"] = dict(
+                project_ms=cs.time_ms(lambda: fu.spectral_project(
+                    x, evecs, mass)),
+                project_device_ms=cs.device_ms(lambda: fu.spectral_project(
+                    x, evecs, mass)),
+                project_host_ms=host_ms(lambda: fu.spectral_project(
+                    x, evecs, mass)),
+                apply_ms=cs.time_ms(lambda: fu.spectral_apply(
+                    x_hat, coefs, evecs, gX, gY, dt)),
+                whole_ms=cs.time_ms(lambda: fu.fused_spectral_block_batched(
+                    x, evecs, gX, gY, mass, coefs)),
+                project_bound_ms=cs.fused_bound(B, 32768, 128, 128, xb,
+                                                ("project",))[0],
+                apply_bound_ms=cs.fused_bound(B, 32768, 128, 128, xb,
+                                              ("apply",))[0])
+            if hasattr(fu, "spectral_ds"):
+                cts = [torch.randn_like(x) for _ in range(3)]
+                r["ds_ms"] = cs.time_ms(lambda: fu.spectral_ds(
+                    evecs, gX, gY, *cts))
+                del cts
+            del x, evecs, gX, gY, mass, coefs, x_hat
+    for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        args = cs.block_inputs(1, 32768, 128, 128, (128, 128), dtype,
+                               seed=37)[:10]
+        op = (lambda: mb.megablock(*args, 0, 1024, False))
+        out[f"B3 B=1 V=32768 {kind}"] = dict(ms=cs.time_ms(op),
+                                             device_ms=cs.device_ms(op),
+                                             host_ms=host_ms(op))
+        del args
+    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "dev", "compare_cache")
+    batch = next(make_padded_batches(cs.segmentation_dataset(cache),
+                                     4)).to("cuda")
+    model = cs.segmentation_model(use_pallas_fused=True)
+    params = flat_params(model, "cuda", requires_grad=True)
+    cfg = TaskConfig(input_features="hks", labels_kind="face",
+                     use_megakernel=False)
+    opt = adam_with_step_decay(1e-3)
+    state = opt.init(params)
+    step = make_train_step(
+        lambda p, b, g: loss_and_counts(
+            apply_model(model, p, b, g, cfg, False), b, cfg), opt)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out["fused train step ms"] = cs.time_ms(
+        lambda: step(params, state, batch, gen), reps=5, calls=3, warmup=2)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_compare: torch.cuda.is_available() is false",
@@ -146,8 +271,8 @@ def main() -> int:
         return 1
     here = os.path.dirname(os.path.abspath(__file__))
     argv = sys.argv[1:]
-    block = "--block" in argv
-    argv = [a for a in argv if a != "--block"]
+    block, fused = "--block" in argv, "--fused" in argv
+    argv = [a for a in argv if a not in ("--block", "--fused")]
     tree = os.path.abspath(argv[0] if argv else here)
     import chip_smoke as cs        # this checkout's, whatever the tree
     sys.path.insert(0, tree)       # the tree's package before this one's
@@ -162,8 +287,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     out = {"tree": tree, "card": cs.card_line()}
-    if block:
-        block_times(cs, out)
+    if block or fused:
+        (block_times if block else fused_times)(cs, out)
         print(json.dumps(out), flush=True)
         return 0
     for name, (v, f) in cs.b5_meshes():

@@ -77,26 +77,38 @@ Phases, in order; any failure raises and the script exits non-zero:
      model is held to a session on ARPACK operators.
 
  13. B4 (`spectral_project` with `xhat_reduce`, `spectral_apply`, and the
-     whole fused block) against its plain version at the segmentation
-     training shape (B=4, V=32768, K=C=128) and a ragged small shape
-     (V=1000, tile_v 8), f32 and a bf16 x beside f32 operators; B3 (the op
+     whole fused block) against its plain version (the projection's: the
+     split-V partials and their fixed-order sum) at the segmentation
+     training shape (B=4, V=32768, K=C=128), at B=1 and at a ragged V
+     (1000, tile_v 8; K=C=128 and K=16, C=8), f32, a bf16 x beside f32
+     operators and bf16
+     operators, each kernel launched twice and bit-identical; the
+     projection's lowp mode (B3's) on the operators in bf16 beside every x;
+     the backward's ds on the projection's kernel (spectral_ds) against its
+     plain version (f32 and bf16 cotangents); B3 (the op
      `megablock`) at B=2, V=32768, hidden [128, 128], f32 and bf16,
      dropout off and on, forward and every gradient (ReLU-tie rows given
      zero cotangent, as in phase 7);
  14. the fused slice: the segmentation model built with
      use_pallas_fused=True takes 5 Adam steps (dropout on) through
      apply_model(use_megakernel=False) on phase 8's batch; the counters must
-     show 4 spectral_project and 4 spectral_apply launches per step and no
-     B1 or B2; one step with dropout off from the same state, fused and
+     show 4 spectral_project, 4 spectral_ds (the backward's, on the same
+     kernel) and 4 spectral_apply launches per step, and no B1 or B2; one step
+     with dropout off from the same state, fused and
      unfused, must agree in loss, gradients and updated parameters; a warm
      InferenceSession(use_megakernel=False) request on torus(144, 140) must
      launch B4 four times and agree with the unfused model; then the B3 op
      takes 3 Adam steps of one block's parameters at full width with
      dropout (1 projection, 1 B1, 1 B2 launch a step);
  15. times: B4's kernels and the whole block beside their plain versions
-     and bounds at B=4 and B=1, f32 and bf16 x; B3 beside its plain
-     version; the fused and the unfused train step of phase 14 with a
-     profiler breakdown;
+     and bounds at B=4 and B=1, f32 and bf16 x, the projection beside one
+     torch.einsum and spectral_apply beside one torch.matmul over Phi, GX
+     and GY stacked as (3B, V, K), the backward's ds (B=4 and 1, f32)
+     beside one torch.einsum over the stacked pairs; B3 beside its plain
+     version; the fused
+     and the unfused train step of phase 14 with a profiler breakdown and,
+     printed only, the step's largest cuBLAS kernels attributed to the
+     operators (and autograd nodes) that launched them;
  16. the sampling_invariance model (c_width 256, hidden [256, 256], 4
      blocks, k 128, vertex outputs over 6890 classes, xyz input, dropout
      on) takes 3 Adam steps at the experiment's default batch of 2 (torus(144, 140) and
@@ -1185,7 +1197,8 @@ def phase_step_times(mb, card, torus_ops, torus_verts, profiled=True):
         # where a step's time goes: three steps under the profiler
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
             t0 = time.perf_counter()
             for _ in range(3):
                 step(params, state, None, None)
@@ -1591,25 +1604,37 @@ def phase_b4_b3(mb, fu):
     largest f32 full-width errors."""
     log("== phase 13: B4 (spectral_project, xhat_reduce, spectral_apply) "
         "and B3 (megablock) against their plain versions")
-    errs = {"spectral_project": 0.0, "spectral_apply": 0.0, "megablock": 0.0}
+    errs = {"spectral_project": 0.0, "spectral_apply": 0.0, "spectral_ds": 0.0,
+            "megablock": 0.0}
+    f32, bf16 = torch.float32, torch.bfloat16
     for B, V, K, C, tile, n_pad in ((4, 32768, 128, 128, 1024, 0),
+                                    (1, 32768, 128, 128, 1024, 0),
+                                    (2, 1000, 128, 128, 8, 100),
                                     (2, 1000, 16, 8, 8, 100)):
-        for kind, dt in (("f32", torch.float32), ("bf16 x", torch.bfloat16)):
+        for kind, dt, ops_dt in (("f32", f32, f32), ("bf16 x", bf16, f32),
+                                 ("bf16 operators", bf16, bf16)):
             x, evecs, gX, gY, mass, coefs = fused_inputs(B, V, K, C, dt,
                                                          seed=V + K,
                                                          n_pad=n_pad)
+            evecs, gX, gY = (t.to(ops_dt) for t in (evecs, gX, gY))
             tag = f"B={B} V={V} K={K} C={C} tile_v={tile} {kind}"
             x_hat = fu.spectral_project(x, evecs, mass)
             outs = fu.spectral_apply(x_hat, coefs, evecs, gX, gY, x.dtype)
+            again = (fu.spectral_project(x, evecs, mass),
+                     *fu.spectral_apply(x_hat, coefs, evecs, gX, gY,
+                                        x.dtype))
             whole = fu.fused_spectral_block_batched(x, evecs, gX, gY, mass,
                                                     coefs, tile)
             torch.cuda.synchronize()
+            check(all(torch.equal(a, b)
+                      for a, b in zip((x_hat, *outs), again)),
+                  f"{tag}: two launches of B4's kernels differ")
             e = compare(f"{tag} x_hat", x_hat,
                         fu.spectral_project_reference(x, evecs, mass),
                         TOL["f32"])
             refs = fu.spectral_apply_reference(x_hat, coefs, evecs, gX, gY,
                                                x.dtype)
-            lowp = dt == torch.bfloat16
+            lowp = dt == bf16
             tol = B4_BF16_TOL if lowp else TOL["f32"]
             ea = 0.0
             for name, a, b in zip(("y", "ygx", "ygy"), outs, refs):
@@ -1621,10 +1646,32 @@ def phase_b4_b3(mb, fu):
                                       x, evecs, gX, gY, mass, coefs)):
                 compare(f"{tag} whole function {name}", a, b, tol,
                         scaled=lowp, quiet=True)
-            if V == 32768 and kind == "f32":
+            # B3's projection on bf16 operators (the op takes any x)
+            ev16 = evecs.to(bf16)
+            lp = fu.spectral_project(x, ev16, mass, lowp=True)
+            check(torch.equal(lp, fu.spectral_project(x, ev16, mass,
+                                                      lowp=True)),
+                  f"{tag}: two launches of the lowp projection differ")
+            compare(f"{tag} x_hat lowp", lp, fu.spectral_project_reference(
+                x, ev16, mass, lowp=True), TOL["f32"])
+            del ev16
+            if ops_dt == f32:  # the backward's ds on the same kernel
+                g = torch.Generator(device="cuda").manual_seed(B + V)
+                cts = [torch.randn(B, V, C, generator=g, device="cuda").to(dt)
+                       for _ in range(3)]
+                ds = fu.spectral_ds(evecs, gX, gY, *cts)
+                check(torch.equal(ds, fu.spectral_ds(evecs, gX, gY, *cts)),
+                      f"{tag}: two launches of ds differ")
+                ed = compare(f"{tag} ds", ds, fu.spectral_ds_reference(
+                    evecs, gX, gY, *cts), TOL["f32"], scaled=True)
+                if (B, V, kind) == (4, 32768, "f32"):
+                    errs["spectral_ds"] = ed
+                del cts, ds
+            if (B, V, kind) == (4, 32768, "f32"):
                 errs["spectral_project"] = e
                 errs["spectral_apply"] = ea
-            del x, evecs, gX, gY, outs, refs, whole
+            log(f"  {tag}: two launches bit-identical")
+            del x, evecs, gX, gY, outs, refs, whole, again
     B, V, K, C = 2, 32768, 128, 128
     for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         lowp = kind == "bf16"
@@ -1708,9 +1755,11 @@ def phase_fused_slice(mb, fu, batch):
         log(f"  step {i}: loss {losses[-1]:.6f}, correct {int(correct)} of "
             f"{int(total)} faces, {1e3 * (time.perf_counter() - t0):.1f} ms")
     launches = {**fu.LAUNCHES, **mb.LAUNCHES}
+    # each block: the projection, spectral_apply and the backward's ds
     per_step = {"spectral_project": N_BLOCK, "spectral_apply": N_BLOCK,
+                "spectral_ds": N_BLOCK,
                 "megablock_fwd": 0, "megablock_fwd_xhat": 0,
-                "megablock_fwd_wide": 0, "xhat_reduce": N_BLOCK,
+                "megablock_fwd_wide": 0, "xhat_reduce": 2 * N_BLOCK,
                 "megablock_bwd_rows": 0, "megablock_bwd_grads": 0,
                 "grad_reduce": 0}
     log(f"  launches in 5 steps (B={B}, V={V}): {launches}")
@@ -1754,6 +1803,7 @@ def phase_fused_slice(mb, fu, batch):
         ref = InferenceSession(plain_model, k_eig=K_EIG, op_cache_dir=cache,
                                device="cuda")(verts, faces)
     per_req = {"spectral_project": N_BLOCK, "spectral_apply": N_BLOCK,
+               "spectral_ds": 0,
                "megablock_fwd": 0, "megablock_fwd_xhat": 0,
                "megablock_fwd_wide": 0, "xhat_reduce": N_BLOCK,
                "megablock_bwd_rows": 0, "megablock_bwd_grads": 0,
@@ -1794,7 +1844,8 @@ def phase_fused_slice(mb, fu, batch):
         check(math.isfinite(loss.item()), f"B3 path loss {loss.item()}")
         log(f"    step {i}: loss {loss.item():.6f}")
     one = {**fu.LAUNCHES, **mb.LAUNCHES}
-    want = {"spectral_project": 3, "spectral_apply": 0, "megablock_fwd": 3,
+    want = {"spectral_project": 3, "spectral_apply": 0, "spectral_ds": 0,
+            "megablock_fwd": 3,
             "megablock_fwd_xhat": 0, "megablock_fwd_wide": 0,
             "xhat_reduce": 3, "megablock_bwd_rows": 3,
             "megablock_bwd_grads": 3, "grad_reduce": 9}
@@ -1835,6 +1886,9 @@ def phase_fused_times(mb, fu, card, batch):
             xb = 2 if dt == torch.bfloat16 else 4
             x_hat = fu.spectral_project(x, evecs, mass)
             tp = time_ms(lambda: fu.spectral_project(x, evecs, mass))
+            # its device time: at B=1 CUDA events time the wrappers' host
+            # work, about as long as the two kernels
+            dp = device_ms(lambda: fu.spectral_project(x, evecs, mass))
             pp = time_ms(lambda: fu.spectral_project_reference(x, evecs,
                                                                mass))
             # the library call of the projection: one einsum (f32 only; it
@@ -1846,6 +1900,13 @@ def phase_fused_times(mb, fu, card, batch):
                                                    gY, dt))
             pa = time_ms(lambda: fu.spectral_apply_reference(
                 x_hat, coefs, evecs, gX, gY, dt))
+            # the library call of spectral_apply: one torch.matmul over the
+            # operators stacked as (3B, V, K) and s (f32, "highest"), both
+            # made before the timed region
+            stacked = torch.cat((evecs, gX, gY))
+            s3 = (coefs * x_hat).repeat(3, 1, 1)
+            la = time_ms(lambda: torch.matmul(stacked, s3))
+            del stacked, s3
             tw = time_ms(lambda: fu.fused_spectral_block_batched(
                 x, evecs, gX, gY, mass, coefs))
             pw = time_ms(lambda: fu.fused_spectral_block_reference(
@@ -1854,17 +1915,35 @@ def phase_fused_times(mb, fu, card, batch):
             ba = fused_bound(B, 32768, 128, 128, xb, ("apply",))
             bw = fused_bound(B, 32768, 128, 128, xb)
             rows[(B, kind)] = dict(project=(tp, pp, bp, lp),
-                                   apply=(ta, pa, ba, None),
+                                   apply=(ta, pa, ba, la),
                                    whole=(tw, pw, bw, None))
-            products = {"project": 1, "apply": 3, "whole": 4}
+            if dt == torch.float32:
+                # the backward's ds on the projection's kernel, beside its
+                # plain version and one einsum over the stacked pairs
+                g = torch.Generator(device="cuda").manual_seed(5)
+                cts = [torch.randn(B, 32768, 128, generator=g, device="cuda")
+                       for _ in range(3)]
+                ops3, cts3 = torch.stack((evecs, gX, gY)), torch.stack(cts)
+                td = time_ms(lambda: fu.spectral_ds(evecs, gX, gY, *cts))
+                pd = time_ms(lambda: fu.spectral_ds_reference(evecs, gX, gY,
+                                                              *cts))
+                ld = time_ms(lambda: torch.einsum("tbvk,tbvc->bkc", ops3,
+                                                  cts3))
+                bd = bound(3 * B * 32768 * 128 * 8 + B * 128 * 128 * 4,
+                           6 * B * 32768 * 128 * 128, TF32_FLOPS / 3)
+                rows[(B, kind)]["ds"] = (td, pd, bd, ld)
+                del cts, ops3, cts3
+            library = {"project": "einsum", "apply": "stacked matmul",
+                       "ds": "einsum over the stacked pairs"}
             for name, (k, p, bd, lib) in rows[(B, kind)].items():
-                # the f32 FFMA version's own floor: its products at 67 TFLOP/s
-                ffma = products[name] * 2 * B * 32768 * 128 * 128 / F32_FLOPS
                 log(f"  time B4 {name} B={B} V=32768 K=C=128 {kind}: kernel "
                     f"{k:.4f} ms, plain {p:.4f} ms"
-                    + (f", library (einsum) {lib:.4f} ms" if lib else "")
+                    + (f", library ({library[name]}) {lib:.4f} ms" if lib
+                       else "")
+                    + (f", device time {dp:.4f} ms" if name == "project"
+                       else "")
                     + f"; bound {bd[0]:.4f} ms ({bd[1]}), share "
-                    f"{bd[0] / k:.4f}; FFMA floor {ffma * 1e3:.4f} ms [{card}]")
+                    f"{bd[0] / k:.4f} [{card}]")
             del x, evecs, gX, gY, x_hat
     widths = (3 * 128, 128, 128, 128)
     for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -1899,13 +1978,15 @@ def phase_fused_times(mb, fu, card, batch):
         steps[name] = t
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
             t0 = time.perf_counter()
             for _ in range(3):
                 step(params, state, batch, gen)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / 3 * 1e3
-        groups = {"B4 spectral_project": 0.0, "B4 spectral_apply": 0.0,
+        groups = {"B4 spectral_project (x_hat, ds)": 0.0,
+                  "B4 spectral_apply": 0.0,
                   "xhat_reduce": 0.0, "matmul (cuBLAS)": 0.0, "Adam": 0.0,
                   "other": 0.0}
         top = []
@@ -1917,7 +1998,7 @@ def phase_fused_times(mb, fu, card, batch):
             top.append((us, e.key))
             key = e.key.lower()
             if "spectral_project" in key:
-                groups["B4 spectral_project"] += us
+                groups["B4 spectral_project (x_hat, ds)"] += us
             elif "spectral_apply" in key:
                 groups["B4 spectral_apply"] += us
             elif "xhat_reduce" in key:
@@ -1937,8 +2018,40 @@ def phase_fused_times(mb, fu, card, batch):
             + ", ".join(f"{k} {v / 3 / 1e3:.3f} ms" for k, v in groups.items()))
         for us, key in sorted(top, reverse=True)[:6]:
             log(f"    {us / 3 / 1e3:9.3f} ms  {key[:100]}")
+        gemms = [key for us, key in sorted(top, reverse=True)
+                 if any(w in key.lower() for w in ("gemm", "sm90", "cutlass"))]
+        kernel_callers(prof, gemms[:2], steps=3)
         del params, state, model
     return rows, steps
+
+
+def kernel_callers(prof, kernels, steps, n_callers=8):
+    """Prints, for each named kernel of a profile, the operators that
+    launched it (name and input shapes) under the autograd node or the
+    forward that ran them, with their device time per step. Printed only:
+    no check reads the profiler's device events, which a card does not
+    always report."""
+    for kernel in kernels:
+        callers = {}
+        for e in prof.events():
+            us = sum(k.duration for k in getattr(e, "kernels", [])
+                     if k.name == kernel)
+            if not us:
+                continue
+            node, up = "forward", e.cpu_parent
+            while up is not None:
+                if "Backward" in up.name or "backward" in up.name:
+                    node = up.name.split(": ")[-1]
+                    break
+                up = up.cpu_parent
+            key = (node, e.name, str(e.input_shapes))
+            callers[key] = callers.get(key, 0.0) + us
+        total = sum(callers.values())
+        log(f"    callers of {kernel[:80]} ({total / steps / 1e3:.3f} ms "
+            "per step):")
+        ranked = sorted(callers.items(), key=lambda kv: -kv[1])
+        for (node, op, shapes), us in ranked[:n_callers]:
+            log(f"      {us / steps / 1e3:8.3f} ms  {node} / {op} {shapes}")
 
 
 
@@ -2083,7 +2196,8 @@ def main() -> int:
     _build.load()
     log(f"  built {so.name} in {time.perf_counter() - t0:.2f} s")
     for line in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "entry function" in line:
+        if ("registers" in line or "spill" in line
+                or "entry function" in line or "Performance" in line):
             log("  " + line.strip())
 
     errs, partials = phase_kernels(mb)
@@ -2197,6 +2311,11 @@ def main() -> int:
         row("spectral_apply", "spectral_fused.cu", "pallas_fused.py:200",
             fused_launches["spectral_apply"], errs["spectral_apply"],
             *fused_ms[(4, "f32")]["apply"]),
+        # the backward's ds (JAX's plain einsums, `_bwd_b`) on the
+        # projection's kernel with three pairs
+        row("spectral_ds", "spectral_fused.cu", "pallas_fused.py:239",
+            fused_launches["spectral_ds"], errs["spectral_ds"],
+            *fused_ms[(4, "f32")]["ds"]),
         # B3: spectral_project, xhat_reduce and B1 (B=1, V=32768, f32);
         # launches: the op's calls on its own path
         row("megablock", "spectral_fused.cu", "pallas_megablock.py:244",

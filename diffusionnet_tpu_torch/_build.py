@@ -136,9 +136,9 @@ def load() -> ctypes.CDLL:
         lib.bell_matvec_launch.restype = i
         lib.bell_error_string.argtypes = [i]
         lib.bell_error_string.restype = ctypes.c_char_p
-        lib.sf_project_launch.argtypes = [p] * 4 + [i] * 8 + [p]
+        lib.sf_project_launch.argtypes = [p] * 6 + [i, p, p] + [i] * 9 + [p]
         lib.sf_project_launch.restype = i
-        lib.sf_apply_launch.argtypes = [p] * 8 + [i] * 6 + [p]
+        lib.sf_apply_launch.argtypes = [p] * 8 + [i] * 7 + [p]
         lib.sf_apply_launch.restype = i
         _lib = lib
         return lib

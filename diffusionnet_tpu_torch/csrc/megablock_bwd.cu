@@ -92,7 +92,8 @@
 //   33 KB under lowp (the output block); grads kernel 224 KB in f32 (3
 //   raw stages of 32 KB and two buffers of the A and B tiles, hi and lo,
 //   so that the next chunk's transpose runs during this chunk's
-//   products), 160 KB under lowp.
+//   products), 160 KB under lowp (and 408 bytes of splitv.cuh's BULK route
+//   that this kernel leaves unused).
 //
 // What bounds it on this card. At K = C = 128, hidden [128, 128] a vertex
 // costs about 2.2x B1's multiply-adds (the forward recompute without the

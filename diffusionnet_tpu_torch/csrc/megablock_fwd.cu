@@ -441,7 +441,7 @@ __global__ void __launch_bounds__(sv::GNT, 1)
   const void* Bm[1] = {p.src};
   float* out = p.part + ((((long long)b * p.nkt + kt) * p.nct + ct) * p.S +
                          split) * SLOT * SLOT;
-  sv::grads_block<LOWP, OPS_BF16, false>(
+  sv::grads_block<LOWP, OPS_BF16, false, true>(
       smem, A, p.K, p.ops_vec, Bm, p.C, 1, (long long)b * p.V, r_lo, r_hi,
       kt * SLOT, p.K, ct * SLOT, p.C, out, SLOT, min(SLOT, p.K - kt * SLOT),
       min(SLOT, p.C - ct * SLOT), p.scale);

@@ -1,4 +1,4 @@
-// The fused spectral block for Hopper (sm_90a): two kernels.
+// The fused spectral block for Hopper (sm_90a): two kernels on wgmma.
 //
 // Replaces the TPU kernels `_kernel` / `_kernel_batched`
 // (diffusionnet_tpu/ops/pallas_fused.py:37 and :154, launched at :91 and
@@ -10,382 +10,439 @@
 //   spectral_apply:    s = coefs (.) x_hat
 //                      y = Phi s;  ygx = GX s;  ygy = GY s       (V, C) each
 //
+// The TPU kernel carries x_hat across its sequential grid in VMEM and then
+// streams the operators again. Here the two halves are two kernels:
+//
+//  * spectral_project_kernel: x_hat as TN products over V on a split-V grid
+//    (splitv.cuh::grads_block, shared with B1's x_hat kernel and B2's grads
+//    kernel). Each CTA owns one 128 x 128 piece of (K, C) of one batch
+//    element and one fixed range of rows (ops/megablock.py::xhat_splits),
+//    keeps its accumulator in registers across the range and writes one
+//    partial slot, whole (zeros past K and C), once; m scales x's rows in
+//    f32 before the TF32 split (or the bf16 rounding of lowp), its factors
+//    staged with each chunk, and chunks of whole 128-value rows come by
+//    bulk copies (grads_block's BULK route). Then `xhat_reduce_kernel`
+//    (megablock_fwd.cu) adds the slots in a fixed order. With three
+//    (operator, cotangent) pairs and no scale the same kernel computes
+//    B4's backward ds = Phi^T dy + GX^T dgx + GY^T dgy.
+//  * spectral_apply_kernel: a 64-row wgmma row kernel. Each CTA is
+//    persistent: it walks a contiguous range of (batch element, 128-column
+//    piece of C, pair of 64-row tiles) items, two warpgroups a CTA, each on
+//    its own 64-row tile of the pair. s = coefs (.) x_hat of the item's
+//    batch element and column piece is staged in shared memory once, where
+//    the range reaches a new (b, piece), as the B operand: K-major TF32 hi /
+//    lo tiles (128 KB for 128 rows of K), each 32-value chunk of the
+//    contraction in the permuted order of a thread's A fragments
+//    (wgmma.cuh::RowF; ops/megablock.py::b_tiles lays B1's B tiles out the
+//    same way). Restaging s per tile would read 268 MB from L2 at B = 4,
+//    V = 32768. A is the operator rows, read from device memory straight
+//    into the thread's fragments (two 16-byte loads a row and chunk), two
+//    chunks ahead of the products. The three products (Phi, GX, GY) run
+//    one after another through one product loop and one 64-float
+//    accumulator; a finished product goes to the warpgroup's
+//    shared-memory tile, and its rows are stored to device memory (a warp
+//    a 512-byte row, coalesced) a slice per chunk while the next product's
+//    chunks run on the tensor cores.
+//
+// No slot is read, modified and written per tile, and nothing is summed
+// with floating-point atomics: two launches give the same bits.
+//
+// Precision. f32 products take three TF32 passes (a_lo b_hi + a_hi b_lo +
+// a_hi b_hi; hi = tf32(v), lo = tf32(v - hi)): the f32 outputs must hold
+// 1e-4 against the plain version, which one pass does not. bf16 operators
+// are exact in TF32 (8 significant bits), so spectral_apply takes two
+// passes there (a s_lo + a s_hi). With LOWP (B3 on bf16 operators) both
+// operands of the projection, Phi and m (.) x, are rounded to bf16 first,
+// as the TPU kernel's `_dot_t` does, and multiplied once. Outputs are
+// stored in x's dtype.
+//
 // What bounds it on this card. At the segmentation training shape (B = 4,
-// V = 32768, K = C = 128, f32) the function must read x, Phi, GX and GY and
-// write three outputs: 7 x 16.8 MB per mesh, about 470 MB, 0.14 ms at
-// 3.35 TB/s. It does 4 x 2VKC = 17.2 GFLOP, 0.10 ms at the TF32 rate of
-// three passes: memory bounds it. This version multiplies in plain f32 FFMA
-// (the f32 inputs must hold 1e-4 against the plain version; one TF32 pass
-// does not), so its own floor is 17.2 GFLOP at 67 TFLOP/s, about 0.26 ms.
-// On an H100 80GB HBM3 at a 700 W power limit it took 0.16 ms
-// (spectral_project) and 0.70 ms (spectral_apply, 250 registers a thread:
-// one CTA per SM) at that shape.
+// V = 32768, K = C = 128, f32) spectral_apply must read Phi, GX and GY and
+// write three outputs (403 MB, 0.120 ms at 3.35 TB/s) and does 3 x 2VKC =
+// 12.9 GFLOP (0.078 ms at the TF32 rate of three passes): memory bounds it,
+// and the products must overlap the traffic to come near it. The
+// projection reads x, Phi and m (135 MB, 0.040 ms). The FFMA kernels these
+// replace took 0.70 ms (spectral_apply: 250 registers a thread, one CTA an
+// SM) and 0.16 ms (spectral_project) on an NVIDIA H100 80GB HBM3 at a
+// 700 W power limit (chip_smoke.py).
 //
-// What the design does about what does not carry over from the TPU kernel:
-//  * The TPU kernel carries the x_hat sum across a sequential grid in VMEM.
-//    Here the row tiles of a mesh run in parallel: each CTA of
-//    spectral_project sums a fixed, strided set of 32-row tiles into its own
-//    (128, 128) f32 slot, in the slot layout of B1's x_hat partials, and
-//    `xhat_reduce_kernel` (megablock_fwd.cu) adds the slots in a fixed
-//    order. No floating-point atomics: x_hat is deterministic. K and C of
-//    any size are covered in 128 x 128 pieces, one slot per piece.
-//  * s = coefs (.) x_hat lives in shared memory (128 x 128 f32, 66 KB with
-//    padding: dynamic shared memory above 48 KB), one CTA per (b, 128-row
-//    tile, 128-column tile) of the outputs. The coefficient multiply is fused
-//    into its staging. The operator rows are staged in 32-column chunks, the
-//    next chunk's loads in flight in registers during this chunk's products;
-//    only the three outputs go to device memory.
-//  * Each thread owns an 8 x 8 block of the output (FFMA outer products, f32
-//    accumulation). Rows past V and columns past K or C are masked here: the
-//    wrapper needs no padded copy.
-//
-// Types: x and the operators each f32 or bf16; everything is computed in
-// f32. With LOWP (B3 on bf16 operators) both operands of the projection,
-// Phi and m (.) x, are rounded to bf16 first, as the TPU kernel's `_dot_t`
-// does; the products are exact in f32. The outputs are stored in x's dtype.
+// Shapes. Rows past V, contraction values past K and columns past C are
+// masked (loads give 0, stores are skipped); K and C of any size are
+// covered in 128-wide pieces. Where K > 128 spectral_apply restages s for
+// every 128-row piece of K of every product (that is slower, and no model
+// of the repo has it); the wrapper makes no padded copy.
 
 #include "megablock_common.cuh"
+#include "splitv.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using namespace mb;
+using wg::KCH;
+using wg::NB;
 
-constexpr int ST = 256;        // threads per CTA (16 x 16)
-constexpr int PIECE = SLOT;    // side of a (K, C) piece: the x_hat slot side
-constexpr int LDP = PIECE + 4; // padded row of a staged 128-wide tile
-constexpr int PR = 32;         // rows per tile of spectral_project
-constexpr int AR = 128;        // rows per CTA of spectral_apply
-constexpr int AK = 32;         // operator columns per staged chunk (apply)
-constexpr int LDK = AK + 4;
-static_assert(ST == 256 && PIECE == 128, "8 x 8 outputs per thread");
-
-// Each thread owns the 8 columns {4 t + j, 64 + 4 t + j : j < 4} of a
-// 128-wide piece: a quarter warp reads 8 consecutive float4 of a staged row
-// (no bank conflicts) and a half warp writes 256 contiguous bytes.
-__device__ __forceinline__ int col8(int t, int i) {
-  return (i < 4 ? 4 * t : 64 + 4 * t) + (i & 3);
-}
-
-__device__ __forceinline__ void load8(const float* row, int t, float v[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(row + 4 * t);
-  const float4 b = *reinterpret_cast<const float4*>(row + 64 + 4 * t);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
+// ---------------------------------------------------------------------------
+// spectral_project (and B4's backward ds): split-V TN products
+// ---------------------------------------------------------------------------
 
 struct ProjectArgs {
-  const void* x;      // (B,V,C) f32 or bf16
-  const void* evecs;  // (B,V,K) f32 or bf16
-  const float* mass;  // (B,V)
-  float* partial;     // (B * nkt * nct, nsplit, PIECE, PIECE)
-  int B, V, K, C, nkt, nct, nsplit, n_tiles;
-  int x_bf16, ops_bf16;
+  const void* A[3];    // operators, (B V, K) row-major, one dtype
+  const void* Bm[3];   // (B V, C) row-major, one dtype
+  const float* scale;  // (B V) factors of B's rows, or null
+  float* part;         // (B, nkt, nct, S, SLOT, SLOT)
+  int nterms, V, K, C, S, L, nkt, nct, a_vec, b_vec;
 };
 
-// Grid (nsplit, nkt * nct, B). CTA (split, piece, b) sums the tiles split,
-// split + nsplit, ... of batch element b into its slot: rows k0.. of the
-// piece are x_hat rows, columns c0.. x_hat columns.
-template <bool LOWP>
-__global__ void __launch_bounds__(ST) spectral_project_kernel(
-    const ProjectArgs p) {
-  __shared__ __align__(16) float sP[PR * LDP];  // Phi tile, k in a row
-  __shared__ __align__(16) float sX[PR * LDP];  // m (.) x tile, c in a row
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int split = blockIdx.x, b = blockIdx.z;
-  const int kt = blockIdx.y / p.nct, ct = blockIdx.y % p.nct;
-  const int k0 = kt * PIECE, c0 = ct * PIECE;
-  const int V = p.V, K = p.K, C = p.C;
-  const size_t vbase = (size_t)b * V;
-
-  // staging: element i = tid + r * ST of a PR x PIECE tile is (row i / PIECE,
-  // column i % PIECE); consecutive threads read consecutive columns
-  constexpr int R = PR * PIECE / ST;
-  float rp[R], rx[R], rm[R];
-  auto fetch = [&](int tile) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = tid + r * ST, row = tile * PR + i / PIECE;
-      const int col = i % PIECE;
-      const bool in = row < V;
-      rp[r] = (in && k0 + col < K)
-                  ? raw_load(p.evecs, (vbase + row) * K + k0 + col, p.ops_bf16)
-                  : 0.f;
-      rx[r] = (in && c0 + col < C)
-                  ? raw_load(p.x, (vbase + row) * C + c0 + col, p.x_bf16)
-                  : 0.f;
-      rm[r] = in ? p.mass[vbase + row] : 0.f;
-    }
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  int tile = split;
-  if (tile < p.n_tiles) fetch(tile);
-  for (; tile < p.n_tiles; tile += p.nsplit) {
-    __syncthreads();  // the previous tile's readers of sP / sX are done
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = tid + r * ST, o = (i / PIECE) * LDP + i % PIECE;
-      sP[o] = rnd<LOWP>(from_raw(rp[r], p.ops_bf16));
-      sX[o] = rnd<LOWP>(from_raw(rx[r], p.x_bf16) * rm[r]);
-    }
-    __syncthreads();
-    if (tile + p.nsplit < p.n_tiles) fetch(tile + p.nsplit);
-#pragma unroll 4
-    for (int m = 0; m < PR; ++m) {
-      float a[8], v[8];
-      load8(sP + m * LDP, ty, a);
-      load8(sX + m * LDP, tx, v);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], v[j], acc[i][j]);
-    }
-  }
-
-  // the slot is written whole (zeros past K and C): xhat_reduce reads its
-  // (K, C) corner, and a split piece's corners are the full slot
-  const int piece = (b * p.nkt + kt) * p.nct + ct;
-  float* slot =
-      p.partial + ((size_t)piece * p.nsplit + split) * PIECE * PIECE;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float* row = slot + (size_t)col8(ty, i) * PIECE;
-    *reinterpret_cast<float4*>(row + 4 * tx) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(row + 64 + 4 * tx) =
-        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-  }
+// CTA (b, kt, ct, split) writes slot part[b][kt][ct][split] = sum over t of
+// A_t[b][v, 128 kt..]^T (scale (.) B_t)[b][v, 128 ct..] over the rows v of
+// [split L, (split + 1) L) of V: the whole slot, zeros past K and C.
+template <bool LOWP, bool A_BF16, bool B_BF16>
+__global__ void __launch_bounds__(sv::GNT, 1)
+    spectral_project_kernel(const ProjectArgs p) {
+  extern __shared__ __align__(128) char smem[];
+  long long id = blockIdx.x;
+  const int split = (int)(id % p.S);
+  id /= p.S;
+  const int ct = (int)(id % p.nct);
+  id /= p.nct;
+  const int kt = (int)(id % p.nkt);
+  const long long b = id / p.nkt;
+  const long long r_lo = (long long)split * p.L;
+  const long long r_hi = min(r_lo + p.L, (long long)p.V);
+  const void* A[3] = {p.A[0], p.A[1], p.A[2]};
+  const void* Bm[3] = {p.Bm[0], p.Bm[1], p.Bm[2]};
+  float* out =
+      p.part + (((b * p.nkt + kt) * p.nct + ct) * p.S + split) * SLOT * SLOT;
+  sv::grads_block<LOWP, A_BF16, B_BF16, true>(
+      smem, A, p.K, p.a_vec, Bm, p.C, p.nterms, b * p.V, r_lo, r_hi,
+      kt * SLOT, p.K, ct * SLOT, p.C, out, SLOT, SLOT, SLOT, p.scale,
+      p.b_vec);
 }
+
+// ---------------------------------------------------------------------------
+// spectral_apply: the 64-row wgmma row kernel
+// ---------------------------------------------------------------------------
+
+constexpr int AW = 2;              // warpgroups a CTA, each on its own tile
+constexpr int AT = 64;             // rows of a warpgroup's tile
+constexpr int ANT = AW * wg::NTH;  // threads a CTA
+constexpr int SP = 128;            // rows of K of s resident at once
+constexpr int SCH = SP / KCH;      // their 32-value chunks
+constexpr int SSTAGE = wg::b_stage_bytes<false>();  // a chunk of s: hi, lo
+// Row stride of a warpgroup's output tile, in floats: 8 mod 32, so the
+// 8-byte accumulator pairs a half warp stores (rows g, columns 8 j + 2 c)
+// fall in distinct banks; rows stay 16-byte aligned for the row reads.
+constexpr int LDE = NB + 8;
+constexpr int APPLY_SMEM = SCH * SSTAGE + AW * AT * LDE * 4;  // 200,704
 
 struct ApplyArgs {
   const float* xhat;   // (B,K,C)
   const float* coefs;  // (B,K,C)
-  const void* op[3];   // Phi, GX, GY: (B,V,K) f32 or bf16
-  void* out[3];        // y, ygx, ygy: (B,V,C) f32 or bf16
-  int B, V, K, C;
-  int ops_bf16, out_bf16;
+  const void* op[3];   // Phi, GX, GY: (B,V,K), one dtype
+  void* out[3];        // y, ygx, ygy: (B,V,C), f32 or bf16
+  int n_items;         // B * nct * npair
+  int V, K, C, nct, npair, nkc, slice;
+  int ops_vec, out_bf16, out_vec;
 };
 
-// One of three pointers by a runtime index, without indexing the kernel's
-// parameter array at run time (which would copy it to local memory).
-template <class T>
-__device__ __forceinline__ T pick(T a, T b, T c, int o) {
-  return o == 0 ? a : (o == 1 ? b : c);
-}
-
-// Loads of operator chunk `chunk` (operator chunk / n_kc, columns
-// (chunk % n_kc) * AK ..) into registers: element i = tid + r * ST of the
-// chunk is (row i / AK, column i % AK); 0 past V and K.
-template <int R>
-__device__ __forceinline__ void fetch_chunk(const ApplyArgs& p, int chunk,
-                                            int n_kc, int row0, size_t vbase,
-                                            int tid, float (&ra)[R]) {
-  const int o = chunk / n_kc, k0 = (chunk % n_kc) * AK;
-  const void* op = pick(p.op[0], p.op[1], p.op[2], o);
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int i = tid + r * ST, row = row0 + i / AK, k = k0 + i % AK;
-    ra[r] = (row < p.V && k < p.K)
-                ? raw_load(op, (vbase + row) * p.K + k, p.ops_bf16)
-                : 0.f;
+// s = coefs (.) x_hat, rows k0.. and columns c0.. of one batch element, as
+// the B operand of SCH chunks: chunk i holds rows k0 + 32 i.. as a K-major
+// tile of 128 rows (the columns n of s) x 32 values, TF32 hi then lo.
+// Physical row pp = 8 q + 2 st + r of a chunk is value j = 8 st + q + 4 r of
+// the contraction (wg::RowF's order: a thread's two 16-byte loads are its
+// fragments), so it lands in k group u = j / 4 = 2 st + r, place q of the
+// 16-byte unit ((n / 8) 8 + u) 8 + n % 8. Zero past K and C.
+__device__ __forceinline__ void stage_s(char* sS, const float* xh,
+                                        const float* cf, int K, int C,
+                                        int k0, int c0) {
+#pragma unroll 1
+  for (int i = threadIdx.x; i < SP * NB; i += ANT) {
+    const int n = i % NB, kk = i / NB;
+    const int k = k0 + kk, c = c0 + n;
+    float v = 0.f;
+    if (k < K && c < C) {
+      const long long e = (long long)k * C + c;
+      v = __ldg(cf + e) * __ldg(xh + e);
+    }
+    const float h = wg::tf32r(v), l = wg::tf32r(v - h);
+    const int pp = kk % KCH, q = pp / 8, u = 2 * ((pp % 8) / 2) + pp % 2;
+    const int unit = ((n / 8) * (KCH / 4) + u) * 8 + n % 8;
+    float* st = reinterpret_cast<float*>(sS + (kk / KCH) * SSTAGE);
+    st[4 * unit + q] = h;
+    st[NB * KCH + 4 * unit + q] = l;
   }
 }
 
-// The three outputs' values of one thread (rows ty + 16 i, columns
-// col8(tx, j)) stored in the output's dtype: 4 consecutive columns as one
-// 16-byte (f32) or 8-byte (bf16) store when C % 4 == 0, else one by one.
-__device__ __forceinline__ void store_tile(const ApplyArgs& p, int o,
-                                           const float (&acc)[8][8], int row0,
-                                           int c0, size_t vbase, int tx,
-                                           int ty) {
-  const int V = p.V, C = p.C;
-  const bool vec = C % 4 == 0;
-  void* out = pick(p.out[0], p.out[1], p.out[2], o);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = row0 + ty + 16 * i;
-    if (row >= V) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = c0 + col8(tx, 4 * h);
+// The warpgroup's own barrier (ids 1 and 2; 0 is __syncthreads).
+__device__ __forceinline__ void wg_sync(int wgi) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wgi), "n"(wg::NTH) : "memory");
+}
+
+// Where a chunk of the CTA's work lies: item (b, ct, pair), product o (Phi,
+// GX, GY) and its 32-value chunk kc of K; next() steps through the CTA's
+// range in order.
+struct Cursor {
+  int item, o, kc, b, ct, pair;
+  __device__ __forceinline__ void set(const ApplyArgs& p, int it) {
+    item = it;
+    o = kc = 0;
+    pair = it % p.npair;
+    ct = (it / p.npair) % p.nct;
+    b = it / (p.npair * p.nct);
+  }
+  __device__ __forceinline__ void next(const ApplyArgs& p) {
+    if (++kc < p.nkc) return;
+    kc = 0;
+    if (++o < 3) return;
+    set(p, item + 1);
+  }
+};
+
+// Grid: one CTA per SM (or fewer, one per item). CTA c takes the items
+// [c n / G, (c + 1) n / G) in order; warpgroup w takes the rows
+// 128 pair + 64 w.. of each.
+template <bool OPS_BF16>
+__global__ void __launch_bounds__(ANT, 1)
+    spectral_apply_kernel(const ApplyArgs p) {
+  extern __shared__ __align__(128) char smem[];
+  char* sS = smem;
+  const int wgi = threadIdx.x / wg::NTH;
+  float* E = reinterpret_cast<float*>(smem + SCH * SSTAGE) + wgi * AT * LDE;
+  const int t = threadIdx.x % wg::NTH, warp = t / 32, lane = t % 32;
+  const int i0 = (int)((long long)p.n_items * blockIdx.x / gridDim.x);
+  const int i1 = (int)((long long)p.n_items * (blockIdx.x + 1) / gridDim.x);
+  const long long total = (long long)(i1 - i0) * 3 * p.nkc;
+  const int V = p.V, K = p.K, C = p.C;
+  const int nkp = (K + SP - 1) / SP;
+
+  auto row0_of = [&](const Cursor& c) { return c.pair * AW * AT + wgi * AT; };
+  auto op_of = [&](int o) {
+    return o == 0 ? p.op[0] : (o == 1 ? p.op[1] : p.op[2]);
+  };
+  // the next chunk's operator rows into a (nothing past the range)
+  Cursor ahead;
+  ahead.set(p, i0);
+  long long n_loaded = 0;
+  auto load = [&](wg::RowF& a) {
+    if (n_loaded++ >= total) return;
+    const int row0 = row0_of(ahead);
+    a.load(op_of(ahead.o), K, (long long)ahead.b * V + row0, V - row0,
+           ahead.kc * KCH, K, p.ops_vec, OPS_BF16);
+    ahead.next(p);
+  };
+
+  // The output tile in E that the warpgroup is storing: rows e_done.. are
+  // still to go, a slice of them per chunk of the next product.
+  void* e_out = nullptr;
+  long long e_row = 0;
+  int e_nv = 0, e_c0 = 0, e_done = AT;
+  auto store_rows = [&](int upto) {
+#pragma unroll 1
+    for (int r = e_done + warp; r < upto && r < e_nv; r += 4) {
+      const int c = e_c0 + 4 * lane;
       if (c >= C) continue;
-      const size_t e = (vbase + row) * C + c;
-      const float v0 = acc[i][4 * h], v1 = acc[i][4 * h + 1];
-      const float v2 = acc[i][4 * h + 2], v3 = acc[i][4 * h + 3];
-      if (vec && p.out_bf16) {
-        __nv_bfloat162 lo = __floats2bfloat162_rn(v0, v1);
-        __nv_bfloat162 hi = __floats2bfloat162_rn(v2, v3);
-        uint2 w;
-        w.x = *reinterpret_cast<uint32_t*>(&lo);
-        w.y = *reinterpret_cast<uint32_t*>(&hi);
-        *reinterpret_cast<uint2*>(reinterpret_cast<__nv_bfloat16*>(out) + e) =
-            w;
-      } else if (vec) {
-        *reinterpret_cast<float4*>(reinterpret_cast<float*>(out) + e) =
-            make_float4(v0, v1, v2, v3);
+      const float4 v =
+          *reinterpret_cast<const float4*>(E + r * LDE + 4 * lane);
+      const long long o = (e_row + r) * C + c;
+      if (p.out_vec) {  // c + 3 < C: C % 4 == 0
+        if (p.out_bf16) {
+          uint2 w;
+          w.x = wg::pack_bf16(v.x, v.y);
+          w.y = wg::pack_bf16(v.z, v.w);
+          *reinterpret_cast<uint2*>(reinterpret_cast<unsigned short*>(e_out) +
+                                    o) = w;
+        } else {
+          *reinterpret_cast<float4*>(reinterpret_cast<float*>(e_out) + o) = v;
+        }
       } else {
-        const float v[4] = {v0, v1, v2, v3};
+        const float vs[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          if (c + j >= C) continue;
+          if (c + j >= C) break;
           if (p.out_bf16)
-            reinterpret_cast<__nv_bfloat16*>(out)[e + j] =
-                __float2bfloat16_rn(v[j]);
+            reinterpret_cast<__nv_bfloat16*>(e_out)[o + j] =
+                __float2bfloat16_rn(vs[j]);
           else
-            reinterpret_cast<float*>(out)[e + j] = v[j];
+            reinterpret_cast<float*>(e_out)[o + j] = vs[j];
         }
       }
     }
-  }
-}
+    e_done = upto;
+  };
 
-// Grid (ceil(V / AR), nct, B). CTA (tile, ct, b) writes rows tile * AR ..
-// and columns ct * PIECE .. of all three outputs. Thread (tx, ty) owns rows
-// ty + 16 i (i < 8) and columns col8(tx, j). The CTA walks the operators'
-// AK-column chunks in one sequence (Phi's, then GX's, then GY's); the next
-// chunk's loads are in flight in registers while this one is multiplied.
-__global__ void __launch_bounds__(ST) spectral_apply_kernel(const ApplyArgs p) {
-  extern __shared__ __align__(16) float smem[];
-  float* sS = smem;                 // PIECE x LDP: s rows k, columns c
-  float* sA = sS + PIECE * LDP;     // AR x LDK: operator chunk
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.x * AR, c0 = blockIdx.y * PIECE, b = blockIdx.z;
-  const int V = p.V, K = p.K, C = p.C;
-  const size_t vbase = (size_t)b * V;
-  const float* coefs = p.coefs + (size_t)b * K * C;
-  const float* xhat = p.xhat + (size_t)b * K * C;
-  const int n_ks = (K + PIECE - 1) / PIECE;
-  const int n_kc = (K + AK - 1) / AK;  // chunks per operator; PIECE % AK == 0
-  static_assert(PIECE % AK == 0, "a chunk lies inside one piece of s");
-
-  constexpr int R = AR * AK / ST;
-  float ra[R];
-  float acc[8][8];
-  fetch_chunk(p, 0, n_kc, row0, vbase, tid, ra);
-#pragma unroll 1
-  for (int chunk = 0; chunk < 3 * n_kc; ++chunk) {
-    const int o = chunk / n_kc, k0 = (chunk % n_kc) * AK;
-    const int ks = k0 - k0 % PIECE;
-    if (k0 == 0) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    }
-    if (k0 == ks && (o == 0 || n_ks > 1)) {
-      // s of rows ks..: staged once when K <= 128, with coefs fused
-      __syncthreads();
-      for (int i = tid; i < PIECE * PIECE; i += ST) {
-        const int k = ks + i / PIECE, c = c0 + i % PIECE;
-        float v = 0.f;
-        if (k < K && c < C)
-          v = coefs[(size_t)k * C + c] * xhat[(size_t)k * C + c];
-        sS[(i / PIECE) * LDP + i % PIECE] = v;
+  float d[64];
+  long long staged = -1;  // the (b, ct, piece of K) of s in shared memory
+  Cursor cur;
+  cur.set(p, i0);
+  // One chunk: its A fragments from a (then a takes the chunk two ahead),
+  // its products on the tensor cores while a slice of the last product's
+  // rows is stored, and the product's output to E after its last chunk.
+  auto chunk = [&](wg::RowF& a) {
+    const int kp = cur.kc / SCH;
+    if (cur.kc % SCH == 0) {
+      const long long key = ((long long)cur.b * p.nct + cur.ct) * nkp + kp;
+      if (key != staged) {  // the same decision in every thread of the CTA
+        __syncthreads();    // every warpgroup's products on the old s are done
+        const long long off = (long long)cur.b * K * C;
+        stage_s(sS, p.xhat + off, p.coefs + off, K, C, kp * SP,
+                cur.ct * NB);
+        wg::fence_smem_for_wgmma();
+        __syncthreads();
+        staged = key;
       }
     }
-    __syncthreads();  // sS is staged; the last chunk's readers of sA are done
+    wg::AFrags<false> f;
+    f.build(a);
+    load(a);
+    if (cur.kc == 0) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = tid + r * ST;
-      sA[(i / AK) * LDK + i % AK] = from_raw(ra[r], p.ops_bf16);
+      for (int i = 0; i < 64; ++i) d[i] = 0.f;
     }
-    __syncthreads();
-    if (chunk + 1 < 3 * n_kc)
-      fetch_chunk(p, chunk + 1, n_kc, row0, vbase, tid, ra);
-    const float* srow = sS + (k0 - ks) * LDP;
+    wg::fence_operands();
+    wg::pin(d);
+    wg::mma_chunk_rs<false, OPS_BF16>(d, f, sS + (cur.kc % SCH) * SSTAGE);
+    wg::commit();
+    if (e_done < AT) store_rows(min(AT, e_done + p.slice));
+    wg::wait_all();
+    wg::pin(d);
+    if (cur.kc == p.nkc - 1) {  // the product is done: its output to E
+      if (e_done < AT) store_rows(AT);
+      wg_sync(wgi);  // every thread's reads of E are done
+      wg::for_pairs(d, [&](int m, int n, float v0, float v1) {
+        *reinterpret_cast<float2*>(E + m * LDE + n) = make_float2(v0, v1);
+      });
+      wg_sync(wgi);
+      const int row0 = row0_of(cur);
+      e_out = cur.o == 0 ? p.out[0] : (cur.o == 1 ? p.out[1] : p.out[2]);
+      e_row = (long long)cur.b * V + row0;
+      e_nv = V - row0;
+      e_c0 = cur.ct * NB;
+      e_done = 0;
+    }
+    cur.next(p);
+  };
+
+  // two operator chunks in flight while one is multiplied: the loop runs
+  // two chunks a pass so that each buffer is a fixed set of registers
+  wg::RowF a0, a1;
+  load(a0);
+  load(a1);
 #pragma unroll 1
-    for (int kk = 0; kk < AK; kk += 4) {
-      float v[4][8];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) load8(srow + (kk + q) * LDP, tx, v[q]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float4 a =
-            *reinterpret_cast<const float4*>(sA + (ty + 16 * i) * LDK + kk);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float s = acc[i][j];
-          s = fmaf(a.x, v[0][j], s);
-          s = fmaf(a.y, v[1][j], s);
-          s = fmaf(a.z, v[2][j], s);
-          s = fmaf(a.w, v[3][j], s);
-          acc[i][j] = s;
-        }
-      }
-    }
-    if (k0 + AK >= K) store_tile(p, o, acc, row0, c0, vbase, tx, ty);
+  for (long long q = 0; q < total; q += 2) {
+    chunk(a0);
+    if (q + 1 < total) chunk(a1);
   }
+  if (e_done < AT) store_rows(AT);
 }
 
-constexpr size_t APPLY_SMEM = sizeof(float) * ((size_t)PIECE * LDP + AR * LDK);
+template <class T>
+int launch(void* kernel, unsigned grid, int threads, int smem, const T& args,
+           void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  void* a[] = {const_cast<T*>(&args)};
+  err = cudaLaunchKernel(kernel, dim3(grid), dim3(threads), a, smem,
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+int max_smem() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  return bytes;
+}
+
+template <bool LOWP, bool A_BF16>
+void* project_kernel(int b_bf16) {
+  return b_bf16 ? (void*)spectral_project_kernel<LOWP, A_BF16, true>
+                : (void*)spectral_project_kernel<LOWP, A_BF16, false>;
 }
 
 }  // namespace
 
 extern "C" {
 
-// partial: (B * nkt * nct, nsplit, 128, 128) f32 with nkt = ceil(K / 128),
-// nct = ceil(C / 128); nsplit <= ceil(V / 32). lowp: round both operands of
-// the products to bf16.
-int sf_project_launch(const void* x, const void* evecs, const void* mass,
-                      void* partial, int B, int V, int K, int C, int nsplit,
-                      int x_bf16, int ops_bf16, int lowp, void* stream) {
-  ProjectArgs p = {};
-  p.x = x; p.evecs = evecs;
-  p.mass = static_cast<const float*>(mass);
-  p.partial = static_cast<float*>(partial);
-  p.B = B; p.V = V; p.K = K; p.C = C;
-  p.nkt = (K + PIECE - 1) / PIECE;
-  p.nct = (C + PIECE - 1) / PIECE;
-  p.n_tiles = (V + PR - 1) / PR;
-  p.nsplit = nsplit;
-  p.x_bf16 = x_bf16; p.ops_bf16 = ops_bf16;
-  if (B < 1 || B > 65535 || V < 1 || K < 1 || C < 1 || nsplit < 1 ||
-      nsplit > p.n_tiles || p.nkt * p.nct > 65535 || !aligned16(partial))
+// The split-V products on `stream`: part (B, nkt, nct, S, SLOT, SLOT) f32
+// with nkt = ceil(K / SLOT), nct = ceil(C / SLOT); slot (b, kt, ct, s) =
+// sum over the nterms (1 to 3) pairs of a_t^T (scale (.) b_t) over the rows
+// [s L, (s + 1) L) of batch element b's V. a_t (B,V,K), one dtype; b_t
+// (B,V,C), one dtype; scale (B,V) f32 or null. lowp: both operands rounded
+// to bf16.
+int sf_project_launch(const void* a0, const void* a1, const void* a2,
+                      const void* b0, const void* b1, const void* b2,
+                      int nterms, const void* scale, void* part, int B, int V,
+                      int K, int C, int S, int L, int a_bf16, int b_bf16,
+                      int lowp, void* stream) {
+  if (B < 1 || V < 1 || K < 1 || C < 1 || S < 1 || L < 1 ||
+      (long long)S * L < V || nterms < 1 || nterms > 3)
     return MB_BAD_SHAPE;
-  dim3 grid(nsplit, p.nkt * p.nct, B);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (lowp)
-    spectral_project_kernel<true><<<grid, ST, 0, s>>>(p);
-  else
-    spectral_project_kernel<false><<<grid, ST, 0, s>>>(p);
-  return (int)cudaGetLastError();
+  ProjectArgs p = {};
+  const void* as[3] = {a0, a1, a2};
+  const void* bs[3] = {b0, b1, b2};
+  p.a_vec = K % (a_bf16 ? 8 : 4) == 0;
+  p.b_vec = C % (b_bf16 ? 8 : 4) == 0;
+  for (int t = 0; t < 3; ++t) {
+    p.A[t] = t < nterms ? as[t] : as[0];
+    p.Bm[t] = t < nterms ? bs[t] : bs[0];
+    p.a_vec = p.a_vec && aligned16(p.A[t]);
+    p.b_vec = p.b_vec && aligned16(p.Bm[t]);
+  }
+  p.scale = static_cast<const float*>(scale);
+  p.part = static_cast<float*>(part);
+  p.nterms = nterms;
+  p.V = V; p.K = K; p.C = C; p.S = S; p.L = L;
+  p.nkt = (K + SLOT - 1) / SLOT;
+  p.nct = (C + SLOT - 1) / SLOT;
+  const long long ctas = (long long)B * p.nkt * p.nct * S;
+  if (ctas > 0x7fffffffLL) return MB_BAD_SHAPE;
+  void* kernel =
+      lowp ? (a_bf16 ? project_kernel<true, true>(b_bf16)
+                     : project_kernel<true, false>(b_bf16))
+           : (a_bf16 ? project_kernel<false, true>(b_bf16)
+                     : project_kernel<false, false>(b_bf16));
+  const int smem = lowp ? sv::grads_smem<true>() : sv::grads_smem<false>();
+  return launch(kernel, (unsigned)ctas, sv::GNT, smem, p, stream);
 }
 
-// xhat, coefs: (B,K,C) f32; evecs/gx/gy: (B,V,K); y/ygx/ygy: (B,V,C) in the
-// dtype out_bf16 names.
+// xhat, coefs: (B,K,C) f32; evecs/gx/gy: (B,V,K), one dtype; y/ygx/ygy:
+// (B,V,C) in the dtype out_bf16 names; n_sm: the card's SMs (the grid).
 int sf_apply_launch(const void* xhat, const void* coefs, const void* evecs,
                     const void* gx, const void* gy, void* y, void* ygx,
                     void* ygy, int B, int V, int K, int C, int ops_bf16,
-                    int out_bf16, void* stream) {
+                    int out_bf16, int n_sm, void* stream) {
+  if (B < 1 || B > 65535 || V < 1 || K < 1 || C < 1 || n_sm < 1)
+    return MB_BAD_SHAPE;
   ApplyArgs p = {};
   p.xhat = static_cast<const float*>(xhat);
   p.coefs = static_cast<const float*>(coefs);
   p.op[0] = evecs; p.op[1] = gx; p.op[2] = gy;
   p.out[0] = y; p.out[1] = ygx; p.out[2] = ygy;
-  p.B = B; p.V = V; p.K = K; p.C = C;
-  p.ops_bf16 = ops_bf16; p.out_bf16 = out_bf16;
-  const int nct = (C + PIECE - 1) / PIECE;
-  if (B < 1 || B > 65535 || V < 1 || K < 1 || C < 1 || nct > 65535)
-    return MB_BAD_SHAPE;
-  for (int o = 0; o < 3; ++o)
-    if (!aligned16(p.out[o])) return MB_BAD_LAYOUT;
-  cudaError_t err = cudaFuncSetAttribute(
-      spectral_apply_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)APPLY_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((V + AR - 1) / AR, nct, B);
-  spectral_apply_kernel<<<grid, ST, APPLY_SMEM,
-                          static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  p.V = V; p.K = K; p.C = C;
+  p.nct = (C + NB - 1) / NB;
+  p.npair = (V + AW * AT - 1) / (AW * AT);
+  const long long items = (long long)B * p.nct * p.npair;
+  if (items > 0x7fffffffLL) return MB_BAD_SHAPE;
+  p.n_items = (int)items;
+  p.nkc = (K + KCH - 1) / KCH;
+  p.slice = (AT + p.nkc - 1) / p.nkc;
+  p.ops_vec = aligned16(evecs) && aligned16(gx) && aligned16(gy) &&
+              K % 8 == 0;
+  p.out_bf16 = out_bf16;
+  p.out_vec = C % 4 == 0 && aligned16(y) && aligned16(ygx) && aligned16(ygy);
+  if (APPLY_SMEM > max_smem()) return MB_SMEM;
+  const unsigned grid = (unsigned)(items < n_sm ? items : n_sm);
+  void* kernel = ops_bf16 ? (void*)spectral_apply_kernel<true>
+                          : (void*)spectral_apply_kernel<false>;
+  return launch(kernel, grid, ANT, APPLY_SMEM, p, stream);
 }
 
 }  // extern "C"

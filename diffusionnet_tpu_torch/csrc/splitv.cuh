@@ -1,7 +1,8 @@
 // Split-V TN products on wgmma: sum over a range of rows v of A[v]^T B[v],
 // with A and B columns of row-major sources in device memory. The
-// V-reductions of B2's grads kernel (megablock_bwd.cu: dW, dA, ds) and B1's
-// x_hat_next = Phi^T (m (.) out) (megablock_fwd.cu) run on it: each CTA owns
+// V-reductions of B2's grads kernel (megablock_bwd.cu: dW, dA, ds), B1's
+// x_hat_next = Phi^T (m (.) out) (megablock_fwd.cu) and B4's projection and
+// backward ds (spectral_fused.cu) run on it: each CTA owns
 // one output block and one fixed range of rows, keeps its accumulator in
 // registers across the range and writes one partial, once; a second launch
 // sums the partials in a fixed order. Nothing is atomic, and nothing is read,
@@ -10,15 +11,17 @@
 // Operands are staged in two steps. First each 32-row chunk of a source's
 // 128 columns is copied as it lies (row-major, the source's type) into a
 // ring of NSR raw stages by cp.async, 16 bytes at a time, zero-filled past
-// the valid rows and columns; where a source's rows are not 16-byte aligned
-// plain loads fill the stage. Then the threads transpose a stage into the
-// K-major wgmma tiles (wgmma's tf32 takes K-major operands only), hi and lo
-// for tf32 or bf16 under LOWP: a warp reads 32 consecutive columns of a raw
-// row and writes whole 128-byte rows of core matrices. The next chunk's
-// transpose runs while this chunk's products do.
+// the valid rows and columns, or, where a source's rows are not 16-byte
+// aligned, by plain loads; on the BULK route (below) a chunk of whole rows
+// comes by bulk copies instead. Then the threads transpose a stage into
+// the K-major wgmma tiles (wgmma's tf32 takes K-major operands only), hi
+// and lo for tf32 or bf16 under LOWP: a warp reads 32 consecutive columns
+// of a raw row and writes whole 128-byte rows of core matrices. The next
+// chunk's transpose runs while this chunk's products do.
 //
-// Shared memory, the same at every width: 224 KB in f32 (3 raw stages of
-// 32 KB and two buffers of the A and B tiles, hi and lo), 160 KB under LOWP.
+// Shared memory, the same at every width (grads_smem): 224 KB in f32 (3 raw
+// stages of 32 KB and two buffers of the A and B tiles, hi and lo), 160 KB
+// under LOWP, plus 408 bytes for the BULK route's scale ring and mbarriers.
 
 #pragma once
 
@@ -120,14 +123,30 @@ __device__ __forceinline__ void raw_to_tile(const char* raw, char* hi,
 // raw ring. B's rows are scaled by b_scale[rbase + row] where b_scale is
 // not null. Writes the block, once, to out[m * ld_out + n] for m < M,
 // n < N (relative to the block's corner). B is in the product type
-// (B_BF16 = LOWP) unless the caller says otherwise.
-template <bool LOWP, bool A_BF16, bool B_BF16 = LOWP>
+// (B_BF16 = LOWP) unless the caller says otherwise; b_aligned: B's rows are
+// 16-byte aligned (else plain loads fill its raw stages).
+//
+// BULK, the route of the callers whose sources can be whole 128-value rows
+// (B1's x_hat kernel, B4's projection and ds): each chunk's 32 factors of
+// b_scale travel with its raw stage (cp.async, 4 bytes each, into a ring
+// after the tiles), so the transpose reads them from shared memory; and a
+// chunk of 32 whole rows (row strides of 128 values, column 0, 16-byte
+// aligned) comes by one bulk copy per operand, issued by one thread and
+// completing on the stage's mbarrier, in place of 16-byte cp.async copies
+// from every thread. Cycle counters in development builds (not committed,
+// so no numbers) found the factors read from device memory, which queue
+// behind the stage copies in flight, and the copies' issue the largest
+// parts of a chunk's time. B2's grads kernel, whose sources never are
+// whole rows and which has no scale, keeps the plain route: on the BULK
+// route it ran 2-3% slower, while B1's x_hat kernel ran 30% faster at
+// B = 8 (chip_compare.py --block, NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+template <bool LOWP, bool A_BF16, bool B_BF16 = LOWP, bool BULK = false>
 __device__ __forceinline__ void grads_block(
     char* smem, const void* const* As, long long lda, bool a_aligned,
     const void* const* Bs, long long ldb, int nterms, long long rbase,
     long long r_lo, long long r_hi, int a_col0, int a_cols, int b_col0,
     int b_cols, float* out, long long ld_out, int M, int N,
-    const float* b_scale = nullptr) {
+    const float* b_scale = nullptr, bool b_aligned = true) {
   constexpr int TA = wg::tile_bytes<LOWP>(GM), TB = wg::tile_bytes<LOWP>(NB);
   static_assert(GM == NB, "A's and B's tiles of one size");
   constexpr int TILES = TA;
@@ -141,17 +160,80 @@ __device__ __forceinline__ void grads_block(
   const long long rows = r_hi > r_lo ? r_hi - r_lo : 0;
   const int nkc = (int)((rows + KCH - 1) / KCH);
   const int total = nterms * nkc;
+  // BULK: the ring of scale chunks, then an mbarrier per raw stage
+  float* sscale = reinterpret_cast<float*>(bh + 4 * TB);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sscale + NSR * KCH);
+  uint32_t phases = 0;  // BULK: bit s, the parity stage s completes next
+  const bool rows_whole = BULK && lda == NB && a_col0 == 0 && a_aligned &&
+                          ldb == NB && b_col0 == 0 && b_aligned;
   auto chunk_v0 = [&](int it) { return r_lo + (long long)(it % nkc) * KCH; };
+  auto whole = [&](int it) {  // chunk it comes by bulk copies
+    return rows_whole && r_hi - chunk_v0(it) >= KCH;
+  };
+  if constexpr (BULK) {
+    if (threadIdx.x == 0) {
+      for (int st = 0; st < NSR; ++st)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                         (uint32_t)__cvta_generic_to_shared(bars + st))
+                     : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
   auto issue = [&](int it) {  // one commit group per chunk, empty past total
     if (it < total) {
       const int t = it / nkc;
       const long long v0 = chunk_v0(it);
       const int valid = (int)min((long long)KCH, r_hi - v0);
       char* st = raw + (it % NSR) * 2 * RAW_OP;
-      raw_issue<A_BF16>(st, As[t], lda, rbase + v0, valid, a_col0, a_cols,
-                        a_aligned);
-      raw_issue<B_BF16>(st + RAW_OP, Bs[t], ldb, rbase + v0, valid, b_col0,
-                        b_cols, true);
+      if (whole(it)) {
+        if (threadIdx.x == 0) {
+          constexpr uint32_t AB = KCH * NB * (A_BF16 ? 2 : 4);
+          constexpr uint32_t BB = KCH * NB * (B_BF16 ? 2 : 4);
+          const uint32_t bar =
+              (uint32_t)__cvta_generic_to_shared(bars + it % NSR);
+          const char* a = reinterpret_cast<const char*>(As[t]) +
+                          (rbase + v0) * (long long)AB / KCH;
+          const char* b = reinterpret_cast<const char*>(Bs[t]) +
+                          (rbase + v0) * (long long)BB / KCH;
+          // the stage's last readers passed the caller's barrier
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          asm volatile(
+              "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                  bar),
+              "r"(AB + BB)
+              : "memory");
+          asm volatile(
+              "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+              "bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                  (uint32_t)__cvta_generic_to_shared(st)),
+              "l"(a), "r"(AB), "r"(bar)
+              : "memory");
+          asm volatile(
+              "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+              "bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                  (uint32_t)__cvta_generic_to_shared(st + RAW_OP)),
+              "l"(b), "r"(BB), "r"(bar)
+              : "memory");
+        }
+      } else {
+        raw_issue<A_BF16>(st, As[t], lda, rbase + v0, valid, a_col0, a_cols,
+                          a_aligned);
+        raw_issue<B_BF16>(st + RAW_OP, Bs[t], ldb, rbase + v0, valid,
+                          b_col0, b_cols, b_aligned);
+      }
+      if constexpr (BULK) {
+        const int r = threadIdx.x;
+        if (b_scale != nullptr && r < KCH) {
+          const uint32_t da = (uint32_t)__cvta_generic_to_shared(
+              sscale + (it % NSR) * KCH + r);
+          const float* sp = b_scale + (r < valid ? rbase + v0 + r : 0);
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                           da),
+                       "l"(sp), "r"(r < valid ? 4 : 0)
+                       : "memory");
+        }
+      }
     }
     wg::cp_async_commit();
   };
@@ -162,6 +244,21 @@ __device__ __forceinline__ void grads_block(
   };
   auto transpose = [&](int it) {
     wg::cp_async_wait<NSR - 2>();  // chunk it's raw stage has landed
+    if (whole(it)) {  // ... by its bulk copies
+      const int st = it % NSR;
+      const uint32_t bar = (uint32_t)__cvta_generic_to_shared(bars + st);
+      uint32_t done = 0;
+      do {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(bar), "r"((phases >> st) & 1u)
+            : "memory");
+      } while (!done);
+      phases ^= 1u << st;
+    }
     __syncthreads();  // ... for every thread; and the products of chunk
                       // it - 2, which read the tiles it refills, are done
     issue(it + NSR - 1);
@@ -170,7 +267,9 @@ __device__ __forceinline__ void grads_block(
     raw_to_tile<LOWP, A_BF16>(st, tiles(it, 0), tiles(it, 0) + 2 * TA);
     raw_to_tile<LOWP, B_BF16>(
         st + RAW_OP, tiles(it, 1), tiles(it, 1) + 2 * TB,
-        b_scale == nullptr ? nullptr : b_scale + rbase + v0,
+        b_scale == nullptr ? nullptr
+                           : (BULK ? sscale + (it % NSR) * KCH
+                                   : b_scale + rbase + v0),
         (int)min((long long)KCH, r_hi - v0));
     wg::fence_smem_for_wgmma();
   };
@@ -201,9 +300,12 @@ __device__ __forceinline__ void grads_block(
   });
 }
 
+// grads_block's shared memory: the raw ring, two buffers of tiles, the
+// BULK route's ring of scale chunks and the stages' mbarriers
 template <bool LOWP>
-constexpr int grads_smem() {  // the raw ring, then two buffers of tiles
-  return NSR * 2 * RAW_OP + 8 * wg::tile_bytes<LOWP>(GM);
+constexpr int grads_smem() {
+  return NSR * 2 * RAW_OP + 8 * wg::tile_bytes<LOWP>(GM) + NSR * KCH * 4 +
+         NSR * 8;
 }
 
 }  // namespace sv

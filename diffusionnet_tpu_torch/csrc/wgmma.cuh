@@ -357,8 +357,10 @@ __device__ __forceinline__ void for_pairs(float (&d)[64], F f) {
 
 // d += A_chunk B_chunk: A from the fragments in registers, B from a stage
 // of shared memory (hi, then lo for tf32). The products read the fragments
-// asynchronously: they stay untouched until the caller's wait.
-template <bool LOWP>
+// asynchronously: they stay untouched until the caller's wait. A_EXACT: A's
+// values are exact in TF32 (bf16 operators beside an f32 B), so a_lo is 0
+// and its pass is left out: a b_lo + a b_hi.
+template <bool LOWP, bool A_EXACT = false>
 __device__ __forceinline__ void mma_chunk_rs(float (&d)[64],
                                              const AFrags<LOWP>& f,
                                              const char* b) {
@@ -370,7 +372,7 @@ __device__ __forceinline__ void mma_chunk_rs(float (&d)[64],
       mma_bf16_rs(d, f.hi[s], bh);
     } else {
       const uint64_t bl = desc(b + NB * KCH * 4 + 256 * s, SBO);
-      mma_tf32_rs(d, f.lo[s], bh);
+      if constexpr (!A_EXACT) mma_tf32_rs(d, f.lo[s], bh);
       mma_tf32_rs(d, f.hi[s], bl);
       mma_tf32_rs(d, f.hi[s], bh);
     }

@@ -7,32 +7,37 @@ B = 1). For each surface it computes
     y     = Phi s;  ygx = GX s;  ygy = GY s
 
 with two hand-written kernels (csrc/spectral_fused.cu): `spectral_project`
-(x_hat through per-CTA slots summed by B1's `xhat_reduce`) and
-`spectral_apply` (the three outputs). The projection kernel is also B3's
-phase 0 (`ops.megablock.megablock`).
+(x_hat as TN products on a split-V grid, the partials summed by B1's
+`xhat_reduce` in a fixed order) and `spectral_apply` (a 64-row wgmma row
+kernel writing the three outputs, s staged once per CTA). The projection
+kernel is also B3's phase 0 (`ops.megablock.megablock`) and, with three
+(operator, cotangent) pairs, the backward's ds = Phi^T dy + GX^T dgx +
+GY^T dgy (`spectral_ds`), long-V transposed products that cuBLAS runs on
+small tiles (PERF.md, section 5). The rest of the backward (dx = m (.)
+Phi (ds (.) coefs), dcoefs) is plain torch, as the JAX VJP (`_bwd_b`) is
+plain einsums; evecs, gX, gY and mass get no gradient.
 
 Dispatch: tensors on the CPU go to the plain PyTorch versions
-(`spectral_project_reference`, `spectral_apply_reference`); tensors on a
-CUDA device go to the kernels or raise. There is no fallback between the
-two. The backward is plain torch matmuls, as the JAX VJP is plain einsums
-(`_bwd_b`); evecs, gX, gY and mass get no gradient.
+(`spectral_project_reference`, `spectral_apply_reference`,
+`spectral_ds_reference`); tensors on a CUDA device go to the kernels or
+raise. There is no fallback between the two.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .megablock import (SLOT, _cdt, _mm, _mm_t, _nsplit, _raise_on,
-                        reduce_pieces)
+from .megablock import (SLOT, _cdt, _mm, _mm_t, _raise_on, _sm_count,
+                        megablock_fwd_xhat_reference, reduce_pieces,
+                        xhat_reduce_reference, xhat_splits)
 
 DEFAULT_TILE_V = 1024
 
 # launches per kernel since the last reset_launches(); each wrapper adds one
-# where it launches its kernel, and nowhere else (the x_hat partial sums
-# count in ops.megablock.LAUNCHES["xhat_reduce"])
-LAUNCHES = {"spectral_project": 0, "spectral_apply": 0}
-
-PROJECT_ROWS = 32  # spectral_project's row tile (PR in the source)
+# where it launches its kernel, and nowhere else (spectral_ds launches the
+# projection's kernel with three pairs; the x_hat partial sums count in
+# ops.megablock.LAUNCHES["xhat_reduce"])
+LAUNCHES = {"spectral_project": 0, "spectral_apply": 0, "spectral_ds": 0}
 
 
 def reset_launches() -> None:
@@ -46,30 +51,74 @@ def _check_tile(V: int, tile_v: int) -> None:
                          "(pad to a bucket)")
 
 
-def _check(cond: bool, msg: str) -> None:
+def _check(cond: bool, msg) -> None:
+    """Raise ValueError unless cond. msg: the message, or a function that
+    makes it: the wrappers' messages are formatted only on failure (their
+    formatting cost more host time than the launches)."""
     if not cond:
-        raise ValueError("spectral_fused: " + msg)
+        raise ValueError("spectral_fused: " + (msg() if callable(msg)
+                                               else msg))
 
 
 def _device_of(tensors) -> torch.device:
     devices = {t.device for t in tensors}
-    _check(len(devices) == 1, f"tensors on several devices: {devices}")
+    _check(len(devices) == 1,
+           lambda: f"tensors on several devices: {devices}")
     dev = devices.pop()
-    _check(dev.type in ("cpu", "cuda"), f"unsupported device {dev}")
+    _check(dev.type in ("cpu", "cuda"), lambda: f"unsupported device {dev}")
     return dev
+
+
+def project_splits(B: int, V: int, K: int, C: int,
+                   device: torch.device) -> tuple:
+    """(S, L): the V ranges the projection's kernel takes on `device`, a
+    card (`xhat_splits` for its SMs); one range (1, V) on the CPU."""
+    if device.type == "cpu":
+        return 1, V
+    return xhat_splits(B, V, K, C, _sm_count(device.index or 0))
 
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (the CPU path, and the kernels' references)
 # ---------------------------------------------------------------------------
 
-def spectral_project_reference(x, evecs, mass, lowp: bool = False):
-    """x_hat = Phi^T (m x): x (..., V, C), evecs (..., V, K), mass (..., V)
-    -> (..., K, C) in f32 (f64 for f64 inputs). m x is taken in f32; with
-    lowp both operands are rounded to bf16 first."""
-    dt = _cdt(x, evecs)
-    xm = x.to(dt) * mass[..., None].to(dt)
-    return _mm_t(evecs, xm, lowp)
+def spectral_project_reference(x, evecs, mass, lowp: bool = False,
+                               splits=None):
+    """x_hat = Phi^T (m x) summed as the kernel sums it: x (..., V, C),
+    evecs (..., V, K), mass (..., V) -> (..., K, C) f32, the split-V
+    kernel's plain version (partials over the V ranges `splits`, by default
+    `project_splits`: the card's for CUDA tensors, one range on the CPU,
+    then their fixed-order sum). m x is taken in f32; with
+    lowp both operands are rounded to bf16 first. f64 inputs: one plain f64
+    product."""
+    if _cdt(x, evecs, mass) == torch.float64:
+        return _mm_t(evecs, x.double() * mass[..., None].double(), lowp)
+    if x.ndim == 2:
+        return spectral_project_reference(x[None], evecs[None], mass[None],
+                                          lowp, splits)[0]
+    B, V, C = x.shape
+    K = evecs.shape[-1]
+    if splits is None:
+        splits = project_splits(B, V, K, C, x.device)
+    part = megablock_fwd_xhat_reference(evecs, x, mass, splits, lowp)
+    return reduce_pieces(part, B, K, C, xhat_reduce_reference)
+
+
+def spectral_ds_reference(evecs, gX, gY, dy, dgx, dgy, splits=None):
+    """ds = Phi^T dy + GX^T dgx + GY^T dgy (B, K, C) f32 summed as the
+    kernel sums it: per V range of `splits` (default `project_splits`) the
+    three products' partials added, then the fixed-order sum over the
+    ranges. f64 inputs: plain f64 products."""
+    pairs = ((evecs, dy), (gX, dgx), (gY, dgy))
+    if _cdt(evecs, dy) == torch.float64:
+        return sum(_mm_t(op.double(), d.double(), False) for op, d in pairs)
+    B, V, K = evecs.shape
+    C = dy.shape[-1]
+    if splits is None:
+        splits = project_splits(B, V, K, C, dy.device)
+    part = sum(megablock_fwd_xhat_reference(op, d, None, splits)
+               for op, d in pairs)
+    return reduce_pieces(part, B, K, C, xhat_reduce_reference)
 
 
 def spectral_apply_reference(x_hat, coefs, evecs, gX, gY, out_dtype):
@@ -93,8 +142,47 @@ def fused_spectral_block_reference(x, evecs, gX, gY, mass, coefs):
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
-def _pieces(n: int) -> int:
-    return -(-n // SLOT)
+def _split_products(ops, srcs, mass, lowp: bool, what: str) -> torch.Tensor:
+    """sum_t ops[t]^T (mass (.) srcs[t]) (B, K, C) f32 on the card: the
+    split-V kernel's partials (one launch, counted under `what`), then
+    `xhat_reduce`. ops (B,V,K), one dtype; srcs (B,V,C), one dtype
+    (each f32 or bf16); mass (B,V) f32 or None."""
+    ts = [*ops, *srcs] + ([] if mass is None else [mass])
+    dev = _device_of(ts)
+    B, V, K = ops[0].shape
+    C = srcs[0].shape[-1]
+    _check(all(t.shape == ops[0].shape and t.dtype == ops[0].dtype
+               for t in ops) and all(t.shape == (B, V, C)
+                                     and t.dtype == srcs[0].dtype
+                                     for t in srcs),
+           what + ": shapes or dtypes of the operands differ")
+    _check(mass is None or (tuple(mass.shape) == (B, V)
+                            and mass.dtype == torch.float32),
+           what + ": mass must be f32 (B,V)")
+    _check(ops[0].dtype in _FLOATS and srcs[0].dtype in _FLOATS,
+           lambda: f"{what}: dtypes {ops[0].dtype}, {srcs[0].dtype}")
+    _check(all(t.is_contiguous() for t in ts),
+           what + ": inputs must be contiguous")
+    _check(K >= 1 and C >= 1 and V >= 1,
+           lambda: f"empty shape V={V} K={K} C={C}")
+    S, L = project_splits(B, V, K, C, dev)
+    part = torch.empty((B, -(-K // SLOT), -(-C // SLOT), S, SLOT, SLOT),
+                       dtype=torch.float32, device=dev)
+    n = len(ops)
+    a = [t.data_ptr() for t in ops] + [None] * (3 - n)
+    b = [t.data_ptr() for t in srcs] + [None] * (3 - n)
+    from .. import _build
+    lib = _build.load()
+    bf16 = torch.bfloat16
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.sf_project_launch(
+            *a, *b, n, None if mass is None else mass.data_ptr(),
+            part.data_ptr(), B, V, K, C, S, L, int(ops[0].dtype == bf16),
+            int(srcs[0].dtype == bf16), int(lowp), stream)
+    _raise_on(lib, code, f"{what} launch")
+    LAUNCHES[what] += 1
+    return reduce_pieces(part, B, K, C)
 
 
 def spectral_project(x, evecs, mass, lowp: bool = False) -> torch.Tensor:
@@ -104,37 +192,28 @@ def spectral_project(x, evecs, mass, lowp: bool = False) -> torch.Tensor:
     dev = _device_of([x, evecs, mass])
     if dev.type == "cpu":
         return spectral_project_reference(x, evecs, mass, lowp)
-    _check(x.ndim == 3 and evecs.ndim == 3 and mass.ndim == 2,
-           "x (B,V,C), evecs (B,V,K), mass (B,V)")
-    B, V, C = x.shape
-    K = evecs.shape[-1]
-    _check(evecs.shape[:2] == (B, V) and tuple(mass.shape) == (B, V),
-           f"shapes x {tuple(x.shape)}, evecs {tuple(evecs.shape)}, "
-           f"mass {tuple(mass.shape)}")
-    _check(x.dtype in _FLOATS and evecs.dtype in _FLOATS
-           and mass.dtype == torch.float32,
-           f"dtypes x {x.dtype}, evecs {evecs.dtype}, mass {mass.dtype}")
-    _check(x.is_contiguous() and evecs.is_contiguous()
-           and mass.is_contiguous(), "inputs must be contiguous")
-    _check(K >= 1 and C >= 1 and V >= 1, f"empty shape V={V} K={K} C={C}")
-    nkt, nct = _pieces(K), _pieces(C)
-    groups = B * nkt * nct
-    nsplit = _nsplit(dev, groups, -(-V // PROJECT_ROWS))
-    partial = torch.empty((groups, nsplit, SLOT, SLOT), dtype=torch.float32,
-                          device=dev)
-    from .. import _build
-    lib = _build.load()
-    bf16 = torch.bfloat16
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.sf_project_launch(
-            x.data_ptr(), evecs.data_ptr(), mass.data_ptr(),
-            partial.data_ptr(), B, V, K, C, nsplit, int(x.dtype == bf16),
-            int(evecs.dtype == bf16), int(lowp), stream)
-    _raise_on(lib, code, "spectral_project launch")
-    LAUNCHES["spectral_project"] += 1
-    # one slot per (b, 128-row piece of K, 128-column piece of C)
-    return reduce_pieces(partial, B, K, C)
+    _check(x.ndim == 3 and evecs.ndim == 3 and mass.ndim == 2
+           and evecs.shape[:2] == x.shape[:2],
+           lambda: f"x (B,V,C), evecs (B,V,K), mass (B,V): shapes "
+           f"{tuple(x.shape)}, {tuple(evecs.shape)}, {tuple(mass.shape)}")
+    return _split_products([evecs], [x], mass, lowp, "spectral_project")
+
+
+def spectral_ds(evecs, gX, gY, dy, dgx, dgy) -> torch.Tensor:
+    """B4's backward ds = Phi^T dy + GX^T dgx + GY^T dgy (B, K, C) f32:
+    the projection's kernel with three (operator, cotangent) pairs and no
+    scale, then `xhat_reduce`, for CUDA tensors; the plain version for CPU
+    tensors."""
+    ts = (evecs, gX, gY, dy, dgx, dgy)
+    if _device_of(ts).type == "cpu":
+        return spectral_ds_reference(*ts)
+    _check(evecs.ndim == 3 and dy.ndim == 3
+           and evecs.shape[:2] == dy.shape[:2],
+           lambda: f"operators (B,V,K), cotangents (B,V,C): "
+           f"{tuple(evecs.shape)}, {tuple(dy.shape)}")
+    return _split_products([evecs, gX, gY], [t.contiguous() for t in
+                                             (dy, dgx, dgy)], None, False,
+                           "spectral_ds")
 
 
 def spectral_apply(x_hat, coefs, evecs, gX, gY, out_dtype):
@@ -154,11 +233,11 @@ def spectral_apply(x_hat, coefs, evecs, gX, gY, out_dtype):
             ("gX", gX, (B, V, K), (evecs.dtype,)),
             ("gY", gY, (B, V, K), (evecs.dtype,)),
             ("evecs", evecs, (B, V, K), _FLOATS)):
-        _check(tuple(t.shape) == shape, f"{name} shape {tuple(t.shape)} != "
-               f"{shape}")
-        _check(t.dtype in dtypes, f"{name} dtype {t.dtype}")
-        _check(t.is_contiguous(), f"{name} must be contiguous")
-    _check(out_dtype in _FLOATS, f"out dtype {out_dtype}")
+        _check(tuple(t.shape) == shape,
+               lambda: f"{name} shape {tuple(t.shape)} != {shape}")
+        _check(t.dtype in dtypes, lambda: f"{name} dtype {t.dtype}")
+        _check(t.is_contiguous(), lambda: f"{name} must be contiguous")
+    _check(out_dtype in _FLOATS, lambda: f"out dtype {out_dtype}")
     outs = [torch.empty((B, V, C), dtype=out_dtype, device=dev)
             for _ in range(3)]
     from .. import _build
@@ -169,7 +248,8 @@ def spectral_apply(x_hat, coefs, evecs, gX, gY, out_dtype):
             x_hat.data_ptr(), coefs.data_ptr(), evecs.data_ptr(),
             gX.data_ptr(), gY.data_ptr(), *(o.data_ptr() for o in outs),
             B, V, K, C, int(evecs.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), stream)
+            int(out_dtype == torch.bfloat16), _sm_count(dev.index or 0),
+            stream)
     _raise_on(lib, code, "spectral_apply launch")
     LAUNCHES["spectral_apply"] += 1
     return tuple(outs)
@@ -193,7 +273,8 @@ def spectral_chain_vjp(ds, x_hat, coefs, evecs, mass, x_dtype,
 
 class _FusedSpectralBlock(torch.autograd.Function):
     """Forward: the two kernels (x_hat kept as the residual, straight from
-    the projection). Backward: plain matmuls (`_bwd_b`)."""
+    the projection). Backward (`_bwd_b`): ds on the projection's kernel
+    (`spectral_ds`), dx and dcoefs plain matmuls."""
 
     @staticmethod
     def forward(ctx, x, evecs, gX, gY, mass, coefs):
@@ -206,10 +287,7 @@ class _FusedSpectralBlock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dgx, dgy):
         evecs, gX, gY, mass, coefs, x_hat = ctx.saved_tensors
-        dt = _cdt(coefs, x_hat)
-        # ds = Phi^T dy + GX^T dgx + GY^T dgy
-        ds = sum(op.to(dt).transpose(-1, -2) @ d.to(dt)
-                 for op, d in ((evecs, dy), (gX, dgx), (gY, dgy)))
+        ds = spectral_ds(evecs, gX, gY, dy, dgx, dgy)
         dx, dcoefs = spectral_chain_vjp(ds, x_hat, coefs, evecs, mass,
                                         ctx.x_dtype)
         return dx, None, None, None, None, dcoefs

@@ -503,9 +503,10 @@ def megablock_fwd_xhat_reference(evecs, src, scale, splits,
     S, SLOT, SLOT) f32, nkt = ceil(K / SLOT), nct = ceil(C / SLOT); slot
     (b, kt, ct, s) holds, in its (K, C) corner, Phi_b^T (scale (.) src)_b
     over rows [s L, (s + 1) L) of V, for K rows 128 kt.. and C columns
-    128 ct.. (zeros past K and C). src (B,V,C) f32 is `out`, scale (B,V)
-    the mass (or None where src already is m (.) out). lowp: both operands
-    rounded to bf16 (scale (.) src after the product in f32)."""
+    128 ct.. (zeros past K and C). src (B,V,C) is `out` (f32; or x, f32 or
+    bf16, for B4's projection), scale (B,V) the mass (or None where src
+    already is m (.) out). lowp: both operands rounded to bf16 (scale (.)
+    src after the product in f32)."""
     B, V, K = evecs.shape
     C = src.shape[-1]
     S, L = splits
@@ -625,15 +626,16 @@ def grad_reduce(partial: torch.Tensor, off: int, n: int) -> torch.Tensor:
     return out
 
 
-def reduce_pieces(partial: torch.Tensor, B: int, K: int, C: int
-                  ) -> torch.Tensor:
+def reduce_pieces(partial: torch.Tensor, B: int, K: int, C: int,
+                  reduce=xhat_reduce) -> torch.Tensor:
     """x_hat (B, K, C) from per-CTA slots (B, nkt, nct, S, SLOT, SLOT), one
     slot per (b, 128-row piece of K, 128-column piece of C): one
-    `xhat_reduce` launch over every piece, then the pieces put together."""
+    `xhat_reduce` launch over every piece (`reduce`: or its plain version,
+    on any device), then the pieces put together."""
     nkt, nct = -(-K // SLOT), -(-C // SLOT)
     kr = K if nkt == 1 else SLOT
     cr = C if nct == 1 else SLOT
-    x_hat = xhat_reduce(partial.view(B * nkt * nct, -1, SLOT, SLOT), kr, cr)
+    x_hat = reduce(partial.view(B * nkt * nct, -1, SLOT, SLOT), kr, cr)
     if nkt == nct == 1:
         return x_hat
     return (x_hat.view(B, nkt, nct, kr, cr).permute(0, 1, 3, 2, 4)

@@ -574,28 +574,45 @@ def _fused_inputs(device, x_dtype, ops_dtype, B=2, V=1000, K=16, C=8):
 F32, BF16 = torch.float32, torch.bfloat16
 
 
+# (B, V, K, C): the fused training shape, one surface, a ragged V with K =
+# C = 8 and K = 16 and with K = C = 128 (the projection's last chunk of
+# each range takes cp.async copies, the others bulk copies), K and C past
+# one 128-wide piece, C not a multiple of 4
+FUSED_SHAPES = {"B4": (4, 32768, 128, 128), "B1": (1, 32768, 128, 128),
+                "ragged": (2, 1000, 8, 8), "small": (2, 1000, 16, 8),
+                "ragged-128": (2, 1000, 128, 128),
+                "past-128": (2, 1000, 200, 136), "C%4": (2, 1000, 24, 10)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("x_dt,ops_dt", [(F32, F32), (BF16, F32),
                                          (BF16, BF16)],
                          ids=["f32", "bf16-x", "bf16"])
-@pytest.mark.parametrize("K,C", [(16, 8), (160, 136), (24, 10)],
-                         ids=["small", "past-128", "C%4"])
-def test_fused_kernels_match_plain(cuda, x_dt, ops_dt, K, C):
-    """spectral_project (+ xhat_reduce) and spectral_apply against their
-    plain versions at a ragged V, with K or C past one 128-wide piece and C
-    not a multiple of 4: |kernel - plain| <= rtol |plain| + atol max|plain|,
-    1e-4 for f32 results (FFMA sums in another order), 2e-2 for bf16
-    outputs (one rounding step of 2^-8 apart)."""
+@pytest.mark.parametrize("shape", list(FUSED_SHAPES))
+def test_fused_kernels_match_plain(cuda, x_dt, ops_dt, shape):
+    """spectral_project (+ xhat_reduce) against its split-V plain version
+    and spectral_apply against its plain version on the same x_hat, with
+    the last 100 rows padding: |kernel - plain| <= rtol |plain| + atol max
+    |plain|, 1e-4 for f32 results (three TF32 passes, sums in another
+    order), 2e-2 for bf16 outputs (one rounding step of 2^-8 apart); also
+    the projection's lowp mode (B3's) on the operators in bf16. Each kernel
+    launches once per call, two launches give the same bits, and padding
+    rows come out 0."""
     from diffusionnet_tpu_torch.ops import fused
-    x, evecs, gX, gY, mass, coefs = _fused_inputs(cuda, x_dt, ops_dt, K=K,
-                                                  C=C)
+    B, V, K, C = FUSED_SHAPES[shape]
+    x, evecs, gX, gY, mass, coefs = _fused_inputs(cuda, x_dt, ops_dt, B=B,
+                                                  V=V, K=K, C=C)
     fused.reset_launches()
     mb.reset_launches()
     x_hat = fused.spectral_project(x, evecs, mass)
     outs = fused.spectral_apply(x_hat, coefs, evecs, gX, gY, x.dtype)
     torch.cuda.synchronize()
-    assert fused.LAUNCHES == {"spectral_project": 1, "spectral_apply": 1}
+    assert fused.LAUNCHES == {"spectral_project": 1, "spectral_apply": 1,
+                              "spectral_ds": 0}
     assert mb.LAUNCHES["xhat_reduce"] == 1
+    assert torch.equal(x_hat, fused.spectral_project(x, evecs, mass))
+    again = fused.spectral_apply(x_hat, coefs, evecs, gX, gY, x.dtype)
+    assert all(torch.equal(a, b) for a, b in zip(outs, again))
     _close("x_hat", x_hat, fused.spectral_project_reference(x, evecs, mass),
            False)
     want = fused.spectral_apply_reference(x_hat, coefs, evecs, gX, gY,
@@ -604,9 +621,42 @@ def test_fused_kernels_match_plain(cuda, x_dt, ops_dt, K, C):
         assert a.dtype == x.dtype
         _close(name, a, b, x.dtype == BF16)
         assert a[:, -100:].float().abs().max().item() == 0.0
-    lowp = fused.spectral_project(x, evecs.to(BF16), mass, lowp=True)
+    # the lowp projection on bf16 operators, for every x dtype (the op
+    # megablock takes an f32 x beside bf16 operators)
+    ev16 = evecs.to(BF16)
+    lowp = fused.spectral_project(x, ev16, mass, lowp=True)
+    assert torch.equal(lowp, fused.spectral_project(x, ev16, mass,
+                                                    lowp=True))
     _close("x_hat lowp", lowp, fused.spectral_project_reference(
-        x, evecs.to(BF16), mass, lowp=True), False)
+        x, ev16, mass, lowp=True), False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dt", [F32, BF16], ids=["f32", "bf16-x"])
+@pytest.mark.parametrize("shape", ["B4", "ragged", "ragged-128", "past-128",
+                                   "C%4"])
+def test_fused_backward_ds_matches_plain(cuda, x_dt, shape):
+    """The backward's ds on the projection's kernel (three operator and
+    cotangent pairs, no scale; cotangents in x's dtype) against its split-V
+    plain version within 1e-4 of its largest entry (sums over V): one
+    launch a call, counted as spectral_ds's, and two launches give the same
+    bits."""
+    from diffusionnet_tpu_torch.ops import fused
+    B, V, K, C = FUSED_SHAPES[shape]
+    _, evecs, gX, gY, _, _ = _fused_inputs(cuda, x_dt, F32, B=B, V=V, K=K,
+                                           C=C)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    cts = [torch.randn(B, V, C, generator=g, device=cuda).to(x_dt)
+           for _ in range(3)]
+    fused.reset_launches()
+    mb.reset_launches()
+    ds = fused.spectral_ds(evecs, gX, gY, *cts)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == {"spectral_project": 0, "spectral_apply": 0,
+                              "spectral_ds": 1}
+    assert mb.LAUNCHES["xhat_reduce"] == 1
+    assert torch.equal(ds, fused.spectral_ds(evecs, gX, gY, *cts))
+    _close("ds", ds, fused.spectral_ds_reference(evecs, gX, gY, *cts), False)
 
 
 @pytest.mark.cuda

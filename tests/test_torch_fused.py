@@ -1,6 +1,8 @@
 """The port's fused spectral block (kernel B4, ops/fused.py) against the JAX
 package's Pallas op in interpret mode, on the CPU (both at full matmul
-precision): forward, the autograd Function's VJP, bf16 x, the tile check."""
+precision): forward, the autograd Function's VJP, bf16 x, the tile check;
+the projection's split-V plain version (the order the card sums in) and
+the layout in which spectral_apply stages s."""
 
 import jax
 import jax.numpy as jnp
@@ -9,9 +11,9 @@ import pytest
 import torch
 
 from diffusionnet_tpu.ops.pallas_fused import (
-    fused_spectral_block as jax_fused,
+    _bwd_b, fused_spectral_block as jax_fused,
     fused_spectral_block_batched as jax_fused_batched)
-from diffusionnet_tpu_torch.ops import fused
+from diffusionnet_tpu_torch.ops import fused, megablock as mb
 
 torch.set_float32_matmul_precision("highest")
 
@@ -38,7 +40,8 @@ def test_fused_forward_matches_pallas(batched):
     want = jfn(*map(jnp.asarray, args), 256, True)
     fused.reset_launches()
     got = tfn(*map(torch.from_numpy, args), 256)
-    assert fused.LAUNCHES == {"spectral_project": 0, "spectral_apply": 0}
+    assert fused.LAUNCHES == {"spectral_project": 0, "spectral_apply": 0,
+                              "spectral_ds": 0}
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and g.shape == w.shape
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
@@ -111,3 +114,149 @@ def test_project_and_apply_plain_pieces():
     r = (lambda t: t.to(torch.bfloat16).double())
     want = r(evecs).transpose(1, 2) @ r(x * mass[..., None])
     torch.testing.assert_close(lowp.double(), want, rtol=1e-5, atol=1e-6)
+    # the CPU wrapper takes one range of V: one product a batch element
+    assert fused.project_splits(2, 256, 8, 8, x.device) == (1, 256)
+    assert torch.equal(x_hat, fused.spectral_project_reference(
+        x, evecs, mass, splits=(1, 256)))
+    for b in range(2):
+        torch.testing.assert_close(
+            x_hat[b], evecs[b].T @ (x[b] * mass[b][:, None]), rtol=1e-6,
+            atol=1e-7)
+
+
+# n_sm for each split count at B = 2, V = 1000, K = C = 8 (two pieces)
+SPLIT_SMS = {1: 2, 4: 8, 16: 32}
+
+
+def _scaled_close(got, want, rtol, atol):
+    """|got - want| <= rtol |want| + atol max |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    bound = rtol * np.abs(want) + atol * np.abs(want).max()
+    assert (np.abs(got - want) <= bound).all(), np.abs(got - want).max()
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16-x", "lowp"])
+@pytest.mark.parametrize("S", [1, 4, 16])
+def test_split_projection_matches_jax(S, kind):
+    """The projection as the card sums it (the split-V kernel's plain
+    version over S ranges of a ragged V = 1000, then the fixed-order sum):
+    with a f32 or bf16 x, the whole block through it against the Pallas op
+    in interpret mode (f32: rtol 1e-4, atol 1e-5 of each output's largest
+    entry; bf16 outputs within one bf16 step, rtol 2^-7, as both round the
+    same f32 sums once), and x_hat against an f64 product; lowp (both
+    operands rounded to bf16) against the f64 product of the rounded
+    operands. No launch on the CPU."""
+    x, evecs, gX, gY, mass, coefs = _inputs(7, B=2, V=1000, K=8, C=8)
+    splits = mb.xhat_splits(2, 1000, 8, 8, SPLIT_SMS[S])
+    assert splits[0] == S
+    t = [torch.from_numpy(a) for a in (x, evecs, gX, gY, mass, coefs)]
+    xt = t[0].to(torch.bfloat16) if kind == "bf16-x" else t[0]
+    fused.reset_launches()
+    mb.reset_launches()
+    lowp = kind == "lowp"
+    ev = t[1].to(torch.bfloat16) if lowp else t[1]
+    x_hat = fused.spectral_project_reference(xt, ev, t[4], lowp, splits)
+    assert fused.LAUNCHES == {"spectral_project": 0, "spectral_apply": 0,
+                              "spectral_ds": 0}
+    assert mb.LAUNCHES["xhat_reduce"] == 0
+    assert x_hat.dtype == torch.float32 and x_hat.shape == (2, 8, 8)
+    r = ((lambda a: a.to(torch.bfloat16).double()) if lowp
+         else (lambda a: a.double()))
+    want = (r(ev).transpose(1, 2)
+            @ r(xt.double() * t[4][..., None].double()))
+    _scaled_close(x_hat.numpy(), want.numpy(), 1e-5, 1e-6)
+    if lowp:
+        return
+    outs = fused.spectral_apply_reference(x_hat, t[5], t[1], t[2], t[3],
+                                          xt.dtype)
+    jx = jnp.asarray(x, jnp.bfloat16) if kind == "bf16-x" else jnp.asarray(x)
+    ref = jax_fused_batched(jx, *map(jnp.asarray, (evecs, gX, gY, mass,
+                                                   coefs)), 8, True)
+    for g, w in zip(outs, ref):
+        assert g.dtype == xt.dtype and g.shape == w.shape
+        w = np.asarray(w, np.float32)
+        if kind == "f32":
+            _scaled_close(g.numpy(), w, 1e-4, 1e-5)
+        else:
+            _scaled_close(g.float().numpy(), w, 2 ** -7, 1e-5)
+
+
+@pytest.mark.parametrize("S", [1, 4, 16])
+def test_split_ds_matches_jax_bwd(S):
+    """The backward's ds = Phi^T dy + GX^T dgx + GY^T dgy as the card sums
+    it (the plain version of the projection's kernel with three pairs: the
+    pairs' partials per V range of a ragged V = 1000, then the fixed-order
+    sum) against JAX's `_bwd_b`, whose dcoefs is ds itself where x_hat is
+    1; and dx through `spectral_chain_vjp` against its dx. rtol 1e-4, atol
+    1e-5 of each result's largest entry."""
+    x, evecs, gX, gY, mass, coefs = _inputs(9, B=2, V=1000, K=8, C=8)
+    rs = np.random.RandomState(10)
+    cts = [rs.randn(2, 1000, 8).astype(np.float32) for _ in range(3)]
+    ones = np.ones((2, 8, 8), np.float32)
+    res = tuple(map(jnp.asarray, (x, evecs, gX, gY, mass, coefs, ones)))
+    dx_j, *_, ds_j = _bwd_b(8, True, res, tuple(map(jnp.asarray, cts)))
+    splits = mb.xhat_splits(2, 1000, 8, 8, SPLIT_SMS[S])
+    assert splits[0] == S
+    t = [torch.from_numpy(a) for a in (x, evecs, gX, gY, mass, coefs)]
+    ds = fused.spectral_ds_reference(t[1], t[2], t[3],
+                                     *map(torch.from_numpy, cts), splits)
+    _scaled_close(ds.numpy(), np.asarray(ds_j), 1e-4, 1e-5)
+    dx, _ = fused.spectral_chain_vjp(ds, torch.ones(2, 8, 8), t[5], t[1],
+                                     t[4], torch.float32)
+    _scaled_close(dx.numpy(), np.asarray(dx_j), 1e-4, 1e-5)
+
+
+def _staged_s(s, k0, c0):
+    """spectral_apply's staging of s (csrc/spectral_fused.cu, `stage_s`),
+    value by value: rows k0.. and columns c0.. of s (K, C) as 4 chunks of
+    (TF32 hi, lo) x 4096 floats; physical row pp = 8 q + 2 st + r of a
+    chunk goes to k group u = 2 st + r, place q of 16-byte unit
+    ((n / 8) 8 + u) 8 + n % 8; zeros past K and C."""
+    K, C = s.shape
+    kk, n = torch.meshgrid(torch.arange(128), torch.arange(128),
+                           indexing="ij")
+    k, c = k0 + kk, c0 + n
+    inside = (k < K) & (c < C)
+    v = torch.where(inside, s[k.clamp(max=K - 1), c.clamp(max=C - 1)],
+                    torch.zeros(()))
+    hi = mb.tf32_round(v)
+    lo = mb.tf32_round(v - hi)
+    pp = kk % 32
+    u = 2 * ((pp % 8) // 2) + pp % 2
+    unit = ((n // 8) * 8 + u) * 8 + n % 8
+    out = torch.zeros(4, 2, 4096)
+    out[kk // 32, 0, 4 * unit + pp // 8] = hi
+    out[kk // 32, 1, 4 * unit + pp // 8] = lo
+    return out
+
+
+@pytest.mark.parametrize("K,C,k0,c0", [(128, 128, 0, 0), (40, 20, 0, 0),
+                                       (200, 136, 128, 128)],
+                         ids=["full", "ragged", "second-pieces"])
+def test_apply_s_tiles_follow_b_tiles(K, C, k0, c0):
+    """The B operand spectral_apply stages, s = coefs (.) x_hat in 128 x 128
+    pieces, is laid out as `b_tiles` lays B1's s^T out (each 32-value
+    chunk in the permuted order of a thread's A fragments), bit for bit;
+    read back as wgmma reads it (K-major core matrices, `_chunk_order`) its
+    hi and lo planes are the TF32 split of coefs (.) x_hat, bit for bit,
+    with zeros past K and C."""
+    rs = np.random.RandomState(K + C)
+    x_hat = torch.from_numpy(rs.randn(K, C).astype(np.float32))
+    coefs = torch.from_numpy(rs.rand(K, C).astype(np.float32))
+    s = coefs * x_hat
+    got = _staged_s(s, k0, c0)
+    piece = torch.zeros(128, 128)
+    kn, cn = min(K - k0, 128), min(C - c0, 128)
+    piece[:kn, :cn] = s[k0:k0 + kn, c0:c0 + cn]
+    assert torch.equal(got, mb.b_tiles(piece.t(), False)[0])
+    order = mb._chunk_order(False)
+    n = torch.arange(128)
+    back = torch.zeros(2, 128, 128)  # (plane, n, k)
+    for ch in range(4):
+        for j in range(32):
+            o = ((n // 8) * 8 + j // 4) * 32 + (n % 8) * 4 + j % 4
+            back[:, n, ch * 32 + order[j]] = got[ch, :, o]
+    hi = mb.tf32_round(piece)
+    assert torch.equal(back[0].t(), hi)
+    assert torch.equal(back[1].t(), mb.tf32_round(piece - hi))
+    assert not back[:, cn:].any() and not back[:, :, kn:].any()

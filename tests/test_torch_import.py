@@ -84,19 +84,23 @@ def test_megablock_dispatch_by_device():
 
 
 def test_fused_dispatch_by_device():
-    """The fused block's wrappers: CPU tensors take the plain versions and
-    launch nothing; a device that is neither CPU nor CUDA, or tensors on
-    several devices, are refused."""
+    """The fused block's wrappers (the backward's ds included): CPU tensors
+    take the plain versions and launch nothing; a device that is neither
+    CPU nor CUDA, or tensors on several devices, are refused."""
     from diffusionnet_tpu_torch.ops import fused
     x, evecs, gX, gY, mass, coefs = _small_block(np.random.RandomState(1),
                                                  B=2, V=64)[:6]
     fused.reset_launches()
     x_hat = fused.spectral_project(x, evecs, mass)
     fused.spectral_apply(x_hat, coefs, evecs, gX, gY, torch.float32)
-    assert fused.LAUNCHES == {"spectral_project": 0, "spectral_apply": 0}
+    fused.spectral_ds(evecs, gX, gY, x, x, x)
+    assert fused.LAUNCHES == {"spectral_project": 0, "spectral_apply": 0,
+                              "spectral_ds": 0}
     with pytest.raises(ValueError, match="unsupported device"):
         fused.spectral_project(x.to("meta"), evecs.to("meta"),
                                mass.to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused.spectral_ds(*(t.to("meta") for t in (evecs, gX, gY, x, x, x)))
     with pytest.raises(ValueError, match="several devices"):
         fused.spectral_apply(x_hat.to("meta"), coefs, evecs, gX, gY,
                              torch.float32)
