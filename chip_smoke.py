@@ -114,7 +114,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      on) takes 3 Adam steps at the experiment's default batch of 2 (torus(144, 140) and
      icosphere(5) padded to 32768) through apply_model(use_megakernel=True):
      4 B1 and 4 B2 launches a step; one step with dropout off against the
-     eager model with autograd; the step's time.
+     eager model with autograd; the step's time;
+ 17. the training harness (experiments.exp_common.fit): (a) B1 and B2
+     against their plain versions at the synthetic SHREC example's shapes
+     (B=10, V=256 with padding rows, K=32, C=64, hidden [64, 64]; f32 and
+     bf16, emit_next on and off, dropout off and on), each launched twice
+     and bit-identical; (b) fit on the human_segmentation_original
+     configuration at full width (phase 8's meshes, batch 4, k 128, face
+     labels, dropout on, use_megakernel) for 2 epochs: B1 and B2 must
+     launch, a run resumed from the epoch-0 checkpoint and a run on
+     device_data must end with the uninterrupted run's weights bit for bit
+     (the eager route's pair is printed), seconds per epoch printed,
+     prefetched batches equal to directly copied ones, the prefetch
+     epoch's host stacking and copies timed alone, and the face mean's
+     backward (gather_mean: a fixed-order sum over each vertex's entries)
+     must repeat its bits over five passes (gather's and an embedding
+     lookup's printed, all three timed); (c)
+     the synthetic SHREC example with --mega at its defaults, whose test
+     accuracy must reach EXAMPLE_ACC_BOUND.
 
 Since phase 12's slice the port's default eigensolver is the device one,
 so the cold requests of phases 4 and 14 and the dataset precompute of
@@ -924,7 +941,8 @@ def step_agreement(name_a, name_b, res, before, checked, exempt=(),
 
 def phase_train(mb):
     """The training slice on the card. Returns the launch counts of its five
-    steps and the torus's operators (for the bench-shape step)."""
+    steps, the torus's operators (for the bench-shape step), the batch and
+    the dataset."""
     from diffusionnet_tpu_torch.data import make_padded_batches
     from diffusionnet_tpu_torch.models import DiffusionNet, flat_params
     from diffusionnet_tpu_torch.training import (
@@ -986,7 +1004,7 @@ def phase_train(mb):
                      {k: v.detach() for k, v in p.items()})
     step_agreement("fast path", "eager model", res, params,
                    checked=("gradient", "Adam update"))
-    return launches, ds.ops_list[0], ds.verts_list[0], batch
+    return launches, ds.ops_list[0], ds.verts_list[0], batch, ds
 
 
 def phase_wide_times(mb, card):
@@ -2173,6 +2191,252 @@ def phase_c256_train(mb, card):
     return launches
 
 
+# the synthetic SHREC example's shapes on the megakernel path: batch 10 of
+# meshes of 160-200 vertices padded to the 256 bucket (n_pad: the rows of a
+# 196-vertex mesh's padding), k 32, c_width 64, hidden [64, 64]; the
+# dropout tile of V = 256 is 256
+EXAMPLE_BLOCK = dict(B=10, V=256, K=32, C=64, hidden=(64, 64), n_pad=60)
+# the example's test accuracy at its defaults with --mega must reach this.
+# On the card seeds 0-4 all classified the 30 test meshes right (1.0; also
+# the eager route and bf16 operands at seed 0; PERF.md section 6);
+# the bound allows three of 30 wrong, while a run that does not learn stays
+# near chance (0.1)
+EXAMPLE_ACC_BOUND = 0.9
+
+
+def phase_example_kernels(mb):
+    """17a: B1 and B2 against their plain versions at the example's shapes,
+    f32 and bf16, emit_next on and off, dropout off and on (tile 256), each
+    launched twice and bit-identical; B1's x_hat kernel alone where
+    emit_next is off."""
+    B, V, K, C = (EXAMPLE_BLOCK[k] for k in "BVKC")
+    hidden, n_pad = EXAMPLE_BLOCK["hidden"], EXAMPLE_BLOCK["n_pad"]
+    log(f"== phase 17a: B1 and B2 at the synthetic SHREC example's shapes "
+        f"(B={B}, V={V}, K={K}, C={C}, hidden {list(hidden)}, {n_pad} "
+        "padding rows)")
+    for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        lowp = kind == "bf16"
+        args = block_inputs(B, V, K, C, hidden, dtype, seed=17, n_pad=n_pad)
+        g = torch.Generator(device="cuda").manual_seed(17)
+        dout = torch.randn(B, V, C, generator=g, device="cuda").to(dtype)
+        for emit in (True, False):
+            for seed in (None, 2 ** 31 - 17):
+                tag = (f"example B={B} V={V} K={K} C={C} {kind} "
+                       f"emit_next={emit} dropout={seed is not None}")
+                kw = dict(lowp=lowp, seed=seed, tile_v=V)
+                route, want = b1_launches(mb, K, C, hidden, lowp, emit)
+                out, xn, got = b1_twice(mb, tag, args, emit_next=emit, **kw)
+                check(route[0] == "rows" and got == want,
+                      f"{tag}: route {route}, launches {got} != {want}")
+                ref, ref_xn = mb.megablock_chained_reference(
+                    *args, emit_next=emit, **kw)
+                compare(f"{tag} out (two launches bit-identical)", out, ref,
+                        TOL[kind])
+                if emit:
+                    compare(f"{tag} x_hat_next", xn, ref_xn, TOL[kind])
+                elif seed is None:
+                    xhat_kernel_check(mb, tag, args, out, lowp)
+                # B2, rows whose ReLU input ties 0 given zero cotangent
+                ties = mb.relu_margin(*args, **kw) < TIE
+                targs = list(args)
+                targs[4] = args[4].masked_fill(ties, 0.0)
+                d = dout.masked_fill(ties[..., None], 0.0)
+                dxn = (torch.randn(B, K, C, generator=g, device="cuda")
+                       if emit else None)
+                grads = mb.megablock_chained_bwd(*targs, d, dxn, **kw)
+                again = mb.megablock_chained_bwd(*targs, d, dxn, **kw)
+                want_g = mb.megablock_chained_bwd_reference(*targs, d, dxn,
+                                                            **kw)
+                torch.cuda.synchronize()
+                flat = [*grads[:4], *grads[4], *grads[5]]
+                flat2 = [*again[:4], *again[4], *again[5]]
+                flat_w = [*want_g[:4], *want_g[4], *want_g[5]]
+                check(all(torch.equal(a, b) for a, b in zip(flat, flat2)),
+                      f"{tag}: two launches of B2 differ")
+                worst = max(compare(f"{tag} B2 output {i}", a, b,
+                                    GRAD_TOL[kind], scaled=True, quiet=True)
+                            / max(b.float().abs().max().item(), 1e-30)
+                            for i, (a, b) in enumerate(zip(flat, flat_w)))
+                log(f"  {tag} B2: {len(flat)} outputs ok, two launches "
+                    f"bit-identical, largest max abs err / max |plain| "
+                    f"{worst:.2e}; {int(ties.sum())} of {B * V} tie rows")
+        del args
+
+
+def phase_harness(mb, card, seg_ds):
+    """17b-c: the training harness (experiments.exp_common.fit) on the card.
+    (b) the human_segmentation_original configuration at full width (8
+    classes, c_width 128, dropout on, HKS, k 128, face labels) on phase 8's
+    meshes (batch 4, the 32768 bucket) for 2 epochs through B1/B2: a run
+    resumed from its epoch-0 checkpoint ends with the uninterrupted run's
+    weights bit for bit, and device_data gives the prefetch path's weights
+    bit for bit. (c) the synthetic SHREC example with --mega at its
+    defaults must reach EXAMPLE_ACC_BOUND. Returns the launch counts of
+    (b)'s uninterrupted run and of the example."""
+    from diffusionnet_tpu_torch.examples import synthetic_shrec
+    from diffusionnet_tpu_torch.experiments.exp_common import (
+        FitConfig, build_model, fit)
+    from diffusionnet_tpu_torch.ops import blocked_ell as be
+
+    log("== phase 17b: the harness at full width: the human_segmentation_"
+        "original configuration, fit(use_megakernel=True), 2 epochs")
+    model = build_model(8, 128, "faces", True, "hks")
+    t_phase = time.perf_counter()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(name, n_epoch, device_data=False, resume=None, mega=True):
+            cfg = FitConfig(n_epoch=n_epoch, batch_size=4,
+                            input_features="hks", labels_kind="face",
+                            use_megakernel=mega, device_data=device_data)
+            save = os.path.join(tmp, name)
+            logp = save + ".jsonl"
+            t0 = time.perf_counter()
+            params, hist, _ = fit(
+                model, seg_ds, seg_ds, cfg, model_save_path=save,
+                log_path=logp, verbose=False,
+                resume_from=(os.path.join(tmp, resume) + "_ckpt"
+                             if resume else None))
+            torch.cuda.synchronize()
+            with open(logp) as f:
+                secs = [json.loads(line)["epoch_seconds"] for line in f]
+            log(f"  {name}: {n_epoch} epochs, history {hist}, epoch seconds "
+                f"{secs} (host clock, evaluation included), "
+                f"{time.perf_counter() - t0:.2f} s in all [{card}]")
+            runs[name] = {k: v.detach() for k, v in params.items()}
+
+        mb.reset_launches()
+        run("whole", 2)
+        launches = dict(mb.LAUNCHES)
+        log(f"  launches of the uninterrupted run (2 train steps, 2 "
+            f"evaluations): {launches}")
+        for k in ("megablock_fwd", "megablock_fwd_xhat", "xhat_reduce",
+                  "megablock_bwd_rows", "megablock_bwd_grads",
+                  "grad_reduce"):
+            check(launches[k] > 0, f"{k} was not launched by fit")
+        run("first", 1)
+        run("resumed", 2, resume="first")
+        run("device_data", 2, device_data=True)
+        # the eager route (cuBLAS for the blocks' products): printed only
+        run("eager whole", 2, mega=False)
+        run("eager first", 1, mega=False)
+        run("eager resumed", 2, resume="eager first", mega=False)
+    same = [k for k in runs["eager whole"]
+            if torch.equal(runs["eager whole"][k], runs["eager resumed"][k])]
+    rel = max(((runs["eager whole"][k] - runs["eager resumed"][k]).norm()
+               / runs["eager whole"][k].norm().clamp(min=1e-30)).item()
+              for k in runs["eager whole"])
+    log(f"  eager route, resumed against uninterrupted (printed, not "
+        f"checked): {len(same)} of {len(runs['eager whole'])} tensors "
+        f"bit-identical, largest relative L2 difference {rel:.3e}")
+    for other in ("resumed", "device_data"):
+        diff = [k for k in runs["whole"]
+                if not torch.equal(runs["whole"][k], runs[other][k])]
+        log(f"  {other} against the uninterrupted run: "
+            f"{len(runs['whole']) - len(diff)} of {len(runs['whole'])} "
+            "tensors bit-identical")
+        check(not diff, f"{other}: weights differ from the uninterrupted "
+              f"run in {diff}")
+
+    # prefetched batches (pinned copies on a side stream, read as they come)
+    # against the same batches copied directly
+    from diffusionnet_tpu_torch.data import (make_padded_batches,
+                                             prefetch_to_device)
+
+    def arrays(batch):
+        out = []
+        batch.map(lambda a: out.append(a) or a)
+        return out
+    n_batches = 0
+    for bs in (1, 3):
+        direct = make_padded_batches(seg_ds, bs, shuffle=True, seed=bs)
+        for got, want in zip(prefetch_to_device(make_padded_batches(
+                seg_ds, bs, shuffle=True, seed=bs)), direct):
+            same = all(torch.equal(a, b) for a, b in
+                       zip(arrays(got), arrays(want.to("cuda"))))
+            check(same, f"a prefetched batch (batch size {bs}) differs from "
+                  "the directly copied one")
+            n_batches += 1
+    log(f"  prefetch_to_device: {n_batches} batches (batch sizes 1 and 3) "
+        "equal to the directly copied ones")
+
+    # the prefetch path's epoch, taken apart: the host stacking alone, and
+    # with the copies to the card (no training)
+    for name, wrap in (("host stacking alone", lambda it: it),
+                       ("stacking and copies (prefetch_to_device)",
+                        prefetch_to_device)):
+        t0 = time.perf_counter()
+        for b in wrap(make_padded_batches(seg_ds, 4, shuffle=True, seed=0)):
+            pass
+        torch.cuda.synchronize()
+        log(f"  an epoch's batches (batch 4), {name}: "
+            f"{time.perf_counter() - t0:.4f} s (host clock) [{card}]")
+
+    # the face mean at the segmentation batch's shapes: its backward by
+    # gather (atomic adds), by an embedding lookup (sort-based) and by
+    # gather_mean (a fixed-order sum over each vertex's entries, its plan
+    # made first as the models make it), five passes each; gather_mean
+    # must repeat its bits and give the forward of the gather form;
+    # forward and backward timed
+    from diffusionnet_tpu_torch.models.diffusion_net import (MeanPlan,
+                                                             gather_mean)
+    batch = next(make_padded_batches(seg_ds, 4)).to("cuda")
+    faces = batch.faces.long()
+    B, F = faces.shape[:2]
+    V, C = batch.verts.shape[1], 8
+    g = torch.Generator(device="cuda").manual_seed(170)
+    x0 = torch.randn(B, V, C, generator=g, device="cuda")
+    dout = torch.randn(B, F, C, generator=g, device="cuda")
+    safe = faces.clamp(0, V - 1)
+
+    def by_gather(x):
+        return sum(torch.gather(x, -2, safe[..., i, None].expand(B, F, C))
+                   for i in range(3)) / 3.0
+
+    def by_embedding(x):
+        flat = safe + V * torch.arange(B, device="cuda").view(B, 1, 1)
+        rows = torch.nn.functional.embedding(flat, x.reshape(B * V, C))
+        return sum(rows[..., i, :] for i in range(3)) / 3.0
+    forms = (("gather", by_gather), ("embedding lookup", by_embedding),
+             ("gather_mean", lambda x: gather_mean(x, faces,
+                                                   MeanPlan(faces, V))))
+    repeats = {}
+    for name, fn in forms:
+        grads = []
+        for _ in range(5):
+            x = x0.clone().requires_grad_(True)
+            fn(x).backward(dout)
+            grads.append(x.grad)
+        repeats[name] = sum(torch.equal(grads[0], q) for q in grads[1:])
+        diff = max((grads[0] - q).abs().max().item() for q in grads[1:])
+        x = x0.clone().requires_grad_(True)
+        ms = time_ms(lambda: fn(x).backward(dout))
+        log(f"  face mean by {name}, B={B} V={V} F={F} (padded) C={C}: "
+            f"forward and backward {ms:.4f} ms (CUDA events) [{card}]; "
+            f"backward passes 2-5 bit-identical to the first: "
+            f"{repeats[name]} of 4 (largest difference {diff:.3e})")
+    check(torch.equal(by_gather(x0), gather_mean(x0, faces)),
+          "gather_mean's forward differs from the gather form")
+    check(repeats["gather_mean"] == 4,
+          "gather_mean's backward does not repeat its bits")
+
+    log("== phase 17c: the synthetic SHREC example, --mega, its defaults")
+    mb.reset_launches()
+    be.reset_launches()
+    t0 = time.perf_counter()
+    acc = synthetic_shrec.main(["--mega"])
+    ex_launches = dict(mb.LAUNCHES, blocked_ell=be.LAUNCHES["blocked_ell"])
+    log(f"  test accuracy {acc:.4f} (bound {EXAMPLE_ACC_BOUND}), "
+        f"{time.perf_counter() - t0:.2f} s with its precompute [{card}]; "
+        f"launches {ex_launches}")
+    check(ex_launches["megablock_fwd"] > 0
+          and ex_launches["megablock_bwd_rows"] > 0,
+          "the example did not run on B1/B2")
+    check(acc >= EXAMPLE_ACC_BOUND,
+          f"example test accuracy {acc} below {EXAMPLE_ACC_BOUND}")
+    log(f"  phase 17b-c: {time.perf_counter() - t_phase:.1f} s")
+    return launches, ex_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -2209,7 +2473,7 @@ def main() -> int:
     b2_errs, (b2_args, _, _, _, slots) = phase_b2_kernels(mb)
     errs.update(b2_errs)
     del b2_args
-    launches, torus_ops, torus_verts, seg_batch = phase_train(mb)
+    launches, torus_ops, torus_verts, seg_batch, seg_ds = phase_train(mb)
     log(f"  launches of the inference slice: {serve_launches}; of the "
         f"training slice: {launches}")
     bwd_times = phase_bwd_times(mb, card)
@@ -2247,6 +2511,8 @@ def main() -> int:
         f"one request {served_launches}; the B3 op's 3 steps {b3_launches}")
 
     si_launches = phase_c256_train(mb, card)
+    phase_example_kernels(mb)
+    harness_launches, example_launches = phase_harness(mb, card, seg_ds)
 
     widths = (3 * 128, 128, 128, 128)
     b1 = times[(1, 32768, "f32")]
@@ -2266,6 +2532,9 @@ def main() -> int:
         f"({t5['bound_by']})")
     log(f"  launches of the sampling_invariance model's 3 steps (phase 16): "
         f"{si_launches}")
+    log(f"  launches of the harness (phase 17b, 2 epochs at full width): "
+        f"{harness_launches}; of the synthetic SHREC example (phase 17c): "
+        f"{example_launches}")
 
     def row(name, source, replaces, n, err, ms, plain, bnd, lib):
         return {"name": name, "route": "cuda",

@@ -11,15 +11,22 @@ decay), the device eigensolver of the operator precompute (on the
 sliced-ELL SpMM kernel csrc/blocked_ell.cu) and the rest of the model
 surface (implicit_dense diffusion, ELL gradients, compute_dtype, remat, the
 fused spectral block on csrc/spectral_fused.cu, the one-block op
-`megablock`, the functional-maps head). ROADMAP.md lists what is still to
-come.
+`megablock`, the functional-maps head), and the training harness
+(`experiments.exp_common.fit`: the epoch loop, rotation augmentation, the
+two input pipelines, full-state checkpoints with an exact resume) with the
+device ops of kNN, frames and position normalization. ROADMAP.md lists
+what is still to come.
 """
 
 from . import utils
 from .utils import hash_arrays, ensure_dir_exists
 
 from . import ops
-from .ops import to_basis, from_basis, compute_hks, compute_hks_autoscale
+from .ops import (to_basis, from_basis, compute_hks, compute_hks_autoscale,
+                  norm, norm2, normalize, dot, cross, face_coords, face_area,
+                  face_normals, project_to_tangent, mesh_vertex_normals,
+                  vertex_normals, build_tangent_frames, edge_tangent_vectors,
+                  normalize_positions, find_knn, farthest_point_sampling)
 
 from . import geometry
 from .geometry import (compute_operators, get_operators, Operators,
@@ -31,9 +38,11 @@ from .models import (DiffusionNet, DiffusionNetBlock, LearnedTimeDiffusion,
                      FunctionalMapCorrespondence)
 
 from . import data
-from .data import PaddedBatch, SurfaceDataset, make_padded_batches
+from .data import (DeviceDataset, PaddedBatch, SurfaceDataset,
+                   make_padded_batches, prefetch_to_device)
 from . import training
 from .training import (InferenceSession, adam_with_step_decay,
-                       make_train_step)
+                       make_train_step, save_checkpoint, restore_checkpoint,
+                       latest_checkpoint)
 
 __version__ = "0.1.0"

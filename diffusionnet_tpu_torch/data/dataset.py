@@ -12,21 +12,25 @@ Padding invariants:
   * filler samples (to square off a partial final batch) copy a real
     sample's geometry but carry labels == -1 everywhere, and face_mask False.
 
-Batches are numpy; `PaddedBatch.to(device)` is the one boundary where they
-become torch tensors. (The JAX package's prefetch_to_device and
-DeviceDataset come with ROADMAP item A.7.)
+Batches are numpy; `PaddedBatch.to(device)` is the boundary where they
+become torch tensors. Two input pipelines feed a training loop:
+`prefetch_to_device` (host stacking and the copy to the card on a
+background thread) and `DeviceDataset` (the stacked dataset on the card
+once, batches gathered there).
 """
 
 from __future__ import annotations
 
-from typing import Iterator, NamedTuple, Sequence
+import queue
+import threading
+from typing import Callable, Iterator, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from .. import utils
 from ..geometry.operators import (DEFAULT_EIGENSOLVER, Operators,
-                                  get_operators, map_operators,
+                                  get_all_operators, map_operators,
                                   pad_operators, truncate_k)
 
 LABEL_KINDS = ("global", "vertex", "face")
@@ -40,13 +44,18 @@ class PaddedBatch(NamedTuple):
     faces: np.ndarray      # (B, Fp, 3) int32; -1 rows = padding
     face_mask: np.ndarray  # (B, Fp) bool; True on real faces of real samples
 
+    def map(self, fn: Callable) -> "PaddedBatch":
+        """fn applied to every array of the batch (the idx and val of each
+        Ell included; None stays None)."""
+        return PaddedBatch(verts=fn(self.verts),
+                           ops=map_operators(fn, self.ops),
+                           labels=fn(self.labels), faces=fn(self.faces),
+                           face_mask=fn(self.face_mask))
+
     def to(self, device) -> "PaddedBatch":
         """The same batch with every array a torch tensor on `device`."""
-        def t(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        return PaddedBatch(verts=t(self.verts), ops=self.ops.to(device),
-                           labels=t(self.labels), faces=t(self.faces),
-                           face_mask=t(self.face_mask))
+        return self.map(
+            lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device))
 
 
 class SurfaceDataset:
@@ -96,21 +105,24 @@ class SurfaceDataset:
         self.labels_list.append(labels)
 
     def precompute(self, k_eig: int, op_cache_dir: str | None = None,
+                   normals_list: Sequence | None = None,
                    verbose: bool = True,
                    eigensolver: str = DEFAULT_EIGENSOLVER,
                    device="cuda") -> None:
         """Compute (or load from the disk cache) the Operators bundle of
-        every surface. eigensolver: 'device' (default; the solve runs on
-        `device`) or 'host' (ARPACK), as get_operators."""
+        every surface through get_all_operators (its worker policy).
+        normals_list: optional per-sample (V, 3) normals that replace the
+        computed ones in the tangent frames (the sampling_invariance cloud
+        flow, reference dataset.py:107-115,146). eigensolver: 'device'
+        (default; the solve runs on `device`) or 'host' (ARPACK)."""
         n = len(self)
-        ops = []
-        for i in range(n):
-            if verbose:
-                print(f"precompute {i} / {n}")
-            ops.append(get_operators(self.verts_list[i], self.faces_list[i],
-                                     k_eig, op_cache_dir,
-                                     eigensolver=eigensolver, device=device))
-        self.ops_list = ops
+        if normals_list is not None and len(normals_list) != n:
+            raise ValueError(f"normals_list has {len(normals_list)} entries "
+                             f"for {n} samples")
+        self.ops_list = get_all_operators(
+            self.verts_list, self.faces_list, k_eig,
+            op_cache_dir=op_cache_dir, normals=normals_list,
+            eigensolver=eigensolver, verbose=verbose, device=device)
 
 
 def _group_by_bucket(ds: SurfaceDataset, buckets) -> dict[int, list[int]]:
@@ -181,29 +193,21 @@ def _stacked_groups(ds: SurfaceDataset, buckets):
     return groups
 
 
-def _take(stacked: PaddedBatch, rows) -> PaddedBatch:
-    return PaddedBatch(
-        verts=stacked.verts[rows],
-        ops=map_operators(lambda a: a[rows], stacked.ops),
-        labels=stacked.labels[rows], faces=stacked.faces[rows],
-        face_mask=stacked.face_mask[rows])
-
-
-def _batch_rows(stacked: PaddedBatch, order, start: int, batch_size: int
-                ) -> PaddedBatch:
-    """One batch from stacked group rows; filler rows repeat the chunk's
-    first sample with labels -1 and face_mask False."""
-    chunk = order[start:start + batch_size]
-    n_fill = batch_size - len(chunk)
-    rows = np.concatenate([chunk, np.full(n_fill, chunk[0], chunk.dtype)])
-    batch = _take(stacked, rows)
-    if n_fill:
-        labels = batch.labels.copy()
-        labels[len(chunk):] = -1
-        face_mask = batch.face_mask.copy()
-        face_mask[len(chunk):] = False
-        batch = batch._replace(labels=labels, face_mask=face_mask)
-    return batch
+def _epoch_rows(groups, batch_size: int, shuffle: bool, seed: int):
+    """(stacked group, rows, n_real) of each batch of an epoch: each group's
+    order is a numpy RandomState(seed) permutation with shuffle (as in the
+    JAX package); a partial final batch repeats the chunk's first row after
+    its n_real real ones."""
+    rng = np.random.RandomState(seed) if shuffle else None
+    for idx, stacked in groups:
+        n = len(idx)
+        order = rng.permutation(n) if rng is not None else np.arange(n)
+        for start in range(0, n, batch_size):
+            chunk = order[start:start + batch_size]
+            n_fill = batch_size - len(chunk)
+            rows = np.concatenate([chunk,
+                                   np.full(n_fill, chunk[0], chunk.dtype)])
+            yield stacked, rows, len(chunk)
 
 
 def make_padded_batches(ds: SurfaceDataset, batch_size: int,
@@ -222,9 +226,136 @@ def make_padded_batches(ds: SurfaceDataset, batch_size: int,
     if len(ds.ops_list) != len(ds):
         raise RuntimeError("ops_list is stale: precompute() after every add()")
 
-    rng = np.random.RandomState(seed) if shuffle else None
-    for idx, stacked in _stacked_groups(ds, buckets):
-        n = len(idx)
-        order = rng.permutation(n) if rng is not None else np.arange(n)
-        for start in range(0, n, batch_size):
-            yield _batch_rows(stacked, order, start, batch_size)
+    for stacked, rows, n_real in _epoch_rows(_stacked_groups(ds, buckets),
+                                             batch_size, shuffle, seed):
+        batch = stacked.map(lambda a: a[rows])
+        if n_real < batch_size:
+            # filler rows: labels -1, face_mask False
+            labels = batch.labels.copy()
+            labels[n_real:] = -1
+            face_mask = batch.face_mask.copy()
+            face_mask[n_real:] = False
+            batch = batch._replace(labels=labels, face_mask=face_mask)
+        yield batch
+
+
+def _copy_to_card(batch: PaddedBatch, device, stream) -> tuple:
+    """The batch copied to the card from pinned host memory on `stream`, and
+    the event recorded after the copies. The pinned arrays may go at once:
+    the caching host allocator keeps a pinned block from reuse until the
+    copy's stream has passed it."""
+    with torch.cuda.stream(stream):
+        dev = batch.map(lambda a: torch.from_numpy(np.ascontiguousarray(a))
+                        .pin_memory().to(device, non_blocking=True))
+        event = torch.cuda.Event()
+        event.record(stream)
+    return dev, event
+
+
+def prefetch_to_device(batches, size: int = 2, device="cuda"):
+    """PaddedBatches (numpy) -> the same batches as torch tensors on
+    `device`, produced ahead of consumption.
+
+    A background thread runs the producer (the host stacking of
+    make_padded_batches) and the copies, so both overlap the consumer's
+    device work; at most `size` batches wait in the queue. On a CUDA device
+    each batch is copied from pinned memory on a side stream, and the
+    consumer's stream is made to wait on the copy's event before it reads
+    the batch, with every tensor marked as used on it for the caching
+    allocator. A producer error is raised in the consumer; a consumer that
+    abandons the generator (an exception, an early stop) releases the
+    thread, which then drops its batches."""
+    device = torch.device(device)
+    q: queue.Queue = queue.Queue(maxsize=max(1, size))
+    sentinel = object()
+    errors: list[BaseException] = []
+    abandoned = threading.Event()
+    side = (torch.cuda.Stream(device) if device.type == "cuda" else None)
+
+    def put(item) -> bool:
+        """A bounded put that notices abandonment (the thread must not stay
+        blocked holding batches on the device); False once abandoned."""
+        while not abandoned.is_set():
+            try:
+                q.put(item, timeout=0.5)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            for b in batches:
+                if side is not None:
+                    item = _copy_to_card(b, device, side)
+                else:
+                    item = (b.to(device), None)
+                if not put(item):
+                    return
+        except BaseException as e:  # raised again on the consumer's side
+            errors.append(e)
+        finally:
+            put(sentinel)
+
+    threading.Thread(target=producer, daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                if errors:
+                    raise errors[0]
+                return
+            batch, event = item
+            if event is not None:
+                stream = torch.cuda.current_stream(device)
+                stream.wait_event(event)
+
+                def used_here(t):
+                    t.record_stream(stream)
+                    return t
+                batch = batch.map(used_here)
+            yield batch
+    finally:
+        # closed or abandoned: release the producer, drop what it queued
+        abandoned.set()
+        try:
+            while True:
+                q.get_nowait()
+        except queue.Empty:
+            pass
+
+
+class DeviceDataset:
+    """The whole padded, stacked dataset on `device` once (one stacked batch
+    per vertex bucket, as make_padded_batches groups it); a batch is an
+    index_select of its rows on the device, so an epoch moves no operator
+    bytes from the host. The dataset must fit on the card beside the model
+    and the optimizer state."""
+
+    def __init__(self, ds: SurfaceDataset, buckets=None, device="cuda"):
+        if not ds.ops_list or len(ds.ops_list) != len(ds):
+            raise RuntimeError("precompute() the dataset before uploading")
+        self.labels_kind = ds.labels_kind
+        self.device = torch.device(device)
+        self.groups = [(idx, stacked.to(self.device))
+                       for idx, stacked in _stacked_groups(ds, buckets)]
+
+    def batches(self, batch_size: int, shuffle: bool = False, seed: int = 0
+                ) -> Iterator[PaddedBatch]:
+        """PaddedBatches of tensors gathered on the device, in the order and
+        with the filler of make_padded_batches (the same seed gives the
+        same permutation): a partial final batch repeats the chunk's first
+        row with labels -1 and face_mask False, so its leaves equal those of
+        make_padded_batches."""
+        for stacked, rows, n_real in _epoch_rows(self.groups, batch_size,
+                                                 shuffle, seed):
+            r = torch.from_numpy(rows).to(self.device)
+            batch = stacked.map(lambda a: a.index_select(0, r))
+            if n_real < batch_size:
+                fill = torch.arange(batch_size, device=self.device) >= n_real
+                lbl = fill.reshape((-1,) + (1,) * (batch.labels.ndim - 1))
+                batch = batch._replace(
+                    labels=batch.labels.masked_fill(lbl, -1),
+                    face_mask=batch.face_mask.masked_fill(fill[:, None],
+                                                          False))
+            yield batch

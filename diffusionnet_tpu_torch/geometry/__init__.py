@@ -6,6 +6,7 @@ from .operators import (
     Operators,
     compute_operators,
     get_operators,
+    get_all_operators,
     pad_operators,
     stack_operators,
     spectral_gradients,

@@ -31,20 +31,21 @@ The counterpart of diffusionnet_tpu/geometry/eigen.py. Two paths:
 
 Left out of the port, with the reason:
   * the DIA and dense RCM band formats (plain XLA in the JAX package, no
-    Pallas kernel): queued in ROADMAP item A.8, to be measured against B5
+    Pallas kernel): queued in ROADMAP item A.5, to be measured against B5
     and a library SpMM first;
   * `cheb_segment` (the filter as short device programs): a workaround for
     a per-program watchdog of the TPU runtime. Here the Chebyshev
     recurrence is a Python loop of kernel launches, so no program is long;
   * `_ensure_compilation_cache`: JAX's compiled-program cache; PyTorch runs
     eagerly and the kernels are built once by _build.py;
-  * the threaded native host SpMM of the polish (queued in ROADMAP A.8):
+  * the threaded native host SpMM of the polish (queued in ROADMAP A.5):
     the polish uses scipy, the JAX package's own no-compiler fallback.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 
 import numpy as np
@@ -91,21 +92,43 @@ def eigensolve_host(L: scipy.sparse.spmatrix, massvec: np.ndarray, k_eig: int,
             L_eigsh = L_eigsh + scipy.sparse.identity(L.shape[0]) * (eps * 10 ** failcount)
 
 
-@contextlib.contextmanager
-def _full_f32_matmul():
-    """f32 products at full precision whatever the caller set, restored on
-    exit. The wanted band's relative gaps are ~1e-5 of lambda_max(C): TF32
-    (about 3 decimal digits) would corrupt the Gram and Rayleigh-Ritz
-    matrices on the card while the CPU tests pass."""
-    prev = torch.get_float32_matmul_precision()
-    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.set_float32_matmul_precision("highest")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
-        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+class _FullF32Matmul:
+    """f32 products at full precision whatever the caller set, restored
+    when the last user leaves. The wanted band's relative gaps are ~1e-5 of
+    lambda_max(C): TF32 (about 3 decimal digits) would corrupt the Gram and
+    Rayleigh-Ritz matrices on the card while the CPU tests pass.
+
+    The settings are process-wide and get_all_operators solves in several
+    threads, so the users are counted under a lock: the first one in saves
+    the caller's settings, the last one out restores them, and no solve
+    runs at the caller's precision while another has left."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._users = 0
+        self._saved = None
+
+    @contextlib.contextmanager
+    def __call__(self):
+        with self._lock:
+            if self._users == 0:
+                self._saved = (torch.get_float32_matmul_precision(),
+                               torch.backends.cuda.matmul.allow_tf32)
+                torch.set_float32_matmul_precision("highest")
+                torch.backends.cuda.matmul.allow_tf32 = False
+            self._users += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._users -= 1
+                if self._users == 0:
+                    prec, tf32 = self._saved
+                    torch.set_float32_matmul_precision(prec)
+                    torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+_full_f32_matmul = _FullF32Matmul()
 
 
 def _cheb_filter(matvec, X: torch.Tensor, lo, hi, m: int) -> torch.Tensor:
@@ -577,7 +600,7 @@ def eigensolve_device(L_ell: Ell, massvec, k_eig: int,
     the memory budget; on the CPU the ELL gather. 'blocked' requires the
     sliced format (its plain version on the CPU) and raises if it does
     not fit; False forces the ELL gather; True and 'dia' (the dense band,
-    DIA) are not ported (ROADMAP item A.8). timings: optional dict of wall
+    DIA) are not ported (ROADMAP item A.5). timings: optional dict of wall
     seconds per stage (eigen_band_build, eigen_sweeps, eigen_polish,
     polish_*).
 
@@ -592,7 +615,7 @@ def eigensolve_device(L_ell: Ell, massvec, k_eig: int,
     if banded is True or banded == "dia":
         raise NotImplementedError(
             f"banded={banded!r}: the dense RCM band and DIA formats are "
-            "queued in ROADMAP item A.8; use None, 'blocked' or False")
+            "queued in ROADMAP item A.5; use None, 'blocked' or False")
     if banded not in (None, False, "blocked"):
         raise ValueError(f"banded={banded!r}: expected None, 'blocked' or "
                          "False")

@@ -12,7 +12,7 @@ reduces, per outgoing edge e = (i -> j) with tangent vector t_e, to
 
 with A_i = sum_e t_e t_e^T + eps I (2x2, inverted analytically). Same stencil,
 eps_reg = 1e-5, unit edge weights as reference geometry.py:233-256. The
-point-cloud version comes with ROADMAP item A.8.
+point-cloud version comes with ROADMAP item A.5.
 """
 
 from __future__ import annotations

@@ -54,7 +54,7 @@ def vertex_normals_np(verts: np.ndarray, faces: np.ndarray,
     if faces is None or faces.size == 0:  # point cloud
         raise NotImplementedError(
             "point-cloud normals need the host kNN, which the port brings "
-            "with ROADMAP item A.8 (precompute)")
+            "with ROADMAP item A.5 (precompute)")
     else:
         normals = mesh_vertex_normals_np(verts, faces)
 

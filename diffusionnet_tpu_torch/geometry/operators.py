@@ -119,7 +119,7 @@ def compute_operators(verts, faces, k_eig: int, normals=None,
     (EigenSolveNotConverged) a warning is issued, EIGEN_FALLBACKS rises and
     the host ARPACK ladder runs instead. Any other error propagates.
     'host': seeded ARPACK, deterministic, equal to the JAX package's 'host'
-    result. Point clouds (no faces) raise (ROADMAP item A.8).
+    result. Point clouds (no faces) raise (ROADMAP item A.5).
     timings: optional dict of wall seconds per stage (frames, laplacian,
     eigensolve and the solver's own stages, build_grad, ell_convert,
     spectral_grad)."""
@@ -140,7 +140,7 @@ def compute_operators(verts, faces, k_eig: int, normals=None,
                 np.zeros((0, 3), dtype=np.int64))
     if faces_np.size == 0:
         raise NotImplementedError(
-            "point-cloud operators come with ROADMAP item A.8 (precompute)")
+            "point-cloud operators come with ROADMAP item A.5 (precompute)")
     eps = 1e-8
 
     if normals is not None:
@@ -341,6 +341,45 @@ def get_operators(verts, faces, k_eig: int = 128, op_cache_dir: str | None = Non
         _write_cache(search_path, np.asarray(verts_np, dtype=np.float64),
                      faces_np, k_eig, ops, sparse_mats)
     return ops
+
+
+def get_all_operators(verts_list, faces_list, k_eig: int,
+                      op_cache_dir: str | None = None,
+                      normals=None,
+                      eigensolver: str = DEFAULT_EIGENSOLVER,
+                      n_workers: int | None = None,
+                      verbose: bool = True,
+                      device="cuda") -> list[Operators]:
+    """get_operators over a list of shapes, in order (reference
+    geometry.py:395-424). normals: None, or one (V, 3) array (or None) per
+    shape.
+
+    n_workers: threads. With the device eigensolver a mesh's work alternates
+    between the card (the sweeps) and the host (assembly, the f64 polish),
+    so two threads overlap one mesh's host work with the next one's sweeps
+    (both release the GIL). Default, as the JAX package: 2 for 'device' on
+    a host with at least 4 cores, else 1; 1 for 'host' (ARPACK is
+    host-bound). The results equal the sequential loop's: every solve is
+    seeded, and the disk cache tolerates concurrent writers."""
+    N = len(verts_list)
+    if n_workers is None:
+        n_workers = 2 if (eigensolver == "device"
+                          and (os.cpu_count() or 1) >= 4) else 1
+
+    def one(i):
+        if verbose:
+            print(f"get_all_operators() processing {i} / {N} "
+                  f"{i / N * 100:.3f}%")
+        ni = None if normals is None else normals[i]
+        return get_operators(verts_list[i], faces_list[i], k_eig,
+                             op_cache_dir, normals=ni,
+                             eigensolver=eigensolver, device=device)
+
+    if n_workers <= 1 or N <= 1:
+        return [one(i) for i in range(N)]
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=n_workers) as ex:
+        return list(ex.map(one, range(N)))
 
 
 def pad_operators(ops: Operators, v_pad: int, k_eig: int | None = None,

@@ -245,14 +245,109 @@ class DiffusionNetBlock(nn.Module):
         return out.to(x_in.dtype)
 
 
-def _gather_mean(x, inds):
+class MeanPlan:
+    """What gather_mean's backward needs of its indices alone: each entry's
+    row of the batch's B*V rows (out-of-range entries to a sentinel row
+    B*V), its rank among its row's entries by a stable sort (so in entry
+    order), and the largest degree D, copied to the host without waiting.
+    Made before a model's blocks are issued, D is on the host by the time
+    the backward reads it: the read does not wait for the card to drain
+    the forward and then leave it idle while the host issues the rest."""
+
+    def __init__(self, inds: torch.Tensor, V: int):
+        B = inds.shape[0]
+        n_rows, n = B * V, inds.numel()
+        dev = inds.device
+        self.low, self.high = inds < 0, inds >= V
+        outside = (self.low | self.high).reshape(-1)
+        self.keys = (inds.clamp(0, V - 1) + V * torch.arange(
+            B, device=dev).view(B, 1, 1)).reshape(-1)
+        self.keys_in = torch.where(outside, n_rows, self.keys)
+        # int32 keys halve the radix sort's passes
+        key_t = torch.int32 if n_rows < 2 ** 31 - 1 else torch.int64
+        sk, order = torch.sort(self.keys_in.to(key_t), stable=True)
+        self.rank = torch.empty_like(order).scatter_(
+            0, order, torch.arange(n, device=dev)
+            - torch.searchsorted(sk, sk)).masked_fill(outside, 0)
+        d = (self.rank.max() if n else self.rank.new_zeros(())) + 1
+        self._event = None
+        if d.is_cuda:
+            self._d = torch.empty((), dtype=d.dtype, pin_memory=True)
+            self._d.copy_(d, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._d = d
+
+    @property
+    def max_degree(self) -> int:
+        if self._event is not None:
+            self._event.synchronize()
+        return int(self._d)
+
+
+class _GatherMean(torch.autograd.Function):
+    """The mean of gathered rows, with a backward that sums each vertex's
+    entries in a fixed order. gather's backward adds them atomically on a
+    card, so a step's bits would vary from run to run and a resumed run
+    would not repeat the uninterrupted one.
+
+    The backward scatters each entry to its own slot (row, rank) of a
+    zeroed (B*V, D, C) buffer (MeanPlan) and sums over D. Out-of-range
+    entries are summed per element apart, so a batch's padding faces, all
+    on one vertex, do not set D. Where a vertex has more than MAX_DEGREE
+    entries, the backward is the embedding lookup's (sort-based, also in a
+    fixed order, slower on a card)."""
+
+    MAX_DEGREE = 32
+
+    @staticmethod
+    def forward(ctx, x, inds, plan):
+        B, V, C = x.shape
+        E, m = inds.shape[1:]
+        ctx.save_for_backward(inds)
+        ctx.shape, ctx.plan = (B, V, C), plan
+        safe = inds.clamp(0, V - 1)
+        return sum(torch.gather(x, 1, safe[..., i, None].expand(B, E, C))
+                   for i in range(m)) / m
+
+    @staticmethod
+    def backward(ctx, g):
+        (inds,) = ctx.saved_tensors
+        B, V, C = ctx.shape
+        E, m = inds.shape[1:]
+        plan = ctx.plan if ctx.plan is not None else MeanPlan(inds, V)
+        n_rows = B * V
+        g = g / m
+        g_rows = g.reshape(B * E, C)
+        D = plan.max_degree
+        if D > _GatherMean.MAX_DEGREE:
+            return torch.ops.aten.embedding_dense_backward(
+                g_rows.repeat_interleave(m, 0), plan.keys, n_rows, -1,
+                False).view(B, V, C), None, None
+        # m scatters straight from g (row gathers of a few channels are
+        # several times slower on a card)
+        slots = (plan.keys_in * D + plan.rank).view(B * E, m)
+        dense = g.new_zeros(((n_rows + 1) * D, C))
+        for i in range(m):
+            dense.scatter_(0, slots[:, i, None].expand(B * E, C), g_rows)
+        grad = dense[:n_rows * D].view(n_rows, D, C).sum(1).view(B, V, C)
+        for mask, row in ((plan.low, 0), (plan.high, V - 1)):
+            k = mask.sum(-1, keepdim=True)
+            grad[:, row] += torch.where(k > 0, g * k, 0).sum(1)
+        return grad, None, None
+
+
+def gather_mean(x, inds, plan: MeanPlan | None = None):
     """x: (B, V, C); inds: (B, E, m) -> mean over the m gathered vertices
-    (the edges/faces output remap, reference layers.py:379-391)."""
-    m = inds.shape[-1]
-    C = x.shape[-1]
-    parts = [torch.gather(x, -2, inds[..., i, None].expand(
-        inds.shape[:-1] + (C,))) for i in range(m)]
-    return sum(parts) / m
+    (the edges/faces output remap, reference layers.py:379-391). An index
+    below 0 (padding faces are -1) reads row 0 of its element, one above
+    V - 1 row V - 1, as the JAX harness clamps padding faces (the JAX
+    model's own gather wraps -1 to V - 1; the loss masks padding faces
+    either way). The backward repeats its bits (_GatherMean). plan:
+    MeanPlan(inds, V), made early where a backward will follow (else the
+    backward makes it)."""
+    return _GatherMean.apply(x, inds, plan)
 
 
 def _expand(a):
@@ -386,6 +481,11 @@ class DiffusionNet(nn.Module):
         elif x_in.ndim != 3:
             raise ValueError("x_in should be tensor with shape [N,C] or [B,N,C]")
 
+        inds = plan = None
+        if self.outputs_at in ("edges", "faces"):
+            inds = (edges if self.outputs_at == "edges" else faces).long()
+            if torch.is_grad_enabled():
+                plan = MeanPlan(inds, x_in.shape[-2])
         cd = self.compute_dtype
         x = _linear(self.first_lin, x_in, cd)
         for block in self.blocks:
@@ -395,10 +495,8 @@ class DiffusionNet(nn.Module):
 
         if self.outputs_at == "vertices":
             x_out = x
-        elif self.outputs_at == "edges":
-            x_out = _gather_mean(x, edges.long())
-        elif self.outputs_at == "faces":
-            x_out = _gather_mean(x, faces.long())
+        elif self.outputs_at in ("edges", "faces"):
+            x_out = gather_mean(x, inds, plan)
         else:  # global_mean — mass-weighted, padding-invariant
             x_out = ((x * mass[..., None]).sum(-2)
                      / mass.sum(-1, keepdim=True))

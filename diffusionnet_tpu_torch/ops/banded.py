@@ -3,7 +3,7 @@
 The counterpart of diffusionnet_tpu/ops/banded.py, so far only its
 `rcm_permutation` (host scipy): the blocked-ELL planner (ops/blocked_ell.py)
 orders rows with it. The dense RCM band and the DIA format of that module
-are queued in ROADMAP item A.8.
+are queued in ROADMAP item A.5.
 """
 
 from __future__ import annotations

@@ -37,6 +37,7 @@ kernel or raise. There is no fallback between the two.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -48,8 +49,10 @@ SLICE = 32            # rows per slice
 DEFAULT_TILE_ROWS = 512
 
 # launches of kernel B5 since the last reset_launches(); the wrapper adds
-# one where it launches the kernel, and nowhere else
+# one where it launches the kernel, and nowhere else (under a lock: the
+# precompute's worker threads launch it concurrently)
 LAUNCHES = {"blocked_ell": 0}
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -210,7 +213,8 @@ def _blocked_ell_matvec_cuda(b: SlicedEll, x: torch.Tensor) -> torch.Tensor:
             b.cols.data_ptr(), b.vals.data_ptr(), b.offsets.data_ptr(),
             x.data_ptr(), y.data_ptr(), b.n_slices, C, vec, stream)
     _raise_on(lib, code)
-    LAUNCHES["blocked_ell"] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES["blocked_ell"] += 1
     return y
 
 

@@ -1,6 +1,8 @@
 """The model call and the loss of a training step: the counterparts of
-`_apply_model` and `_loss_and_counts` in experiments/exp_common.py. (The
-experiment drivers themselves come with ROADMAP item A.11.)"""
+`_augment`, `_apply_model` and `_loss_and_counts` in
+experiments/exp_common.py. The epoch loop around them is
+`experiments.exp_common.fit`; the experiments' command-line scripts
+come with ROADMAP item A.7."""
 
 from __future__ import annotations
 
@@ -10,8 +12,10 @@ import torch
 
 from ..data.features import get_features
 from ..geometry import grad_operators
+from ..models.diffusion_net import MeanPlan, gather_mean
 from ..models.fast_path import megablock_apply
 from ..models.params import module_state
+from ..utils import rotation_from_uniforms, rotation_y_from_uniform
 
 # megakernel dropout tiles, largest first: the first that divides V is used
 MEGA_TILES = (2048, 1024, 512, 256, 128)
@@ -25,6 +29,25 @@ class TaskConfig:
     label_smoothing: float = 0.0
     bf16: bool = False             # bf16 operands in the block kernels
     use_megakernel: bool = True    # block kernels; False: the eager model
+    augment_rotate: bool = False   # random SO(3) rotation of xyz features
+    rotate_axis: str = "full"      # 'full' or 'y'
+
+
+def augment(verts, generator, cfg: TaskConfig):
+    """Each batch element's vertices rotated by its own random rotation
+    (cfg.augment_rotate with xyz features; else verts as given). The
+    uniforms are drawn from `generator` on its device in one call: (B, 3)
+    for 'full', (B,) for 'y'."""
+    if not (cfg.augment_rotate and cfg.input_features == "xyz"):
+        return verts
+    B = verts.shape[0]
+    if cfg.rotate_axis == "y":
+        u = torch.rand(B, generator=generator, device=generator.device)
+        R = rotation_y_from_uniform(u)
+    else:
+        u = torch.rand(B, 3, generator=generator, device=generator.device)
+        R = rotation_from_uniforms(u)
+    return verts @ R.to(verts.device, verts.dtype)
 
 
 def apply_model(model, params: dict, batch, generator, cfg: TaskConfig,
@@ -35,10 +58,18 @@ def apply_model(model, params: dict, batch, generator, cfg: TaskConfig,
     With cfg.use_megakernel the blocks run as kernels B1/B2
     (`megablock_apply`); else the eager model runs on the same tensors (a
     model built with use_pallas_fused runs its blocks on kernel B4 there).
-    generator: the torch.Generator of the dropout masks, used when the model
-    has dropout and deterministic is False."""
+
+    generator: None (evaluation), or the torch.Generator of the step's
+    randomness, drawn in this order: first the rotation uniforms of
+    `augment` (with cfg.augment_rotate and xyz features), then the dropout
+    (when the model has dropout and deterministic is False): one seed per
+    block on the megakernel path (a generator on the CPU), the masks on the
+    eager path (a generator on the tensors' device)."""
     ops = batch.ops
-    feats = get_features(cfg.input_features, batch.verts, ops.evals, ops.evecs)
+    verts = batch.verts
+    if generator is not None:
+        verts = augment(verts, generator, cfg)
+    feats = get_features(cfg.input_features, verts, ops.evals, ops.evecs)
     # the dense spectral operators where the batch has them, else the ELL
     # ones (as the JAX package's `_apply_model`)
     gX, gY = grad_operators(ops)
@@ -49,7 +80,7 @@ def apply_model(model, params: dict, batch, generator, cfg: TaskConfig,
                       deterministic=deterministic, generator=dropout_rng,
                       L=ops.L)
         if model.outputs_at == "faces":
-            kwargs["faces"] = batch.faces.long().clamp(min=0)
+            kwargs["faces"] = batch.faces.long()
         return torch.func.functional_call(model, module_state(params),
                                           (feats, ops.mass), kwargs)
 
@@ -72,6 +103,11 @@ def apply_model(model, params: dict, batch, generator, cfg: TaskConfig,
         # bf16 operand streams; accumulation stays f32 inside the kernels
         feats, evecs = feats.to(torch.bfloat16), evecs.to(torch.bfloat16)
         gX, gY = gX.to(torch.bfloat16), gY.to(torch.bfloat16)
+    faces = plan = None
+    if model.outputs_at == "faces":
+        faces = batch.faces.long()
+        if torch.is_grad_enabled():  # the backward's plan, made early
+            plan = MeanPlan(faces, V)
     logits = megablock_apply(params, feats, ops.mass, ops.evals, evecs, gX,
                              gY, n_block=model.n_block, tile_v=mega_tile,
                              dropout_rng=dropout_rng).float()
@@ -80,11 +116,7 @@ def apply_model(model, params: dict, batch, generator, cfg: TaskConfig,
                   / ops.mass.sum(-1, keepdim=True))
     elif model.outputs_at == "faces":
         # mean over the 3 incident vertices (reference layers.py:386-391)
-        f = batch.faces.long().clamp(min=0)
-        C = logits.shape[-1]
-        logits = sum(torch.gather(logits, -2,
-                                  f[..., i, None].expand(f.shape[:-1] + (C,)))
-                     for i in range(3)) / 3.0
+        logits = gather_mean(logits, faces, plan)
     return (model.last_activation(logits)
             if model.last_activation is not None else logits)
 

@@ -14,23 +14,26 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_imports_no_jax():
+    """Every module of the package, found by pkgutil.walk_packages (so the
+    modules later PRs add are covered too), imports in one process that
+    then holds no jax, jaxlib, flax, optax or diffusionnet_tpu module."""
     code = (
-        "import sys\n"
-        "import diffusionnet_tpu_torch\n"
-        "from diffusionnet_tpu_torch import _build\n"
-        "from diffusionnet_tpu_torch.ops import megablock\n"
-        "from diffusionnet_tpu_torch.models import fast_path\n"
-        "from diffusionnet_tpu_torch.training import inference\n"
-        "from diffusionnet_tpu_torch.ops import banded, blocked_ell, sparse\n"
-        "from diffusionnet_tpu_torch.ops import fused, spectral\n"
-        "from diffusionnet_tpu_torch.models import diffusion_net, fmaps\n"
-        "from diffusionnet_tpu_torch.training import task\n"
-        "from diffusionnet_tpu_torch.geometry import eigen, operators\n"
+        "import importlib, pkgutil, sys\n"
+        "import diffusionnet_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__,\n"
+        "                                               pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "need = {'diffusionnet_tpu_torch.experiments.exp_common',\n"
+        "        'diffusionnet_tpu_torch.examples.synthetic_shrec',\n"
+        "        'diffusionnet_tpu_torch.ops.megablock',\n"
+        "        'diffusionnet_tpu_torch._build'}\n"
+        "missing = need - set(names)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
         "                                    'diffusionnet_tpu'))\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "print(len(names), 'modules; missing', sorted(missing), '; loaded', bad)\n"
+        "sys.exit(1 if bad or missing else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr

@@ -144,3 +144,60 @@ def test_init_follows_flax_dense_defaults():
             assert not torch.equal(p, r)
         else:
             assert not p.any(), name
+
+
+def _gather_mean_by_gather(x, inds):
+    """The face (or edge) mean through torch.gather on clamped indices,
+    whose autograd backward is the reference."""
+    B, E, m = inds.shape
+    i = inds.clamp(0, x.shape[1] - 1)
+    return sum(torch.gather(x, -2, i[..., k, None].expand(B, E, x.shape[2]))
+               for k in range(m)) / m
+
+
+@pytest.mark.parametrize("m", [3, 2])
+@pytest.mark.parametrize("max_degree", [32, 1])
+@pytest.mark.parametrize("early_plan", [False, True])
+def test_gather_mean_matches_gather(monkeypatch, m, max_degree, early_plan):
+    """gather_mean's forward equals the gather form bit for bit, and its
+    backward (the fixed-order segment sum, and with max_degree 1 the
+    embedding fallback; its MeanPlan made by the caller or by the
+    backward) equals gather's autograd backward to 1e-12 (f64), with -1
+    padding rows and indices >= V among the entries."""
+    from diffusionnet_tpu_torch.models import diffusion_net as dn
+    monkeypatch.setattr(dn._GatherMean, "MAX_DEGREE", max_degree)
+    g = torch.Generator().manual_seed(m)
+    B, V, E, C = 3, 40, 70, 5
+    x = torch.randn(B, V, C, dtype=torch.float64, generator=g,
+                    requires_grad=True)
+    inds = torch.randint(0, V, (B, E, m), generator=g)
+    inds[0, -9:] = -1
+    inds[2, :3, 1] = V + 2
+    plan = dn.MeanPlan(inds, V) if early_plan else None
+    out = dn.gather_mean(x, inds, plan)
+    want = _gather_mean_by_gather(x, inds)
+    assert torch.equal(out, want)
+    dout = torch.randn(out.shape, dtype=torch.float64, generator=g)
+    (got,), (ref,) = (torch.autograd.grad(o, x, dout) for o in (out, want))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=1e-12)
+
+
+def test_gather_mean_padding_faces_read_row_zero():
+    """-1 padded faces give what faces clamped to 0 give: the forward bit
+    for bit, the backward to f32 rounding (the padding entries are summed
+    apart from vertex 0's own); each element reads its own rows."""
+    from diffusionnet_tpu_torch.models.diffusion_net import gather_mean
+    g = torch.Generator().manual_seed(7)
+    B, V, F, C = 2, 30, 50, 4
+    x = torch.randn(B, V, C, generator=g, requires_grad=True)
+    faces = torch.randint(0, V, (B, F, 3), generator=g)
+    faces[1, -12:] = -1
+    clamped = faces.clamp(min=0)
+    out, want = gather_mean(x, faces), gather_mean(x, clamped)
+    assert torch.equal(out, want)
+    np.testing.assert_array_equal(out[1, -12:].detach().numpy(),
+                                  x[1, :1].expand(12, C).detach().numpy())
+    dout = torch.randn(out.shape, generator=g)
+    (got,), (ref,) = (torch.autograd.grad(o, x, dout) for o in (out, want))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6,
+                               atol=1e-6)
