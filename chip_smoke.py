@@ -131,7 +131,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      must repeat its bits over five passes (gather's and an embedding
      lookup's printed, all three timed); (c)
      the synthetic SHREC example with --mega at its defaults, whose test
-     accuracy must reach EXAMPLE_ACC_BOUND.
+     accuracy must reach EXAMPLE_ACC_BOUND;
+ 18a. ops.sparse.ell_matvec's fixed-order backward at the segmentation
+     shape (B=4, V=32768, C=128, torus(144, 140)'s ELL gradient operator)
+     must repeat its bits over five passes (the gather's own autograd
+     backward printed beside it), and a 2-epoch fit of an implicit_dense
+     model resumed from its epoch-0 checkpoint must end with the
+     uninterrupted run's weights bit for bit;
+ 18. the serving slice (serving.export): the fused segmentation model
+     exported on the card (buckets 16384 and 32768; the graphs must hold
+     B4's registered ops), loaded in the script and in a fresh process
+     barred from importing the model stack, serves torus(144, 140) and
+     icosphere(5) at batch 1 and 4 through ServingModel.__call__ and a
+     PreparedMesh within SLICE_TOL of the eager model (4 spectral_project,
+     4 spectral_apply and 4 xhat_reduce launches a request), with no host
+     sync on the hot path (torch.cuda.set_sync_debug_mode("error")); then
+     the warm request (batch 1, the torus) on three routes,
+     InferenceSession with a cache hit, __call__ with the operators on the
+     card, and a PreparedMesh's handle(x): median and p90, busy, idle share.
 
 Since phase 12's slice the port's default eigensolver is the device one,
 so the cold requests of phases 4 and 14 and the dataset precompute of
@@ -2437,6 +2454,422 @@ def phase_harness(mb, card, seg_ds):
     return launches, ex_launches
 
 
+def phase_ell_repeat(card):
+    """18a (ROADMAP C.2): `ops.sparse.ell_matvec` gathers by advanced
+    indexing, whose autograd backward accumulates by index (printed); its
+    own fixed-order backward (`_EllMatvec`) at the
+    segmentation shape (B=4, V=32768, C=128; torus(144, 140)'s ELL gradient
+    operator, stacked four times, and unstacked) must repeat its bits over
+    five passes, and a 2-epoch fit of an implicit_dense model (the ELL
+    gradient route; dropout on), resumed from its epoch-0 checkpoint, must
+    end with the uninterrupted run's weights bit for bit."""
+    import numpy as np
+    from diffusionnet_tpu_torch.data import SurfaceDataset
+    from diffusionnet_tpu_torch.experiments.exp_common import FitConfig, fit
+    from diffusionnet_tpu_torch.geometry import compute_operators
+    from diffusionnet_tpu_torch.models import DiffusionNet
+    from diffusionnet_tpu_torch.ops.sparse import (Ell, _ell_forward,
+                                                   ell_matvec, ell_pad)
+
+    log("== phase 18a: ell_matvec's backward and an implicit_dense resume "
+        "repeat their bits")
+    mg = meshgen()
+    verts, faces = mg.torus(n_major=144, n_minor=140)
+    grad = ell_pad(compute_operators(verts, faces, k_eig=0, device="cuda",
+                                     ).gradX, 32768)
+    B, V, C = 4, 32768, 128
+    idx = torch.from_numpy(np.asarray(grad.idx)).cuda()
+    val = torch.from_numpy(np.asarray(grad.val)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(180)
+    x0 = torch.randn(B, V, C, generator=gen, device="cuda")
+    dout = torch.randn(B, V, C, generator=gen, device="cuda")
+    stacked = Ell(idx.expand(B, -1, -1), val.expand(B, -1, -1))
+    # ell_matvec, and (printed only) the gather's own autograd backward
+    # that it had before (index_put_ with accumulate)
+    forms = (("ell_matvec, operator stacked (B, V, D)",
+              lambda x: ell_matvec(stacked, x), True),
+             ("ell_matvec, one operator (V, D)",
+              lambda x: ell_matvec(Ell(idx, val), x), True),
+             ("the gather's autograd, operator stacked",
+              lambda x: _ell_forward(stacked.idx.long(), stacked.val, x),
+              False))
+    for name, fn, checked in forms:
+        grads = []
+        for _ in range(5):
+            x = x0.clone().requires_grad_(True)
+            fn(x).backward(dout)
+            grads.append(x.grad)
+        same = sum(torch.equal(grads[0], q) for q in grads[1:])
+        diff = max((grads[0] - q).abs().max().item() for q in grads[1:])
+        x = x0.clone().requires_grad_(True)
+        ms = time_ms(lambda: fn(x).backward(dout))
+        log(f"  {name}, D={idx.shape[-1]}, x ({B}, {V}, {C}): forward and "
+            f"backward {ms:.4f} ms (CUDA events) [{card}]; backward passes "
+            f"2-5 bit-identical to the first: {same} of 4 (largest "
+            f"difference {diff:.3e})")
+        check(same == 4 or not checked,
+              f"{name}: the backward does not repeat its bits")
+
+    ds = SurfaceDataset(labels_kind="face")
+    for v, f in (mg.icosphere(subdivisions=2), mg.torus(n_major=20,
+                                                         n_minor=14),
+                 mg.torus(n_major=24, n_minor=16),
+                 mg.icosphere(subdivisions=2)):
+        c = v[f].mean(axis=1)
+        sector = np.floor((np.arctan2(c[:, 1], c[:, 0]) + np.pi)
+                          / (2 * np.pi) * 4).astype(np.int64) % 4
+        ds.add(v, f, sector * 2 + (c[:, 2] > 0))
+    ds.precompute(0, verbose=False, device="cuda")
+    # k_eig = 0 leaves (V, 0) spectral operators: drop them, so that the
+    # blocks take the ELL gradients
+    ds.ops_list = [o._replace(gradX_spec=None, gradY_spec=None)
+                   for o in ds.ops_list]
+    model = DiffusionNet(c_in=3, c_out=8, c_width=128, n_block=4,
+                         outputs_at="faces", diffusion_method="implicit_dense",
+                         last_activation=functools.partial(torch.log_softmax,
+                                                           dim=-1))
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, n_epoch, resume in (("whole", 2, None), ("first", 1, None),
+                                      ("resumed", 2, "first")):
+            cfg = FitConfig(n_epoch=n_epoch, batch_size=4,
+                            input_features="xyz", labels_kind="face",
+                            buckets=(512,))
+            t0 = time.perf_counter()
+            params, hist, _ = fit(
+                model, ds, ds, cfg, model_save_path=os.path.join(tmp, name),
+                verbose=False, device="cuda",
+                resume_from=(os.path.join(tmp, resume + "_ckpt")
+                             if resume else None))
+            torch.cuda.synchronize()
+            log(f"  implicit_dense fit {name}: {n_epoch} epochs, history "
+                f"{hist}, {time.perf_counter() - t0:.2f} s [{card}]")
+            runs[name] = {k: v.detach() for k, v in params.items()}
+    diff = [k for k in runs["whole"]
+            if not torch.equal(runs["whole"][k], runs["resumed"][k])]
+    log(f"  implicit_dense resumed against uninterrupted: "
+        f"{len(runs['whole']) - len(diff)} of {len(runs['whole'])} tensors "
+        "bit-identical")
+    check(not diff, f"implicit_dense resume: weights differ in {diff}")
+
+
+SERVE_BUCKETS = (16384, 32768)
+SERVE_BATCH = 4
+# the serving process of phase 18: loads the artifact with the model stack
+# (and jax) barred from import, serves each mesh at batch 1 and SERVE_BATCH
+# through __call__ and a PreparedMesh, and saves the outputs
+HERMETIC_SERVER = r"""
+import json, sys
+import numpy as np
+import torch
+BARRED = ("jax", "jaxlib", "flax", "optax", "diffusionnet_tpu")
+PORT_BARRED = tuple("diffusionnet_tpu_torch." + m for m in
+                    ("models", "geometry", "training", "data", "experiments"))
+class Bar:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BARRED or name.startswith(PORT_BARRED):
+            raise ImportError("the serving process may not import " + name)
+sys.meta_path.insert(0, Bar())
+torch.set_float32_matmul_precision("highest")
+from diffusionnet_tpu_torch.serving import load_serving_model
+from diffusionnet_tpu_torch.ops import fused, megablock
+artifact, inputs, out_path, dev = sys.argv[1:5]
+sm = load_serving_model(artifact, device=dev)
+z = np.load(inputs)
+outs, launches = {}, []
+for tag in [str(t) for t in z["tags"]]:
+    ops = [torch.from_numpy(z[tag + "_" + k]).to(dev)
+           for k in ("mass", "evals", "evecs", "gX", "gY")]
+    faces = torch.from_numpy(z[tag + "_faces"]).to(dev)
+    handle = sm.prepare(*ops, inds=faces)
+    for b in ("1", "n"):
+        x = torch.from_numpy(z[tag + "_x" + b]).to(dev)
+        for route, fn in (("call", lambda: sm(
+                x, *([o.expand(x.shape[0], *o.shape) for o in ops]
+                     if x.ndim == 3 else ops),
+                inds=faces.expand(x.shape[0], *faces.shape)
+                if x.ndim == 3 else faces)),
+                          ("handle", lambda: handle(x))):
+            fused.reset_launches()
+            megablock.reset_launches()
+            outs[tag + "_" + route + b] = fn().cpu().numpy()
+            launches.append({**fused.LAUNCHES, **megablock.LAUNCHES})
+np.savez(out_path, **outs)
+print(json.dumps({"modules": sorted(sys.modules), "launches": launches}))
+"""
+
+
+def request_times(fn, n=20):
+    """Warm requests (fn ends in a host copy or a synchronize): host-clock
+    median and p90 over n requests, then the device's busy time per
+    request from the profiler over n more (None where the profiler reports
+    no device time), its idle share, and the five host operators with the
+    most self time per request."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    walls.sort()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    us = 0.0
+    host = []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            us += t if t is not None else e.self_cuda_time_total
+        else:
+            host.append((e.self_cpu_time_total / n / 1e3, e.key))
+    busy = us / n / 1e3 if us > 0 else None
+    return {"median_ms": statistics.median(walls),
+            "p90_ms": walls[int(math.ceil(0.9 * n)) - 1],
+            "busy_ms": busy, "profiled_wall_ms": wall,
+            "idle_share": None if busy is None else 1 - busy / wall,
+            "host_top": sorted(host, reverse=True)[:5]}
+
+
+def phase_serving(mb, fu, card, seg_ds):
+    """18: the serving slice. The segmentation model at full width (c_in 16
+    HKS, c_out 8, c_width 128, 4 blocks, k 128, face outputs,
+    use_pallas_fused, seeded weights) is exported on the card for the
+    buckets SERVE_BUCKETS, loaded in this process and in a fresh one that
+    may not import the model stack, and serves torus(144, 140) (bucket
+    32768) and icosphere(5) (bucket 16384) through ServingModel.__call__
+    and a PreparedMesh at batch 1 and SERVE_BATCH, held to the eager model
+    (use_pallas_fused=False) on the same card within SLICE_TOL. Each
+    request launches B4's two kernels once a block; the hot path makes no
+    host sync (torch.cuda.set_sync_debug_mode("error")). Then the warm
+    request (batch 1, the torus) on three routes: InferenceSession with a
+    cache hit, __call__ with the operators on the card, a PreparedMesh's
+    handle(x). An artifact exported and loaded with both ends' defaults
+    (traced on the CPU, moved to the card) serves icosphere(5) too.
+    Returns the launch counts of phase 18's requests in this process."""
+    import numpy as np
+    from diffusionnet_tpu_torch.data.features import get_features
+    from diffusionnet_tpu_torch.serving import (export_forward,
+                                                load_serving_model)
+    from diffusionnet_tpu_torch.serving.export import kernel_ops
+    from diffusionnet_tpu_torch.training import InferenceSession
+
+    log("== phase 18: the serving slice: export_forward of the fused "
+        f"segmentation model on cuda, buckets {SERVE_BUCKETS}")
+    t_phase = time.perf_counter()
+    fused_model = segmentation_model(use_pallas_fused=True)
+    plain_model = segmentation_model().to("cuda").eval()
+    per_req = {"spectral_project": N_BLOCK, "spectral_apply": N_BLOCK,
+               "spectral_ds": 0, "megablock_fwd": 0, "megablock_fwd_xhat": 0,
+               "megablock_fwd_wide": 0, "xhat_reduce": N_BLOCK,
+               "megablock_bwd_rows": 0, "megablock_bwd_grads": 0,
+               "grad_reduce": 0}
+    tmp = tempfile.TemporaryDirectory()
+    art = os.path.join(tmp.name, "artifact")
+    t0 = time.perf_counter()
+    export_forward(fused_model, SERVE_BUCKETS, art, K_EIG, device="cuda")
+    export_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(art, f)) for f in os.listdir(art))
+    t0 = time.perf_counter()
+    sm = load_serving_model(art, device="cuda")
+    load_s = time.perf_counter() - t0
+    graph_ops = {v: kernel_ops(ep) for v, ep in sm.programs.items()}
+    log(f"  export {export_s:.2f} s, artifact {size} bytes "
+        f"({sorted(os.listdir(art))}), load {load_s:.2f} s (host clock) "
+        f"[{card}]; kernel ops in each bucket's graph: {graph_ops}")
+    for v, found in graph_ops.items():
+        check(found == {"spectral_project": N_BLOCK,
+                        "spectral_apply": N_BLOCK},
+              f"bucket {v}: the program's kernel ops are {found}")
+
+    # the two meshes on the card, unbatched; a batch of SERVE_BATCH
+    # distinct signals (HKS scaled per element)
+    meshes = {}
+    for tag, i, bucket in (("torus", 0, 32768), ("ico5", 1, 16384)):
+        o = seg_ds.ops_list[i]
+        ops = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+               for a in (o.mass, o.evals, o.evecs, o.gradX_spec,
+                         o.gradY_spec)]
+        faces = torch.from_numpy(seg_ds.faces_list[i].astype(np.int32)).cuda()
+        x1 = get_features("hks", None, ops[1], ops[2]).contiguous()
+        xn = torch.stack([x1 * (1 + 0.25 * j) for j in range(SERVE_BATCH)])
+        check(sm.pick_bucket(x1.shape[0]) == bucket,
+              f"{tag}: bucket {sm.pick_bucket(x1.shape[0])} != {bucket}")
+        # the eager model on the same card, at the same bucket
+        pad = bucket - x1.shape[0]
+        padded = [torch.nn.functional.pad(a, (0, 0, 0, pad)) for a in
+                  (ops[2], ops[3], ops[4])]
+        mass_p = torch.nn.functional.pad(ops[0], (0, pad))
+        refs = {}
+        with torch.no_grad():
+            for b, x in (("1", x1), ("n", xn)):
+                B = 1 if b == "1" else SERVE_BATCH
+                xx = torch.nn.functional.pad(x.reshape(B, *x1.shape),
+                                             (0, 0, 0, pad))
+                rep = lambda a: a.expand(B, *a.shape).contiguous()
+                out = plain_model(xx, rep(mass_p), rep(ops[1]),
+                                  *(rep(a) for a in padded),
+                                  faces=rep(faces).long())
+                refs[b] = out[0] if b == "1" else out
+        meshes[tag] = (ops, faces, x1, xn, refs)
+
+    # in this process: __call__ and a PreparedMesh, batch 1 and SERVE_BATCH
+    total = dict.fromkeys(per_req, 0)
+    for tag, (ops, faces, x1, xn, refs) in meshes.items():
+        handle = sm.prepare(*ops, inds=faces)
+        for b, x in (("1", x1), ("n", xn)):
+            B = x.shape[0] if x.ndim == 3 else 1
+            bops = ([a.expand(B, *a.shape) for a in ops] if x.ndim == 3
+                    else ops)
+            bf = faces.expand(B, *faces.shape) if x.ndim == 3 else faces
+            for route, fn in (("__call__", lambda: sm(x, *bops, inds=bf)),
+                              ("handle", lambda: handle(x))):
+                torch.cuda.synchronize()
+                fu.reset_launches()
+                mb.reset_launches()
+                out = fn()
+                torch.cuda.synchronize()
+                got = {**fu.LAUNCHES, **mb.LAUNCHES}
+                check(got == per_req, f"{tag} {route} batch {B}: launches "
+                      f"{got} != {per_req}")
+                total = {k: total[k] + got[k] for k in total}
+                compare(f"{tag} {route} batch {B} {tuple(out.shape)} against "
+                        "the eager model", out, refs[b], SLICE_TOL)
+
+    # the defaults of both ends: export_forward traces for the model's
+    # device (the CPU, where the model was built) and load_serving_model
+    # loads onto the card, moving the programs with move_to_device_pass
+    art_cpu = os.path.join(tmp.name, "artifact_cpu")
+    t0 = time.perf_counter()
+    export_forward(fused_model, SERVE_BUCKETS[:1], art_cpu, K_EIG)
+    with open(os.path.join(art_cpu, "manifest.json")) as f:
+        platforms = json.load(f)["platforms"]
+    sm_cpu = load_serving_model(art_cpu)
+    check(platforms == ["cpu"] and sm_cpu.device.type == "cuda",
+          f"default export/load: platforms {platforms}, loaded on "
+          f"{sm_cpu.device}")
+    found = kernel_ops(sm_cpu.programs[SERVE_BUCKETS[0]])
+    check(found == {"spectral_project": N_BLOCK, "spectral_apply": N_BLOCK},
+          f"the moved program's kernel ops are {found}")
+    ops, faces, x1, xn, refs = meshes["ico5"]
+    handle = sm_cpu.prepare(*ops, inds=faces)
+    for route, fn, want in (
+            ("__call__ batch 1", lambda: sm_cpu(x1, *ops, inds=faces),
+             refs["1"]),
+            (f"handle batch {SERVE_BATCH}", lambda: handle(xn), refs["n"])):
+        torch.cuda.synchronize()
+        fu.reset_launches()
+        mb.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {**fu.LAUNCHES, **mb.LAUNCHES}
+        check(got == per_req, f"CPU-traced artifact on the card, {route}: "
+              f"launches {got} != {per_req}")
+        total = {k: total[k] + got[k] for k in total}
+        compare(f"CPU-traced artifact on the card, ico5 {route} "
+                f"{tuple(out.shape)} against the eager model", out, want,
+                SLICE_TOL)
+    log(f"  CPU-traced artifact (platforms {platforms}) loaded on the card "
+        f"with the defaults: {time.perf_counter() - t0:.2f} s for export, "
+        "load and 2 requests")
+
+    # no host sync on the hot path: warm __call__ with the operators on
+    # the card and handle(x), batch 1 and SERVE_BATCH
+    ops, faces, x1, xn, refs = meshes["torus"]
+    handle = sm.prepare(*ops, inds=faces)
+    handle(x1), handle(xn), sm(x1, *ops, inds=faces)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = (sm(x1, *ops, inds=faces), handle(x1), handle(xn))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for out, want in zip(outs, (refs["1"], refs["1"], refs["n"])):
+        check(out.shape == want.shape, f"no-sync run: {tuple(out.shape)}")
+    log("  no host sync on the hot path (set_sync_debug_mode('error')): "
+        "__call__ with the operators on the card, handle(x) at batch 1 and "
+        f"{SERVE_BATCH}")
+
+    # the same artifact in a fresh process that may not import the model
+    # stack (nor jax)
+    here = os.path.dirname(os.path.abspath(__file__))
+    inputs = os.path.join(tmp.name, "inputs.npz")
+    arrays = {"tags": np.array(list(meshes))}
+    for tag, (ops, faces, x1, xn, refs) in meshes.items():
+        for k, a in zip(("mass", "evals", "evecs", "gX", "gY"), ops):
+            arrays[f"{tag}_{k}"] = a.cpu().numpy()
+        arrays[f"{tag}_faces"] = faces.cpu().numpy()
+        arrays[f"{tag}_x1"], arrays[f"{tag}_xn"] = (x1.cpu().numpy(),
+                                                    xn.cpu().numpy())
+    np.savez(inputs, **arrays)
+    script = os.path.join(tmp.name, "server.py")
+    with open(script, "w") as f:
+        f.write(HERMETIC_SERVER)
+    out_path = os.path.join(tmp.name, "served.npz")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, script, art, inputs, out_path, "cuda"],
+        capture_output=True, text=True, timeout=300, cwd=here,
+        env=dict(os.environ, PYTHONPATH=here))
+    check(res.returncode == 0, f"the serving process failed:\n{res.stderr}")
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    barred = [m for m in report["modules"]
+              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                     "diffusionnet_tpu")
+              or m.startswith(tuple(
+                  "diffusionnet_tpu_torch." + p for p in
+                  ("models", "geometry", "training", "data",
+                   "experiments")))]
+    check(not barred, f"the serving process imported {barred}")
+    check(all(got == per_req for got in report["launches"]),
+          f"the serving process's launches {report['launches']}")
+    served = np.load(out_path)
+    for tag, (ops, faces, x1, xn, refs) in meshes.items():
+        for b in ("1", "n"):
+            for route in ("call", "handle"):
+                compare(f"hermetic {tag} {route} batch {b}",
+                        torch.from_numpy(served[f"{tag}_{route}{b}"]),
+                        refs[b].cpu(), SLICE_TOL)
+    log(f"  the serving process: {time.perf_counter() - t0:.2f} s (start, "
+        f"load, 8 requests); {len(report['modules'])} modules, none of the "
+        f"model stack; launches per request {report['launches'][0]}")
+
+    # the warm request, batch 1, torus(144, 140): three routes
+    mg = meshgen()
+    verts, tfaces = mg.torus(n_major=144, n_minor=140)
+    ops, faces, xd = meshes["torus"][:3]
+    routes = {}
+    with tempfile.TemporaryDirectory() as cache:
+        sess = InferenceSession(fused_model, k_eig=K_EIG, op_cache_dir=cache,
+                                device="cuda")
+        sess(verts, tfaces)  # cold: fills the cache
+        routes["(a) InferenceSession, fused model, cache hit"] = (
+            request_times(lambda: sess(verts, tfaces)))
+    routes["(b) ServingModel.__call__, operators on the card"] = (
+        request_times(lambda: sm(xd, *ops, inds=faces)))
+    routes["(c) PreparedMesh handle(x), x on the card"] = request_times(
+        lambda: handle(xd))
+    for name, r in routes.items():
+        busy = ("not measured" if r["busy_ms"] is None else
+                f"{r['busy_ms']:.3f} ms, idle share {r['idle_share']:.4f}")
+        log(f"  warm request {name}: median {r['median_ms']:.3f} ms, p90 "
+            f"{r['p90_ms']:.3f} ms (host clock, 20 requests); device busy "
+            f"{busy} (profiled wall {r['profiled_wall_ms']:.3f} ms) [{card}]"
+            "; host self time per request, largest: " + ", ".join(
+                f"{k[:40]} {ms:.3f} ms" for ms, k in r["host_top"]))
+    tmp.cleanup()
+    log(f"  phase 18: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -2513,6 +2946,8 @@ def main() -> int:
     si_launches = phase_c256_train(mb, card)
     phase_example_kernels(mb)
     harness_launches, example_launches = phase_harness(mb, card, seg_ds)
+    phase_ell_repeat(card)
+    serve18 = phase_serving(mb, fu, card, seg_ds)
 
     widths = (3 * 128, 128, 128, 128)
     b1 = times[(1, 32768, "f32")]
@@ -2534,7 +2969,8 @@ def main() -> int:
         f"{si_launches}")
     log(f"  launches of the harness (phase 17b, 2 epochs at full width): "
         f"{harness_launches}; of the synthetic SHREC example (phase 17c): "
-        f"{example_launches}")
+        f"{example_launches}; of the serving slice (phase 18, 10 requests): "
+        f"{serve18}")
 
     def row(name, source, replaces, n, err, ms, plain, bnd, lib):
         return {"name": name, "route": "cuda",
@@ -2556,8 +2992,11 @@ def main() -> int:
         row("megablock_fwd_wide", "megablock_fwd_wide.cu",
             "pallas_megablock.py:259", launches["megablock_fwd_wide"],
             max(errs["megablock_fwd_wide"], wide[3]), *wide[:3], None),
+        # launches: the training slice's (phase 8) and the serving
+        # slice's (phase 18)
         row("xhat_reduce", "megablock_fwd.cu", "pallas_megablock.py:305",
-            launches["xhat_reduce"], errs["xhat_reduce"], xr1["ms"],
+            launches["xhat_reduce"] + serve18["xhat_reduce"],
+            errs["xhat_reduce"], xr1["ms"],
             xr1["plain_ms"], xr1["bound"], xr1["library_ms"]),
         # B2 at B=1, V=32768, f32: its two kernels (the plain version of
         # each on the same inputs) and the partial sums
@@ -2573,13 +3012,15 @@ def main() -> int:
         row("blocked_ell", "blocked_ell.cu", "blocked_ell.py:331",
             b5_launches, b5_err, t5["ms"], t5["plain_ms"],
             (t5["bound_ms"], t5["bound_by"]), t5["library_ms"]),
-        # B4 at the training shape (B=4, V=32768, f32); B4a is B=1
+        # B4 at the training shape (B=4, V=32768, f32); B4a is B=1;
+        # launches: the fused slice's 5 steps (phase 14) and the serving
+        # slice's 10 requests (phase 18)
         row("spectral_project", "spectral_fused.cu", "pallas_fused.py:200",
-            fused_launches["spectral_project"], errs["spectral_project"],
-            *fused_ms[(4, "f32")]["project"]),
+            fused_launches["spectral_project"] + serve18["spectral_project"],
+            errs["spectral_project"], *fused_ms[(4, "f32")]["project"]),
         row("spectral_apply", "spectral_fused.cu", "pallas_fused.py:200",
-            fused_launches["spectral_apply"], errs["spectral_apply"],
-            *fused_ms[(4, "f32")]["apply"]),
+            fused_launches["spectral_apply"] + serve18["spectral_apply"],
+            errs["spectral_apply"], *fused_ms[(4, "f32")]["apply"]),
         # the backward's ds (JAX's plain einsums, `_bwd_b`) on the
         # projection's kernel with three pairs
         row("spectral_ds", "spectral_fused.cu", "pallas_fused.py:239",

@@ -14,35 +14,51 @@ fused spectral block on csrc/spectral_fused.cu, the one-block op
 `megablock`, the functional-maps head), and the training harness
 (`experiments.exp_common.fit`: the epoch loop, rotation augmentation, the
 two input pipelines, full-state checkpoints with an exact resume) with the
-device ops of kNN, frames and position normalization. ROADMAP.md lists
-what is still to come.
+device ops of kNN, frames and position normalization, and serving
+(`serving`: per-bucket torch.export artifacts that carry kernel B4 as
+registered ops, their loader and device-resident mesh handles).
+ROADMAP.md lists what is still to come.
 """
 
-from . import utils
-from .utils import hash_arrays, ensure_dir_exists
+import importlib
 
-from . import ops
-from .ops import (to_basis, from_basis, compute_hks, compute_hks_autoscale,
-                  norm, norm2, normalize, dot, cross, face_coords, face_area,
-                  face_normals, project_to_tangent, mesh_vertex_normals,
-                  vertex_normals, build_tangent_frames, edge_tangent_vectors,
-                  normalize_positions, find_knn, farthest_point_sampling)
+# Subpackages and names load when first used (PEP 562), so that a module
+# that needs little loads little: `import diffusionnet_tpu_torch.serving`
+# loads the serving module and the kernel ops, and none of geometry,
+# models, training, data or experiments.
+_SUBMODULES = ("utils", "ops", "geometry", "models", "data", "training",
+               "serving", "experiments", "examples")
+_NAMES = {
+    "utils": ("hash_arrays", "ensure_dir_exists"),
+    "ops": ("to_basis", "from_basis", "compute_hks", "compute_hks_autoscale",
+            "norm", "norm2", "normalize", "dot", "cross", "face_coords",
+            "face_area", "face_normals", "project_to_tangent",
+            "mesh_vertex_normals", "vertex_normals", "build_tangent_frames",
+            "edge_tangent_vectors", "normalize_positions", "find_knn",
+            "farthest_point_sampling"),
+    "geometry": ("compute_operators", "get_operators", "Operators",
+                 "pad_operators", "stack_operators"),
+    "models": ("DiffusionNet", "DiffusionNetBlock", "LearnedTimeDiffusion",
+               "SpatialGradientFeatures", "MiniMLP",
+               "FunctionalMapCorrespondence"),
+    "data": ("DeviceDataset", "PaddedBatch", "SurfaceDataset",
+             "make_padded_batches", "prefetch_to_device"),
+    "training": ("InferenceSession", "adam_with_step_decay",
+                 "make_train_step", "save_checkpoint", "restore_checkpoint",
+                 "latest_checkpoint"),
+    "serving": ("export_forward", "load_serving_model", "ServingModel",
+                "PreparedMesh"),
+}
+_HOME = {name: mod for mod, names in _NAMES.items() for name in names}
 
-from . import geometry
-from .geometry import (compute_operators, get_operators, Operators,
-                       pad_operators, stack_operators)
-
-from . import models
-from .models import (DiffusionNet, DiffusionNetBlock, LearnedTimeDiffusion,
-                     SpatialGradientFeatures, MiniMLP,
-                     FunctionalMapCorrespondence)
-
-from . import data
-from .data import (DeviceDataset, PaddedBatch, SurfaceDataset,
-                   make_padded_batches, prefetch_to_device)
-from . import training
-from .training import (InferenceSession, adam_with_step_decay,
-                       make_train_step, save_checkpoint, restore_checkpoint,
-                       latest_checkpoint)
-
+__all__ = [*_SUBMODULES, *_HOME]
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    if name in _SUBMODULES:
+        return importlib.import_module(f".{name}", __name__)
+    if name in _HOME:
+        return getattr(importlib.import_module(f".{_HOME[name]}", __name__),
+                       name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -17,8 +17,10 @@ small tiles (PERF.md, section 5). The rest of the backward (dx = m (.)
 Phi (ds (.) coefs), dcoefs) is plain torch, as the JAX VJP (`_bwd_b`) is
 plain einsums; evecs, gX, gY and mass get no gradient.
 
-Dispatch: tensors on the CPU go to the plain PyTorch versions
-(`spectral_project_reference`, `spectral_apply_reference`,
+Dispatch: the three entry points are registered operators
+(dnt_torch::spectral_project, ::spectral_apply, ::spectral_ds; see "The
+registered operators" below). Tensors on the CPU go to the plain PyTorch
+versions (`spectral_project_reference`, `spectral_apply_reference`,
 `spectral_ds_reference`); tensors on a CUDA device go to the kernels or
 raise. There is no fallback between the two.
 """
@@ -185,13 +187,11 @@ def _split_products(ops, srcs, mass, lowp: bool, what: str) -> torch.Tensor:
     return reduce_pieces(part, B, K, C)
 
 
-def spectral_project(x, evecs, mass, lowp: bool = False) -> torch.Tensor:
-    """x_hat (B, K, C) f32 of x (B,V,C), evecs (B,V,K) (each f32 or bf16)
-    and mass (B,V) f32: the kernel and `xhat_reduce` for CUDA tensors, the
-    plain version for CPU tensors."""
-    dev = _device_of([x, evecs, mass])
-    if dev.type == "cpu":
-        return spectral_project_reference(x, evecs, mass, lowp)
+Tensor = torch.Tensor
+
+
+def _project_cuda(x: Tensor, evecs: Tensor, mass: Tensor,
+                  lowp: bool) -> Tensor:
     _check(x.ndim == 3 and evecs.ndim == 3 and mass.ndim == 2
            and evecs.shape[:2] == x.shape[:2],
            lambda: f"x (B,V,C), evecs (B,V,K), mass (B,V): shapes "
@@ -199,14 +199,8 @@ def spectral_project(x, evecs, mass, lowp: bool = False) -> torch.Tensor:
     return _split_products([evecs], [x], mass, lowp, "spectral_project")
 
 
-def spectral_ds(evecs, gX, gY, dy, dgx, dgy) -> torch.Tensor:
-    """B4's backward ds = Phi^T dy + GX^T dgx + GY^T dgy (B, K, C) f32:
-    the projection's kernel with three (operator, cotangent) pairs and no
-    scale, then `xhat_reduce`, for CUDA tensors; the plain version for CPU
-    tensors."""
-    ts = (evecs, gX, gY, dy, dgx, dgy)
-    if _device_of(ts).type == "cpu":
-        return spectral_ds_reference(*ts)
+def _ds_cuda(evecs: Tensor, gX: Tensor, gY: Tensor, dy: Tensor, dgx: Tensor,
+             dgy: Tensor) -> Tensor:
     _check(evecs.ndim == 3 and dy.ndim == 3
            and evecs.shape[:2] == dy.shape[:2],
            lambda: f"operators (B,V,K), cotangents (B,V,C): "
@@ -216,14 +210,10 @@ def spectral_ds(evecs, gX, gY, dy, dgx, dgy) -> torch.Tensor:
                            "spectral_ds")
 
 
-def spectral_apply(x_hat, coefs, evecs, gX, gY, out_dtype):
-    """(Phi s, GX s, GY s) with s = coefs x_hat, in out_dtype (f32 or bf16):
-    the kernel for CUDA tensors, the plain version for CPU tensors. x_hat,
-    coefs (B,K,C) f32; evecs, gX, gY (B,V,K), one dtype, f32 or bf16."""
-    dev = _device_of([x_hat, coefs, evecs, gX, gY])
-    if dev.type == "cpu":
-        return spectral_apply_reference(x_hat, coefs, evecs, gX, gY,
-                                        out_dtype)
+def _apply_cuda(x_hat: Tensor, coefs: Tensor, evecs: Tensor, gX: Tensor,
+                gY: Tensor, out_dtype: torch.dtype
+                ) -> tuple[Tensor, Tensor, Tensor]:
+    dev = x_hat.device
     _check(evecs.ndim == 3, "evecs must be (B,V,K)")
     B, V, K = evecs.shape
     C = x_hat.shape[-1]
@@ -253,6 +243,98 @@ def spectral_apply(x_hat, coefs, evecs, gX, gY, out_dtype):
     _raise_on(lib, code, "spectral_apply launch")
     LAUNCHES["spectral_apply"] += 1
     return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# The registered operators
+# ---------------------------------------------------------------------------
+# The three entry points are custom operators of the namespace `dnt_torch`
+# (schemas from the CUDA functions' annotations): the dispatcher sends CUDA
+# tensors to the kernels above and CPU tensors to the plain versions, and
+# torch.export keeps each call as one node of its graph (the serving
+# artifacts carry them), with the shapes that the op's fake gives. What the
+# kernels read of B and of the card (`project_splits`) is read only when
+# they run, never in a trace. They are defined with torch.library.Library,
+# not torch.library.custom_op: the blocks call the ops from inside their
+# own autograd Function, so the ops need no autograd layer of their own,
+# and Library registers plain dispatcher kernels without one.
+
+OPS_NAMESPACE = "dnt_torch"
+_LIB = torch.library.Library(OPS_NAMESPACE, "DEF")
+
+
+def _op(name: str, cuda_fn, cpu_fn):
+    _LIB.define(name + torch.library.infer_schema(cuda_fn, mutates_args=()))
+    _LIB.impl(name, cuda_fn, "CUDA")
+    _LIB.impl(name, cpu_fn, "CPU")
+    return getattr(getattr(torch.ops, OPS_NAMESPACE), name).default
+
+
+_project_op = _op("spectral_project", _project_cuda,
+                  spectral_project_reference)
+_ds_op = _op("spectral_ds", _ds_cuda, spectral_ds_reference)
+_apply_op = _op("spectral_apply", _apply_cuda, spectral_apply_reference)
+
+
+def _same_sizes(a, b, what: str) -> None:
+    for i, (m, n) in enumerate(zip(a, b)):
+        torch._check(m == n, lambda: f"spectral_fused: {what}: size {i} "
+                     f"{m} != {n}")
+
+
+@torch.library.register_fake(_project_op, lib=_LIB)
+def _(x, evecs, mass, lowp):
+    _same_sizes(x.shape[:-1], evecs.shape[:-1], "x and evecs")
+    _same_sizes(x.shape[:-1], mass.shape, "x and mass")
+    return x.new_empty((*x.shape[:-2], evecs.shape[-1], x.shape[-1]),
+                       dtype=_cdt(x, evecs, mass))
+
+
+@torch.library.register_fake(_ds_op, lib=_LIB)
+def _(evecs, gX, gY, dy, dgx, dgy):
+    for op in (gX, gY):
+        _same_sizes(op.shape, evecs.shape, "operators")
+    for d in (dy, dgx, dgy):
+        _same_sizes(d.shape[:-1], evecs.shape[:-1], "cotangents")
+    return dy.new_empty((*evecs.shape[:-2], evecs.shape[-1], dy.shape[-1]),
+                        dtype=_cdt(evecs, dy))
+
+
+@torch.library.register_fake(_apply_op, lib=_LIB)
+def _(x_hat, coefs, evecs, gX, gY, out_dtype):
+    _same_sizes(coefs.shape, x_hat.shape, "coefs and x_hat")
+    for op in (gX, gY):
+        _same_sizes(op.shape, evecs.shape, "operators")
+    _same_sizes(x_hat.shape[:-2], evecs.shape[:-2], "batch")
+    _same_sizes(x_hat.shape[-2:-1], evecs.shape[-1:], "K")
+    shape = (*evecs.shape[:-1], x_hat.shape[-1])
+    return tuple(evecs.new_empty(shape, dtype=out_dtype) for _ in range(3))
+
+
+def spectral_project(x, evecs, mass, lowp: bool = False) -> torch.Tensor:
+    """x_hat (B, K, C) f32 of x (B,V,C), evecs (B,V,K) (each f32 or bf16)
+    and mass (B,V) f32: the kernel and `xhat_reduce` for CUDA tensors, the
+    plain version for CPU tensors (the op dnt_torch::spectral_project)."""
+    _device_of([x, evecs, mass])
+    return _project_op(x, evecs, mass, lowp)
+
+
+def spectral_ds(evecs, gX, gY, dy, dgx, dgy) -> torch.Tensor:
+    """B4's backward ds = Phi^T dy + GX^T dgx + GY^T dgy (B, K, C) f32:
+    the projection's kernel with three (operator, cotangent) pairs and no
+    scale, then `xhat_reduce`, for CUDA tensors; the plain version for CPU
+    tensors (the op dnt_torch::spectral_ds)."""
+    _device_of((evecs, gX, gY, dy, dgx, dgy))
+    return _ds_op(evecs, gX, gY, dy, dgx, dgy)
+
+
+def spectral_apply(x_hat, coefs, evecs, gX, gY, out_dtype):
+    """(Phi s, GX s, GY s) with s = coefs x_hat, in out_dtype (f32 or bf16):
+    the kernel for CUDA tensors, the plain version for CPU tensors (the op
+    dnt_torch::spectral_apply). x_hat, coefs (B,K,C) f32; evecs, gX, gY
+    (B,V,K), one dtype, f32 or bf16."""
+    _device_of([x_hat, coefs, evecs, gX, gY])
+    return _apply_op(x_hat, coefs, evecs, gX, gY, out_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -60,6 +60,78 @@ def ell_from_coo(rows, cols, vals, n_rows: int, dtype=np.float32) -> Ell:
     return Ell(idx=idx, val=val)
 
 
+def _gather_rows(idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x's rows at idx: (..., n, D, C)."""
+    if idx.ndim == 2:
+        return x[..., idx, :]
+    lead = idx.shape[:-2]
+    n, D = idx.shape[-2:]
+    xb = x.reshape(-1, *x.shape[-2:])
+    ib = idx.reshape(-1, n, D)
+    b = torch.arange(ib.shape[0], device=x.device)[:, None, None]
+    return xb[b, ib].reshape(*lead, n, D, x.shape[-1])
+
+
+def _acc_dtype(val, x) -> torch.dtype:
+    return torch.promote_types(torch.promote_types(val.dtype, x.dtype),
+                               torch.float32)
+
+
+def _ell_forward(idx, val, x):
+    acc = _acc_dtype(val, x)
+    y = torch.einsum("...nd,...ndc->...nc", val.to(acc),
+                     _gather_rows(idx, x).to(acc))
+    return y.to(x.dtype)
+
+
+class _EllMatvec(torch.autograd.Function):
+    """y = A x with a backward that sums each column's entries in a fixed
+    order. The gather's own backward accumulates by index (index_put_),
+    which adds atomically on the CPU's threads, so a step's bits varied
+    from run to run and a resumed `fit` of the ELL route did not repeat the
+    uninterrupted one. dx here is the embedding lookup's backward: a
+    sort-based sum of each row's entries in a fixed order, on the CPU and
+    on a card. dval (where asked for) is a gather and a sum over C."""
+
+    @staticmethod
+    def forward(ctx, idx, val, x):
+        ctx.save_for_backward(idx, val, x)
+        return _ell_forward(idx, val, x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        idx, val, x = ctx.saved_tensors
+        acc = _acc_dtype(val, x)
+        dy = dy.to(acc)
+        dx = dval = None
+        n, D = idx.shape[-2:]
+        C = x.shape[-1]
+        if ctx.needs_input_grad[2]:
+            if idx.ndim == 2:
+                # one operator for every leading index of x: the leading
+                # dims ride along as channels
+                lead = x.shape[:-2]
+                g = dy.reshape(-1, n, C).permute(1, 0, 2).reshape(n, -1)
+                rows = (val.to(acc)[..., None] * g[:, None]).reshape(n * D, -1)
+                dx = torch.ops.aten.embedding_dense_backward(
+                    rows, idx.reshape(-1), n, -1, False)
+                dx = dx.view(n, -1, C).permute(1, 0, 2).reshape(*lead, n, C)
+            else:
+                nb = idx.numel() // (n * D)
+                keys = (idx.reshape(nb, n * D) + n * torch.arange(
+                    nb, device=idx.device)[:, None]).reshape(-1)
+                rows = (val.to(acc)[..., None] * dy[..., None, :]).reshape(
+                    -1, C)
+                dx = torch.ops.aten.embedding_dense_backward(
+                    rows, keys, nb * n, -1, False).view(x.shape)
+            dx = dx.to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dval = torch.einsum("...nc,...ndc->...nd", dy,
+                                _gather_rows(idx, x).to(acc))
+            dval = dval.reshape(-1, *val.shape).sum(0).to(val.dtype)
+        return None, dval, dx
+
+
 def ell_matvec(ell: Ell, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x with A in ELL (torch tensors): a row gather and a
     contraction over the degree. ell.idx/val: (n, D), or (..., n, D)
@@ -67,21 +139,9 @@ def ell_matvec(ell: Ell, x: torch.Tensor) -> torch.Tensor:
 
     Accumulates in f32 (f64 for f64 operands) and returns x's dtype, as
     the JAX package's `ell_matvec` does. Plain torch: the JAX package has
-    no kernel here either (plain XLA)."""
-    idx, val = ell.idx.long(), ell.val
-    if idx.ndim == 2:
-        gathered = x[..., idx, :]                       # (..., n, D, C)
-    else:
-        lead = idx.shape[:-2]
-        n, D = idx.shape[-2:]
-        xb = x.reshape(-1, *x.shape[-2:])
-        ib = idx.reshape(-1, n, D)
-        b = torch.arange(ib.shape[0], device=x.device)[:, None, None]
-        gathered = xb[b, ib].reshape(*lead, n, D, x.shape[-1])
-    acc = torch.promote_types(torch.promote_types(val.dtype, x.dtype),
-                              torch.float32)
-    y = torch.einsum("...nd,...ndc->...nc", val.to(acc), gathered.to(acc))
-    return y.to(x.dtype)
+    no kernel here either (plain XLA). Differentiable in x and val, with a
+    backward that repeats its bits (`_EllMatvec`)."""
+    return _EllMatvec.apply(ell.idx.long(), ell.val, x)
 
 
 def ell_to_dense(ell: Ell, n: int | None = None) -> torch.Tensor:

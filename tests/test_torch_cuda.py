@@ -717,3 +717,104 @@ def test_megablock_one_matches_plain(cuda, lowp, seed):
                    + [t.grad for t in args[8] + args[9]])
     for k, (a, b) in enumerate(zip(*res)):
         _close(f"output {k}", a, b, lowp)
+
+
+def _serving_inputs(device, V=200, K=16, c_in=3, seed=5):
+    """One surface's signal and operators, seeded (random, not a mesh's:
+    this file needs no geometry)."""
+    rs = np.random.RandomState(seed)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    return (t(rs.randn(V, c_in)), t(rs.rand(V)), t(np.sort(rs.rand(K)) * 10),
+            *(t(rs.randn(V, K) / np.sqrt(V)) for _ in range(3)))
+
+
+@pytest.mark.cuda
+def test_serving_artifact_on_the_card(cuda, tmp_path):
+    """A fused model (pallas_tile_v 128) exported and loaded on the card:
+    each bucket's program holds B4's two ops once a block; __call__ and a
+    PreparedMesh agree with the eager model (use_pallas_fused=False) on
+    the card within phase 14's tolerance of chip_smoke.py (1e-3), each
+    request launches B4's two kernels once a block, and warm requests
+    (__call__ with the operators on the card, handle(x) at batch 1 and 3)
+    make no host sync (torch.cuda.set_sync_debug_mode("error"))."""
+    from diffusionnet_tpu_torch.models import DiffusionNet
+    from diffusionnet_tpu_torch.ops import fused
+    from diffusionnet_tpu_torch.serving import (export_forward,
+                                                load_serving_model)
+    from diffusionnet_tpu_torch.serving.export import kernel_ops
+    arch = dict(c_in=3, c_out=5, c_width=16, n_block=2, dropout=False)
+    d = str(tmp_path / "artifact")
+    export_forward(DiffusionNet(**arch, use_pallas_fused=True,
+                                pallas_tile_v=128), (256, 512), d, 16,
+                   device="cuda")
+    sm = load_serving_model(d)
+    for ep in sm.programs.values():
+        assert kernel_ops(ep) == {"spectral_project": 2, "spectral_apply": 2}
+    x, mass, evals, evecs, gX, gY = _serving_inputs(cuda)
+    x3 = torch.stack([x, 2 * x, 3 * x])  # three signals on one surface
+    plain = DiffusionNet(**arch).to(cuda)
+    with torch.no_grad():
+        ref = plain(x, mass, evals, evecs, gX, gY)
+        ref3 = plain(x3, *(a.expand(3, *a.shape)
+                           for a in (mass, evals, evecs, gX, gY)))
+    handle = sm.prepare(mass, evals, evecs, gX, gY)
+    for fn, want in ((lambda: sm(x, mass, evals, evecs, gX, gY), ref),
+                     (lambda: handle(x), ref), (lambda: handle(x3), ref3)):
+        fused.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES == {"spectral_project": 2,
+                                  "spectral_apply": 2, "spectral_ds": 0}
+        torch.testing.assert_close(out, want, rtol=1e-3, atol=1e-3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = (sm(x, mass, evals, evecs, gX, gY), handle(x), handle(x3))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for out, want in zip(outs, (ref, ref, ref3)):
+        torch.testing.assert_close(out, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_serving_artifact_traced_on_the_cpu_runs_on_the_card(cuda, tmp_path):
+    """Both ends' defaults: a fused model built on the CPU exports a CPU
+    artifact (platforms ["cpu"]), and load_serving_model puts it on the
+    card (move_to_device_pass). The moved program keeps B4's two ops,
+    launches their kernels once a block, and agrees with the eager model
+    on the card within 1e-3."""
+    import json
+    from diffusionnet_tpu_torch.models import DiffusionNet
+    from diffusionnet_tpu_torch.ops import fused
+    from diffusionnet_tpu_torch.serving import (export_forward,
+                                                load_serving_model)
+    from diffusionnet_tpu_torch.serving.export import kernel_ops
+    arch = dict(c_in=3, c_out=5, c_width=16, n_block=2, dropout=False)
+    d = str(tmp_path / "artifact")
+    export_forward(DiffusionNet(**arch, use_pallas_fused=True,
+                                pallas_tile_v=128), (256,), d, 16)
+    with open(f"{d}/manifest.json") as f:
+        assert json.load(f)["platforms"] == ["cpu"]
+    sm = load_serving_model(d)
+    assert sm.device.type == "cuda"
+    assert kernel_ops(sm.programs[256]) == {"spectral_project": 2,
+                                            "spectral_apply": 2}
+    x, mass, evals, evecs, gX, gY = _serving_inputs(cuda)
+    x3 = torch.stack([x, 2 * x, 3 * x])
+    plain = DiffusionNet(**arch).to(cuda)
+    with torch.no_grad():
+        ref = plain(x, mass, evals, evecs, gX, gY)
+        ref3 = plain(x3, *(a.expand(3, *a.shape)
+                           for a in (mass, evals, evecs, gX, gY)))
+    handle = sm.prepare(mass, evals, evecs, gX, gY)
+    for fn, want in ((lambda: sm(x, mass, evals, evecs, gX, gY), ref),
+                     (lambda: handle(x3), ref3)):
+        fused.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        assert out.is_cuda
+        assert fused.LAUNCHES == {"spectral_project": 2,
+                                  "spectral_apply": 2, "spectral_ds": 0}
+        torch.testing.assert_close(out, want, rtol=1e-3, atol=1e-3)

@@ -26,6 +26,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(name)\n"
         "need = {'diffusionnet_tpu_torch.experiments.exp_common',\n"
         "        'diffusionnet_tpu_torch.examples.synthetic_shrec',\n"
+        "        'diffusionnet_tpu_torch.examples.serving_export',\n"
+        "        'diffusionnet_tpu_torch.serving.export',\n"
         "        'diffusionnet_tpu_torch.ops.megablock',\n"
         "        'diffusionnet_tpu_torch._build'}\n"
         "missing = need - set(names)\n"

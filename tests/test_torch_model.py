@@ -201,3 +201,43 @@ def test_gather_mean_padding_faces_read_row_zero():
     (got,), (ref,) = (torch.autograd.grad(o, x, dout) for o in (out, want))
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("stacked", [True, False],
+                         ids=["stacked-operator", "one-operator"])
+def test_ell_matvec_backward_matches_gather(stacked):
+    """ell_matvec's fixed-order backward (the embedding lookup's sort-based
+    sum for x, a gather for val) equals the plain gather's autograd
+    gradients to 1e-12 (f64), with rows of repeated columns and padding
+    entries (val 0, column 0), and repeats its bits over f32 passes (the
+    gather's own backward adds with atomics on the CPU's threads)."""
+    from diffusionnet_tpu_torch.ops.sparse import (Ell, _gather_rows,
+                                                   ell_matvec)
+    g = torch.Generator().manual_seed(11)
+    B, n, D, C = 3, 2000, 7, 6
+    idx = torch.randint(0, n, (B, n, D), generator=g, dtype=torch.int32)
+    idx[:, :50, :4] = 5
+    idx[:, -30:, -3:] = 0
+    val = torch.randn((B, n, D), dtype=torch.float64, generator=g)
+    val[:, -30:, -3:] = 0
+    if not stacked:
+        idx, val = idx[0], val[0]
+    x0 = torch.randn(B, n, C, dtype=torch.float64, generator=g)
+    dy = torch.randn(B, n, C, dtype=torch.float64, generator=g)
+
+    def grads(fn, dtype):
+        x = x0.to(dtype).requires_grad_(True)
+        v = val.to(dtype).requires_grad_(True)
+        return torch.autograd.grad(fn(x, v), (x, v), dy.to(dtype))
+
+    def by_gather(x, v):
+        return torch.einsum("...nd,...ndc->...nc", v,
+                            _gather_rows(idx.long(), x))
+    got = grads(lambda x, v: ell_matvec(Ell(idx, v), x), torch.float64)
+    want = grads(by_gather, torch.float64)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-12)
+    first = grads(lambda x, v: ell_matvec(Ell(idx, v), x), torch.float32)
+    for _ in range(3):
+        again = grads(lambda x, v: ell_matvec(Ell(idx, v), x), torch.float32)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
