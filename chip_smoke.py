@@ -131,7 +131,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      must repeat its bits over five passes (gather's and an embedding
      lookup's printed, all three timed); (c)
      the synthetic SHREC example with --mega at its defaults, whose test
-     accuracy must reach EXAMPLE_ACC_BOUND;
+     accuracy must reach EXAMPLE_ACC_BOUND; (d) the two point-cloud
+     examples at their defaults: fmaps_synthetic (held-out fmap L2, mean
+     angular error) and sampling_invariance_synthetic --gate (the
+     per-mutation table; the gate failing fails the phase);
  18a. ops.sparse.ell_matvec's fixed-order backward at the segmentation
      shape (B=4, V=32768, C=128, torus(144, 140)'s ELL gradient operator)
      must repeat its bits over five passes (the gather's own autograd
@@ -148,7 +151,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      sync on the hot path (torch.cuda.set_sync_debug_mode("error")); then
      the warm request (batch 1, the torus) on three routes,
      InferenceSession with a cache hit, __call__ with the operators on the
-     card, and a PreparedMesh's handle(x): median and p90, busy, idle share.
+     card, and a PreparedMesh's handle(x): median and p90, busy, idle share;
+ 19. the E5 cloud split: two point clouds (6,890 Fibonacci-sphere points
+     deformed by the examples' `bumpy`, normals from their hull mesh; the
+     20,160 vertices of torus(144, 140) with the mesh's normals) through
+     get_operators(faces=None, k_eig=128) on the device solver from a fresh
+     cache: stage seconds, fallbacks and B5's launches printed, B5 must
+     launch, the eigenvalues and a cluster-closed subspace held to host
+     ARPACK; then E5's model (c_width 256, 6890 classes, xyz, seeded
+     weights) through apply_model(use_megakernel=True) at batch 1 (buckets
+     8192 and 32768) held to the eager model at SLICE_TOL, 4 B1 launches a
+     request, and the warm request timed (CUDA events; host clock; busy
+     and idle share from the profiler);
+ 19b. all_pairs_heat_device on the card for the 6,890-vertex hull mesh and
+     torus(144, 140) against the host heat method on 256 seeded sources
+     (within 1e-3 of the diameter), seconds and peak device memory; then
+     geodesic_label_errors(method="heat_device") of phase 19's predictions.
 
 Since phase 12's slice the port's default eigensolver is the device one,
 so the cold requests of phases 4 and 14 and the dataset precompute of
@@ -2870,6 +2888,254 @@ def phase_serving(mb, fu, card, seg_ds):
     return total
 
 
+
+# --- point clouds, geodesics and the two examples: phases 19, 19b, 17d ------
+
+# E5 (experiments/sampling_invariance.py:136): build_model(n_class=6890,
+# c_width=256, outputs_at="vertices", dropout=True, input_features="xyz"),
+# evaluated on the cloud split
+E5_CLASSES = 6890
+
+
+def e5_clouds():
+    """The two clouds of phase 19, each (name, points, normals, hull mesh or
+    None): 6,890 Fibonacci-sphere points (FAUST's vertex count) deformed by
+    the examples' `bumpy`, with normals from their hull mesh (as
+    sampling_invariance_synthetic builds its cloud split); and the 20,160
+    vertices of torus(144, 140) with the mesh's normals."""
+    from diffusionnet_tpu_torch.examples import (
+        sampling_invariance_synthetic as si)
+    from diffusionnet_tpu_torch.geometry import mesh_vertex_normals_np
+    mg = meshgen()
+    dirs, faces = si.sphere_hull_mesh(si.fibonacci_sphere(E5_CLASSES))
+    verts = si.bumpy(dirs)
+    tv, tf = mg.torus(n_major=144, n_minor=140)
+    return [("fibonacci_bumpy(6890)", verts,
+             mesh_vertex_normals_np(verts, faces), (verts, faces)),
+            ("torus(144, 140) cloud", tv, mesh_vertex_normals_np(tv, tf),
+             (tv, tf))]
+
+
+def phase_clouds(mb, be, card):
+    """19: the E5 cloud split at full width. Each cloud's operators through
+    get_operators(faces=None, k_eig=128) on the device solver (stage
+    seconds, fallbacks, B5 launches; the eigenspaces held to host ARPACK by
+    phase 12's measure), then E5's model (seeded weights) through
+    apply_model on the megakernel path at batch 1, held to the eager model
+    at SLICE_TOL; the warm request timed. Returns (the launches of B1 and
+    B5 in the phase, each cloud's predictions)."""
+    import warnings
+    import numpy as np
+    from diffusionnet_tpu_torch.data import SurfaceDataset, make_padded_batches
+    from diffusionnet_tpu_torch.experiments.exp_common import build_model
+    from diffusionnet_tpu_torch.geometry import eigen as eig
+    from diffusionnet_tpu_torch.geometry import operators as ops_mod
+    from diffusionnet_tpu_torch.models import flat_params
+    from diffusionnet_tpu_torch.training import TaskConfig, apply_model
+
+    log("== phase 19: the E5 cloud split: get_operators(faces=None, "
+        "k_eig=128) on the device solver, E5's model (c_width 256, 6890 "
+        "classes, xyz) through apply_model(use_megakernel=True) on cuda")
+    model = build_model(n_class=E5_CLASSES, c_width=256,
+                        outputs_at="vertices", dropout=True,
+                        input_features="xyz")
+    model.reset_parameters(torch.Generator().manual_seed(19))
+    params = flat_params(model, "cuda")
+    mega = TaskConfig(input_features="xyz", labels_kind="vertex",
+                      use_megakernel=True)
+    eager = TaskConfig(input_features="xyz", labels_kind="vertex",
+                       use_megakernel=False)
+    torch.cuda.synchronize()
+    mb.reset_launches()
+    be.reset_launches()
+    preds, clouds = {}, e5_clouds()
+    for name, verts, normals, _ in clouds:
+        tm = {}
+        fallbacks = ops_mod.EIGEN_FALLBACKS
+        b5 = be.LAUNCHES["blocked_ell"]
+        with tempfile.TemporaryDirectory() as cache, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            ops = ops_mod.get_operators(verts, None, k_eig=K_EIG,
+                                        op_cache_dir=cache, normals=normals,
+                                        timings=tm)
+            wall = time.perf_counter() - t0
+        rise = be.LAUNCHES["blocked_ell"] - b5
+        fell = ops_mod.EIGEN_FALLBACKS - fallbacks
+        log(f"  {name}: V={verts.shape[0]}: cold precompute {wall:.3f} s "
+            f"[{card}]; stages (s): triangulation "
+            f"{tm.get('triangulation', 0.0):.3f}, laplacian "
+            f"{tm.get('laplacian', 0.0):.3f}, eigensolve "
+            f"{tm.get('eigensolve', 0.0):.3f}, build_grad "
+            f"{tm.get('build_grad', 0.0):.3f}; all: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in tm.items()))
+        log(f"    EIGEN_FALLBACKS +{fell} (now {ops_mod.EIGEN_FALLBACKS}), "
+            f"B5 launches {rise}; converge: {eig.LAST_CONVERGE_INFO}")
+        for w in caught:
+            log(f"    warning: {w.message}")
+        check(rise > 0, f"{name}: B5 did not launch")
+        check(ops.evecs.shape == (verts.shape[0], K_EIG)
+              and bool(np.isfinite(ops.evecs).all()),
+              f"{name}: operators not finite or misshapen")
+        t0 = time.perf_counter()
+        host = ops_mod.compute_operators(verts, None, K_EIG, normals=normals,
+                                         eigensolver="host")
+        host_s = time.perf_counter() - t0
+        ev_h = host.evals.astype(np.float64)
+        ev_err = float(np.abs(ops.evals - ev_h).max() / ev_h.max())
+        j = _cluster_closed_cut(ev_h, K_EIG)
+        ang = _angle_err(ops.evecs[:, :j].astype(np.float64),
+                         host.evecs[:, :j].astype(np.float64),
+                         host.mass.astype(np.float64))
+        log(f"    host ARPACK {host_s:.3f} s [{card}]; evals max |device - "
+            f"host| / max {ev_err:.3e} (tolerance 1e-6); principal angles on "
+            f"the cluster-closed cut j={j}: max |s - 1| {ang:.3e} "
+            "(tolerance 1e-6)")
+        check(ev_err <= 1e-6, f"{name}: eigenvalues off ARPACK")
+        check(ang <= 1e-6, f"{name}: subspace off ARPACK")
+
+        ds = SurfaceDataset(labels_kind="vertex")
+        ds.add(verts, None, np.arange(verts.shape[0]) % E5_CLASSES)
+        ds.ops_list = [ops]
+        batch = next(make_padded_batches(ds, 1)).to("cuda")
+        want_v = 8192 if verts.shape[0] <= 8192 else 32768
+        check(tuple(batch.verts.shape[:2]) == (1, want_v),
+              f"{name}: batch {tuple(batch.verts.shape)}")
+
+        def request(cfg=mega):
+            with torch.no_grad():
+                return apply_model(model, params, batch, None, cfg,
+                                   deterministic=True)
+        before = dict(mb.LAUNCHES)
+        out = request()
+        torch.cuda.synchronize()
+        got = {k: mb.LAUNCHES[k] - before[k] for k in before}
+        ref = request(eager)
+        n = verts.shape[0]
+        err = compare(f"{name}: E5 model on B1 against the eager model "
+                      f"(B=1, V={want_v})", out[0, :n], ref[0, :n],
+                      SLICE_TOL)
+        check(got["megablock_fwd"] == N_BLOCK, f"{name}: B1 launches {got}")
+        log(f"    B1 launches in one request: {got}; max abs err {err:.3e}")
+        preds[name] = out[0, :n].argmax(-1).cpu().numpy()
+        ev_ms = time_ms(request, reps=10, calls=1, warmup=2)
+        rt = request_times(lambda: request().sum().item(), n=10)
+        busy = ("not measured" if rt["busy_ms"] is None
+                else f"{rt['busy_ms']:.3f} ms, idle share "
+                     f"{rt['idle_share']:.4f}")
+        log(f"    warm request (batch 1, V={want_v}): CUDA events median "
+            f"{ev_ms:.3f} ms; host clock median {rt['median_ms']:.3f} ms, "
+            f"p90 {rt['p90_ms']:.3f} ms; device busy {busy} [{card}]")
+        del batch, ds, ops, host, out, ref
+    torch.cuda.synchronize()
+    launches = dict(mb.LAUNCHES, blocked_ell=be.LAUNCHES["blocked_ell"])
+    log(f"  launches of phase 19 (two clouds' precompute; per cloud two "
+        f"megakernel requests and the timed ones): {launches}")
+    check(launches["megablock_fwd"] > 0 and launches["blocked_ell"] > 0,
+          f"phase 19 launched no B1 or no B5: {launches}")
+    return launches, preds, clouds
+
+
+def phase_geodesics(card, preds, clouds):
+    """19b: all_pairs_heat_device on the card for the 6,890-vertex hull mesh
+    and torus(144, 140), against the host heat method (HeatMethodSolver at
+    the device solver's diffusion time) on 256 seeded sources within 1e-3
+    of the diameter (tests/test_geometry.py:462's bound); seconds and peak
+    device memory; then geodesic_label_errors(method='heat_device') of
+    phase 19's predictions on the hull mesh."""
+    import numpy as np
+    from diffusionnet_tpu_torch.geometry import (HeatMethodSolver,
+                                                 all_pairs_heat_device,
+                                                 geodesic_label_errors)
+    log("== phase 19b: heat-method geodesics on the card "
+        "(all_pairs_heat_device)")
+    for name, _, _, (verts, faces) in clouds:
+        V = verts.shape[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        table = all_pairs_heat_device(verts, faces)
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        src = np.sort(np.random.RandomState(19).choice(V, 256,
+                                                       replace=False))
+        edges = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]],
+                                faces[:, [2, 0]]])
+        h = np.linalg.norm(verts[edges[:, 0]] - verts[edges[:, 1]],
+                           axis=1).mean()
+        diam = np.linalg.norm(verts.max(axis=0) - verts.min(axis=0))
+        t_eff = max(h * h, (diam / 60.0) ** 2)
+        t0 = time.perf_counter()
+        host = HeatMethodSolver(verts, faces,
+                                t_coef=t_eff / (h * h)).distance(src)
+        host_s = time.perf_counter() - t0
+        err = float(np.abs(table[src] - host).max() / host.max())
+        log(f"  {name} mesh: V={V}: all-pairs table ({V} x {V}) on the card "
+            f"{secs:.3f} s, peak device memory {peak / 2**30:.3f} GiB "
+            f"[{card}]; host heat method on 256 sources {host_s:.3f} s; "
+            f"max |device - host| / diameter {err:.3e} (tolerance 1e-3)")
+        check(bool(np.isfinite(table).all()), f"{name}: non-finite table")
+        check(err < 1e-3, f"{name}: heat_device off the host heat method")
+        del table
+    name, _, _, (verts, faces) = clouds[0]
+    pred = preds[name]
+    info = {}
+    with tempfile.TemporaryDirectory() as cache:
+        t0 = time.perf_counter()
+        errs = geodesic_label_errors(verts, faces, pred,
+                                     np.arange(verts.shape[0]),
+                                     geodesic_cache_dir=cache,
+                                     method="heat_device", info=info)
+        secs = time.perf_counter() - t0
+    log(f"  geodesic_label_errors(method='heat_device') of phase 19's "
+        f"predictions on {name} (seeded weights, untrained): mean "
+        f"{float(errs.mean()):.4f}, max {float(errs.max()):.4f} of the "
+        f"diameter, {secs:.3f} s, ran {info.get('ran')} [{card}]")
+    check(errs.shape == pred.shape and bool(np.isfinite(errs).all())
+          and float(errs.min()) >= 0.0 and float(errs.max()) <= 1.0,
+          "geodesic label errors out of [0, 1]")
+
+
+def phase_examples(mb, be, card):
+    """17d: the two ported examples at their defaults on the card:
+    fmaps_synthetic (held-out fmap L2 and mean angular error) and
+    sampling_invariance_synthetic --gate (the per-mutation table; the gate
+    failing fails the phase). Returns their launches of B1 and B5."""
+    import math as _math
+    from diffusionnet_tpu_torch.examples import (
+        fmaps_synthetic, sampling_invariance_synthetic)
+    log("== phase 17d: the examples fmaps_synthetic and "
+        "sampling_invariance_synthetic --gate at their defaults on cuda")
+    torch.cuda.synchronize()
+    mb.reset_launches()
+    be.reset_launches()
+    t0 = time.perf_counter()
+    res = fmaps_synthetic.main([])
+    secs = time.perf_counter() - t0
+    log(f"  fmaps_synthetic: held-out fmap L2 {res['test_fmap_l2']:.4e}, "
+        f"mean angular error {res['mean_angular_err_deg']:.2f} deg, exact "
+        f"matches {100 * res['exact_match']:.1f}%; {secs:.2f} s [{card}]")
+    check(all(_math.isfinite(v) for v in res.values()),
+          f"fmaps_synthetic: {res}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rec = sampling_invariance_synthetic.main(
+            ["--gate", "--out", os.path.join(tmp, "table.jsonl")])
+        secs = time.perf_counter() - t0
+    for mname, r in rec["per_mutation"].items():
+        log(f"  sampling_invariance {mname:>6}: V={r['n_verts']}, "
+            f"exact-label acc {r['exact_label_acc_pct']:.2f}%, mean angular "
+            f"err {r['mean_angular_err_deg']:.3f} deg")
+    log(f"  gate {rec['gate']}; {secs:.2f} s [{card}]")
+    check(rec["gate"]["ok"], "sampling_invariance gate failed")
+    torch.cuda.synchronize()
+    launches = dict(mb.LAUNCHES, blocked_ell=be.LAUNCHES["blocked_ell"])
+    log(f"  launches of phase 17d (both examples): {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -2946,8 +3212,11 @@ def main() -> int:
     si_launches = phase_c256_train(mb, card)
     phase_example_kernels(mb)
     harness_launches, example_launches = phase_harness(mb, card, seg_ds)
+    ex17d = phase_examples(mb, be, card)
     phase_ell_repeat(card)
     serve18 = phase_serving(mb, fu, card, seg_ds)
+    cloud19, cloud_preds, clouds = phase_clouds(mb, be, card)
+    phase_geodesics(card, cloud_preds, clouds)
 
     widths = (3 * 128, 128, 128, 128)
     b1 = times[(1, 32768, "f32")]
@@ -2969,8 +3238,15 @@ def main() -> int:
         f"{si_launches}")
     log(f"  launches of the harness (phase 17b, 2 epochs at full width): "
         f"{harness_launches}; of the synthetic SHREC example (phase 17c): "
-        f"{example_launches}; of the serving slice (phase 18, 10 requests): "
-        f"{serve18}")
+        f"{example_launches}; of the two point-cloud examples (phase 17d): "
+        f"{ex17d}; of the serving slice (phase 18, 10 requests): "
+        f"{serve18}; of the E5 cloud split (phase 19): {cloud19}")
+
+    def slice_launches(name):
+        """A kernel's launches on the main paths that the summary counts:
+        phase 8's train steps (B1, B2) or phase 12's precompute (B5), and
+        the point-cloud slice's phases 17d and 19."""
+        return ex17d.get(name, 0) + cloud19.get(name, 0)
 
     def row(name, source, replaces, n, err, ms, plain, bnd, lib):
         return {"name": name, "route": "cuda",
@@ -2984,18 +3260,21 @@ def main() -> int:
         # plain version of each on the same inputs), the wide route at its
         # own widths (C=256, hidden [1024, 1024]; not on the main path)
         row("megablock_fwd", "megablock_fwd.cu", "pallas_megablock.py:259",
-            launches["megablock_fwd"], errs["megablock_fwd"], *b1["rows"],
-            None),
+            launches["megablock_fwd"] + slice_launches("megablock_fwd"),
+            errs["megablock_fwd"], *b1["rows"], None),
         row("megablock_fwd_xhat", "megablock_fwd.cu",
-            "pallas_megablock.py:309", launches["megablock_fwd_xhat"],
+            "pallas_megablock.py:309",
+            launches["megablock_fwd_xhat"]
+            + slice_launches("megablock_fwd_xhat"),
             errs["megablock_fwd_xhat"], *b1["xhat"]),
         row("megablock_fwd_wide", "megablock_fwd_wide.cu",
             "pallas_megablock.py:259", launches["megablock_fwd_wide"],
             max(errs["megablock_fwd_wide"], wide[3]), *wide[:3], None),
-        # launches: the training slice's (phase 8) and the serving
-        # slice's (phase 18)
+        # launches: the training slice's (phase 8), the serving slice's
+        # (phase 18) and the point-cloud slice's (17d, 19)
         row("xhat_reduce", "megablock_fwd.cu", "pallas_megablock.py:305",
-            launches["xhat_reduce"] + serve18["xhat_reduce"],
+            launches["xhat_reduce"] + serve18["xhat_reduce"]
+            + slice_launches("xhat_reduce"),
             errs["xhat_reduce"], xr1["ms"],
             xr1["plain_ms"], xr1["bound"], xr1["library_ms"]),
         # B2 at B=1, V=32768, f32: its two kernels (the plain version of
@@ -3010,8 +3289,9 @@ def main() -> int:
             launches["grad_reduce"], errs["grad_reduce"], gr_ms, gr_plain,
             gr_b, gr_lib),
         row("blocked_ell", "blocked_ell.cu", "blocked_ell.py:331",
-            b5_launches, b5_err, t5["ms"], t5["plain_ms"],
-            (t5["bound_ms"], t5["bound_by"]), t5["library_ms"]),
+            b5_launches + slice_launches("blocked_ell"), b5_err, t5["ms"],
+            t5["plain_ms"], (t5["bound_ms"], t5["bound_by"]),
+            t5["library_ms"]),
         # B4 at the training shape (B=4, V=32768, f32); B4a is B=1;
         # launches: the fused slice's 5 steps (phase 14) and the serving
         # slice's 10 requests (phase 18)

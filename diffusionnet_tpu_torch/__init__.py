@@ -16,7 +16,10 @@ fused spectral block on csrc/spectral_fused.cu, the one-block op
 two input pipelines, full-state checkpoints with an exact resume) with the
 device ops of kNN, frames and position normalization, and serving
 (`serving`: per-bucket torch.export artifacts that carry kernel B4 as
-registered ops, their loader and device-resident mesh handles).
+registered ops, their loader and device-resident mesh handles), and
+point clouds, geodesics and mesh IO (the robust, tufted and point-cloud
+Laplacians on the native host library native/, exact, Steiner, graph and
+heat-method geodesics, the heat method on the card, OFF/OBJ/PLY IO).
 ROADMAP.md lists what is still to come.
 """
 
@@ -27,7 +30,7 @@ import importlib
 # loads the serving module and the kernel ops, and none of geometry,
 # models, training, data or experiments.
 _SUBMODULES = ("utils", "ops", "geometry", "models", "data", "training",
-               "serving", "experiments", "examples")
+               "serving", "experiments", "examples", "native")
 _NAMES = {
     "utils": ("hash_arrays", "ensure_dir_exists"),
     "ops": ("to_basis", "from_basis", "compute_hks", "compute_hks_autoscale",
@@ -36,8 +39,9 @@ _NAMES = {
             "mesh_vertex_normals", "vertex_normals", "build_tangent_frames",
             "edge_tangent_vectors", "normalize_positions", "find_knn",
             "farthest_point_sampling"),
-    "geometry": ("compute_operators", "get_operators", "Operators",
-                 "pad_operators", "stack_operators"),
+    "geometry": ("compute_operators", "get_operators", "get_all_operators",
+                 "Operators", "pad_operators", "stack_operators",
+                 "geodesic_label_errors", "get_all_pairs_geodesic_distance"),
     "models": ("DiffusionNet", "DiffusionNetBlock", "LearnedTimeDiffusion",
                "SpatialGradientFeatures", "MiniMLP",
                "FunctionalMapCorrespondence"),

@@ -1,5 +1,7 @@
-"""Geometry precompute: cotan Laplacian, tangent frames, gradients, the
-eigensolvers (the device solver on kernel B5, and host ARPACK), and the
+"""Geometry precompute: Laplacians (cotan, robust, tufted, point clouds),
+tangent frames, gradients, the eigensolvers (the device solver on kernel
+B5, and host ARPACK), geodesics (native exact, Steiner and graph; the heat
+method on the host and on the card), mesh IO, the host kNN, and the
 Operators bundle with caching and padding."""
 
 from .operators import (
@@ -13,8 +15,19 @@ from .operators import (
     grad_operators,
 )
 from .laplacian import cotan_laplacian, vertex_areas, face_areas_np
-from .gradients import build_grad
+from .gradients import build_grad, build_grad_point_cloud
+from .point_cloud import point_cloud_laplacian, mesh_laplacian_robust
+from .tufted import tufted_laplacian
 from .eigen import EigenSolveNotConverged, eigensolve_device, eigensolve_host
+from .geodesics import (
+    HeatMethodSolver,
+    get_all_pairs_geodesic_distance,
+    geodesic_label_errors,
+)
+from .heat_device import DeviceHeatMethodSolver, all_pairs_heat_device
+from .io import (read_mesh, read_off, read_obj, read_ply, write_mesh,
+                 write_off, write_obj, write_ply)
+from .knn_host import find_knn_host
 from .host_frames import (
     build_tangent_frames_np,
     edge_tangent_vectors_np,

@@ -11,8 +11,8 @@ reduces, per outgoing edge e = (i -> j) with tangent vector t_e, to
     c_self_i = -sum_e c_e              (entry at (i, i))
 
 with A_i = sum_e t_e t_e^T + eps I (2x2, inverted analytically). Same stencil,
-eps_reg = 1e-5, unit edge weights as reference geometry.py:233-256. The
-point-cloud version comes with ROADMAP item A.5.
+eps_reg = 1e-5, unit edge weights as reference geometry.py:233-256.
+`build_grad_point_cloud` is the same stencil over a cloud's 30-NN edges.
 """
 
 from __future__ import annotations
@@ -63,3 +63,21 @@ def build_grad(n_verts: int, edges: np.ndarray, edge_tangent_vectors: np.ndarray
     cols = np.concatenate([tip, np.arange(N)])
     vals = np.concatenate([coef, self_coef])
     return scipy.sparse.coo_matrix((vals, (rows, cols)), shape=(N, N)).tocsc()
+
+
+def build_grad_point_cloud(verts: np.ndarray, frames: np.ndarray,
+                           n_neighbors_cloud: int = 30,
+                           neigh_inds: np.ndarray | None = None):
+    """Gradient operator of a point cloud over its kNN edge set (reference
+    geometry.py:179-194), vectorized end to end."""
+    from .host_frames import edge_tangent_vectors_np
+    from .knn_host import find_knn_host
+
+    if neigh_inds is None:
+        _, neigh_inds = find_knn_host(verts, verts, n_neighbors_cloud,
+                                      omit_diagonal=True)
+    V = verts.shape[0]
+    edge_inds_from = np.repeat(np.arange(V), neigh_inds.shape[1])
+    edges = np.stack((edge_inds_from, neigh_inds.flatten()))
+    edge_tangent_vecs = edge_tangent_vectors_np(verts, frames, edges)
+    return build_grad(V, edges, edge_tangent_vecs)

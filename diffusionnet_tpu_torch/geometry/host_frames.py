@@ -52,9 +52,11 @@ def vertex_normals_np(verts: np.ndarray, faces: np.ndarray,
     """Vertex normals with the reference's NaN-recovery ladder
     (geometry.py:114-148): wiggle with seed 777 then random unit normals."""
     if faces is None or faces.size == 0:  # point cloud
-        raise NotImplementedError(
-            "point-cloud normals need the host kNN, which the port brings "
-            "with ROADMAP item A.5 (precompute)")
+        from .knn_host import find_knn_host
+        _, neigh_inds = find_knn_host(verts, verts, n_neighbors_cloud,
+                                      omit_diagonal=True)
+        neigh_points = verts[neigh_inds, :] - verts[:, None, :]
+        normals = neighborhood_normal_np(neigh_points)
     else:
         normals = mesh_vertex_normals_np(verts, faces)
 

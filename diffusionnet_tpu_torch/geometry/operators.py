@@ -27,9 +27,10 @@ import torch
 from .. import utils
 from ..ops.sparse import Ell, ell_from_coo, ell_pad
 from .eigen import EigenSolveNotConverged, eigensolve_device, eigensolve_host
-from .gradients import build_grad
+from .gradients import build_grad, build_grad_point_cloud
 from .host_frames import build_tangent_frames_np, edge_tangent_vectors_np
 from .laplacian import cotan_laplacian, vertex_areas
+from .point_cloud import _soup_laplacian, cloud_soup
 
 
 class Operators(NamedTuple):
@@ -107,22 +108,26 @@ def compute_operators(verts, faces, k_eig: int, normals=None,
                       device="cuda",
                       _return_sparse: bool = False,
                       timings: dict | None = None):
-    """Build spectral operators for a triangle mesh (numpy in / Operators out).
+    """Build spectral operators for a mesh or a point cloud (numpy in /
+    Operators out).
 
-    verts: (V,3); faces: (F,3) int; k_eig: number of eigenpairs. Same
-    pipeline as reference geometry.py:276-392: tangent frames, cotan
-    Laplacian and lumped mass, eigendecomposition, least-squares tangent
-    gradients over the Laplacian's edge set.
+    verts: (V,3); faces: (F,3) int, or None / empty for a point cloud;
+    k_eig: number of eigenpairs. Same pipeline as reference
+    geometry.py:276-392: tangent frames, Laplacian and lumped mass (cotan
+    for a mesh; for a cloud the robust Laplacian of point_cloud.py on the
+    native triangle soup of each point's 30 neighbours), eigendecomposition,
+    least-squares tangent gradients over the Laplacian's edge set (a mesh)
+    or the 30-NN graph (a cloud).
 
     eigensolver: 'device' (default): the device solver on `device`, with
     the float64 host polish; if it does not converge
     (EigenSolveNotConverged) a warning is issued, EIGEN_FALLBACKS rises and
     the host ARPACK ladder runs instead. Any other error propagates.
     'host': seeded ARPACK, deterministic, equal to the JAX package's 'host'
-    result. Point clouds (no faces) raise (ROADMAP item A.5).
-    timings: optional dict of wall seconds per stage (frames, laplacian,
-    eigensolve and the solver's own stages, build_grad, ell_convert,
-    spectral_grad)."""
+    result.
+    timings: optional dict of wall seconds per stage (frames, for a cloud
+    triangulation, laplacian, eigensolve and the solver's own stages,
+    build_grad, ell_convert, spectral_grad)."""
     global EIGEN_FALLBACKS
     if eigensolver not in ("host", "device"):
         raise ValueError("eigensolver must be 'host' or 'device'")
@@ -138,9 +143,7 @@ def compute_operators(verts, faces, k_eig: int, normals=None,
     faces_np = (np.asarray(faces, dtype=np.int64)
                 if faces is not None and np.asarray(faces).size else
                 np.zeros((0, 3), dtype=np.int64))
-    if faces_np.size == 0:
-        raise NotImplementedError(
-            "point-cloud operators come with ROADMAP item A.5 (precompute)")
+    is_cloud = faces_np.size == 0
     eps = 1e-8
 
     if normals is not None:
@@ -148,9 +151,15 @@ def compute_operators(verts, faces, k_eig: int, normals=None,
     frames = build_tangent_frames_np(verts_np, faces_np, normals=normals)
     _mark("frames")
 
-    L = cotan_laplacian(verts_np, faces_np, denom_eps=1e-10)
-    massvec_np = vertex_areas(verts_np, faces_np)
-    massvec_np = massvec_np + eps * np.mean(massvec_np)
+    if is_cloud:
+        # point_cloud_laplacian(verts_np) at its defaults, in two stages
+        soup = cloud_soup(verts_np)
+        _mark("triangulation")
+        L, massvec_np = _soup_laplacian(verts_np, soup, 1e-6)
+    else:
+        L = cotan_laplacian(verts_np, faces_np, denom_eps=1e-10)
+        massvec_np = vertex_areas(verts_np, faces_np)
+        massvec_np = massvec_np + eps * np.mean(massvec_np)
     if np.isnan(L.data).any():
         raise RuntimeError("NaN Laplace matrix")
     if np.isnan(massvec_np).any():
@@ -181,11 +190,14 @@ def compute_operators(verts, faces, k_eig: int, normals=None,
     _mark("eigensolve")
 
     # gradient operator over the Laplacian's sparsity (reference
-    # geometry.py:331-334,375)
-    L_coo = L.tocoo()
-    edges = np.stack((L_coo.row, L_coo.col), axis=0)
-    edge_vecs = edge_tangent_vectors_np(verts_np, frames, edges)
-    grad_mat = build_grad(verts_np.shape[0], edges, edge_vecs)
+    # geometry.py:331-334,375); a cloud's over its 30-NN graph
+    if is_cloud:
+        grad_mat = build_grad_point_cloud(verts_np, frames)
+    else:
+        L_coo = L.tocoo()
+        edges = np.stack((L_coo.row, L_coo.col), axis=0)
+        edge_vecs = edge_tangent_vectors_np(verts_np, frames, edges)
+        grad_mat = build_grad(verts_np.shape[0], edges, edge_vecs)
     _mark("build_grad")
 
     # split the complex gradient into two real sparse matrices

@@ -9,6 +9,7 @@ farthest-point loop keeps its state on the device (no host sync a step).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .transforms import normalize_positions
@@ -23,14 +24,23 @@ def find_knn(points_source, points_target, k: int, largest: bool = False,
     Returns (dists, inds), (N, k) each, sorted by increasing distance
     (decreasing with largest). omit_diagonal requires the source and the
     target to be the same set (reference geometry.py:671-672). method:
-    'brute' only; the host KD-tree ('cpu_kd') comes with ROADMAP item
-    A.5."""
+    'brute' on the tensors' device (chunked), or 'cpu_kd', the native host
+    KD-tree (geometry/knn_host.py; the reference's sklearn path,
+    geometry.py:695-721): float32 distances and int64 indices, returned
+    on the source's device."""
     if omit_diagonal and points_source.shape[0] != points_target.shape[0]:
         raise ValueError("omit_diagonal can only be used when source and "
                          "target are same shape")
     if method == "cpu_kd":
-        raise NotImplementedError(
-            "the host KD-tree kNN comes with ROADMAP item A.5 (knn_host)")
+        if largest:
+            raise ValueError("can't do largest with cpu_kd")
+        from ..geometry.knn_host import find_knn_host
+        d, i = find_knn_host(points_source.detach().cpu().numpy(),
+                             points_target.detach().cpu().numpy(), k,
+                             omit_diagonal=omit_diagonal)
+        dev = points_source.device
+        return (torch.from_numpy(d.astype(np.float32)).to(dev),
+                torch.from_numpy(i).to(dev))
     if method != "brute":
         raise ValueError("unrecognized method")
 

@@ -818,3 +818,29 @@ def test_serving_artifact_traced_on_the_cpu_runs_on_the_card(cuda, tmp_path):
         assert fused.LAUNCHES == {"spectral_project": 2,
                                   "spectral_apply": 2, "spectral_ds": 0}
         torch.testing.assert_close(out, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", ["icosphere3", "torus"])
+def test_heat_device_on_the_card_matches_cpu(cuda, mesh):
+    """The device heat method on the card against the same solver on the
+    CPU (both f32; cuSOLVER/cuBLAS at full f32 against LAPACK/BLAS):
+    within 1e-4 of the diameter, with TF32 allowed by the caller (the
+    solver's guard must hold full f32 anyway)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__)))
+    from meshgen import icosphere, torus
+    from diffusionnet_tpu_torch.geometry import DeviceHeatMethodSolver
+    v, f = icosphere(3) if mesh == "icosphere3" else torus(48, 32)
+    src = np.arange(0, v.shape[0], 7)
+    want = DeviceHeatMethodSolver(v, f, source_block=256,
+                                  device="cpu").distance(src)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = DeviceHeatMethodSolver(v, f, source_block=256,
+                                     device=cuda).distance(src)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert np.abs(got - want).max() / want.max() < 1e-4

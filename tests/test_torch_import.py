@@ -29,7 +29,16 @@ def test_port_imports_no_jax():
         "        'diffusionnet_tpu_torch.examples.serving_export',\n"
         "        'diffusionnet_tpu_torch.serving.export',\n"
         "        'diffusionnet_tpu_torch.ops.megablock',\n"
-        "        'diffusionnet_tpu_torch._build'}\n"
+        "        'diffusionnet_tpu_torch._build',\n"
+        "        'diffusionnet_tpu_torch.native.build',\n"
+        "        'diffusionnet_tpu_torch.geometry.knn_host',\n"
+        "        'diffusionnet_tpu_torch.geometry.point_cloud',\n"
+        "        'diffusionnet_tpu_torch.geometry.tufted',\n"
+        "        'diffusionnet_tpu_torch.geometry.io',\n"
+        "        'diffusionnet_tpu_torch.geometry.geodesics',\n"
+        "        'diffusionnet_tpu_torch.geometry.heat_device',\n"
+        "        'diffusionnet_tpu_torch.examples.fmaps_synthetic',\n"
+        "        'diffusionnet_tpu_torch.examples.sampling_invariance_synthetic'}\n"
         "missing = need - set(names)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"

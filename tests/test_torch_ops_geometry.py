@@ -132,11 +132,18 @@ def test_find_knn_matches_jax(largest, omit_diagonal):
 
 
 def test_find_knn_refusals():
+    """The refusals that stay: omit_diagonal on different sets, largest on
+    the host KD-tree, an unknown method. method='cpu_kd' itself now runs
+    (its parity: tests/test_torch_point_cloud.py)."""
     x = _t(_cloud(10, 0))
     with pytest.raises(ValueError, match="same shape"):
         tops.find_knn(x, x[:5], 2, omit_diagonal=True)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        tops.find_knn(x, x, 2, method="cpu_kd")
+    with pytest.raises(ValueError, match="largest"):
+        tops.find_knn(x, x, 2, largest=True, method="cpu_kd")
+    with pytest.raises(ValueError, match="unrecognized"):
+        tops.find_knn(x, x, 2, method="ball_tree")
+    d, i = tops.find_knn(x, x, 2, method="cpu_kd")
+    assert d.shape == i.shape == (10, 2)
 
 
 def test_farthest_point_sampling_matches_jax():
