@@ -166,7 +166,22 @@ Phases, in order; any failure raises and the script exits non-zero:
  19b. all_pairs_heat_device on the card for the 6,890-vertex hull mesh and
      torus(144, 140) against the host heat method on 256 seeded sources
      (within 1e-3 of the diameter), seconds and peak device memory; then
-     geodesic_label_errors(method="heat_device") of phase 19's predictions.
+     geodesic_label_errors(method="heat_device") of phase 19's predictions;
+ 20. the five experiment drivers, each through its main([...]) with
+     --device cuda on its suite's layout (experiments.layouts, jittered
+     tori of 260-20,160 vertices) at the driver's own width:
+     human_segmentation_original (--megakernel, 2 epochs, then --evaluate
+     of its best checkpoint on the eager route within SEG_EVAL_PP of fit's
+     logged accuracy), rna_mesh_segmentation (the eager default, buckets
+     16384 and 32768, 1 epoch), classification_shrec11 (simplified, 30
+     classes x 3 meshes, --megakernel, 1 epoch), sampling_invariance
+     (6,890 classes at C 256, --megakernel, heat_device geodesics, 1
+     epoch) and functional_correspondence (--evaluate on the reference's
+     faust_hks.npz on the card and on the CPU, which must agree within
+     FMAPS_CPU_TOL, then 1 epoch); each driver's seconds by stage, result
+     and B1, B2, partial-sum and B5 launches (B1/B2 must launch on the
+     --megakernel runs, B5 in each precompute of meshes past the solver's
+     dense route).
 
 Since phase 12's slice the port's default eigensolver is the device one,
 so the cold requests of phases 4 and 14 and the dataset precompute of
@@ -183,6 +198,7 @@ import functools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3136,6 +3152,255 @@ def phase_examples(mb, be, card):
     return launches
 
 
+# phase 20: each suite's layout at the suite's real sizes. Meshes are
+# jittered tori of meshgen: torus(106, 65) has FAUST's 6,890 vertices,
+# torus(144, 140) 20,160; RNA's 15-20k; SHREC11's MeshCNN meshes about 250
+# (torus(20, 13), 260). A driver's output tolerances: fmaps --evaluate on
+# the card against the CPU (test loss rtol, geodesic error absolute, the
+# number being normalized by sqrt(area)); human segmentation --evaluate (the
+# eager route) against fit's logged accuracy of the same weights (fit ran
+# B1: an argmax tie may flip), in percentage points.
+DRIVER_TORI = dict(faust=(106, 65), big=(144, 140),
+                   rna=((120, 125), (128, 125), (130, 140), (144, 140)),
+                   shrec=(20, 13), qes=(90, 60), mc=(100, 70))
+DRIVER_SHREC_PER_CLASS = (2, 1)   # meshes in each class's train, test dir
+FMAPS_CPU_TOL = dict(loss_rtol=1e-4, geo_atol=1e-3, own=4.0, perturb=1e-7)
+SEG_EVAL_PP = 0.5
+DRIVER_KERNELS = ("megablock_fwd", "megablock_fwd_xhat", "xhat_reduce",
+                  "megablock_bwd_rows", "megablock_bwd_grads", "grad_reduce",
+                  "blocked_ell")
+
+
+def suite_pretrained(suite):
+    from diffusionnet_tpu_torch.experiments.exp_common import suite_dir
+    return os.path.join(suite_dir(suite), "pretrained_models")
+
+
+def _jittered_torus(key, seed, scale=0.002):
+    import numpy as np
+    mg = meshgen()
+    v, f = mg.torus(*key)
+    return v + scale * np.random.RandomState(seed).randn(*v.shape), f
+
+
+def phase_drivers(mb, be, card, device="cuda"):
+    """20: the five experiment drivers of the port, each through its
+    main([...]) on its suite's layout (experiments.layouts) in a temporary
+    directory, at the driver's own width, on the card:
+    human_segmentation_original (--megakernel, 2 epochs, then --evaluate of
+    its best checkpoint), rna_mesh_segmentation (the eager default, buckets
+    16384 and 32768, 1 epoch), classification_shrec11 (simplified layout,
+    --megakernel, 1 epoch), sampling_invariance (6,890 classes at C 256,
+    --megakernel, heat_device geodesics, 1 epoch) and functional_
+    correspondence (--evaluate on the reference's faust_hks.npz on the card
+    and on the CPU, then 1 epoch). Prints each driver's seconds, result and
+    launches; returns the launches of all five."""
+    from diffusionnet_tpu_torch.experiments import layouts
+    from diffusionnet_tpu_torch.experiments.classification_shrec11 import (
+        classification_shrec11 as shrec)
+    from diffusionnet_tpu_torch.experiments.functional_correspondence \
+        import functional_correspondence as fmaps
+    from diffusionnet_tpu_torch.experiments.human_segmentation_original \
+        import human_segmentation_original as hseg
+    from diffusionnet_tpu_torch.experiments.rna_mesh_segmentation import (
+        rna_mesh_segmentation as rna)
+    from diffusionnet_tpu_torch.experiments.sampling_invariance import (
+        sampling_invariance as si)
+    import numpy as np
+    from diffusionnet_tpu_torch.geometry import mesh_vertex_normals_np
+    from scipy.spatial import cKDTree
+
+    log("== phase 20: the five drivers on the card, each through main() "
+        "on its layout at full width")
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(DRIVER_KERNELS, 0)
+    dev = ["--device", device]
+
+    def drive(name, main, argv):
+        torch.cuda.synchronize()
+        mb.reset_launches()
+        be.reset_launches()
+        t0 = time.perf_counter()
+        res = main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: (be.LAUNCHES if k == "blocked_ell" else mb.LAUNCHES)[k]
+               for k in DRIVER_KERNELS}
+        for k in DRIVER_KERNELS:
+            total[k] += got[k]
+        stages = {k: round(v, 3) for k, v in res["seconds"].items()}
+        log(f"  {name}: {secs:.2f} s in all; stages {stages}; precompute "
+            f"stages {sorted(res['precompute_stages'])}; launches {got} "
+            f"[{card}]")
+        return res, got
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # human_segmentation_original: 4 train meshes, 2 test geometries
+        # on the 18 shrec names
+        faust, big = DRIVER_TORI["faust"], DRIVER_TORI["big"]
+        root = layouts.human_segmentation(
+            os.path.join(tmp, "hseg"),
+            [_jittered_torus(faust, 0), _jittered_torus(faust, 1),
+             _jittered_torus(big, 2), _jittered_torus(big, 3)],
+            [_jittered_torus(faust, 4), _jittered_torus(big, 5)])
+        res, got = drive("human_segmentation_original --megakernel, 2 "
+                         "epochs", hseg.main,
+                         ["--n_epoch", "2", "--megakernel", "--data_dir",
+                          root] + dev)
+        check(got["megablock_fwd"] > 0 and got["megablock_bwd_rows"] > 0
+              and got["blocked_ell"] > 0,
+              f"human segmentation: B1, B2 or B5 not launched: {got}")
+        best = max(res["history"], key=lambda h: h[2])
+        ckpt = os.path.join(res["model_save_path"] + "_ckpt",
+                            f"step_{best[0]}.npz")
+        ev, _ = drive(f"human_segmentation_original --evaluate of step "
+                      f"{best[0]}", hseg.main,
+                      ["--evaluate", "--load_model", ckpt, "--data_dir",
+                       root] + dev)
+        diff = 100 * abs(ev["test_acc"] - best[2])
+        log(f"  human segmentation: history {res['history']}; final test "
+            f"accuracy {100 * res['test_acc']:.3f}%; --evaluate of epoch "
+            f"{best[0]}'s checkpoint {100 * ev['test_acc']:.3f}% against "
+            f"fit's {100 * best[2]:.3f}% ({diff:.3f} pp, bound "
+            f"{SEG_EVAL_PP})")
+        check(diff <= SEG_EVAL_PP, "human segmentation --evaluate disagrees "
+              "with fit's logged accuracy")
+
+        # rna_mesh_segmentation: 3 train, 1 test, the eager default route
+        root = layouts.rna(os.path.join(tmp, "rna"),
+                           [_jittered_torus(k, 10 + i) for i, k in
+                            enumerate(DRIVER_TORI["rna"])], n_train=3)
+        res, got = drive("rna_mesh_segmentation (eager), 1 epoch", rna.main,
+                         ["--n_epoch", "1", "--buckets", "16384,32768",
+                          "--data_dir", root] + dev)
+        log(f"  rna: test accuracy {100 * res['test_acc']:.3f}% (260 "
+            f"classes), history {res['history']}")
+        check(got["blocked_ell"] > 0 and got["megablock_fwd"] == 0,
+              f"rna: B5 not launched, or B1 on the eager route: {got}")
+
+        # classification_shrec11, simplified: 30 classes x 3 meshes
+        n_tr, n_te = DRIVER_SHREC_PER_CLASS
+        root = layouts.shrec11_simplified(
+            os.path.join(tmp, "shrec"),
+            lambda c, t, i: _jittered_torus(DRIVER_TORI["shrec"],
+                                            100 + 3 * c + i + n_tr
+                                            * (t == "test"), scale=0.01),
+            n_train=n_tr, n_test=n_te)
+        res, got = drive("classification_shrec11 --megakernel, 1 epoch",
+                         shrec.main,
+                         ["--dataset_type", "simplified", "--split_size",
+                          "2", "--n_epoch", "1", "--megakernel",
+                          "--data_dir", root] + dev)
+        log(f"  shrec11: test accuracy {100 * res['test_acc']:.3f}% (30 "
+            f"classes); B5 has no launch here: meshes of at most "
+            f"min(12 n_cols, 4096) rows take the solver's dense route, as "
+            f"in the JAX package")
+        check(got["megablock_fwd"] > 0 and got["megablock_bwd_rows"] > 0,
+              f"shrec11: B1 or B2 not launched: {got}")
+
+        # sampling_invariance: 2 training registrations and 1 held-out
+        # shape in the six mutations; labels of a remeshing: the nearest
+        # template vertex
+        regs = [_jittered_torus(faust, 20 + i) for i in range(3)]
+        tree = cKDTree(regs[0][0])
+        v, f = regs[2]
+
+        def remesh(key, seed):
+            rv, rf = _jittered_torus(key, seed)
+            return rv, rf, tree.query(rv)[1]
+        muts = {"iso": [remesh(faust, 30)], "qes": [remesh(DRIVER_TORI["qes"],
+                                                           31)],
+                "mc": [remesh(DRIVER_TORI["mc"], 32)],
+                "dense": [remesh(big, 33)],
+                "cloud": [(v, mesh_vertex_normals_np(v, f),
+                           np.arange(len(v)))]}
+        root = layouts.sampling_invariance(os.path.join(tmp, "si"), regs,
+                                           muts)
+        res, got = drive("sampling_invariance --megakernel (C 256, 6,890 "
+                         "classes), 1 epoch", si.main,
+                         ["--n_epoch", "1", "--megakernel", "--n_train", "2",
+                          "--n_test", "1", "--geodesic_method",
+                          "heat_device", "--data_dir", root] + dev)
+        means = {m: round(100 * e, 3) for m, e in
+                 res["geodesic_means"].items()}
+        log(f"  sampling_invariance: test accuracy "
+            f"{100 * res['test_acc']:.3f}%; per-mutation mean geodesic "
+            f"error (heat_device, % of the diameter) {means}")
+        check(got["megablock_fwd"] > 0 and got["megablock_bwd_rows"] > 0
+              and got["blocked_ell"] > 0,
+              f"sampling_invariance: B1, B2 or B5 not launched: {got}")
+        check(all(math.isfinite(e) for e in means.values()),
+              f"sampling_invariance: geodesic means {means}")
+
+        # functional_correspondence: 5 shapes with .vts; --evaluate on the
+        # reference's faust_hks.npz on the card, then on the CPU from a copy
+        # of the data with its caches (the same operators and geodesic
+        # table: the CPU's heat_device takes 37 s at 6,890 vertices, and
+        # phase 19b holds the card's table to the host's), then 1 epoch
+        root = layouts.fmaps(os.path.join(tmp, "fmaps"),
+                             [_jittered_torus(faust, 40 + i)
+                              for i in range(5)], n_vts=200)
+        fm = ["--n_train", "3", "--n_test", "2", "--geodesic_method",
+              "heat_device"]
+        res, got = drive("functional_correspondence --evaluate "
+                         "(faust_hks.npz)", fmaps.main,
+                         ["--evaluate", "--data_dir", root] + fm + dev)
+        cpu_root = os.path.join(tmp, "fmaps_cpu")
+        shutil.copytree(root, cpu_root)
+        res_cpu, _ = drive("functional_correspondence --evaluate on the "
+                           "CPU", fmaps.main,
+                           ["--evaluate", "--data_dir", cpu_root] + fm
+                           + ["--device", "cpu"])
+        # the evaluation's own rounding sensitivity: the CPU run again on
+        # the weights changed by 1e-7 relative (the map is a regularized
+        # f32 solve, and the vertex map a nearest-neighbour choice); the
+        # card must agree within the stated bounds, or within FMAPS_CPU_TOL
+        # ["own"] times that change where it is larger
+        from diffusionnet_tpu_torch.experiments.tools.\
+            convert_torch_checkpoint import load_converted
+        rs = np.random.RandomState(0)
+        npz = os.path.join(suite_pretrained("functional_correspondence"),
+                           "faust_hks.npz")
+        nudged = os.path.join(tmp, "faust_hks_nudged.npz")
+        np.savez(nudged, **{
+            k[len("params/"):]: (v * (1 + FMAPS_CPU_TOL["perturb"]
+                                      * rs.randn(*v.shape))).astype(v.dtype)
+            for k, v in load_converted(npz).items()})
+        res_own, _ = drive("functional_correspondence --evaluate on the CPU,"
+                           " weights changed by 1e-7", fmaps.main,
+                           ["--evaluate", "--load_model", nudged,
+                            "--data_dir", cpu_root] + fm
+                           + ["--device", "cpu"])
+        d_loss = abs(res["test_loss"] - res_cpu["test_loss"])
+        d_geo = abs(res["geodesic_error"] - res_cpu["geodesic_error"])
+        own_loss = abs(res_own["test_loss"] - res_cpu["test_loss"])
+        own_geo = abs(res_own["geodesic_error"] - res_cpu["geodesic_error"])
+        b_loss = max(FMAPS_CPU_TOL["loss_rtol"] * res_cpu["test_loss"],
+                     FMAPS_CPU_TOL["own"] * own_loss)
+        b_geo = max(FMAPS_CPU_TOL["geo_atol"], FMAPS_CPU_TOL["own"] * own_geo)
+        log(f"  fmaps --evaluate: test loss {res['test_loss']:.6e} (card) "
+            f"{res_cpu['test_loss']:.6e} (CPU), geodesic error "
+            f"{res['geodesic_error']:.6e} / {res_cpu['geodesic_error']:.6e}"
+            f"; differences {d_loss:.3e} ({d_loss / res_cpu['test_loss']:.3e}"
+            f" relative), {d_geo:.3e}; the CPU's own change under the "
+            f"nudge {own_loss:.3e} ({own_loss / res_cpu['test_loss']:.3e} "
+            f"relative), {own_geo:.3e}; bounds {b_loss:.3e}, {b_geo:.3e} "
+            f"({FMAPS_CPU_TOL})")
+        check(d_loss <= b_loss and d_geo <= b_geo,
+              "fmaps --evaluate on the card disagrees with the CPU")
+        check(res_cpu["precompute_stages"] == {},
+              "the CPU evaluation did not read the card's operators")
+        res, got = drive("functional_correspondence, 1 epoch (6 pairs)",
+                         fmaps.main,
+                         ["--n_epoch", "1", "--data_dir", root] + fm + dev)
+        log(f"  fmaps training: {res['log']}")
+        check(all(math.isfinite(x["train_loss"]) for x in res["log"]),
+              f"fmaps: {res['log']}")
+    log(f"  launches of phase 20 (all five drivers): {total}; phase "
+        f"{time.perf_counter() - t_phase:.2f} s [{card}]")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -3217,6 +3482,7 @@ def main() -> int:
     serve18 = phase_serving(mb, fu, card, seg_ds)
     cloud19, cloud_preds, clouds = phase_clouds(mb, be, card)
     phase_geodesics(card, cloud_preds, clouds)
+    drivers20 = phase_drivers(mb, be, card)
 
     widths = (3 * 128, 128, 128, 128)
     b1 = times[(1, 32768, "f32")]
@@ -3242,11 +3508,15 @@ def main() -> int:
         f"{ex17d}; of the serving slice (phase 18, 10 requests): "
         f"{serve18}; of the E5 cloud split (phase 19): {cloud19}")
 
+    log(f"  launches of the five drivers (phase 20): {drivers20}")
+
     def slice_launches(name):
         """A kernel's launches on the main paths that the summary counts:
-        phase 8's train steps (B1, B2) or phase 12's precompute (B5), and
-        the point-cloud slice's phases 17d and 19."""
-        return ex17d.get(name, 0) + cloud19.get(name, 0)
+        phase 8's train steps (B1, B2) or phase 12's precompute (B5), the
+        point-cloud slice's phases 17d and 19, and the drivers' phase
+        20."""
+        return (ex17d.get(name, 0) + cloud19.get(name, 0)
+                + drivers20.get(name, 0))
 
     def row(name, source, replaces, n, err, ms, plain, bnd, lib):
         return {"name": name, "route": "cuda",
@@ -3280,13 +3550,18 @@ def main() -> int:
         # B2 at B=1, V=32768, f32: its two kernels (the plain version of
         # each on the same inputs) and the partial sums
         row("megablock_bwd_rows", "megablock_bwd.cu",
-            "pallas_megablock.py:379", launches["megablock_bwd_rows"],
+            "pallas_megablock.py:379",
+            launches["megablock_bwd_rows"]
+            + slice_launches("megablock_bwd_rows"),
             errs["megablock_bwd_rows"], *b2["rows"], None),
         row("megablock_bwd_grads", "megablock_bwd.cu",
-            "pallas_megablock.py:379", launches["megablock_bwd_grads"],
+            "pallas_megablock.py:379",
+            launches["megablock_bwd_grads"]
+            + slice_launches("megablock_bwd_grads"),
             errs["megablock_bwd_grads"], *b2["grads"], None),
         row("grad_reduce", "megablock_bwd.cu", "pallas_megablock.py:486",
-            launches["grad_reduce"], errs["grad_reduce"], gr_ms, gr_plain,
+            launches["grad_reduce"] + slice_launches("grad_reduce"),
+            errs["grad_reduce"], gr_ms, gr_plain,
             gr_b, gr_lib),
         row("blocked_ell", "blocked_ell.cu", "blocked_ell.py:331",
             b5_launches + slice_launches("blocked_ell"), b5_err, t5["ms"],

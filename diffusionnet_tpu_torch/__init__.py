@@ -19,7 +19,9 @@ device ops of kNN, frames and position normalization, and serving
 registered ops, their loader and device-resident mesh handles), and
 point clouds, geodesics and mesh IO (the robust, tufted and point-cloud
 Laplacians on the native host library native/, exact, Steiner, graph and
-heat-method geodesics, the heat method on the card, OFF/OBJ/PLY IO).
+heat-method geodesics, the heat method on the card, OFF/OBJ/PLY IO), and
+the five experiment drivers with their dataset loaders and the
+reference-checkpoint converter (`experiments.<suite>.<driver>`).
 ROADMAP.md lists what is still to come.
 """
 

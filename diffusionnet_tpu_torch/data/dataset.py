@@ -108,13 +108,15 @@ class SurfaceDataset:
                    normals_list: Sequence | None = None,
                    verbose: bool = True,
                    eigensolver: str = DEFAULT_EIGENSOLVER,
-                   device="cuda") -> None:
+                   device="cuda", timings: dict | None = None) -> None:
         """Compute (or load from the disk cache) the Operators bundle of
         every surface through get_all_operators (its worker policy).
         normals_list: optional per-sample (V, 3) normals that replace the
         computed ones in the tangent frames (the sampling_invariance cloud
         flow, reference dataset.py:107-115,146). eigensolver: 'device'
-        (default; the solve runs on `device`) or 'host' (ARPACK)."""
+        (default; the solve runs on `device`) or 'host' (ARPACK). timings:
+        optional dict of wall seconds per precompute stage (empty when
+        every shape came from the cache)."""
         n = len(self)
         if normals_list is not None and len(normals_list) != n:
             raise ValueError(f"normals_list has {len(normals_list)} entries "
@@ -122,7 +124,8 @@ class SurfaceDataset:
         self.ops_list = get_all_operators(
             self.verts_list, self.faces_list, k_eig,
             op_cache_dir=op_cache_dir, normals=normals_list,
-            eigensolver=eigensolver, verbose=verbose, device=device)
+            eigensolver=eigensolver, verbose=verbose, device=device,
+            timings=timings)
 
 
 def _group_by_bucket(ds: SurfaceDataset, buckets) -> dict[int, list[int]]:

@@ -23,11 +23,10 @@ from itertools import permutations
 import numpy as np
 import torch
 
-from ..data.features import get_features
-from ..geometry import (compute_operators, find_knn_host, grad_operators,
-                        pad_operators)
-from ..models.fmaps import FunctionalMapCorrespondence
-from ..utils import normalize_positions_np, pad_to
+from ..geometry import compute_operators
+from ..models.fmaps import (FunctionalMapCorrespondence, gt_fmap,  # noqa: F401
+                            shape_dict, train_step, vertex_map)
+from ..utils import normalize_positions_np
 from .synthetic_shrec import _meshgen
 
 
@@ -53,46 +52,6 @@ def build_shapes(n=8, seed=0, k_eig=32, device="cuda"):
         ops = compute_operators(v, f, k_eig=k_eig, device=device)
         shapes.append((v.astype(np.float32), f, ops))
     return shapes
-
-
-def shape_dict(v, ops, v_pad, k_eig, device, input_features="hks"):
-    """The model's input dict of one shape, padded to v_pad, on device."""
-    ops = pad_operators(ops, v_pad, k_eig)
-    gX, gY = grad_operators(ops)
-    dev = ops._replace(gradX_spec=gX, gradY_spec=gY).to(device)
-    x = torch.from_numpy(pad_to(v, v_pad)).to(device)
-    feats = get_features(input_features, x, dev.evals, dev.evecs)
-    return dict(features=feats, mass=dev.mass, L=dev.L, evals=dev.evals,
-                evecs=dev.evecs, gradX=dev.gradX_spec, gradY=dev.gradY_spec)
-
-
-def gt_fmap(ops1, ops2, n_fmap):
-    """Identity correspondence: lstsq alignment of the full eigenbases."""
-    e1 = ops1.evecs[:, :n_fmap].astype(np.float64)
-    e2 = ops2.evecs[:, :n_fmap].astype(np.float64)
-    sol, *_ = np.linalg.lstsq(e1, e2, rcond=None)
-    return sol.T.astype(np.float32)
-
-
-def train_step(model, optimizer, s1, s2, C_gt, generator,
-               deterministic=False) -> float:
-    """One Adam step on the mean squared fmap error; returns the loss."""
-    model.train(not deterministic)
-    optimizer.zero_grad(set_to_none=True)
-    C_pred, _, _ = model(s1, s2, deterministic=deterministic,
-                         generator=generator)
-    loss = torch.mean((C_pred - C_gt) ** 2)
-    loss.backward()
-    optimizer.step()
-    return float(loss.detach())
-
-
-def vertex_map(evecs1, evecs2, C_pred):
-    """The induced map from shape 2 to shape 1: each vertex of 2 to its
-    nearest neighbour in the spectrally aligned embedding of 1."""
-    evec1_on_2 = evecs1 @ np.asarray(C_pred).T
-    _, pred_2to1 = find_knn_host(evecs2, evec1_on_2, k=1)
-    return pred_2to1[:, 0]
 
 
 def main(argv=None) -> dict:

@@ -27,21 +27,29 @@ import copy
 import functools
 import json
 import math
+import os
 import signal
 import time
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..data import (DeviceDataset, FEATURE_DIMS, make_padded_batches,
                     prefetch_to_device)
-from ..models import DiffusionNet, flat_params
+from ..models import DiffusionNet, flat_params, to_flat_jax_params
 from ..training import (TaskConfig, adam_with_step_decay, apply_model,
                         loss_and_counts, make_eval_step, make_train_step)
 from ..training.checkpoint import (latest_checkpoint, load_train_state,
-                                   restore_checkpoint, save_checkpoint,
-                                   train_state)
+                                   nest, restore_checkpoint, save_checkpoint,
+                                   train_state, unnest)
 from ..utils import to_np
+from .tools.convert_torch_checkpoint import load_reference_checkpoint
+
+# the repository root of a checkout: the drivers' default data and
+# pretrained_models directories are the JAX drivers' own, under
+# <REPO>/experiments/<suite>/
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 
 
 class graceful_stop:
@@ -106,6 +114,159 @@ def build_model(n_class: int, c_width: int, outputs_at: str,
         compute_dtype=torch.bfloat16 if bf16 else None)
 
 
+# ---------------------------------------------------------------------------
+# The drivers' shared pieces (experiments/<suite>/<driver>.py)
+# ---------------------------------------------------------------------------
+
+def suite_dir(suite: str) -> str:
+    """<REPO>/experiments/<suite>: the JAX driver's directory, whose data/
+    (laid out by its prepare_data.py) and pretrained_models/ the port's
+    driver reads by default. An installed copy passes --data_dir and
+    --load_model instead."""
+    return os.path.join(REPO, "experiments", suite)
+
+
+def add_device_arg(parser) -> None:
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="where precompute, training and evaluation "
+                             "run: 'cuda' (default; the kernels) or 'cpu' "
+                             "(their plain versions)")
+
+
+def driver_device(name: str) -> torch.device:
+    """--device as a torch.device; 'cuda' without a visible card raises
+    (a driver never goes on on the CPU by itself)."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {name}: no CUDA card is visible to torch; pass "
+            "--device cpu to run on the CPU")
+    return device
+
+
+def load_weights(path: str, model, device="cuda") -> dict:
+    """Weights for `model` as JAX-layout flat tensors on `device`, the form
+    fit's train state and `make_evaluate` take, from any of:
+
+      * the reference's torch state_dict (.pth), converted in memory;
+      * an .npz of the checkpoint converter (either package's);
+      * a checkpoint of fit: a step_N.npz, or its <path>_ckpt directory
+        (its latest step), also one the JAX package wrote.
+
+    The keys and shapes must be the model's own (a functional-maps model's
+    under `feature_extractor/`); otherwise ValueError names the
+    difference."""
+    want = {k: v.shape for k, v in to_flat_jax_params(model).items()}
+    if os.path.isdir(path):
+        ckpt = latest_checkpoint(path)
+        if ckpt is None:
+            raise FileNotFoundError(f"no checkpoint found under {path}")
+        path = ckpt
+    if path.endswith(".npz"):
+        with np.load(path) as npz:
+            is_state = any(k.startswith("[") for k in npz.files)
+        if is_state:  # a train state, keyed by tree paths
+            template = nest({k: np.zeros(s, np.float32)
+                             for k, s in want.items()})
+            flat = unnest(restore_checkpoint(path, template))
+        else:
+            flat = load_reference_checkpoint(path)
+    else:
+        flat = load_reference_checkpoint(
+            path, fmaps=any(k.startswith("params/feature_extractor/")
+                            for k in want))
+    got = {k: np.shape(v) for k, v in flat.items()}
+    if got != want:
+        missing = sorted(set(want) - set(got))
+        extra = sorted(set(got) - set(want))
+        shapes = sorted(k for k in set(want) & set(got) if want[k] != got[k])
+        raise ValueError(f"{path} does not fit the model: missing {missing}, "
+                         f"extra {extra}, other shapes {shapes}")
+    return {k: torch.tensor(np.asarray(v, np.float32), device=device)
+            for k, v in flat.items()}
+
+
+class Stopwatch:
+    """Wall seconds of a driver's stages: `with sw("precompute"): ...`;
+    `sw.seconds` maps each stage to its total."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+
+    @contextlib.contextmanager
+    def __call__(self, stage: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+            self.seconds[stage] = (self.seconds.get(stage, 0.0)
+                                   + time.perf_counter() - t0)
+
+
+def task_config(cfg: FitConfig) -> TaskConfig:
+    """The fields of cfg that one step reads."""
+    return TaskConfig(input_features=cfg.input_features,
+                      labels_kind=cfg.labels_kind,
+                      label_smoothing=cfg.label_smoothing, bf16=cfg.bf16,
+                      use_megakernel=cfg.use_megakernel,
+                      augment_rotate=cfg.augment_rotate,
+                      rotate_axis=cfg.rotate_axis)
+
+
+def batch_source(cfg: FitConfig, device):
+    """batches(ds, shuffle, seed=0): a dataset's padded batches on `device`,
+    from host stacking and copies on a thread (prefetch_to_device), or with
+    cfg.device_data from the stacked dataset uploaded once per dataset."""
+    device = torch.device(device)
+    device_sets: dict = {}
+
+    def batches(ds, shuffle, seed=0):
+        if cfg.device_data:
+            if id(ds) not in device_sets:
+                device_sets[id(ds)] = DeviceDataset(ds, cfg.buckets, device)
+            return device_sets[id(ds)].batches(cfg.batch_size,
+                                               shuffle=shuffle, seed=seed)
+        return prefetch_to_device(
+            make_padded_batches(ds, cfg.batch_size, shuffle=shuffle,
+                                seed=seed, buckets=cfg.buckets),
+            device=device)
+    return batches
+
+
+def make_evaluate(model, cfg: FitConfig, device="cuda", batches=None):
+    """(evaluate, predict) of `model` under cfg (its route, features and
+    labels), with no train state: evaluate(params, ds) is the accuracy on a
+    dataset, predict(params, batch) the model's predictions on one batch.
+    params: JAX-layout flat tensors on `device` (`load_weights`). batches:
+    the batch source (default `batch_source(cfg, device)`)."""
+    tcfg = task_config(cfg)
+    batches = batches if batches is not None else batch_source(cfg, device)
+
+    def predict(params, batch):
+        with torch.no_grad():
+            return apply_model(model, params, batch, None, tcfg,
+                               deterministic=True)
+
+    def metric_fn(params, batch):
+        preds = apply_model(model, params, batch, None, tcfg,
+                            deterministic=True)
+        _, counts = loss_and_counts(preds, batch, tcfg)
+        return counts, preds
+
+    eval_step = make_eval_step(metric_fn)
+
+    def evaluate(params, ds):
+        correct = total = 0
+        for batch in batches(ds, shuffle=False):
+            (c, t), _ = eval_step(params, batch)
+            correct += int(c)
+            total += int(t)
+        return correct / max(total, 1)
+    return evaluate, predict
+
+
 def fit(model, train_ds, test_ds, cfg: FitConfig,
         model_save_path: str | None = None,
         params=None, eval_every: int = 1,
@@ -135,12 +296,10 @@ def fit(model, train_ds, test_ds, cfg: FitConfig,
             "data_parallel and mesh_shape (training over several cards) come "
             "with ROADMAP item A.6; this fit trains on one card")
     device = torch.device(device)
-    tcfg = TaskConfig(input_features=cfg.input_features,
-                      labels_kind=cfg.labels_kind,
-                      label_smoothing=cfg.label_smoothing, bf16=cfg.bf16,
-                      use_megakernel=cfg.use_megakernel,
-                      augment_rotate=cfg.augment_rotate,
-                      rotate_axis=cfg.rotate_axis)
+    tcfg = task_config(cfg)
+    if log_path is not None:
+        os.makedirs(os.path.dirname(os.path.abspath(log_path)),
+                    exist_ok=True)
     rng = torch.Generator().manual_seed(cfg.seed)
     if params is None:
         init = copy.deepcopy(model)
@@ -167,42 +326,8 @@ def fit(model, train_ds, test_ds, cfg: FitConfig,
         return loss_and_counts(preds, batch, tcfg)
 
     train_step = make_train_step(loss_fn, optimizer)
-
-    def predict(params, batch):
-        with torch.no_grad():
-            return apply_model(model, params, batch, None, tcfg,
-                               deterministic=True)
-
-    def metric_fn(params, batch):
-        preds = apply_model(model, params, batch, None, tcfg,
-                            deterministic=True)
-        _, counts = loss_and_counts(preds, batch, tcfg)
-        return counts, preds
-
-    eval_step = make_eval_step(metric_fn)
-
-    # input pipeline: host stacking and the copy to the card on a thread,
-    # or (cfg.device_data) the dataset on the card once
-    device_sets: dict = {}
-
-    def _batches(ds, shuffle, seed=0):
-        if cfg.device_data:
-            if id(ds) not in device_sets:
-                device_sets[id(ds)] = DeviceDataset(ds, cfg.buckets, device)
-            return device_sets[id(ds)].batches(cfg.batch_size,
-                                               shuffle=shuffle, seed=seed)
-        return prefetch_to_device(
-            make_padded_batches(ds, cfg.batch_size, shuffle=shuffle,
-                                seed=seed, buckets=cfg.buckets),
-            device=device)
-
-    def evaluate(params, ds):
-        correct = total = 0
-        for batch in _batches(ds, shuffle=False):
-            (c, t), _ = eval_step(params, batch)
-            correct += int(c)
-            total += int(t)
-        return correct / max(total, 1)
+    _batches = batch_source(cfg, device)
+    evaluate, predict = make_evaluate(model, cfg, device, _batches)
 
     # optax keeps a schedule count beside Adam's when the lr is a schedule
     scheduled = decay_steps != 0

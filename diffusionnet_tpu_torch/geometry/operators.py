@@ -361,7 +361,8 @@ def get_all_operators(verts_list, faces_list, k_eig: int,
                       eigensolver: str = DEFAULT_EIGENSOLVER,
                       n_workers: int | None = None,
                       verbose: bool = True,
-                      device="cuda") -> list[Operators]:
+                      device="cuda",
+                      timings: dict | None = None) -> list[Operators]:
     """get_operators over a list of shapes, in order (reference
     geometry.py:395-424). normals: None, or one (V, 3) array (or None) per
     shape.
@@ -372,7 +373,10 @@ def get_all_operators(verts_list, faces_list, k_eig: int,
     (both release the GIL). Default, as the JAX package: 2 for 'device' on
     a host with at least 4 cores, else 1; 1 for 'host' (ARPACK is
     host-bound). The results equal the sequential loop's: every solve is
-    seeded, and the disk cache tolerates concurrent writers."""
+    seeded, and the disk cache tolerates concurrent writers.
+
+    timings: optional dict of wall seconds per stage summed over the shapes
+    computed (as get_operators'; a shape read from the cache adds none)."""
     N = len(verts_list)
     if n_workers is None:
         n_workers = 2 if (eigensolver == "device"
@@ -385,13 +389,21 @@ def get_all_operators(verts_list, faces_list, k_eig: int,
         ni = None if normals is None else normals[i]
         return get_operators(verts_list[i], faces_list[i], k_eig,
                              op_cache_dir, normals=ni,
-                             eigensolver=eigensolver, device=device)
+                             eigensolver=eigensolver, device=device,
+                             timings=stage_seconds[i])
 
+    stage_seconds = [{} for _ in range(N)]  # one dict a shape: no races
     if n_workers <= 1 or N <= 1:
-        return [one(i) for i in range(N)]
-    from concurrent.futures import ThreadPoolExecutor
-    with ThreadPoolExecutor(max_workers=n_workers) as ex:
-        return list(ex.map(one, range(N)))
+        ops = [one(i) for i in range(N)]
+    else:
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=n_workers) as ex:
+            ops = list(ex.map(one, range(N)))
+    if timings is not None:
+        for st in stage_seconds:
+            for stage, sec in st.items():
+                timings[stage] = timings.get(stage, 0.0) + sec
+    return ops
 
 
 def pad_operators(ops: Operators, v_pad: int, k_eig: int | None = None,

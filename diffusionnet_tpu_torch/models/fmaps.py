@@ -1,10 +1,15 @@
 """Functional-maps correspondence head: the counterpart of
 diffusionnet_tpu/models/fmaps.py (reference
 experiments/functional_correspondence/fmaps_model.py). All regularised rows
-of the functional map are one batched linear solve."""
+of the functional map are one batched linear solve.
+
+Also the helpers that the fmaps example and the functional_correspondence
+driver share: a shape's input dict, the ground-truth map, one Adam step and
+the induced vertex map."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -82,3 +87,56 @@ class FunctionalMapCorrespondence(nn.Module):
                          shape_y["evals"][..., :k], trans(shape_x),
                          trans(shape_y), lambda_param=self.lambda_param)
         return C, feat_x, feat_y
+
+
+def shape_dict(v, ops, v_pad, k_eig, device, input_features="hks",
+               d_l=None, d_g=None, spectral_grads=True):
+    """The model's input dict of one shape (numpy verts and Operators),
+    padded to v_pad (and ELL degrees d_l, d_g), on device. spectral_grads:
+    the dense spectral gradient operators (the example's); False gives the
+    ELL ones, as the functional_correspondence driver feeds them."""
+    from ..data.features import get_features
+    from ..geometry import grad_operators, pad_operators
+    from ..utils import pad_to
+    dev = pad_operators(ops, v_pad, k_eig, d_l, d_g).to(device)
+    gX, gY = grad_operators(dev, prefer_spectral=spectral_grads)
+    x = torch.from_numpy(pad_to(np.asarray(v, np.float32), v_pad)).to(device)
+    feats = get_features(input_features, x, dev.evals, dev.evecs)
+    return dict(features=feats, mass=dev.mass, L=dev.L, evals=dev.evals,
+                evecs=dev.evecs, gradX=gX, gradY=gY)
+
+
+def gt_fmap(ops1, ops2, n_fmap, vts1=None, vts2=None):
+    """C_gt (n_fmap, n_fmap): the least-squares map aligning the first
+    n_fmap eigenvectors at corresponding samples, float64 lstsq. vts1,
+    vts2: the samples' vertex indices (reference
+    faust_scape_dataset.py:186-191); None is the identity correspondence."""
+    e1 = ops1.evecs[:, :n_fmap]
+    e2 = ops2.evecs[:, :n_fmap]
+    if vts1 is not None:
+        e1, e2 = e1[vts1], e2[vts2]
+    sol, *_ = np.linalg.lstsq(e1.astype(np.float64), e2.astype(np.float64),
+                              rcond=None)
+    return sol.T.astype(np.float32)
+
+
+def train_step(model, optimizer, s1, s2, C_gt, generator,
+               deterministic=False) -> float:
+    """One Adam step on the mean squared fmap error; returns the loss."""
+    model.train(not deterministic)
+    optimizer.zero_grad(set_to_none=True)
+    C_pred, _, _ = model(s1, s2, deterministic=deterministic,
+                         generator=generator)
+    loss = torch.mean((C_pred - C_gt) ** 2)
+    loss.backward()
+    optimizer.step()
+    return float(loss.detach())
+
+
+def vertex_map(evecs1, evecs2, C_pred):
+    """The induced map from shape 2 to shape 1: each vertex of 2 to its
+    nearest neighbour in the spectrally aligned embedding of 1."""
+    from ..geometry import find_knn_host
+    evec1_on_2 = evecs1 @ np.asarray(C_pred).T
+    _, pred_2to1 = find_knn_host(evecs2, evec1_on_2, k=1)
+    return pred_2to1[:, 0]

@@ -1,8 +1,8 @@
 """The model call and the loss of a training step: the counterparts of
 `_augment`, `_apply_model` and `_loss_and_counts` in
 experiments/exp_common.py. The epoch loop around them is
-`experiments.exp_common.fit`; the experiments' command-line scripts
-come with ROADMAP item A.7."""
+`experiments.exp_common.fit`, which the experiment drivers
+(`experiments.<suite>.<driver>`) train through."""
 
 from __future__ import annotations
 

@@ -844,3 +844,36 @@ def test_heat_device_on_the_card_matches_cpu(cuda, mesh):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     assert np.abs(got - want).max() / want.max() < 1e-4
+
+
+@pytest.mark.cuda
+def test_driver_one_epoch_on_the_card(cuda, tmp_path):
+    """The human segmentation driver on its layout (jittered 642-vertex
+    icospheres, k 16: past the eigensolver's dense route for small
+    meshes) for one epoch with --megakernel on the card: its precompute
+    runs B5 (a fresh operator cache), its steps B1 and B2, and its test
+    accuracy is a fraction."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__)))
+    from meshgen import icosphere
+    from diffusionnet_tpu_torch.experiments import layouts
+    from diffusionnet_tpu_torch.experiments.human_segmentation_original \
+        import human_segmentation_original as driver
+    from diffusionnet_tpu_torch.ops import blocked_ell as be
+
+    def mesh(seed):
+        v, f = icosphere(subdivisions=3)
+        return v + 0.01 * np.random.RandomState(seed).randn(*v.shape), f
+    root = layouts.human_segmentation(str(tmp_path / "seg"),
+                                      [mesh(i) for i in range(4)],
+                                      [mesh(10), mesh(11)])
+    mb.reset_launches()
+    be.reset_launches()
+    res = driver.main(["--n_epoch", "1", "--k_eig", "16", "--megakernel",
+                       "--data_dir", root, "--device", "cuda"])
+    torch.cuda.synchronize()
+    assert 0.0 <= res["test_acc"] <= 1.0
+    assert be.LAUNCHES["blocked_ell"] > 0, be.LAUNCHES
+    assert mb.LAUNCHES["megablock_fwd"] > 0, mb.LAUNCHES
+    assert mb.LAUNCHES["megablock_bwd_rows"] > 0, mb.LAUNCHES

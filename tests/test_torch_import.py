@@ -16,7 +16,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_imports_no_jax():
     """Every module of the package, found by pkgutil.walk_packages (so the
     modules later PRs add are covered too), imports in one process that
-    then holds no jax, jaxlib, flax, optax or diffusionnet_tpu module."""
+    then holds no jax, jaxlib, flax, optax or diffusionnet_tpu module, nor
+    a module loaded from the root experiments/ directory (the JAX drivers'
+    exp_common or a suite's module)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import diffusionnet_tpu_torch as pkg\n"
@@ -38,11 +40,26 @@ def test_port_imports_no_jax():
         "        'diffusionnet_tpu_torch.geometry.geodesics',\n"
         "        'diffusionnet_tpu_torch.geometry.heat_device',\n"
         "        'diffusionnet_tpu_torch.examples.fmaps_synthetic',\n"
-        "        'diffusionnet_tpu_torch.examples.sampling_invariance_synthetic'}\n"
+        "        'diffusionnet_tpu_torch.examples.sampling_invariance_synthetic',\n"
+        "        'diffusionnet_tpu_torch.experiments.layouts',\n"
+        "        'diffusionnet_tpu_torch.experiments.tools.convert_torch_checkpoint',\n"
+        "        'diffusionnet_tpu_torch.experiments.human_segmentation_original.human_segmentation_original',\n"
+        "        'diffusionnet_tpu_torch.experiments.human_segmentation_original.human_segmentation_original_dataset',\n"
+        "        'diffusionnet_tpu_torch.experiments.rna_mesh_segmentation.rna_mesh_segmentation',\n"
+        "        'diffusionnet_tpu_torch.experiments.rna_mesh_segmentation.rna_mesh_dataset',\n"
+        "        'diffusionnet_tpu_torch.experiments.classification_shrec11.classification_shrec11',\n"
+        "        'diffusionnet_tpu_torch.experiments.classification_shrec11.shrec11_dataset',\n"
+        "        'diffusionnet_tpu_torch.experiments.sampling_invariance.sampling_invariance',\n"
+        "        'diffusionnet_tpu_torch.experiments.sampling_invariance.faust_with_robust_test_dataset',\n"
+        "        'diffusionnet_tpu_torch.experiments.functional_correspondence.functional_correspondence',\n"
+        "        'diffusionnet_tpu_torch.experiments.functional_correspondence.faust_scape_dataset'}\n"
         "missing = need - set(names)\n"
-        "bad = sorted(m for m in sys.modules\n"
+        "import os\n"
+        "exp = os.path.join(os.getcwd(), 'experiments') + os.sep\n"
+        "bad = sorted(m for m, mod in list(sys.modules.items())\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
-        "                                    'diffusionnet_tpu'))\n"
+        "                                    'diffusionnet_tpu')\n"
+        "             or (getattr(mod, '__file__', None) or '').startswith(exp))\n"
         "print(len(names), 'modules; missing', sorted(missing), '; loaded', bad)\n"
         "sys.exit(1 if bad or missing else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
