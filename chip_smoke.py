@@ -181,7 +181,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      FMAPS_CPU_TOL, then 1 epoch); each driver's seconds by stage, result
      and B1, B2, partial-sum and B5 launches (B1/B2 must launch on the
      --megakernel runs, B5 in each precompute of meshes past the solver's
-     dense route).
+     dense route);
+ 21. training over several ranks: (a) over one nccl rank (a world of 1),
+     fit with data_parallel=True and with mesh_shape=(1, 1) on phase 17b's
+     configuration must end with phase 17b's 40 tensors bit for bit; (b)
+     two ranks over gloo sharing the card (NCCL refuses two ranks on one
+     device; gloo carries the CUDA tensors, every product runs in B1/B2):
+     vertex_sharded_megakernel_forward at vert 2 on the torus (16,384 rows
+     a rank) against one process's B1 within PAR_FWD_TOL, one (1, 2) and
+     one (2, 1) step (dropout off, phase 8's batch with vertex labels)
+     against one process's step within STEP_TOL, and the RNA driver with
+     --mesh 1,2 --megakernel for one epoch (equal histories); each rank's
+     B1, B2 and partial-sum launches, added to the kernels line.
 
 Since phase 12's slice the port's default eigensolver is the device one,
 so the cold requests of phases 4 and 14 and the dataset precompute of
@@ -2485,7 +2496,7 @@ def phase_harness(mb, card, seg_ds):
     check(acc >= EXAMPLE_ACC_BOUND,
           f"example test accuracy {acc} below {EXAMPLE_ACC_BOUND}")
     log(f"  phase 17b-c: {time.perf_counter() - t_phase:.1f} s")
-    return launches, ex_launches
+    return launches, ex_launches, runs["whole"]
 
 
 def phase_ell_repeat(card):
@@ -3400,6 +3411,341 @@ def phase_drivers(mb, be, card, device="cuda"):
         f"{time.perf_counter() - t_phase:.2f} s [{card}]")
     return total
 
+# --- training over several ranks: phase 21 -----------------------------------
+
+# the kernels a sharded step or forward launches (B1, its x_hat kernel and
+# partial sum, B2's two kernels and partial sums)
+PAR_KERNELS = ("megablock_fwd", "megablock_fwd_xhat", "xhat_reduce",
+               "megablock_bwd_rows", "megablock_bwd_grads", "grad_reduce")
+# phase 21b's vertex-sharded forward against one process's B1 (elementwise,
+# atol of max |single|): the same products, with each block's x_hat summed
+# as two half-V partials and an all-reduce instead of one split-V sum,
+# through four blocks
+PAR_FWD_TOL = SLICE_TOL
+PAR_TORUS_V = 32768   # the torus's bucket (16,384 rows a rank)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _bundle_arrays(prefix, ops) -> dict:
+    """An Operators bundle (numpy or tensors) as npz entries."""
+    import numpy as np
+    out = {}
+    for f, a in ops._asdict().items():
+        if a is None:
+            continue
+        if hasattr(a, "idx"):
+            out[f"{prefix}{f}/idx"], out[f"{prefix}{f}/val"] = a.idx, a.val
+        else:
+            out[prefix + f] = a
+    return {k: (v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v))
+            for k, v in out.items()}
+
+
+def _bundle(z, prefix):
+    from diffusionnet_tpu_torch.geometry import Operators
+    from diffusionnet_tpu_torch.ops.sparse import Ell
+    fields = {}
+    for f in Operators._fields:
+        if prefix + f + "/idx" in z:
+            fields[f] = Ell(z[prefix + f + "/idx"], z[prefix + f + "/val"])
+        else:
+            fields[f] = z.get(prefix + f)
+    return Operators(**fields)
+
+
+def _par_launches(mb):
+    torch.cuda.synchronize()
+    return {k: mb.LAUNCHES[k] for k in PAR_KERNELS}
+
+
+def _par_rank(rank, world, inputs, rna_root):
+    """One of phase 21b's two ranks, on the one card over gloo (CUDA
+    tensors): the vertex-sharded forward at vert 2, one (1, 2) step, one
+    (2, 1) step and the RNA driver with --mesh 1,2; returns each one's
+    results and launches."""
+    import numpy as np
+    import torch.distributed as dist
+    from diffusionnet_tpu_torch import _build
+    from diffusionnet_tpu_torch.data import PaddedBatch
+    from diffusionnet_tpu_torch.experiments.rna_mesh_segmentation import (
+        rna_mesh_segmentation as rna)
+    from diffusionnet_tpu_torch.models import DiffusionNet
+    from diffusionnet_tpu_torch.ops import megablock as mb
+    from diffusionnet_tpu_torch.parallel import (
+        VertexGroup, make_dp_train_step, make_mesh, make_two_axis_train_step,
+        shard_batch, vertex_sharded_megakernel_forward)
+    from diffusionnet_tpu_torch.training import (
+        TaskConfig, adam_with_step_decay, apply_model, loss_and_counts,
+        loss_sums)
+
+    torch.cuda.set_device(0)
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load()
+    z = dict(np.load(inputs))
+    out = {"backend": dist.get_backend()}
+    dev = torch.device("cuda", 0)
+    params0 = {k[len("params/"):]: torch.from_numpy(v).to(dev)
+               for k, v in z.items() if k.startswith("params/")}
+
+    # the vertex-sharded forward: B1 on this rank's 16,384 rows
+    mesh = make_mesh(vert=2)
+    mb.reset_launches()
+    y = vertex_sharded_megakernel_forward(params0, z["fwd/x"],
+                                          _bundle(z, "fwd/ops/"), mesh,
+                                          n_block=N_BLOCK)
+    out["fwd/launches"] = _par_launches(mb)
+    out["fwd/y"] = y.cpu().numpy()
+
+    model = DiffusionNet(**{**SEG_MODEL, "outputs_at": "vertices",
+                            "dropout": False},
+                         last_activation=functools.partial(torch.log_softmax,
+                                                           dim=-1))
+    cfg = TaskConfig(input_features="hks", labels_kind="vertex")
+    batch = PaddedBatch(verts=z["b/verts"], ops=_bundle(z, "b/ops/"),
+                        labels=z["b/labels"], faces=z["b/faces"],
+                        face_mask=z["b/face_mask"])
+
+    def run(name, mesh, make_step, loss_fn):
+        params = {k: v.clone().requires_grad_(True)
+                  for k, v in params0.items()}
+        opt = adam_with_step_decay(1e-3)
+        block = shard_batch(batch, mesh, "vertex").to(dev)
+        torch.cuda.synchronize()
+        mb.reset_launches()
+        _, _, loss, _ = make_step(loss_fn, opt, mesh)(params, opt.init(params),
+                                                      block, None)
+        out[name + "/launches"] = _par_launches(mb)
+        out[name + "/loss"] = float(loss)
+        for k, p in params.items():
+            out[f"{name}/grad/{k}"] = p.grad.cpu().numpy()
+            out[f"{name}/param/{k}"] = p.detach().cpu().numpy()
+
+    # (data 1, vert 2): the masked mean over the whole batch
+    mesh = make_mesh(data=1, vert=2)
+    vert = VertexGroup(mesh)
+
+    def sum_loss(p, b, g):
+        S, C, N = loss_sums(apply_model(model, p, b, g, cfg, True, vert), b,
+                            cfg)
+        return S, N, (C, N)
+    run("two_axis", mesh, make_two_axis_train_step, sum_loss)
+
+    # (data 2, vert 1): each rank's mean over its 2 surfaces, averaged
+    def mean_loss(p, b, g):
+        return loss_and_counts(apply_model(model, p, b, g, cfg, True), b,
+                               cfg)
+    run("dp", make_mesh(data=2, vert=1),
+        functools.partial(make_dp_train_step, has_aux=True), mean_loss)
+
+    # the RNA driver, --mesh 1,2 on the megakernel
+    mb.reset_launches()
+    res = rna.main(["--n_epoch", "1", "--megakernel", "--mesh", "1,2",
+                    "--buckets", "16384,32768", "--data_dir", rna_root,
+                    "--device", "cuda"])
+    out["rna/launches"] = _par_launches(mb)
+    out["rna/history"] = np.asarray([(e, a, -1.0 if t is None else t)
+                                     for e, a, t in res["history"]])
+    out["rna/seconds"] = res["seconds"]["fit"]
+    return {k: (np.asarray([v[q] for q in PAR_KERNELS])
+                if k.endswith("/launches") else v) for k, v in out.items()}
+
+
+def phase_parallel(mb, card, seg_ds, seg_batch, whole, torus_ops):
+    """21: training over several ranks on the one card.
+    (a) one rank over nccl: fit with data_parallel=True, and with
+    mesh_shape=(1, 1), on phase 17b's configuration (the
+    human_segmentation_original model at full width, batch 4 of the 32768
+    bucket, 2 epochs, B1/B2, dropout on) ends with phase 17b's 40 tensors
+    bit for bit (an all-reduce over one rank is the identity).
+    (b) two ranks over gloo on the card (NCCL refuses two ranks on one
+    device; gloo carries the CUDA tensors, every product runs in B1/B2 on
+    the card): the vertex-sharded forward of the segmentation model's
+    blocks (vertex outputs) on the torus (20,160 vertices in the 32768
+    bucket, 16,384 rows a rank) against one process's B1; one (1, 2) step
+    and one (2, 1) step, dropout off, on phase 8's batch with vertex labels,
+    each against one process's step on the whole batch (the (2, 1) step's
+    objective, as the JAX package's, is the mean of each rank's mean); the
+    RNA driver with --mesh 1,2 --megakernel for one epoch on its synthetic
+    layout. Returns the launches of (a)'s data-parallel run and of (b)'s
+    ranks, summed."""
+    import numpy as np
+    import torch.distributed as dist
+    from diffusionnet_tpu_torch import parallel
+    from diffusionnet_tpu_torch.experiments import layouts
+    from diffusionnet_tpu_torch.experiments.exp_common import (
+        FitConfig, build_model, fit)
+    from diffusionnet_tpu_torch.experiments.rna_mesh_segmentation.\
+        rna_mesh_dataset import RNAMeshDataset
+    from diffusionnet_tpu_torch.geometry import pad_operators
+    from diffusionnet_tpu_torch.models import (DiffusionNet, flat_params,
+                                               megablock_apply)
+    from diffusionnet_tpu_torch.ops.spectral import compute_hks_autoscale
+    from diffusionnet_tpu_torch.training import (
+        TaskConfig, adam_with_step_decay, apply_model, loss_and_counts,
+        make_train_step)
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(PAR_KERNELS, 0)
+    log("== phase 21a: fit over one nccl rank, data_parallel=True and "
+        "mesh_shape=(1, 1), against phase 17b's uninterrupted run")
+    parallel.initialize(f"tcp://127.0.0.1:{_free_port()}", world_size=1,
+                        rank=0, backend="nccl")
+    try:
+        model = build_model(8, 128, "faces", True, "hks")
+        for name, kw in (("data_parallel=True", dict(data_parallel=True)),
+                         ("mesh_shape=(1, 1)", dict(mesh_shape=(1, 1)))):
+            cfg = FitConfig(n_epoch=2, batch_size=4, input_features="hks",
+                            labels_kind="face", use_megakernel=True, **kw)
+            torch.cuda.synchronize()
+            mb.reset_launches()
+            t0 = time.perf_counter()
+            params, hist, _ = fit(model, seg_ds, seg_ds, cfg, verbose=False,
+                                  device="cuda")
+            got = _par_launches(mb)
+            same = sum(torch.equal(whole[k], params[k].detach())
+                       for k in whole)
+            log(f"  {name} ({dist.get_backend()}, world "
+                f"{dist.get_world_size()}): history {hist}, "
+                f"{time.perf_counter() - t0:.2f} s; {same} of {len(whole)} "
+                f"tensors bit-identical to phase 17b's; launches {got} "
+                f"[{card}]")
+            check(same == len(whole) and len(params) == len(whole),
+                  f"{name}: weights differ from phase 17b's run")
+            check(got["megablock_fwd"] > 0 and got["megablock_bwd_rows"] > 0,
+                  f"{name}: B1/B2 not launched")
+            if "data_parallel" in kw:
+                for k in PAR_KERNELS:
+                    total[k] += got[k]
+    finally:
+        dist.destroy_process_group()
+
+    log("== phase 21b: two ranks on the card over gloo (CUDA tensors): the "
+        "vertex-sharded forward, a (1, 2) and a (2, 1) step, the RNA driver "
+        "with --mesh 1,2")
+    model = DiffusionNet(**{**SEG_MODEL, "outputs_at": "vertices",
+                            "dropout": False},
+                         generator=torch.Generator().manual_seed(21),
+                         last_activation=functools.partial(torch.log_softmax,
+                                                           dim=-1))
+    params = flat_params(model, "cpu")
+    d = {"params/" + k: v.numpy() for k, v in params.items()}
+    ops = pad_operators(torus_ops, PAR_TORUS_V)
+    x = compute_hks_autoscale(torch.from_numpy(ops.evals),
+                              torch.from_numpy(ops.evecs), 16)
+    d["fwd/x"] = x.numpy()
+    d.update(_bundle_arrays("fwd/ops/", ops))
+    mass = seg_batch.ops.mass
+    labels = torch.where(mass > 0, (seg_batch.verts[..., 2] > 0).int(), -1)
+    batch = seg_batch._replace(labels=labels)
+    d.update(_bundle_arrays("b/ops/", batch.ops))
+    for f in ("verts", "labels", "faces", "face_mask"):
+        d["b/" + f] = getattr(batch, f).cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "inputs.npz")
+        np.savez(inputs, **d)
+        root = layouts.rna(os.path.join(tmp, "rna"),
+                           [_jittered_torus(k, 10 + i) for i, k in
+                            enumerate(DRIVER_TORI["rna"])], n_train=3)
+        t0 = time.perf_counter()
+        for train in (True, False):   # the ranks read the operator cache
+            RNAMeshDataset(root, train=train, k_eig=K_EIG,
+                           op_cache_dir=os.path.join(root, "op_cache"))
+        log(f"  the RNA layout's operators cached in "
+            f"{time.perf_counter() - t0:.2f} s; inputs written")
+        t0 = time.perf_counter()
+        ranks = parallel.launch(_par_rank, 2, (inputs, root),
+                                backend="gloo", threads=None,
+                                workdir=os.path.join(tmp, "ranks"),
+                                timeout_s=600)
+        log(f"  two ranks ran in {time.perf_counter() - t0:.2f} s "
+            f"(start-up, kernel load and the RNA driver included)")
+    for r, rep in enumerate(ranks):
+        counts = {}
+        for stage in ("fwd", "two_axis", "dp", "rna"):
+            got = dict(zip(PAR_KERNELS, rep[stage + "/launches"].tolist()))
+            counts[stage] = got
+            for k in PAR_KERNELS:
+                total[k] += got[k]
+            check(got["megablock_fwd"] > 0
+                  and (stage == "fwd" or got["megablock_bwd_rows"] > 0),
+                  f"rank {r}, {stage}: B1/B2 not launched: {got}")
+        log(f"  rank {r} (backend {rep['backend']}): launches {counts}")
+
+    # the forward against one process's B1 on the whole torus
+    dev = torch.device("cuda")
+    pc = {k: v.to(dev) for k, v in params.items()}
+
+    def b(a):
+        return torch.as_tensor(a).to(dev)[None]
+    single = megablock_apply(pc, b(d["fwd/x"]), b(ops.mass), b(ops.evals),
+                             b(ops.evecs), b(ops.gradX_spec),
+                             b(ops.gradY_spec), n_block=N_BLOCK)[0]
+    got = torch.cat([torch.from_numpy(rep["fwd/y"]) for rep in ranks])
+    err = compare("vertex-sharded forward (vert 2) against one process's B1",
+                  got.to(dev), single, PAR_FWD_TOL, scaled=True)
+
+    # the steps against one process's step on the whole batch
+    cfg = TaskConfig(input_features="hks", labels_kind="vertex")
+    before = {k: v.detach() for k, v in pc.items()}
+
+    def one_process(loss_fn):
+        p = {k: v.clone().requires_grad_(True) for k, v in pc.items()}
+        opt = adam_with_step_decay(1e-3)
+        _, _, loss, _ = make_train_step(loss_fn, opt)(p, opt.init(p), batch,
+                                                      None)
+        return (loss.item(), {k: v.grad for k, v in p.items()},
+                {k: v.detach() for k, v in p.items()})
+
+    def whole_mean(p, bt, g):
+        return loss_and_counts(apply_model(model, p, bt, g, cfg, True), bt,
+                               cfg)
+
+    def mean_of_halves(p, bt, g):
+        halves = [bt.map(lambda a, i=i: a[2 * i:2 * i + 2]) for i in (0, 1)]
+        losses = [whole_mean(p, h, g)[0] for h in halves]
+        return (losses[0] + losses[1]) / 2, None
+    for name, ref in (("two_axis", whole_mean), ("dp", mean_of_halves)):
+        res = {"one process": one_process(ref)}
+        for r, rep in enumerate(ranks):
+            res[f"rank {r}"] = (
+                rep[name + "/loss"],
+                {k: torch.from_numpy(rep[f"{name}/grad/{k}"]).to(dev)
+                 for k in pc},
+                {k: torch.from_numpy(rep[f"{name}/param/{k}"]).to(dev)
+                 for k in pc})
+        worst = max(((res["rank 0"][1][k] - res["one process"][1][k]).abs()
+                     .max() / res["one process"][1][k].abs().max()
+                     .clamp(min=1e-30)).item() for k in pc)
+        log(f"  {name} step ({'(1, 2)' if name == 'two_axis' else '(2, 1)'})"
+            f": loss rank 0 {res['rank 0'][0]:.8f}, rank 1 "
+            f"{res['rank 1'][0]:.8f}, one process "
+            f"{res['one process'][0]:.8f}; largest gradient error relative "
+            f"to its tensor's largest entry {worst:.3e} (printed; the check "
+            f"is STEP_TOL's, in L2)")
+        check(all(torch.equal(res["rank 0"][2][k], res["rank 1"][2][k])
+                  for k in pc), f"{name}: the ranks' parameters differ")
+        step_agreement("rank 0", "one process", res, before,
+                       checked=("gradient",))
+
+    hist = [rep["rna/history"] for rep in ranks]
+    log(f"  RNA driver, --mesh 1,2 --megakernel, 1 epoch: history "
+        f"{hist[0].tolist()}, fit {float(ranks[0]['rna/seconds']):.2f} s "
+        f"[{card}]")
+    check(np.array_equal(hist[0], hist[1]) and len(hist[0]) == 1
+          and np.isfinite(hist[0]).all(),
+          "RNA driver: the ranks' histories differ or are not one epoch")
+    log(f"  launches of phase 21 (a's data-parallel fit, b's two ranks): "
+        f"{total}; max abs err of the forward {err:.3e}")
+    log(f"  phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3476,13 +3822,16 @@ def main() -> int:
 
     si_launches = phase_c256_train(mb, card)
     phase_example_kernels(mb)
-    harness_launches, example_launches = phase_harness(mb, card, seg_ds)
+    harness_launches, example_launches, harness_whole = phase_harness(
+        mb, card, seg_ds)
     ex17d = phase_examples(mb, be, card)
     phase_ell_repeat(card)
     serve18 = phase_serving(mb, fu, card, seg_ds)
     cloud19, cloud_preds, clouds = phase_clouds(mb, be, card)
     phase_geodesics(card, cloud_preds, clouds)
     drivers20 = phase_drivers(mb, be, card)
+    par21 = phase_parallel(mb, card, seg_ds, seg_batch, harness_whole,
+                           torus_ops)
 
     widths = (3 * 128, 128, 128, 128)
     b1 = times[(1, 32768, "f32")]
@@ -3508,15 +3857,16 @@ def main() -> int:
         f"{ex17d}; of the serving slice (phase 18, 10 requests): "
         f"{serve18}; of the E5 cloud split (phase 19): {cloud19}")
 
-    log(f"  launches of the five drivers (phase 20): {drivers20}")
+    log(f"  launches of the five drivers (phase 20): {drivers20}; of "
+        f"training over several ranks (phase 21): {par21}")
 
     def slice_launches(name):
         """A kernel's launches on the main paths that the summary counts:
         phase 8's train steps (B1, B2) or phase 12's precompute (B5), the
-        point-cloud slice's phases 17d and 19, and the drivers' phase
-        20."""
+        point-cloud slice's phases 17d and 19, the drivers' phase 20 and
+        phase 21's ranks."""
         return (ex17d.get(name, 0) + cloud19.get(name, 0)
-                + drivers20.get(name, 0))
+                + drivers20.get(name, 0) + par21.get(name, 0))
 
     def row(name, source, replaces, n, err, ms, plain, bnd, lib):
         return {"name": name, "route": "cuda",

@@ -21,7 +21,10 @@ point clouds, geodesics and mesh IO (the robust, tufted and point-cloud
 Laplacians on the native host library native/, exact, Steiner, graph and
 heat-method geodesics, the heat method on the card, OFF/OBJ/PLY IO), and
 the five experiment drivers with their dataset loaders and the
-reference-checkpoint converter (`experiments.<suite>.<driver>`).
+reference-checkpoint converter (`experiments.<suite>.<driver>`), and
+training over several cards (`parallel`: data parallelism and the
+(data, vert) vertex-sharded step, one process a card over
+torch.distributed) with the host-parallel precompute.
 ROADMAP.md lists what is still to come.
 """
 
@@ -32,7 +35,7 @@ import importlib
 # loads the serving module and the kernel ops, and none of geometry,
 # models, training, data or experiments.
 _SUBMODULES = ("utils", "ops", "geometry", "models", "data", "training",
-               "serving", "experiments", "examples", "native")
+               "serving", "experiments", "examples", "native", "parallel")
 _NAMES = {
     "utils": ("hash_arrays", "ensure_dir_exists"),
     "ops": ("to_basis", "from_basis", "compute_hks", "compute_hks_autoscale",

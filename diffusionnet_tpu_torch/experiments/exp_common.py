@@ -8,13 +8,24 @@ and an error on a non-finite loss. One step is `training.task`'s model
 call and loss under `training.fit`'s Adam with step decay, on the block
 kernels (use_megakernel) or the eager model.
 
+Over several ranks (cfg.data_parallel or cfg.mesh_shape; one process a
+card, in a torch.distributed world that `parallel.initialize()` joins),
+every rank walks the same batches from the same seeds and trains on its own
+block of each (`parallel.shard_batch`): data parallelism over the batch, or
+with mesh_shape = (data, vert) also the V axis of every surface split over
+`vert` (the megakernel's x_hat summed over the shards each block). The
+train state stays replicated. Rank 0 alone writes checkpoints and the log,
+and the ranks stop together (SIGTERM) through an all-reduced flag.
+
 A run's randomness comes from one torch.Generator on the CPU, seeded with
 cfg.seed: the initial weights are drawn from it (when no params are
 given), then each step draws one seed from it for the step's
 own generator (on the CPU on the megakernel path, whose dropout seeds are
 drawn on the host; on the training device otherwise), from which the
 step's rotation uniforms and then its dropout are drawn
-(`training.task.apply_model`). Epoch e shuffles with numpy
+(`training.task.apply_model`); a sharded step folds the data rank
+into that seed, and the megakernel's dropout also the vert rank (rank 0
+draws what one process draws). Epoch e shuffles with numpy
 RandomState(cfg.seed + e), as the JAX package does. A checkpoint saves the
 generator's state, so a resumed run draws what the uninterrupted one would
 have drawn.
@@ -24,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import functools
 import json
 import math
@@ -34,12 +46,18 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import (DeviceDataset, FEATURE_DIMS, make_padded_batches,
                     prefetch_to_device)
 from ..models import DiffusionNet, flat_params, to_flat_jax_params
+from ..parallel import (VertexGroup, make_dp_eval_step, make_dp_train_step,
+                        make_mesh, make_two_axis_eval_step,
+                        make_two_axis_train_step, shard_batch)
+from ..parallel.mesh import any_rank
 from ..training import (TaskConfig, adam_with_step_decay, apply_model,
-                        loss_and_counts, make_eval_step, make_train_step)
+                        loss_and_counts, loss_sums, make_eval_step,
+                        make_train_step)
 from ..training.checkpoint import (latest_checkpoint, load_train_state,
                                    nest, restore_checkpoint, save_checkpoint,
                                    train_state, unnest)
@@ -93,8 +111,14 @@ class FitConfig:
     label_smoothing: float = 0.0
     labels_kind: str = "global"    # 'global' | 'vertex' | 'face'
     buckets: tuple | None = None   # vertex buckets for mixed-size datasets
-    data_parallel: bool = False    # several cards: ROADMAP item A.6
-    mesh_shape: tuple | None = None  # (data, vert) sharding: ROADMAP A.6
+    data_parallel: bool = False    # the batch split over every rank of the
+    # torch.distributed world (batch_size divisible by it); the train state
+    # stays replicated
+    mesh_shape: tuple | None = None  # (data, vert): the batch over `data`
+    # and every (B, V, ...) array over `vert` ranks (surfaces larger than
+    # one card; needs use_megakernel, labels_kind='vertex', vertex outputs;
+    # buckets are rounded up to multiples of 128 * vert); (data, 1) is
+    # data parallelism
     bf16: bool = False             # bf16 operands, f32 params and sums
     use_megakernel: bool = False   # blocks on kernels B1/B2
     device_data: bool = False      # the stacked dataset on the card once,
@@ -215,56 +239,160 @@ def task_config(cfg: FitConfig) -> TaskConfig:
                       rotate_axis=cfg.rotate_axis)
 
 
-def batch_source(cfg: FitConfig, device):
+def batch_source(cfg: FitConfig, device, mesh=None):
     """batches(ds, shuffle, seed=0): a dataset's padded batches on `device`,
     from host stacking and copies on a thread (prefetch_to_device), or with
-    cfg.device_data from the stacked dataset uploaded once per dataset."""
+    cfg.device_data from the stacked dataset uploaded once per dataset.
+    mesh: a (data, vert) mesh; each batch is then this rank's block
+    (`parallel.shard_batch`, cut on the host before the copy on the
+    prefetch path)."""
     device = torch.device(device)
     device_sets: dict = {}
+
+    def block(b):
+        return b if mesh is None else shard_batch(b, mesh, cfg.labels_kind)
 
     def batches(ds, shuffle, seed=0):
         if cfg.device_data:
             if id(ds) not in device_sets:
                 device_sets[id(ds)] = DeviceDataset(ds, cfg.buckets, device)
-            return device_sets[id(ds)].batches(cfg.batch_size,
-                                               shuffle=shuffle, seed=seed)
+            return map(block, device_sets[id(ds)].batches(
+                cfg.batch_size, shuffle=shuffle, seed=seed))
         return prefetch_to_device(
-            make_padded_batches(ds, cfg.batch_size, shuffle=shuffle,
-                                seed=seed, buckets=cfg.buckets),
+            map(block, make_padded_batches(ds, cfg.batch_size,
+                                           shuffle=shuffle, seed=seed,
+                                           buckets=cfg.buckets)),
             device=device)
     return batches
 
 
-def make_evaluate(model, cfg: FitConfig, device="cuda", batches=None):
+def make_evaluate(model, cfg: FitConfig, device="cuda", batches=None,
+                  mesh=None):
     """(evaluate, predict) of `model` under cfg (its route, features and
     labels), with no train state: evaluate(params, ds) is the accuracy on a
-    dataset, predict(params, batch) the model's predictions on one batch.
-    params: JAX-layout flat tensors on `device` (`load_weights`). batches:
-    the batch source (default `batch_source(cfg, device)`)."""
+    dataset, predict(params, batch) the model's predictions on one whole
+    batch. params: JAX-layout flat tensors on `device` (`load_weights`).
+    batches: the batch source (default `batch_source(cfg, device, mesh)`).
+    mesh: a (data, vert) mesh (every rank calls evaluate); each rank then
+    evaluates its block of each batch and the counts are summed over the
+    ranks."""
     tcfg = task_config(cfg)
-    batches = batches if batches is not None else batch_source(cfg, device)
+    batches = (batches if batches is not None
+               else batch_source(cfg, device, mesh))
 
     def predict(params, batch):
         with torch.no_grad():
             return apply_model(model, params, batch, None, tcfg,
                                deterministic=True)
 
-    def metric_fn(params, batch):
+    def counts(params, batch):
         preds = apply_model(model, params, batch, None, tcfg,
                             deterministic=True)
-        _, counts = loss_and_counts(preds, batch, tcfg)
-        return counts, preds
+        return loss_and_counts(preds, batch, tcfg)[1]
 
-    eval_step = make_eval_step(metric_fn)
+    if mesh is None:
+        eval_step = make_eval_step(counts)
+    elif mesh.size(1) == 1:
+        eval_step = make_dp_eval_step(counts, mesh)
+    else:
+        vert = VertexGroup(mesh)
+
+        def sum_counts(params, batch):
+            preds = apply_model(model, params, batch, None, tcfg,
+                                deterministic=True, vert=vert)
+            return loss_sums(preds, batch, tcfg)[1:]
+        eval_step = make_two_axis_eval_step(sum_counts, mesh)
 
     def evaluate(params, ds):
         correct = total = 0
         for batch in batches(ds, shuffle=False):
-            (c, t), _ = eval_step(params, batch)
+            c, t = eval_step(params, batch)
             correct += int(c)
             total += int(t)
         return correct / max(total, 1)
     return evaluate, predict
+
+
+def default_device() -> torch.device:
+    """cuda:LOCAL_RANK (torchrun sets LOCAL_RANK; 0 without it); raises
+    when torch sees no such card."""
+    local = int(os.environ.get("LOCAL_RANK", 0))
+    if not torch.cuda.is_available() or local >= torch.cuda.device_count():
+        raise RuntimeError(f"no CUDA card cuda:{local} is visible to torch; "
+                           "pass device='cpu' to train on the CPU")
+    return torch.device("cuda", local)
+
+
+def parallel_route(cfg: FitConfig, model, verbose: bool = True):
+    """(cfg, mesh) of a run: mesh None trains on one card; else the
+    (data, vert) mesh over the torch.distributed world. The JAX `fit`'s
+    routing: a (data, 1) mesh_shape is data parallelism; mesh_shape with
+    vert > 1 needs the megakernel, vertex labels and vertex outputs (the
+    model's outputs_at), rejects data_parallel beside it, and rounds
+    the buckets up to multiples of 128 * vert, so that each shard's V has a
+    megakernel tile (the returned cfg carries them). Every rank calls it:
+    it builds the mesh's process groups."""
+    shape = None
+    if cfg.mesh_shape is not None:
+        if len(cfg.mesh_shape) != 2 or any(a < 1 for a in cfg.mesh_shape):
+            raise ValueError(f"mesh_shape must be (data>=1, vert>=1), got "
+                             f"{cfg.mesh_shape}")
+        d_ax, v_ax = cfg.mesh_shape
+        if v_ax == 1:
+            # plain data parallelism over `data` ranks
+            shape = (d_ax, 1) if (d_ax > 1 or cfg.data_parallel) else None
+            cfg = dataclasses.replace(cfg, mesh_shape=None,
+                                      data_parallel=shape is not None)
+        else:
+            problems = []
+            if not cfg.use_megakernel:
+                problems.append("use_megakernel=True required (the eager "
+                                "path would all-gather V-sized "
+                                "activations)")
+            if cfg.labels_kind != "vertex":
+                problems.append("labels_kind='vertex' required")
+            if getattr(model, "outputs_at", "vertices") != "vertices":
+                problems.append("outputs_at='vertices' required")
+            if cfg.data_parallel:
+                problems.append("mesh_shape supersedes data_parallel")
+            if problems:
+                raise ValueError("mesh_shape=(data,vert) unsupported: "
+                                 + "; ".join(problems))
+            if cfg.buckets is not None:
+                q = 128 * v_ax
+                rounded = tuple(-(-int(b) // q) * q for b in cfg.buckets)
+                if rounded != tuple(cfg.buckets):
+                    if verbose:
+                        print(f"[fit] rounding buckets {tuple(cfg.buckets)} "
+                              f"-> {rounded} (megakernel tiles across "
+                              f"vert={v_ax})")
+                    cfg = dataclasses.replace(cfg, buckets=rounded)
+            shape = (d_ax, v_ax)
+    elif cfg.data_parallel:
+        shape = (None, 1)
+    if shape is None:
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            raise ValueError(
+                f"fit on one card in a world of {dist.get_world_size()} "
+                "ranks would train independent copies; set data_parallel "
+                "or mesh_shape")
+        return cfg, None
+    if not dist.is_initialized():
+        raise RuntimeError("data_parallel and mesh_shape train over the "
+                           "ranks of a torch.distributed world: call "
+                           "diffusionnet_tpu_torch.parallel.initialize() "
+                           "first (torchrun sets its environment)")
+    n = dist.get_world_size()
+    data = shape[0] if shape[0] is not None else n
+    if data * shape[1] != n:
+        raise ValueError(f"mesh_shape={(data, shape[1])} needs "
+                         f"{data * shape[1]} ranks, have {n}")
+    if cfg.batch_size % data != 0:
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
+                         f"{data} devices" if shape[1] == 1 else
+                         f"batch_size {cfg.batch_size} not divisible by "
+                         f"data={data}")
+    return cfg, make_mesh(data=data, vert=shape[1])
 
 
 def fit(model, train_ds, test_ds, cfg: FitConfig,
@@ -272,32 +400,39 @@ def fit(model, train_ds, test_ds, cfg: FitConfig,
         params=None, eval_every: int = 1,
         geodesic_eval=None, verbose: bool = True,
         log_path: str | None = None,
-        resume_from: str | None = None, device="cuda"):
-    """Train `model` on train_ds on `device`, evaluating on test_ds every
-    `eval_every` epochs.
+        resume_from: str | None = None, device=None):
+    """Train `model` on train_ds on `device` (default `default_device()`:
+    cuda:LOCAL_RANK), evaluating on test_ds every `eval_every` epochs.
+
+    cfg.data_parallel / cfg.mesh_shape: every rank of the torch.distributed
+    world calls fit with the same arguments and trains its block of each
+    batch (`parallel_route`); each gets the same train state back.
 
     params: initial weights as JAX-layout flat arrays or tensors (the keys
     of `models.flat_params`); None draws them from the run's generator.
     Returns (params, history, evaluate): the train state (JAX-layout flat
     tensors on `device`), [(epoch, train_acc, test_acc or None)], and
-    `evaluate(params, ds)`, the accuracy on a dataset.
+    `evaluate(params, ds)`, the accuracy on a dataset (over the ranks when
+    sharded: every rank calls it).
     geodesic_eval(params, predict): an optional metric called at each
-    evaluated epoch, with predict(params, batch) the model's predictions;
-    its value is printed and logged (the JAX package accepts this hook but
-    never calls it).
+    evaluated epoch, with predict(params, batch) the model's predictions on
+    a whole batch; its value is printed and logged (the JAX package accepts
+    this hook but never calls it).
 
     Checkpoints go under `<model_save_path>_ckpt/` and hold the full train
     state (params, Adam state, epoch, generator state), so
     `resume_from=<model_save_path>_ckpt` continues a stopped run exactly as
-    the uninterrupted run would have gone on. A non-finite training loss
-    raises FloatingPointError at once."""
-    if cfg.data_parallel or cfg.mesh_shape is not None:
-        raise NotImplementedError(
-            "data_parallel and mesh_shape (training over several cards) come "
-            "with ROADMAP item A.6; this fit trains on one card")
-    device = torch.device(device)
+    the uninterrupted run would have gone on; only rank 0 writes them and
+    the log. A non-finite training loss raises FloatingPointError at once
+    (on every rank: the loss is reduced over the ranks first)."""
+    device = torch.device(device) if device is not None else default_device()
+    cfg, mesh = parallel_route(cfg, model, verbose)
+    main = mesh is None or dist.get_rank() == 0
+    verbose = verbose and main
+    vert = (VertexGroup(mesh) if mesh is not None and mesh.size(1) > 1
+            else None)
     tcfg = task_config(cfg)
-    if log_path is not None:
+    if log_path is not None and main:
         os.makedirs(os.path.dirname(os.path.abspath(log_path)),
                     exist_ok=True)
     rng = torch.Generator().manual_seed(cfg.seed)
@@ -325,9 +460,21 @@ def fit(model, train_ds, test_ds, cfg: FitConfig,
                             deterministic=False)
         return loss_and_counts(preds, batch, tcfg)
 
-    train_step = make_train_step(loss_fn, optimizer)
-    _batches = batch_source(cfg, device)
-    evaluate, predict = make_evaluate(model, cfg, device, _batches)
+    def sum_loss_fn(params, batch, generator):
+        preds = apply_model(model, params, batch, generator, tcfg,
+                            deterministic=False, vert=vert)
+        S, C, N = loss_sums(preds, batch, tcfg)
+        return S, N, (C, N)
+
+    if vert is not None:
+        train_step = make_two_axis_train_step(sum_loss_fn, optimizer, mesh)
+    elif mesh is not None:
+        train_step = make_dp_train_step(loss_fn, optimizer, mesh,
+                                        has_aux=True)
+    else:
+        train_step = make_train_step(loss_fn, optimizer)
+    _batches = batch_source(cfg, device, mesh)
+    evaluate, predict = make_evaluate(model, cfg, device, _batches, mesh)
 
     # optax keeps a schedule count beside Adam's when the lr is a schedule
     scheduled = decay_steps != 0
@@ -345,9 +492,13 @@ def fit(model, train_ds, test_ds, cfg: FitConfig,
     def save_state(epoch):
         # one directory per config: configs sharing a dataset directory
         # never overwrite each other's step files
-        save_checkpoint(model_save_path + "_ckpt",
-                        train_state(params, opt_state, epoch, rng, scheduled),
-                        step=epoch)
+        if main:
+            save_checkpoint(model_save_path + "_ckpt",
+                            train_state(params, opt_state, epoch, rng,
+                                        scheduled),
+                            step=epoch)
+        if mesh is not None:  # no rank reads a checkpoint before it exists
+            dist.barrier()
 
     stack = contextlib.ExitStack()
     stop_requested = (stack.enter_context(graceful_stop())
@@ -386,7 +537,7 @@ def fit(model, train_ds, test_ds, cfg: FitConfig,
                 print(f"Epoch {epoch} - Train overall: {100 * train_acc:06.3f}%"
                       f"  Test overall: {ta}"
                       + (f"  geodesic_eval: {geo}" if geo is not None else ""))
-            if log_path is not None:
+            if log_path is not None and main:
                 line = {
                     "epoch": epoch, "train_acc": train_acc,
                     "test_acc": test_acc, "train_loss": last_loss,
@@ -402,14 +553,21 @@ def fit(model, train_ds, test_ds, cfg: FitConfig,
                     and test_acc > best_test_acc):
                 best_test_acc = test_acc
                 save_state(epoch)
-            if stop_requested:
+            # a signal may reach one rank only: the ranks agree, so none
+            # is left waiting in a collective of the next epoch
+            stop = (bool(stop_requested) if mesh is None
+                    else any_rank(bool(stop_requested)))
+            if stop:
                 if model_save_path is not None:
                     save_state(epoch)
-                    print(f"preemption checkpoint written at epoch {epoch}; "
-                          "resume with resume_from=")
+                    if main:
+                        print(f"preemption checkpoint written at epoch "
+                              f"{epoch}; resume with resume_from=")
                 break
+        else:
+            stop = False
 
-    if stop_requested:
+    if stop:
         return params, history, evaluate
 
     if model_save_path is not None and cfg.n_epoch > 0:

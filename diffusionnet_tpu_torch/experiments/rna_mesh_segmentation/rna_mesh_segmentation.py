@@ -10,8 +10,14 @@ halved every 50 epochs).
         [--device cuda] [--data_dir DIR]
 
 The data is what experiments/rna_mesh_segmentation/prepare_data.py lays
-out. --mesh DATA,VERT (training over several cards) raises
-NotImplementedError: it comes with ROADMAP item A.6.
+out. --mesh DATA,VERT trains over DATA x VERT cards, one process a card:
+
+    torchrun --nproc_per_node=DATA*VERT -m \
+        diffusionnet_tpu_torch.experiments.rna_mesh_segmentation.rna_mesh_segmentation \
+        --megakernel --mesh DATA,VERT
+
+(`parallel.initialize()` joins the processes from torchrun's environment;
+a process already in a torch.distributed world keeps it.)
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from __future__ import annotations
 import argparse
 import os
 
+from ...parallel import initialize
 from ..exp_common import (FitConfig, Stopwatch, add_device_arg, build_model,
                           driver_device, fit, suite_dir)
 from .rna_mesh_dataset import RNAMeshDataset
@@ -38,8 +45,14 @@ def main(argv=None) -> dict:
     parser.add_argument("--megakernel", action="store_true",
                         help="the blocks on kernels B1/B2")
     parser.add_argument("--mesh", type=str, default=None, metavar="DATA,VERT",
-                        help="two-axis sharded training over DATA x VERT "
-                             "cards (ROADMAP item A.6; refused here)")
+                        help="two-axis sharded training, e.g. '2,4': the "
+                             "batch over DATA ranks and every (B,V,...) "
+                             "array row-sharded over VERT ranks, one "
+                             "process a card (launch with torchrun "
+                             "--nproc_per_node=DATA*VERT; train surfaces "
+                             "larger than one card; requires --megakernel "
+                             "unless VERT is 1; vertex buckets are rounded "
+                             "to multiples of 128 * VERT)")
     parser.add_argument("--buckets", type=str, default=None,
                         help="comma-separated vertex bucket sizes (padded "
                              "batch shapes), e.g. '16384,32768'")
@@ -51,6 +64,8 @@ def main(argv=None) -> dict:
                              "data)")
     add_device_arg(parser)
     args = parser.parse_args(argv)
+    if args.mesh:
+        initialize()
     device = driver_device(args.device)
 
     dataset_path = args.data_dir or os.path.join(suite_dir(SUITE), "data")

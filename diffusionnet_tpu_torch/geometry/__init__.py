@@ -2,7 +2,7 @@
 tangent frames, gradients, the eigensolvers (the device solver on kernel
 B5, and host ARPACK), geodesics (native exact, Steiner and graph; the heat
 method on the host and on the card), mesh IO, the host kNN, and the
-Operators bundle with caching and padding."""
+Operators bundle with caching, padding and a host-parallel precompute."""
 
 from .operators import (
     Operators,
@@ -28,6 +28,8 @@ from .heat_device import DeviceHeatMethodSolver, all_pairs_heat_device
 from .io import (read_mesh, read_off, read_obj, read_ply, write_mesh,
                  write_off, write_obj, write_ply)
 from .knn_host import find_knn_host
+from .parallel_precompute import (get_all_operators_parallel,
+                                  precompute_shard_for_host)
 from .host_frames import (
     build_tangent_frames_np,
     edge_tangent_vectors_np,

@@ -268,7 +268,8 @@ def _read_sp_mat(npzfile, prefix) -> scipy.sparse.csc_matrix:
 def get_operators(verts, faces, k_eig: int = 128, op_cache_dir: str | None = None,
                   normals=None, overwrite_cache: bool = False,
                   dtype=np.float32, eigensolver: str = DEFAULT_EIGENSOLVER,
-                  device="cuda", timings: dict | None = None) -> Operators:
+                  device="cuda", timings: dict | None = None,
+                  cache_only: bool = False) -> Operators | None:
     """compute_operators with reference-compatible disk caching
     (geometry.py:426-570): SHA1-of-bytes key, linear probing on collision,
     exact array-equality verification, k_eig truncation on load.
@@ -276,7 +277,8 @@ def get_operators(verts, faces, k_eig: int = 128, op_cache_dir: str | None = Non
     eigensolver, device, timings: as compute_operators (the device solve
     runs on `device`). The cache is keyed on geometry only, so an entry
     written by either eigensolver, or by the JAX package, satisfies a
-    request here."""
+    request here. cache_only: return None on a cache miss instead of
+    computing (`get_all_operators_parallel` loads the hits in-process)."""
     verts_np = np.asarray(verts)
     faces_np = (np.asarray(faces) if faces is not None and np.asarray(faces).size
                 else np.zeros((0, 3), dtype=np.int64))
@@ -343,6 +345,8 @@ def get_operators(verts, faces, k_eig: int = 128, op_cache_dir: str | None = Non
                 print("-- constructing operators")
                 break
 
+    if cache_only:
+        return None
     ops, sparse_mats = compute_operators(verts_np, faces_np, k_eig,
                                          normals=normals, dtype=dtype,
                                          eigensolver=eigensolver,

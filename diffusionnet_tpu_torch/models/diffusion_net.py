@@ -83,17 +83,31 @@ class LearnedTimeDiffusion(nn.Module):
         """Per-channel diffusion coefficients exp(-evals t): (..., K, C)."""
         return torch.exp(-evals[..., :, None] * self.time())
 
-    def forward(self, x, mass, evals, evecs, L=None):
+    def forward(self, x, mass, evals, evecs, L=None, vert=None):
         """Returns (x_diffuse, x_diffuse_spec); the second is None for
-        implicit_dense."""
+        implicit_dense. vert: None, or the `parallel.VertexGroup` of a
+        V-sharded surface (x, mass, evecs and L's rows are this shard's):
+        the projection's partials are summed over the shards; implicit_dense
+        gathers the whole surface and solves it on every shard."""
         if x.shape[-1] != self.c_inout:
             raise ValueError(
                 f"Tensor has wrong shape = {tuple(x.shape)}. Last dim shape "
                 f"should have number of channels = {self.c_inout}")
         if self.method == "spectral":
             cd = self.compute_dtype
-            x_diffuse_spec = self.coefs(evals) * to_basis(x, evecs, mass, cd)
+            x_hat = to_basis(x, evecs, mass, cd)
+            if vert is not None:
+                x_hat = vert.sum(x_hat)
+            x_diffuse_spec = self.coefs(evals) * x_hat
             return from_basis(x_diffuse_spec, evecs, cd), x_diffuse_spec
+        if vert is not None:
+            if isinstance(L, Ell):
+                L = Ell(vert.gather(L.idx), vert.gather(L.val))
+            else:
+                L = vert.gather(L)
+            full = self(vert.gather(x), vert.gather(mass[..., None])[..., 0],
+                        evals, evecs, L)[0]
+            return vert.local(full), None
         V = x.shape[-2]
         L_dense = ell_to_dense(L) if isinstance(L, Ell) else L
         # padded rows (mass == 0) get identity rows so the system stays SPD
@@ -205,7 +219,11 @@ class DiffusionNetBlock(nn.Module):
 
     def forward(self, x_in, mass, evals, evecs, gradX, gradY,
                 deterministic: bool = True,
-                generator: torch.Generator | None = None, L=None):
+                generator: torch.Generator | None = None, L=None,
+                vert=None):
+        """vert: None, or the `parallel.VertexGroup` of a V-sharded surface:
+        the V-sized inputs hold this shard's rows (an ELL gradient's with
+        global column indices); the output is this shard's rows."""
         if x_in.shape[-1] != self.c_width:
             raise ValueError(
                 f"Tensor has wrong shape = {tuple(x_in.shape)}. Last dim "
@@ -218,6 +236,12 @@ class DiffusionNetBlock(nn.Module):
                 "diffusion_method='spectral'; pass Ell gradX/gradY instead")
         fused = (spectral_grads and self.use_pallas_fused
                  and x_in.shape[-2] % self.pallas_tile_v == 0)
+        if fused and vert is not None:
+            raise ValueError(
+                "the fused route (use_pallas_fused, kernel B4) cannot be "
+                "vertex-sharded: its projection sums over every vertex "
+                "inside the kernel (as XLA cannot partition the Pallas "
+                "call); build the model without use_pallas_fused")
         if fused:
             block = (fused_spectral_block_batched if x_in.ndim == 3
                      else fused_spectral_block)
@@ -226,7 +250,7 @@ class DiffusionNetBlock(nn.Module):
                 self.diffusion.coefs(evals), self.pallas_tile_v)
         else:
             x_diffuse, x_diffuse_spec = self.diffusion(x_in, mass, evals,
-                                                       evecs, L)
+                                                       evecs, L, vert)
         if self.with_gradient_features:
             if fused:
                 pass  # the fused kernel computed x_gradX / x_gradY
@@ -235,8 +259,10 @@ class DiffusionNetBlock(nn.Module):
                     lowp_matmul(g, x_diffuse_spec, self.compute_dtype,
                                 x_in.dtype) for g in (gradX, gradY))
             else:
-                x_gradX = ell_matvec(gradX, x_diffuse)
-                x_gradY = ell_matvec(gradY, x_diffuse)
+                # an ELL row reads any vertex: the whole surface's x
+                x_all = x_diffuse if vert is None else vert.gather(x_diffuse)
+                x_gradX = ell_matvec(gradX, x_all)
+                x_gradY = ell_matvec(gradY, x_all)
             feats = self.gradient_features(x_gradX, x_gradY)
             combined = torch.cat((x_in, x_diffuse, feats), dim=-1)
         else:
@@ -364,10 +390,16 @@ class DiffusionNet(nn.Module):
     of the JAX package's DiffusionNet.
 
     forward(x_in, mass, evals, evecs, gradX, gradY, edges=None, faces=None,
-            deterministic=True, generator=None, L=None)
+            deterministic=True, generator=None, L=None, vert=None)
     x_in: (V, C_in) or (B, V, C_in); operators batched to match. gradX/gradY
     are the dense (.., V, K) spectral gradient operators or `Ell`s; L (an
     `Ell` or a dense tensor) is read by implicit_dense diffusion.
+    vert: None, or the `parallel.VertexGroup` of a surface whose V axis is
+    split over several ranks: every V-sized input holds this rank's rows
+    (evals, edges and faces are whole), the projections and the global
+    mean are summed over the shards, an ELL gradient or an edge/face
+    output reads the gathered surface. Vertex outputs are this rank's
+    rows; the others are whole on every rank.
 
     generator: the torch.Generator the weights are drawn from (on the CPU);
     None means a generator seeded with 0. forward's `generator` is another
@@ -440,13 +472,14 @@ class DiffusionNet(nn.Module):
                 elif isinstance(mod, LearnedTimeDiffusion):
                     mod.diffusion_time.zero_()
 
-    def _run_block(self, block, x, deterministic, generator, *ops):
+    def _run_block(self, block, x, deterministic, generator, vert, *ops):
         """One block; with remat_blocks (and autograd on) under
         torch.utils.checkpoint. checkpoint restores only torch's global RNG
         states, so the recompute first sets `generator` back to its state
         before the block, then returns it to where the forward left it."""
         if not (self.remat_blocks and torch.is_grad_enabled()):
-            return block(x, *ops[:-1], deterministic, generator, L=ops[-1])
+            return block(x, *ops[:-1], deterministic, generator, L=ops[-1],
+                         vert=vert)
         state = (generator.get_state()
                  if generator is not None and not deterministic else None)
         calls = [0]
@@ -459,7 +492,7 @@ class DiffusionNet(nn.Module):
             calls[0] += 1
             try:  # the recompute may be stopped early by an exception
                 return block(x, *ops[:-1], deterministic, generator,
-                             L=ops[-1])
+                             L=ops[-1], vert=vert)
             finally:
                 if after is not None:
                     generator.set_state(after)
@@ -468,7 +501,8 @@ class DiffusionNet(nn.Module):
     def forward(self, x_in, mass, evals=None, evecs=None, gradX=None,
                 gradY=None, edges=None, faces=None,
                 deterministic: bool = True,
-                generator: torch.Generator | None = None, L=None):
+                generator: torch.Generator | None = None, L=None,
+                vert=None):
         if x_in.shape[-1] != self.c_in:
             raise ValueError(
                 f"DiffusionNet was constructed with C_in={self.c_in}, but "
@@ -482,24 +516,29 @@ class DiffusionNet(nn.Module):
             raise ValueError("x_in should be tensor with shape [N,C] or [B,N,C]")
 
         inds = plan = None
+        V = x_in.shape[-2] * (1 if vert is None else vert.size)
         if self.outputs_at in ("edges", "faces"):
             inds = (edges if self.outputs_at == "edges" else faces).long()
             if torch.is_grad_enabled():
-                plan = MeanPlan(inds, x_in.shape[-2])
+                plan = MeanPlan(inds, V)
         cd = self.compute_dtype
         x = _linear(self.first_lin, x_in, cd)
         for block in self.blocks:
-            x = self._run_block(block, x, deterministic, generator, mass,
-                                evals, evecs, gradX, gradY, L)
+            x = self._run_block(block, x, deterministic, generator, vert,
+                                mass, evals, evecs, gradX, gradY, L)
         x = _linear(self.last_lin, x, cd)
 
         if self.outputs_at == "vertices":
             x_out = x
         elif self.outputs_at in ("edges", "faces"):
-            x_out = gather_mean(x, inds, plan)
+            x_out = gather_mean(x if vert is None else vert.gather(x), inds,
+                                plan)
         else:  # global_mean — mass-weighted, padding-invariant
-            x_out = ((x * mass[..., None]).sum(-2)
-                     / mass.sum(-1, keepdim=True))
+            num = (x * mass[..., None]).sum(-2)
+            den = mass.sum(-1, keepdim=True)
+            if vert is not None:
+                num, den = vert.sum(num), vert.sum(den)
+            x_out = num / den
 
         if self.last_activation is not None:
             x_out = self.last_activation(x_out)

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..ops.megablock import DEFAULT_TILE_V, megablock_chained
+from ..utils import fold_seed
 from .params import to_flat_jax_params
 
 
@@ -52,7 +53,7 @@ def _block_params(params: dict, b: int):
 def megablock_apply(params, x_in, mass, evals, evecs, gX_spec, gY_spec,
                     n_block: int, tile_v: int = DEFAULT_TILE_V,
                     last_activation=None, dropout_rng=None,
-                    xhat_reduce=None):
+                    xhat_reduce=None, seed_fold: int = 0):
     """Forward pass equal to DiffusionNet for the supported configuration,
     with each block as ONE batched kernel launch; differentiable in params.
 
@@ -67,7 +68,11 @@ def megablock_apply(params, x_in, mass, evals, evecs, gX_spec, gY_spec,
     masks are tiled in tile_v rows, so V must then be a multiple of tile_v.
 
     xhat_reduce: optional callable applied to each block's x_hat = Phi^T(m x)
-    (vertex sharding sums the per-shard partials through it)."""
+    (vertex sharding sums the per-shard partials through it).
+    seed_fold: folded into each block's dropout seed (`utils.fold_seed`;
+    0 keeps it). Vertex sharding passes the shard's index: the kernels hash
+    the local tile index, so shards given one seed would draw the same
+    masks."""
     lowp = evecs.dtype == torch.bfloat16
     if dropout_rng is not None:
         # the kernels fold (batch, tile, layer) into ONE int32 key
@@ -108,8 +113,9 @@ def megablock_apply(params, x_in, mass, evals, evecs, gX_spec, gY_spec,
         coefs = torch.exp(-evals[..., None] * t).contiguous()  # (B, K, C)
         seed = None
         if dropout_rng is not None:
-            seed = int(torch.randint(0, 2 ** 31 - 1, (),
-                                     generator=dropout_rng))
+            seed = fold_seed(int(torch.randint(0, 2 ** 31 - 1, (),
+                                               generator=dropout_rng)),
+                             seed_fold, 2 ** 31 - 1)
         x, x_hat = megablock_chained(
             x, evecs, gX_spec, gY_spec, mass, coefs, A_re, A_im, Ws, bs,
             x_hat, emit_next=b < n_block - 1, lowp=lowp, seed=seed,

@@ -105,7 +105,9 @@ class _EllMatvec(torch.autograd.Function):
         dy = dy.to(acc)
         dx = dval = None
         n, D = idx.shape[-2:]
-        C = x.shape[-1]
+        # x's rows: n, or the whole surface where the operator's rows are
+        # one shard's (vertex sharding; the columns stay global)
+        m, C = x.shape[-2:]
         if ctx.needs_input_grad[2]:
             if idx.ndim == 2:
                 # one operator for every leading index of x: the leading
@@ -114,16 +116,16 @@ class _EllMatvec(torch.autograd.Function):
                 g = dy.reshape(-1, n, C).permute(1, 0, 2).reshape(n, -1)
                 rows = (val.to(acc)[..., None] * g[:, None]).reshape(n * D, -1)
                 dx = torch.ops.aten.embedding_dense_backward(
-                    rows, idx.reshape(-1), n, -1, False)
-                dx = dx.view(n, -1, C).permute(1, 0, 2).reshape(*lead, n, C)
+                    rows, idx.reshape(-1), m, -1, False)
+                dx = dx.view(m, -1, C).permute(1, 0, 2).reshape(*lead, m, C)
             else:
                 nb = idx.numel() // (n * D)
-                keys = (idx.reshape(nb, n * D) + n * torch.arange(
+                keys = (idx.reshape(nb, n * D) + m * torch.arange(
                     nb, device=idx.device)[:, None]).reshape(-1)
                 rows = (val.to(acc)[..., None] * dy[..., None, :]).reshape(
                     -1, C)
                 dx = torch.ops.aten.embedding_dense_backward(
-                    rows, keys, nb * n, -1, False).view(x.shape)
+                    rows, keys, nb * m, -1, False).view(x.shape)
             dx = dx.to(x.dtype)
         if ctx.needs_input_grad[1]:
             dval = torch.einsum("...nc,...ndc->...nd", dy,
@@ -135,7 +137,8 @@ class _EllMatvec(torch.autograd.Function):
 def ell_matvec(ell: Ell, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x with A in ELL (torch tensors): a row gather and a
     contraction over the degree. ell.idx/val: (n, D), or (..., n, D)
-    matching x's leading dims; x: (..., n, C) -> (..., n, C).
+    matching x's leading dims; x: (..., m, C) -> (..., n, C), m = n for a
+    whole operator, or more for a shard's rows of one (global columns).
 
     Accumulates in f32 (f64 for f64 operands) and returns x's dtype, as
     the JAX package's `ell_matvec` does. Plain torch: the JAX package has

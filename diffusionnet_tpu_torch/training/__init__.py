@@ -6,7 +6,8 @@ from .inference import InferenceSession
 from .fit import (adam_state_from_flat, adam_state_to_flat,
                   adam_with_step_decay, make_eval_step, make_train_step,
                   step_decay_schedule)
-from .task import TaskConfig, apply_model, loss_and_counts
+from .task import (TaskConfig, apply_model, loss_and_counts,
+                   loss_sums)
 from .checkpoint import (latest_checkpoint, restore_checkpoint,
                          save_checkpoint)
 from .profiling import StageTimer, device_trace, slope_throughput

@@ -51,7 +51,7 @@ def augment(verts, generator, cfg: TaskConfig):
 
 
 def apply_model(model, params: dict, batch, generator, cfg: TaskConfig,
-                deterministic: bool):
+                deterministic: bool, vert=None):
     """Predictions of `model`'s architecture with the train state `params`
     (JAX-layout leaf tensors) on a PaddedBatch of tensors.
 
@@ -64,7 +64,16 @@ def apply_model(model, params: dict, batch, generator, cfg: TaskConfig,
     `augment` (with cfg.augment_rotate and xyz features), then the dropout
     (when the model has dropout and deterministic is False): one seed per
     block on the megakernel path (a generator on the CPU), the masks on the
-    eager path (a generator on the tensors' device)."""
+    eager path (a generator on the tensors' device).
+
+    vert: None, or the `parallel.VertexGroup` of a batch whose V axis is
+    split over several ranks (this rank's rows; `parallel.shard_batch`).
+    The projections and the global mean are then summed over the shards
+    (the megakernel's x_hat through xhat_reduce), and the shard's index is
+    folded into each block's dropout seed, so shards draw different masks.
+    The rotations come from `generator` alone: the caller folds in the data
+    rank only, and every shard of a surface rotates it alike. Face outputs
+    need the whole surface and are refused on the megakernel path."""
     ops = batch.ops
     verts = batch.verts
     if generator is not None:
@@ -78,7 +87,7 @@ def apply_model(model, params: dict, batch, generator, cfg: TaskConfig,
     if not cfg.use_megakernel:
         kwargs = dict(evals=ops.evals, evecs=ops.evecs, gradX=gX, gradY=gY,
                       deterministic=deterministic, generator=dropout_rng,
-                      L=ops.L)
+                      L=ops.L, vert=vert)
         if model.outputs_at == "faces":
             kwargs["faces"] = batch.faces.long()
         return torch.func.functional_call(model, module_state(params),
@@ -95,6 +104,8 @@ def apply_model(model, params: dict, batch, generator, cfg: TaskConfig,
         problems.append("outputs_at='edges' not supported")
     if mega_tile is None:
         problems.append(f"padded V={V} has no tile divisor in {MEGA_TILES}")
+    if vert is not None and model.outputs_at == "faces":
+        problems.append("outputs_at='faces' on a V-sharded batch")
     if problems:
         raise ValueError("use_megakernel unsupported for this model: "
                          + "; ".join(problems))
@@ -108,12 +119,17 @@ def apply_model(model, params: dict, batch, generator, cfg: TaskConfig,
         faces = batch.faces.long()
         if torch.is_grad_enabled():  # the backward's plan, made early
             plan = MeanPlan(faces, V)
-    logits = megablock_apply(params, feats, ops.mass, ops.evals, evecs, gX,
-                             gY, n_block=model.n_block, tile_v=mega_tile,
-                             dropout_rng=dropout_rng).float()
+    logits = megablock_apply(
+        params, feats, ops.mass, ops.evals, evecs, gX, gY,
+        n_block=model.n_block, tile_v=mega_tile, dropout_rng=dropout_rng,
+        xhat_reduce=None if vert is None else vert.sum,
+        seed_fold=0 if vert is None else vert.rank).float()
     if model.outputs_at == "global_mean":
-        logits = ((logits * ops.mass[..., None]).sum(-2)
-                  / ops.mass.sum(-1, keepdim=True))
+        num = (logits * ops.mass[..., None]).sum(-2)
+        den = ops.mass.sum(-1, keepdim=True)
+        if vert is not None:
+            num, den = vert.sum(num), vert.sum(den)
+        logits = num / den
     elif model.outputs_at == "faces":
         # mean over the 3 incident vertices (reference layers.py:386-391)
         logits = gather_mean(logits, faces, plan)
@@ -143,3 +159,17 @@ def loss_and_counts(preds, batch, cfg: TaskConfig):
     loss = (per * valid).sum() / total.clamp(min=1)
     correct = ((preds.argmax(-1) == labels) & valid).sum()
     return loss, (correct, total)
+
+
+def loss_sums(preds, batch, cfg: TaskConfig):
+    """This shard's sums (loss_sum, correct, total) of per-element NLL for
+    the (data, vert)-sharded step (the JAX package's `_loss_sums`): the step
+    sums `total` over every shard before dividing, so the objective is
+    loss_and_counts' masked mean over the whole batch. labels_kind 'vertex';
+    labels -1 are padding."""
+    preds = preds.float()
+    labels = batch.labels.long()
+    valid = labels >= 0
+    per = -torch.gather(preds, -1, labels.clamp(min=0)[..., None])[..., 0]
+    correct = ((preds.argmax(-1) == labels) & valid).sum()
+    return (per * valid).sum(), correct, valid.sum()

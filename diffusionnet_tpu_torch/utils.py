@@ -125,6 +125,29 @@ def random_rotate_points_y(pts: torch.Tensor,
     return pts @ rotation_y_from_uniform(u).to(pts.device, pts.dtype)
 
 
+def fold_seed(seed: int, i: int, bound: int = 2 ** 63) -> int:
+    """A seed for the i-th part of a computation keyed by `seed` (the role
+    of jax.random.fold_in): a splitmix64 mix of (seed, i), reduced below
+    bound. Part 0 keeps the seed itself (reduced), so rank 0 of a sharded
+    run draws what a single-process run draws."""
+    if i == 0:
+        return seed % bound
+    m = (1 << 64) - 1
+    z = (seed + (i + 1) * 0x9E3779B97F4A7C15) & m
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & m
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & m
+    return (z ^ (z >> 31)) % bound
+
+
+def fold_generator(generator: torch.Generator | None, i: int):
+    """A generator on the same device seeded with fold_seed of the given
+    one's seed and i; the given one itself for i = 0 (or None)."""
+    if generator is None or i == 0:
+        return generator
+    return torch.Generator(device=generator.device).manual_seed(
+        fold_seed(generator.initial_seed(), i))
+
+
 # ---------------------------------------------------------------------------
 # Losses and host preprocessing
 # ---------------------------------------------------------------------------

@@ -1,0 +1,312 @@
+#!/usr/bin/env python3
+"""Smoke run of the port's training over several cards, one process a card
+over nccl (diffusionnet_tpu_torch.parallel).
+
+    python3 parallel_smoke.py [--ranks 4]
+
+Needs --ranks cards (2 or 4; 4 by default). It builds the kernels,
+computes the operators of phase 8's four segmentation meshes and of the
+torus (`chip_smoke.py`), then starts one rank a card
+(`parallel.launch`, nccl) and on each:
+
+  1. the vertex-sharded forward of the segmentation model's blocks (vertex
+     outputs, full width) on the torus at vert = ranks, B1 on each rank's
+     rows with each block's x_hat all-reduced;
+  2. one data-parallel step at (ranks, 1) and one two-axis step at
+     (ranks / 2, 2) on the batch of 4 meshes padded to 32768 with vertex
+     labels, dropout off, each then timed over 10 more steps (CUDA events
+     on every rank; the step in lockstep over the cards);
+
+and holds them against one process on card 0: the forward against B1 on
+the whole torus (`chip_smoke.PAR_FWD_TOL`), each step's loss and
+gradients against one process's step with the same objective
+(`chip_smoke.step_agreement`), whose time is printed beside. Then it runs
+the RNA driver as a user launches it, `torchrun --nproc_per_node=RANKS -m
+...rna_mesh_segmentation --megakernel --mesh RANKS/2,2`, for one epoch on
+its synthetic layout. The last line is one JSON object with the results;
+any failed check exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+import chip_smoke as cs
+
+
+def _precise():
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _model():
+    from diffusionnet_tpu_torch.models import DiffusionNet
+    return DiffusionNet(**{**cs.SEG_MODEL, "outputs_at": "vertices",
+                           "dropout": False},
+                        generator=torch.Generator().manual_seed(21),
+                        last_activation=functools.partial(torch.log_softmax,
+                                                          dim=-1))
+
+
+def _losses(vert=None):
+    """(mean, sums): a batch's masked-mean NLL (a data-parallel rank's loss,
+    and one process's two-axis objective), and a rank's sums for the
+    two-axis step, its projections summed over vert."""
+    from diffusionnet_tpu_torch.training import (
+        TaskConfig, apply_model, loss_and_counts, loss_sums)
+    model, cfg = _model(), TaskConfig(input_features="hks",
+                                      labels_kind="vertex")
+
+    def mean(p, b, g):
+        return loss_and_counts(apply_model(model, p, b, g, cfg, True), b, cfg)
+
+    def sums(p, b, g):
+        S, C, N = loss_sums(apply_model(model, p, b, g, cfg, True, vert), b,
+                            cfg)
+        return S, N, (C, N)
+    return mean, sums
+
+
+def _step_timed(out, name, make, params0, block, timed=True):
+    """One step from params0 (its loss, gradients and parameters into out),
+    then (timed) the ms of one step over 10 more (CUDA events, median of
+    3)."""
+    from diffusionnet_tpu_torch.ops import megablock as mb
+    from diffusionnet_tpu_torch.training import adam_with_step_decay
+    params = {k: v.clone().requires_grad_(True) for k, v in params0.items()}
+    opt = adam_with_step_decay(1e-3)
+    state = opt.init(params)
+    step = make(opt)
+    torch.cuda.synchronize()
+    mb.reset_launches()
+    loss = step(params, state, block, None)[2]
+    out[name + "/launches"] = np.asarray(
+        [mb.LAUNCHES[k] for k in cs.PAR_KERNELS])
+    out[name + "/loss"] = float(loss)
+    for k, p in params.items():
+        out[f"{name}/grad/{k}"] = p.grad.cpu().numpy()
+        out[f"{name}/param/{k}"] = p.detach().cpu().numpy()
+    if not timed:
+        return
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            step(params, state, block, None)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 10)
+    out[name + "/ms"] = float(np.median(times))
+
+
+def _rank(rank, world, inputs):
+    """One rank: the forward, the two steps (see the module docstring)."""
+    import torch.distributed as dist
+    from diffusionnet_tpu_torch import _build
+    from diffusionnet_tpu_torch.data import PaddedBatch
+    from diffusionnet_tpu_torch.parallel import (
+        VertexGroup, make_dp_train_step, make_mesh, make_two_axis_train_step,
+        shard_batch, vertex_sharded_megakernel_forward)
+    _precise()
+    _build.load()
+    z = dict(np.load(inputs))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    params0 = {k[len("params/"):]: torch.from_numpy(v).to(dev)
+               for k, v in z.items() if k.startswith("params/")}
+    out = {"backend": dist.get_backend(), "card": str(dev)}
+    y = vertex_sharded_megakernel_forward(
+        params0, z["fwd/x"], cs._bundle(z, "fwd/ops/"),
+        make_mesh(vert=world), n_block=cs.N_BLOCK)
+    out["fwd/y"] = y.cpu().numpy()
+    batch = PaddedBatch(verts=z["b/verts"], ops=cs._bundle(z, "b/ops/"),
+                        labels=z["b/labels"], faces=z["b/faces"],
+                        face_mask=z["b/face_mask"])
+    mesh = make_mesh(data=world, vert=1)
+    mean, _ = _losses()
+    _step_timed(out, "dp", lambda opt: make_dp_train_step(
+        mean, opt, mesh, has_aux=True), params0,
+        shard_batch(batch, mesh, "vertex").to(dev))
+    mesh = make_mesh(data=world // 2, vert=2)
+    _, sums = _losses(VertexGroup(mesh))
+    _step_timed(out, "two_axis", lambda opt: make_two_axis_train_step(
+        sums, opt, mesh), params0, shard_batch(batch, mesh, "vertex").to(dev))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ranks", type=int, default=4)
+    args = ap.parse_args()
+    n = args.ranks
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        print(f"parallel_smoke: {n} CUDA cards needed, torch sees "
+              f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
+              file=sys.stderr)
+        return 1
+    if n not in (2, 4):
+        print("parallel_smoke: --ranks is 2 or 4 (the batch of 4 splits "
+              "over the data ranks)", file=sys.stderr)
+        return 1
+    from diffusionnet_tpu_torch import _build, parallel
+    from diffusionnet_tpu_torch.data import make_padded_batches
+    from diffusionnet_tpu_torch.experiments import layouts
+    from diffusionnet_tpu_torch.experiments.rna_mesh_segmentation.\
+        rna_mesh_dataset import RNAMeshDataset
+    from diffusionnet_tpu_torch.geometry import pad_operators
+    from diffusionnet_tpu_torch.models import flat_params, megablock_apply
+    from diffusionnet_tpu_torch.ops.spectral import compute_hks_autoscale
+    from diffusionnet_tpu_torch.training import make_train_step
+    _precise()
+    card = cs.card_line()
+    cs.log(f"== {n} x {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
+           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    _build.build()
+    _build.load()
+    cs.log(f"  kernels built in {time.perf_counter() - t0:.2f} s")
+    results = {"ranks": n}
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = cs.segmentation_dataset(os.path.join(tmp, "cache"))
+        batch = next(make_padded_batches(ds, 4)).to("cuda")
+        labels = torch.where(batch.ops.mass > 0,
+                             (batch.verts[..., 2] > 0).int(), -1)
+        batch = batch._replace(labels=labels)
+        params = flat_params(_model(), "cpu")
+        d = {"params/" + k: v.numpy() for k, v in params.items()}
+        ops = pad_operators(ds.ops_list[0], cs.PAR_TORUS_V)   # the torus
+        d["fwd/x"] = compute_hks_autoscale(torch.from_numpy(ops.evals),
+                                           torch.from_numpy(ops.evecs),
+                                           16).numpy()
+        d.update(cs._bundle_arrays("fwd/ops/", ops))
+        d.update(cs._bundle_arrays("b/ops/", batch.ops))
+        for f in ("verts", "labels", "faces", "face_mask"):
+            d["b/" + f] = getattr(batch, f).cpu().numpy()
+        inputs = os.path.join(tmp, "inputs.npz")
+        np.savez(inputs, **d)
+        t0 = time.perf_counter()
+        ranks = parallel.launch(_rank, n, (inputs,), backend="nccl",
+                                threads=None, timeout_s=900,
+                                workdir=os.path.join(tmp, "ranks"))
+        cs.log(f"  {n} nccl ranks ran in {time.perf_counter() - t0:.2f} s "
+               f"(start-up and kernel load included); cards "
+               f"{[str(r['card']) for r in ranks]}, backend "
+               f"{str(ranks[0]['backend'])}")
+
+        # one process on card 0
+        dev = torch.device("cuda", 0)
+        pc = {k: v.to(dev) for k, v in params.items()}
+
+        def b(a):
+            return torch.as_tensor(a).to(dev)[None]
+        single = megablock_apply(pc, b(d["fwd/x"]), b(ops.mass),
+                                 b(ops.evals), b(ops.evecs),
+                                 b(ops.gradX_spec), b(ops.gradY_spec),
+                                 n_block=cs.N_BLOCK)[0]
+        got = torch.cat([torch.from_numpy(r["fwd/y"]) for r in ranks])
+        results["fwd_max_abs_err"] = cs.compare(
+            f"vertex-sharded forward (vert {n}) against one process's B1",
+            got.to(dev), single, cs.PAR_FWD_TOL, scaled=True)
+        mean, _ = _losses()
+        one = {}   # the whole batch's step on one card: its time
+        _step_timed(one, "one", lambda opt: make_train_step(mean, opt), pc,
+                    batch)
+
+        def mean_of_blocks(p, bt, g):
+            # the data-parallel objective: each rank's block's mean, averaged
+            k = bt.verts.shape[0] // n
+            parts = [mean(p, bt.map(lambda a, i=i: a[i * k:(i + 1) * k]),
+                          g)[0] for i in range(n)]
+            return sum(parts) / n, None
+        before = {k: v.detach() for k, v in pc.items()}
+        for name, ref in (("dp", mean_of_blocks), ("two_axis", mean)):
+            ref_out = {}
+            _step_timed(ref_out, "one", lambda opt: make_train_step(ref, opt),
+                        pc, batch, timed=False)
+            res = {"one process": (ref_out["one/loss"],
+                                   {k: torch.from_numpy(
+                                       ref_out["one/grad/" + k]).to(dev)
+                                    for k in pc},
+                                   {k: torch.from_numpy(
+                                       ref_out["one/param/" + k]).to(dev)
+                                    for k in pc})}
+            for r, rep in enumerate(ranks):
+                res[f"rank {r}"] = (
+                    float(rep[name + "/loss"]),
+                    {k: torch.from_numpy(rep[f"{name}/grad/{k}"]).to(dev)
+                     for k in pc},
+                    {k: torch.from_numpy(rep[f"{name}/param/{k}"]).to(dev)
+                     for k in pc})
+            same = all(np.array_equal(rep[f"{name}/param/{k}"],
+                                      ranks[0][f"{name}/param/{k}"])
+                       for rep in ranks for k in pc)
+            ms = [float(rep[name + "/ms"]) for rep in ranks]
+            launches = dict(zip(cs.PAR_KERNELS,
+                                ranks[0][name + "/launches"].tolist()))
+            cs.log(f"  {name} step, mesh "
+                   f"{(n, 1) if name == 'dp' else (n // 2, 2)}: loss "
+                   f"{res['rank 0'][0]:.8f} (one process "
+                   f"{res['one process'][0]:.8f}); the ranks' parameters "
+                   f"{'bit-identical' if same else 'DIFFER'}; ms a step "
+                   f"(CUDA events, median of 3 x 10) on each card {ms}, one "
+                   f"process's step on the batch of 4 on one card "
+                   f"{one['one/ms']:.3f} [{card}]; rank 0's launches "
+                   f"{launches}")
+            cs.check(same, f"{name}: the ranks' parameters differ")
+            cs.check(launches["megablock_fwd"] > 0
+                     and launches["megablock_bwd_rows"] > 0,
+                     f"{name}: B1/B2 not launched")
+            cs.step_agreement("rank 0", "one process", res, before,
+                              checked=("gradient",))
+            results[name] = {"loss": float(res["rank 0"][0]),
+                             "ms": ms, "one_process_ms": one["one/ms"],
+                             "launches": launches}
+
+        # the RNA driver as a user launches it
+        root = layouts.rna(os.path.join(tmp, "rna"),
+                           [cs._jittered_torus(k, 10 + i) for i, k in
+                            enumerate(cs.DRIVER_TORI["rna"])], n_train=3)
+        for train in (True, False):
+            RNAMeshDataset(root, train=train, k_eig=cs.K_EIG,
+                           op_cache_dir=os.path.join(root, "op_cache"))
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               f"--nproc_per_node={n}", "--master_addr=127.0.0.1",
+               f"--master_port={cs._free_port()}", "-m",
+               "diffusionnet_tpu_torch.experiments.rna_mesh_segmentation."
+               "rna_mesh_segmentation", "--megakernel", "--mesh",
+               f"{n // 2},2", "--n_epoch", "1", "--buckets", "16384,32768",
+               "--data_dir", root, "--device", "cuda"]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=900)
+        secs = time.perf_counter() - t0
+        # every rank prints the accuracy (the lines may interleave)
+        accs = res.stdout.count("Overall test accuracy")
+        epochs = [line for line in res.stdout.splitlines()
+                  if line.startswith("Epoch 0")]
+        cs.log(f"  torchrun RNA driver --mesh {n // 2},2 --megakernel, 1 "
+               f"epoch: rc {res.returncode}, {secs:.2f} s with start-up; "
+               f"rank 0's log {epochs}; accuracy printed by {accs} ranks")
+        if res.returncode != 0:
+            cs.log(res.stdout[-3000:] + res.stderr[-3000:])
+        cs.check(res.returncode == 0 and accs == n and len(epochs) == 1,
+                 "the torchrun RNA driver failed")
+        results["rna"] = {"seconds": secs, "epoch_line": epochs[0]}
+    cs.log(json.dumps(results))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

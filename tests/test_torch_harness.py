@@ -218,7 +218,12 @@ def test_fit_log_lines_hook_checkpoints_and_refusals(port_ds, tmp_path):
     """log_path gets one JSON line an epoch (test_acc None where the epoch
     is not evaluated), geodesic_eval runs at each evaluated epoch with a
     working predict, the best and the last epochs are checkpointed with
-    the full train state, and data_parallel / mesh_shape are refused."""
+    the full train state, and data_parallel / mesh_shape are routed: in a
+    process with no torch.distributed world, data parallelism asks for
+    parallel.initialize(), and a (data, vert) mesh outside the two-axis
+    envelope (here global labels on the eager route) lists its problems as
+    the JAX fit does (tests/test_torch_parallel_fit.py trains both routes
+    over 4 ranks)."""
     calls = []
 
     def hook(params, predict):
@@ -242,11 +247,15 @@ def test_fit_log_lines_hook_checkpoints_and_refusals(port_ds, tmp_path):
     with np.load(os.path.join(ck + "_ckpt", "step_2.npz")) as z:
         assert int(z["['epoch']"]) == 2
         assert z["['rng']"].dtype == np.uint8
-    for cfg in (_small_cfg(1, data_parallel=True),
-                _small_cfg(1, mesh_shape=(1, 2))):
-        with pytest.raises(NotImplementedError, match="A.6"):
-            tex.fit(_small_model(), port_ds, port_ds, cfg, verbose=False,
-                    device="cpu")
+    with pytest.raises(RuntimeError, match="initialize"):
+        tex.fit(_small_model(), port_ds, port_ds,
+                _small_cfg(1, data_parallel=True), verbose=False,
+                device="cpu")
+    with pytest.raises(ValueError, match="use_megakernel=True required.*"
+                       "labels_kind='vertex' required.*outputs_at="):
+        tex.fit(_small_model(), port_ds, port_ds,
+                _small_cfg(1, mesh_shape=(1, 2)), verbose=False,
+                device="cpu")
 
 
 # --- learning, mirroring tests/test_e2e.py ----------------------------------

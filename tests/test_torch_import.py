@@ -52,7 +52,12 @@ def test_port_imports_no_jax():
         "        'diffusionnet_tpu_torch.experiments.sampling_invariance.sampling_invariance',\n"
         "        'diffusionnet_tpu_torch.experiments.sampling_invariance.faust_with_robust_test_dataset',\n"
         "        'diffusionnet_tpu_torch.experiments.functional_correspondence.functional_correspondence',\n"
-        "        'diffusionnet_tpu_torch.experiments.functional_correspondence.faust_scape_dataset'}\n"
+        "        'diffusionnet_tpu_torch.experiments.functional_correspondence.faust_scape_dataset',\n"
+        "        'diffusionnet_tpu_torch.parallel.mesh',\n"
+        "        'diffusionnet_tpu_torch.parallel.distributed',\n"
+        "        'diffusionnet_tpu_torch.parallel.data_parallel',\n"
+        "        'diffusionnet_tpu_torch.parallel.vertex_sharded',\n"
+        "        'diffusionnet_tpu_torch.geometry.parallel_precompute'}\n"
         "missing = need - set(names)\n"
         "import os\n"
         "exp = os.path.join(os.getcwd(), 'experiments') + os.sep\n"
