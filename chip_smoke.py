@@ -192,7 +192,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      one (2, 1) step (dropout off, phase 8's batch with vertex labels)
      against one process's step within STEP_TOL, and the RNA driver with
      --mesh 1,2 --megakernel for one epoch (equal histories); each rank's
-     B1, B2 and partial-sum launches, added to the kernels line.
+     B1, B2 and partial-sum launches, added to the kernels line;
+ 22. the vertex-sharded eigensolver and serving artifact, the band and DIA
+     formats: (a) over one nccl rank, eigensolve_device_sharded at vert 1
+     on the torus against eigensolve_device(banded=False) (bit-identity
+     expected and printed); (b) two gloo ranks sharing the card: the
+     sharded solve of icosphere(5) (10,244 rows) at vert 2 against ARPACK
+     and the single-card solve, every rank's evals bit-equal; (c) on the
+     same ranks, the segmentation model (vertex outputs, fused and
+     unfused, and a global_mean head) exported sharded at bucket 32768
+     serves the torus against the single-card ServingModel within the
+     serving tests' tolerance, B4 launched 4 + 4 times a request on each
+     rank of the fused artifact (and xhat_reduce 4 times, one a
+     projection), warm requests timed; (d) one matvec of the DIA format
+     (torus) and of the dense band (icosphere(5)) against B5 and
+     torch.sparse.mm, and their solves against ARPACK beside the B5 and
+     ELL solves. B4's and xhat_reduce's sharded launches join the kernels
+     line.
 
 Since phase 12's slice the port's default eigensolver is the device one,
 so the cold requests of phases 4 and 14 and the dataset precompute of
@@ -553,10 +569,11 @@ def phase_kernels(mb):
 def segmentation_model(**kw):
     """The segmentation model with seeded weights and seeded diffusion
     times (trained models have non-zero ones); kw: more constructor
-    arguments (use_pallas_fused)."""
+    arguments (use_pallas_fused) or SEG_MODEL's entries replaced
+    (outputs_at, dropout)."""
     from diffusionnet_tpu_torch.models import DiffusionNet
     gen = torch.Generator().manual_seed(0)
-    model = DiffusionNet(**SEG_MODEL, **kw, generator=gen,
+    model = DiffusionNet(**{**SEG_MODEL, **kw}, generator=gen,
                          last_activation=functools.partial(torch.log_softmax,
                                                            dim=-1))
     with torch.no_grad():
@@ -3747,6 +3764,384 @@ def phase_parallel(mb, card, seg_ds, seg_batch, whole, torus_ops):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the vertex-sharded eigensolver and serving artifact, and the
+# band and DIA formats
+# ---------------------------------------------------------------------------
+
+SHARD_SERVE_V = 32768            # the sharded artifact's bucket (2 ranks)
+SHARD_SERVE_TOL = dict(rtol=2e-5, atol=2e-6)   # the serving tests' own
+SHARD_ICO_PAD = 10244            # icosphere(5)'s 10,242 vertices, 2 padded
+SHARD_REQUESTS = 12              # warm requests a rank; the first 2 dropped
+EIG_TOL = 1e-4                   # evals within 1e-4 of the largest (f32)
+SOLVE_REPS = 3                   # phase 22d's solves of each route
+
+
+def _laplacian(seg_ds, i, v_pad=None):
+    """(L scipy, mass f64, ELL numpy, mass f32) of seg_ds's i-th mesh,
+    padded to v_pad rows (zero rows, zero mass)."""
+    import numpy as np
+    from diffusionnet_tpu_torch.geometry.laplacian import (cotan_laplacian,
+                                                           vertex_areas)
+    from diffusionnet_tpu_torch.ops.sparse import ell_from_coo, ell_pad
+    v, f = seg_ds.verts_list[i], seg_ds.faces_list[i]
+    L = cotan_laplacian(v, f)
+    m = vertex_areas(v, f)
+    c = L.tocoo()
+    ell = ell_from_coo(c.row, c.col, c.data, L.shape[0])
+    m32 = m.astype(np.float32)
+    if v_pad is not None:
+        ell = ell_pad(ell, v_pad)
+        m32 = np.concatenate([m32, np.zeros(v_pad - len(m), np.float32)])
+    return L, m, ell, m32
+
+
+def _basis_checks(name, ev, evecs, ev_ref, mass, V):
+    """evals within EIG_TOL of ARPACK's largest, M-orthonormal valid rows,
+    padded rows exactly 0; returns the evals' error relative to the
+    largest."""
+    import numpy as np
+    err = float(np.abs(ev - ev_ref).max() / ev_ref.max())
+    E = evecs[:V].astype(np.float64)
+    orth = float(np.abs(E.T @ (mass[:, None] * E)
+                        - np.eye(E.shape[1])).max())
+    pad = float(np.abs(evecs[V:]).max()) if evecs.shape[0] > V else 0.0
+    log(f"  {name}: evals against ARPACK {err:.3e} of the largest, "
+        f"M-orthonormality {orth:.3e}, padded rows max |.| {pad}")
+    check(err <= EIG_TOL and orth <= EIG_TOL and pad == 0.0,
+          f"{name}: basis checks failed")
+    return err
+
+
+def _sharded_rank(rank, world, inputs, arts):
+    """One of phase 22's two ranks, on the one card over gloo: the sharded
+    solve of icosphere(5) at vert 2, then each sharded artifact of `arts`
+    (name=path) serving the torus: its output, B4's launches of one
+    request (with xhat_reduce's, one a projection), and warm requests
+    through a PreparedSurface."""
+    import numpy as np
+    from diffusionnet_tpu_torch import _build
+    from diffusionnet_tpu_torch.geometry import eigen as teig
+    from diffusionnet_tpu_torch.ops import fused as fu
+    from diffusionnet_tpu_torch.ops import megablock as mbk
+    from diffusionnet_tpu_torch.ops.sparse import Ell
+    from diffusionnet_tpu_torch.parallel import make_mesh
+    from diffusionnet_tpu_torch.serving import load_sharded_serving_model
+
+    torch.cuda.set_device(0)
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load()
+    z = dict(np.load(inputs))
+    mesh = make_mesh(vert=world)
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev, evecs = teig.eigensolve_device_sharded(
+        Ell(z["eig/idx"], z["eig/val"]), z["eig/mass"], K_EIG, mesh,
+        device="cuda:0")
+    torch.cuda.synchronize()
+    out["eig/s"] = time.perf_counter() - t0
+    out["eig/sweeps"] = teig.LAST_CONVERGE_INFO["sweeps"]
+    out["eig/evals"], out["eig/evecs"] = (ev.cpu().numpy(),
+                                          evecs.cpu().numpy())
+    ops = [torch.from_numpy(z["srv/" + f]).cuda()
+           for f in ("mass", "evals", "evecs", "gX", "gY")]
+    x = torch.from_numpy(z["srv/x"]).cuda()
+    for item in arts:
+        name, d = item.split("=", 1)
+        sm = load_sharded_serving_model(d, mesh=mesh, device="cuda:0")
+        torch.cuda.synchronize()
+        fu.reset_launches()
+        mbk.reset_launches()
+        y = sm(x, *ops)
+        torch.cuda.synchronize()
+        out[name + "/launches"] = np.asarray(
+            [fu.LAUNCHES["spectral_project"], fu.LAUNCHES["spectral_apply"],
+             mbk.LAUNCHES["xhat_reduce"]])
+        out[name + "/y"] = y.cpu().numpy()
+        handle = sm.prepare(*ops)
+        walls = []
+        for _ in range(SHARD_REQUESTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            yp = handle(x)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[name + "/ms"] = np.asarray(walls[2:])
+        out[name + "/prepared_y"] = yp.cpu().numpy()
+    return out
+
+
+def _format_times(name, L, fmt, apply_fmt, time_fmt, be, card,
+                  C=C_SUBSPACE):
+    """One matvec on `fmt` (the band or DIA, plain torch) beside B5 and
+    torch.sparse.mm on the same matrix at C columns. apply_fmt(x) is A x
+    in the original order, held to B5's; time_fmt(x) the format's own
+    product on its (permuted, padded) input, which is what is timed
+    (device time). Returns the times."""
+    import numpy as np
+    import scipy.sparse
+    V = L.shape[0]
+    b = be.blocked_ell_from_sparse(L, device="cuda")
+    perm = torch.from_numpy(b.perm).cuda()
+    g = torch.Generator(device="cuda").manual_seed(22)
+    x = torch.randn(V, C, generator=g, device="cuda")
+    xb = torch.zeros(b.n_pad, C, device="cuda")
+    xb[:V] = x[perm]
+    Lp = scipy.sparse.csr_matrix(L)[b.perm][:, b.perm].astype(np.float32)
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(Lp.indptr.astype(np.int64)),
+        torch.from_numpy(Lp.indices.astype(np.int64)),
+        torch.from_numpy(Lp.data), size=Lp.shape).to("cuda")
+    xv = xb[:V].contiguous()
+    y_b5 = be.blocked_ell_matvec(b, xb)[:V]
+    y_fmt = apply_fmt(x)[perm]
+    torch.cuda.synchronize()
+    compare(f"{name} {fmt} matvec against B5", y_fmt, y_b5,
+            dict(rtol=0.0, atol=B5_TOL), scaled=True)
+    t_fmt = device_ms(time_fmt(x))
+    t_b5 = device_ms(lambda: be.blocked_ell_matvec(b, xb))
+    t_lib = device_ms(lambda: torch.sparse.mm(csr, xv))
+    bms, by = b5_bound(Lp.nnz, V, C)
+    log(f"  time {fmt} matvec {name} V={V} C={C}, device time: {fmt} "
+        f"{t_fmt:.4f} ms, B5 {t_b5:.4f} ms, torch.sparse.mm {t_lib:.4f} "
+        f"ms; B5's bound {bms:.4f} ms ({by}) [{card}]")
+    return dict(fmt_ms=t_fmt, b5_ms=t_b5, library_ms=t_lib, bound_ms=bms)
+
+
+def phase_sharded(fu, be, card, seg_ds):
+    """22: the vertex-sharded eigensolver and serving artifact, and the
+    dense band and DIA formats of the device solver.
+    (a) one nccl rank (a world of 1): eigensolve_device_sharded at vert 1
+    on torus(144, 140), k 128, against eigensolve_device(banded=False) (the
+    same start block and reductions: expected bit-identical; evals within
+    EIG_TOL of the largest checked, the largest difference printed).
+    (b) two gloo ranks sharing the card: the sharded solve of icosphere(5)
+    padded to 10,244 rows at vert 2 against ARPACK (evals within EIG_TOL
+    of the largest, M-orthonormality within EIG_TOL, padded rows exactly
+    0), against the single-card solve (B5), every rank's evals bit-equal.
+    (c) on the same ranks: the segmentation model (vertex outputs, fused
+    and unfused; and a global_mean head) exported sharded at bucket 32768
+    (16,384 rows a rank) serves the torus, each against the single-card
+    ServingModel of the same model within SHARD_SERVE_TOL; the fused
+    artifact launches B4's two kernels once a block on each rank; warm
+    requests through a PreparedSurface (host clock, median of 10).
+    (d) the DIA format on the torus and the dense band on icosphere(5):
+    one matvec against B5 and torch.sparse.mm (device time), and the
+    solve (banded='dia' / True) against ARPACK, beside the B5 and ELL
+    solves (host clock, median of SOLVE_REPS, with the format-build and
+    sweep stages).
+    Returns B4's launches of (c)'s ranks, summed."""
+    import numpy as np
+    import torch.distributed as dist
+    from diffusionnet_tpu_torch import parallel
+    from diffusionnet_tpu_torch.data.features import get_features
+    from diffusionnet_tpu_torch.geometry import eigen as teig
+    from diffusionnet_tpu_torch.ops import banded as bd
+    from diffusionnet_tpu_torch.parallel import make_mesh
+    from diffusionnet_tpu_torch.serving import (export_forward,
+                                                export_sharded_forward,
+                                                load_serving_model)
+    from diffusionnet_tpu_torch.serving.export import kernel_ops
+
+    t_phase = time.perf_counter()
+
+    def solve(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    L_t, m_t, ell_t, m32_t = _laplacian(seg_ds, 0)
+    log("== phase 22a: eigensolve_device_sharded over one nccl rank on "
+        "torus(144, 140), k 128, against eigensolve_device(banded=False)")
+    parallel.initialize(f"tcp://127.0.0.1:{_free_port()}", world_size=1,
+                        rank=0, backend="nccl")
+    try:
+        (ev_s, vec_s), s_sh = solve(lambda: teig.eigensolve_device_sharded(
+            ell_t, m32_t, K_EIG, make_mesh(vert=1), device="cuda"))
+        sweeps_sh = teig.LAST_CONVERGE_INFO["sweeps"]
+    finally:
+        dist.destroy_process_group()
+    (ev_1, vec_1), s_1 = solve(lambda: teig.eigensolve_device(
+        ell_t, m32_t, K_EIG, banded=False, device="cuda"))
+    same = torch.equal(ev_s, ev_1) and torch.equal(vec_s, vec_1)
+    d_ev = (ev_s - ev_1).abs().max().item()
+    d_vec = (vec_s - vec_1).abs().max().item()
+    log(f"  sharded (vert 1) {s_sh:.2f} s, {sweeps_sh} sweeps; single card "
+        f"(ELL) {s_1:.2f} s, {teig.LAST_CONVERGE_INFO['sweeps']} sweeps "
+        f"(host clock) [{card}]; evals and evecs "
+        f"{'bit-identical' if same else 'NOT bit-identical'}: largest "
+        f"differences {d_ev:.3e} (evals), {d_vec:.3e} (evecs)")
+    check(d_ev <= EIG_TOL * ev_1.max().item(),
+          "the vert-1 sharded solve disagrees with the ELL route")
+    del vec_s, vec_1
+
+    log("== phase 22b/c: two gloo ranks on the card: the sharded solve of "
+        "icosphere(5) at vert 2, the sharded artifacts on the torus")
+    L_i, m_i, ell_i, m32_i = _laplacian(seg_ds, 1, SHARD_ICO_PAD)
+    V_i = L_i.shape[0]
+    t0 = time.perf_counter()
+    ev_h, _ = teig.eigensolve_host(L_i, m_i, K_EIG)
+    ev_ht, _ = teig.eigensolve_host(L_t, m_t, K_EIG)
+    log(f"  ARPACK on icosphere(5) and the torus, k 128: "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    (ev_b5, _), s_b5 = solve(lambda: teig.eigensolve_device(
+        ell_i, m32_i, K_EIG, device="cuda"))
+
+    o = seg_ds.ops_list[0]
+    x_t = get_features("hks", None, torch.from_numpy(o.evals).cuda(),
+                       torch.from_numpy(o.evecs).cuda()).contiguous()
+    models = {"unfused": segmentation_model(outputs_at="vertices",
+                                            dropout=False),
+              "fused": segmentation_model(outputs_at="vertices",
+                                          dropout=False,
+                                          use_pallas_fused=True),
+              "global_mean": segmentation_model(outputs_at="global_mean",
+                                                dropout=False)}
+    tmp = tempfile.TemporaryDirectory()
+    arts, graph_ops = [], {}
+    t0 = time.perf_counter()
+    for name, model in models.items():
+        d = os.path.join(tmp.name, name)
+        export_sharded_forward(model, SHARD_SERVE_V, d, K_EIG, n_devices=2,
+                               device="cuda")
+        arts.append(f"{name}={d}")
+        graph_ops[name] = kernel_ops(torch.export.load(os.path.join(
+            d, f"sharded_{SHARD_SERVE_V}x2.pt2")))
+    log(f"  three sharded exports {time.perf_counter() - t0:.2f} s; kernel "
+        f"ops in each program: {graph_ops}")
+    check(graph_ops["fused"] == {"spectral_project": N_BLOCK,
+                                 "spectral_apply": N_BLOCK,
+                                 "vert_sum": N_BLOCK},
+          f"the fused program's ops are {graph_ops['fused']}")
+    d = {"eig/idx": ell_i.idx, "eig/val": ell_i.val, "eig/mass": m32_i,
+         "srv/x": x_t.cpu().numpy()}
+    for f, a in (("mass", o.mass), ("evals", o.evals), ("evecs", o.evecs),
+                 ("gX", o.gradX_spec), ("gY", o.gradY_spec)):
+        d["srv/" + f] = np.ascontiguousarray(a, np.float32)
+    inputs = os.path.join(tmp.name, "inputs.npz")
+    np.savez(inputs, **d)
+    t0 = time.perf_counter()
+    ranks = parallel.launch(_sharded_rank, 2, (inputs, arts),
+                            backend="gloo", threads=None, timeout_s=600,
+                            workdir=os.path.join(tmp.name, "ranks"))
+    log(f"  two ranks ran in {time.perf_counter() - t0:.2f} s (start-up "
+        "and kernel load included)")
+
+    r0 = ranks[0]
+    log(f"  sharded solve (vert 2): {float(r0['eig/s']):.2f} s, "
+        f"{int(r0['eig/sweeps'])} sweeps (host clock, gloo gathers through "
+        f"the host); single card (B5) {s_b5:.2f} s [{card}]")
+    check(all(r["eig/evals"].tobytes() == r0["eig/evals"].tobytes()
+              for r in ranks), "the ranks' evals differ")
+    evecs = np.concatenate([r["eig/evecs"] for r in ranks])
+    _basis_checks("icosphere(5), vert 2", r0["eig/evals"], evecs, ev_h, m_i,
+                  V_i)
+    e1 = float(np.abs(r0["eig/evals"] - ev_b5.cpu().numpy()).max()
+               / ev_h.max())
+    log(f"  against the single-card solve: evals {e1:.3e} of the largest")
+    check(e1 <= EIG_TOL, "the sharded solve disagrees with the single card")
+
+    total = {"spectral_project": 0, "spectral_apply": 0, "xhat_reduce": 0}
+    ops_dev = [torch.from_numpy(d["srv/" + f]).cuda()
+               for f in ("mass", "evals", "evecs", "gX", "gY")]
+    for name, model in models.items():
+        single_dir = os.path.join(tmp.name, "single_" + name)
+        export_forward(model, (SHARD_SERVE_V,), single_dir, K_EIG,
+                       device="cuda")
+        with torch.no_grad():
+            ref = load_serving_model(single_dir, device="cuda")(
+                x_t, *ops_dev)
+        for r, rep in enumerate(ranks):
+            for call in ("y", "prepared_y"):
+                compare(f"rank {r} {name} sharded artifact ({call}) "
+                        "against the single-card ServingModel",
+                        torch.from_numpy(rep[f"{name}/{call}"]).cuda(), ref,
+                        SHARD_SERVE_TOL, quiet=r > 0 or call != "y")
+            launches = rep[name + "/launches"].tolist()
+            want = [N_BLOCK] * 3 if name == "fused" else [0, 0, 0]
+            check(launches == want, f"rank {r} {name}: B4 and xhat_reduce "
+                  f"launches {launches} a request, expected {want}")
+            total["spectral_project"] += launches[0]
+            total["spectral_apply"] += launches[1]
+            total["xhat_reduce"] += launches[2]
+        ms = [float(np.median(rep[name + "/ms"])) for rep in ranks]
+        log(f"  {name}: B4 (project, apply) and xhat_reduce launches a "
+            f"request on each rank "
+            f"{[rep[name + '/launches'].tolist() for rep in ranks]}; warm "
+            f"request through a PreparedSurface, median of "
+            f"{SHARD_REQUESTS - 2}: {ms} ms on the two ranks (two gloo "
+            f"ranks sharing one card; host clock) [{card}]")
+    tmp.cleanup()
+
+    log("== phase 22d: the DIA format (torus) and the dense band "
+        "(icosphere(5)) against B5, torch.sparse.mm and ARPACK")
+    dia = bd.dia_from_sparse(L_t)
+    check(dia is not None, "the torus is not DIA-structured")
+    data = torch.from_numpy(dia[0]).cuda()
+
+    band = bd.banded_from_sparse_device(L_i, device="cuda")
+    n_pad = band.band.shape[0] * band.band.shape[1]
+    bperm = torch.from_numpy(band.perm).cuda()
+    log(f"  torus: {len(dia[1])} diagonals; icosphere(5): band width "
+        f"{band.width}, {band.band.shape[0]} tiles of {band.tile_rows} rows, "
+        f"{band.band.numel() * 4 / 1e6:.1f} MB")
+
+    def band_in(x):
+        xp = torch.zeros(n_pad, x.shape[1], device="cuda")
+        xp[:x.shape[0]] = x[bperm]
+        return xp
+
+    def band_apply(x):
+        y = torch.empty_like(x)
+        y[bperm] = bd.banded_matvec(band, band_in(x))[:x.shape[0]]
+        return y
+
+    def band_time(x):
+        xp = band_in(x)
+        return lambda: bd.banded_matvec(band, xp)
+    times = {
+        "dia": _format_times(
+            "torus(144, 140)", L_t, "dia",
+            lambda x: bd.dia_matvec(data, dia[1], x),
+            lambda x: (lambda: bd.dia_matvec(data, dia[1], x)), be, card),
+        "band": _format_times("icosphere(5)", L_i, "band", band_apply,
+                              band_time, be, card)}
+    for fmt, (L, m, ell, m32, ev_ref, banded) in (
+            ("dia", (L_t, m_t, ell_t, m32_t, ev_ht, "dia")),
+            ("band", (L_i, m_i, ell_i, m32_i, ev_h, True))):
+        parts = []
+        for route in (banded, "blocked", False):
+            tag = {"dia": "dia", True: "band", "blocked": "B5",
+                   False: "ELL"}[route]
+            runs = []
+            for _ in range(SOLVE_REPS):
+                timings = {}
+                (ev, vec), s = solve(lambda: teig.eigensolve_device(
+                    ell, m32, K_EIG, banded=route, timings=timings,
+                    device="cuda"))
+                runs.append((s, timings.get("eigen_band_build", 0.0),
+                             timings["eigen_sweeps"]))
+            if tag in ("dia", "band"):
+                _basis_checks(f"{fmt} solve", ev.cpu().numpy(),
+                              vec.cpu().numpy(), ev_ref, m, L.shape[0])
+            med = [statistics.median(r[i] for r in runs) for i in range(3)]
+            times[fmt][tag + "_solve_s"] = med[0]
+            times[fmt][tag + "_sweeps_s"] = med[2]
+            parts.append(f"{tag} {med[0]:.3f} s (format {med[1]:.3f}, "
+                         f"sweeps {med[2]:.3f}; "
+                         f"{teig.LAST_CONVERGE_INFO['sweeps']} sweeps)")
+        log(f"  {fmt} mesh, whole solve k 128, median of {SOLVE_REPS} "
+            f"(host clock; stages from `timings`): " + ", ".join(parts)
+            + f" [{card}]")
+    log(f"  launches of phase 22 (c's two ranks): {total}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -3832,6 +4227,7 @@ def main() -> int:
     drivers20 = phase_drivers(mb, be, card)
     par21 = phase_parallel(mb, card, seg_ds, seg_batch, harness_whole,
                            torus_ops)
+    shard22 = phase_sharded(fu, be, card, seg_ds)
 
     widths = (3 * 128, 128, 128, 128)
     b1 = times[(1, 32768, "f32")]
@@ -3858,7 +4254,8 @@ def main() -> int:
         f"{serve18}; of the E5 cloud split (phase 19): {cloud19}")
 
     log(f"  launches of the five drivers (phase 20): {drivers20}; of "
-        f"training over several ranks (phase 21): {par21}")
+        f"training over several ranks (phase 21): {par21}; of the sharded "
+        f"artifact's two ranks (phase 22): {shard22}")
 
     def slice_launches(name):
         """A kernel's launches on the main paths that the summary counts:
@@ -3891,10 +4288,11 @@ def main() -> int:
             "pallas_megablock.py:259", launches["megablock_fwd_wide"],
             max(errs["megablock_fwd_wide"], wide[3]), *wide[:3], None),
         # launches: the training slice's (phase 8), the serving slice's
-        # (phase 18) and the point-cloud slice's (17d, 19)
+        # (phase 18), the sharded artifact's ranks (phase 22) and the
+        # slices of phases 17d, 19, 20 and 21
         row("xhat_reduce", "megablock_fwd.cu", "pallas_megablock.py:305",
             launches["xhat_reduce"] + serve18["xhat_reduce"]
-            + slice_launches("xhat_reduce"),
+            + shard22["xhat_reduce"] + slice_launches("xhat_reduce"),
             errs["xhat_reduce"], xr1["ms"],
             xr1["plain_ms"], xr1["bound"], xr1["library_ms"]),
         # B2 at B=1, V=32768, f32: its two kernels (the plain version of
@@ -3918,13 +4316,16 @@ def main() -> int:
             t5["plain_ms"], (t5["bound_ms"], t5["bound_by"]),
             t5["library_ms"]),
         # B4 at the training shape (B=4, V=32768, f32); B4a is B=1;
-        # launches: the fused slice's 5 steps (phase 14) and the serving
-        # slice's 10 requests (phase 18)
+        # launches: the fused slice's 5 steps (phase 14), the serving
+        # slice's 10 requests (phase 18) and the sharded artifact's first
+        # request on each of its two ranks (phase 22)
         row("spectral_project", "spectral_fused.cu", "pallas_fused.py:200",
-            fused_launches["spectral_project"] + serve18["spectral_project"],
+            fused_launches["spectral_project"] + serve18["spectral_project"]
+            + shard22["spectral_project"],
             errs["spectral_project"], *fused_ms[(4, "f32")]["project"]),
         row("spectral_apply", "spectral_fused.cu", "pallas_fused.py:200",
-            fused_launches["spectral_apply"] + serve18["spectral_apply"],
+            fused_launches["spectral_apply"] + serve18["spectral_apply"]
+            + shard22["spectral_apply"],
             errs["spectral_apply"], *fused_ms[(4, "f32")]["apply"]),
         # the backward's ds (JAX's plain einsums, `_bwd_b`) on the
         # projection's kernel with three pairs

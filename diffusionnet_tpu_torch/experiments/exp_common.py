@@ -53,7 +53,7 @@ from ..data import (DeviceDataset, FEATURE_DIMS, make_padded_batches,
 from ..models import DiffusionNet, flat_params, to_flat_jax_params
 from ..parallel import (VertexGroup, make_dp_eval_step, make_dp_train_step,
                         make_mesh, make_two_axis_eval_step,
-                        make_two_axis_train_step, shard_batch)
+                        make_two_axis_train_step, rank_device, shard_batch)
 from ..parallel.mesh import any_rank
 from ..training import (TaskConfig, adam_with_step_decay, apply_model,
                         loss_and_counts, loss_sums, make_eval_step,
@@ -313,16 +313,6 @@ def make_evaluate(model, cfg: FitConfig, device="cuda", batches=None,
     return evaluate, predict
 
 
-def default_device() -> torch.device:
-    """cuda:LOCAL_RANK (torchrun sets LOCAL_RANK; 0 without it); raises
-    when torch sees no such card."""
-    local = int(os.environ.get("LOCAL_RANK", 0))
-    if not torch.cuda.is_available() or local >= torch.cuda.device_count():
-        raise RuntimeError(f"no CUDA card cuda:{local} is visible to torch; "
-                           "pass device='cpu' to train on the CPU")
-    return torch.device("cuda", local)
-
-
 def parallel_route(cfg: FitConfig, model, verbose: bool = True):
     """(cfg, mesh) of a run: mesh None trains on one card; else the
     (data, vert) mesh over the torch.distributed world. The JAX `fit`'s
@@ -401,7 +391,7 @@ def fit(model, train_ds, test_ds, cfg: FitConfig,
         geodesic_eval=None, verbose: bool = True,
         log_path: str | None = None,
         resume_from: str | None = None, device=None):
-    """Train `model` on train_ds on `device` (default `default_device()`:
+    """Train `model` on train_ds on `device` (default `parallel.rank_device()`:
     cuda:LOCAL_RANK), evaluating on test_ds every `eval_every` epochs.
 
     cfg.data_parallel / cfg.mesh_shape: every rank of the torch.distributed
@@ -425,7 +415,7 @@ def fit(model, train_ds, test_ds, cfg: FitConfig,
     the uninterrupted run would have gone on; only rank 0 writes them and
     the log. A non-finite training loss raises FloatingPointError at once
     (on every rank: the loss is reduced over the ranks first)."""
-    device = torch.device(device) if device is not None else default_device()
+    device = rank_device(device)
     cfg, mesh = parallel_route(cfg, model, verbose)
     main = mesh is None or dist.get_rank() == 0
     verbose = verbose and main

@@ -18,7 +18,8 @@ from .laplacian import cotan_laplacian, vertex_areas, face_areas_np
 from .gradients import build_grad, build_grad_point_cloud
 from .point_cloud import point_cloud_laplacian, mesh_laplacian_robust
 from .tufted import tufted_laplacian
-from .eigen import EigenSolveNotConverged, eigensolve_device, eigensolve_host
+from .eigen import (EigenSolveNotConverged, eigensolve_device,
+                    eigensolve_device_sharded, eigensolve_host)
 from .geodesics import (
     HeatMethodSolver,
     get_all_pairs_geodesic_distance,

@@ -1,6 +1,6 @@
 """Generalized eigensolvers for L phi = lambda M phi (M diagonal lumped mass).
 
-The counterpart of diffusionnet_tpu/geometry/eigen.py. Two paths:
+The counterpart of diffusionnet_tpu/geometry/eigen.py. Three paths:
 
   * `eigensolve_host`: scipy ARPACK shift-invert with the reference's ladder
     (geometry.py:336-361), seeded per attempt so a run is deterministic.
@@ -24,22 +24,22 @@ The counterpart of diffusionnet_tpu/geometry/eigen.py. Two paths:
     package's RCM order and row padding, about 8 bytes a nonzero) on a
     CUDA device, or the ELL gather (ops/sparse.py::ell_matvec) when the
     format exceeds the memory budget; on the CPU the ELL gather is the
-    default, as in the JAX package. A
+    default, as in the JAX package. The dense RCM band and DIA formats
+    (ops/banded.py) are routes on request (banded=True, 'dia'). A
     basis that does not converge, or that the f64 certification rejects,
     raises EigenSolveNotConverged, and compute_operators falls back to
     host ARPACK, as in the JAX package.
+  * `eigensolve_device_sharded`: the same solver on every rank of a
+    `vert` mesh axis, each rank holding its rows of every (V, n) block.
 
 Left out of the port, with the reason:
-  * the DIA and dense RCM band formats (plain XLA in the JAX package, no
-    Pallas kernel): queued in ROADMAP item A.5, to be measured against B5
-    and a library SpMM first;
   * `cheb_segment` (the filter as short device programs): a workaround for
     a per-program watchdog of the TPU runtime. Here the Chebyshev
     recurrence is a Python loop of kernel launches, so no program is long;
   * `_ensure_compilation_cache`: JAX's compiled-program cache; PyTorch runs
     eagerly and the kernels are built once by _build.py;
-  * the threaded native host SpMM of the polish (queued in ROADMAP A.5):
-    the polish uses scipy, the JAX package's own no-compiler fallback.
+  * the threaded native host SpMM of the polish: the polish uses scipy,
+    the JAX package's own no-compiler fallback.
 """
 
 from __future__ import annotations
@@ -402,23 +402,37 @@ def _rr_polish_host(L: scipy.sparse.spmatrix, massvec, Y, k_eig: int,
 #   2. [host F1 = whiten(G)]  rotate + Gram:  Y <- Y F1;  G2 = Y^T Y
 #   3. [host F2 = whiten(G2)] rotate + apply: Y <- Y F2;  W = C Y;  T = Y^T W
 #   4. [host w, S = eigh(T)]  rotate + residuals: U = Y S;  R = W S - U w
-# The products are torch.matmul at full f32 (see _full_f32_matmul).
+# The products are torch.matmul at full f32 (see _full_f32_matmul). Each
+# stage takes `reduce`, applied to every (n, n) matrix and to the residuals'
+# squared column sums: the identity on one card (whose residual norms are
+# vector_norm's), the fixed-order sum over the `vert` shards in the sharded
+# solver (each rank then holds its rows of every (V, n) block, and every
+# rank sees the same reduced bits).
+
+
+def _identity(t):
+    return t
 
 
 def _scaled_matvec(apply_op, inv_sqrt_m: torch.Tensor, mask: torch.Tensor,
-                   bound: float, eps: float, col_chunk: int | None = None):
+                   bound: float, eps: float, col_chunk: int | None = None,
+                   gather=None):
     """x -> C x = r (A (r x)) + eps r^2 x with r = M^-1/2; padded rows act
     as bound * I, so the band-pass filter damps leakage onto padding
     instead of amplifying it into a fake zero mode. apply_op: the SpMM.
     col_chunk: apply in column blocks of this width (bounds the ELL
-    gather's (V, D, chunk) temporary)."""
+    gather's (V, D, chunk) temporary). gather: for a shard's rows, the
+    whole surface's r x from every shard's (the operator's columns are
+    global; L is symmetric and applied as r L r, so scaling before the
+    gather lets both sides use local data)."""
     r = inv_sqrt_m[:, None]
     e2 = (float(np.float32(eps)) * inv_sqrt_m * inv_sqrt_m)[:, None]
     keep = mask[:, None]
     bound_r = float(np.float32(bound))
 
     def block(x):
-        y = apply_op(r * x)
+        rx = r * x
+        y = apply_op(rx if gather is None else gather(rx))
         y = r * y + e2 * x
         return torch.where(keep, y, bound_r * x)
 
@@ -431,11 +445,13 @@ def _scaled_matvec(apply_op, inv_sqrt_m: torch.Tensor, mask: torch.Tensor,
     return mv
 
 
-def _mv_ell(L_idx, L_val, inv_sqrt_m, mask, bound, eps, col_chunk=None):
-    """C x on the ELL gather (ops/sparse.py::ell_matvec)."""
+def _mv_ell(L_idx, L_val, inv_sqrt_m, mask, bound, eps, col_chunk=None,
+            gather=None):
+    """C x on the ELL gather (ops/sparse.py::ell_matvec); with `gather`,
+    on a shard's rows of the operator (global column indices)."""
     ell = Ell(L_idx, L_val)
     return _scaled_matvec(lambda x: ell_matvec(ell, x), inv_sqrt_m, mask,
-                          bound, eps, col_chunk)
+                          bound, eps, col_chunk, gather)
 
 
 def _mv_blocked(b, inv_sqrt_m, mask, bound, eps):
@@ -446,40 +462,60 @@ def _mv_blocked(b, inv_sqrt_m, mask, bound, eps):
                           mask, bound, eps)
 
 
-def _dev_filter_gram(mv, mask, X, lo, bound, cheb_degree: int):
+def _mv_banded(band, inv_sqrt_m, mask, bound, eps, col_chunk=None):
+    """C x on the dense RCM band (ops/banded.py::banded_matvec), in the
+    RCM-permuted, tile-padded row order."""
+    from ..ops.banded import banded_matvec
+    return _scaled_matvec(lambda x: banded_matvec(band, x), inv_sqrt_m,
+                          mask, bound, eps, col_chunk)
+
+
+def _mv_dia(data, offsets: tuple, inv_sqrt_m, mask, bound, eps,
+            col_chunk=None):
+    """C x on the DIA format (ops/banded.py::dia_matvec), in the original
+    row order."""
+    from ..ops.banded import dia_matvec
+    return _scaled_matvec(lambda x: dia_matvec(data, offsets, x),
+                          inv_sqrt_m, mask, bound, eps, col_chunk)
+
+
+def _dev_filter_gram(mv, mask, X, lo, bound, cheb_degree: int,
+                     reduce=_identity):
     """Stage 1: Y = p_m(C) X on the valid rows, G = Y^T Y."""
     X = torch.where(mask[:, None], X, torch.zeros((), dtype=X.dtype,
                                                   device=X.device))
     Y = _cheb_filter(mv, X, lo, bound, cheb_degree)
-    return Y, Y.T @ Y
+    return Y, reduce(Y.T @ Y)
 
 
-def _dev_rotate_gram(Y, F):
+def _dev_rotate_gram(Y, F, reduce=_identity):
     """Stage 2: apply the first whitening factor, re-Gram (the second SVQB
     pass fixes the f32 roundoff of the big rotation product)."""
     Y = Y @ F
-    return Y, Y.T @ Y
+    return Y, reduce(Y.T @ Y)
 
 
-def _dev_rotate_apply(mv, Y, F):
+def _dev_rotate_apply(mv, Y, F, reduce=_identity):
     """Stage 3: apply the second whitening factor, W = C Y, T = Y^T W."""
     Y = Y @ F
     W = mv(Y)
-    return Y, W, Y.T @ W
+    return Y, W, reduce(Y.T @ W)
 
 
-def _dev_rotate_residuals(Y, W, S, w):
+def _dev_rotate_residuals(Y, W, S, w, reduce=_identity):
     """Stage 4: rotate into the Ritz basis, per-column residual 2-norms."""
     U = Y @ S
     R = W @ S - U * w[None, :]
-    return U, torch.linalg.vector_norm(R, dim=0)
+    if reduce is _identity:
+        return U, torch.linalg.vector_norm(R, dim=0)
+    return U, torch.sqrt(reduce((R * R).sum(dim=0)))
 
 
-def _split_sweep(filter_gram, rotate_apply, X, lo):
+def _split_sweep(filter_gram, rotate_apply, X, lo, reduce=_identity):
     """One outer iteration through the four stages. filter_gram(X, lo) and
-    rotate_apply(Y, F) close over the operator. Returns (Ritz vectors U (on
-    the device), Ritz values w ascending (np.float64), residual 2-norms
-    (np.float64))."""
+    rotate_apply(Y, F) close over the operator (and `reduce`). Returns
+    (Ritz vectors U (on the device), Ritz values w ascending (np.float64),
+    residual 2-norms (np.float64))."""
     def dev(a):
         return torch.as_tensor(a, dtype=X.dtype, device=X.device)
 
@@ -487,11 +523,19 @@ def _split_sweep(filter_gram, rotate_apply, X, lo):
         return t.detach().cpu().numpy()
 
     Y, G = filter_gram(X, lo)
-    Y, G2 = _dev_rotate_gram(Y, dev(_whiten_factor(host(G))))
+    Y, G2 = _dev_rotate_gram(Y, dev(_whiten_factor(host(G))), reduce)
     Y, W, T = rotate_apply(Y, dev(_whiten_factor(host(G2))))
     w, S = _host_eigh_ascending(host(T))
-    U, res = _dev_rotate_residuals(Y, W, dev(S), dev(w))
+    U, res = _dev_rotate_residuals(Y, W, dev(S), dev(w), reduce)
     return U, w, host(res).astype(np.float64)
+
+
+def _sweep_fn(mv, mask, bound, cheb_degree, reduce=_identity):
+    """sweep(X, lo): one outer iteration on the matvec mv."""
+    return lambda X, lo: _split_sweep(
+        lambda Xs, los: _dev_filter_gram(mv, mask, Xs, los, bound,
+                                         cheb_degree, reduce),
+        lambda Ys, Fs: _dev_rotate_apply(mv, Ys, Fs, reduce), X, lo, reduce)
 
 
 # Diagnostic record of the most recent _converge call in this process:
@@ -566,6 +610,98 @@ def _format_budget(V: int, n_cols: int, device: torch.device) -> int:
     return min(6_500_000_000, max(2_500_000_000, 11_000_000_000 - 3 * block))
 
 
+def _cheb_degree(cheb_degree, bound: float, lambda_cut: float) -> int:
+    """The filter degree: the Chebyshev convergence exponent
+    sqrt(bound / lambda_cut), capped at the JAX package's 320 so both
+    packages run the same schedule, rounded up to a multiple of 32."""
+    if cheb_degree is not None:
+        return cheb_degree
+    cheb_degree = int(np.clip(8.0 * np.sqrt(bound / lambda_cut) + 10,
+                              50, 320))
+    return -32 * (-cheb_degree // 32)
+
+
+def _ell_col_chunk(rows: int, degree: int, n_cols: int) -> int | None:
+    """Column block that bounds the ELL gather's (rows, D, chunk)
+    temporary to ~1.5 GB."""
+    gather_bytes = rows * degree * 4
+    if gather_bytes * n_cols > 1.5e9:
+        return max(16, int(1.5e9 / gather_bytes) // 16 * 16)
+    return None
+
+
+def _check_cheb_degree(cheb_degree) -> None:
+    if cheb_degree is not None and cheb_degree < 2:
+        raise ValueError(f"cheb_degree must be >= 2, got {cheb_degree} "
+                         "(the recurrence always consumes degrees 0..1)")
+
+
+def _to_rows(a: np.ndarray, perm: np.ndarray, n_rows: int) -> np.ndarray:
+    """A (V,) vector in a format's permuted, tile-padded row order."""
+    out = np.zeros(n_rows, a.dtype)
+    out[:len(perm)] = a[perm]
+    return out
+
+
+def _operator_format(banded, L_ell, polish, inv_sqrt_m, mask, bound, eps,
+                     n_cols, dev):
+    """The SpMM format of eigensolve_device's `banded`: (name, perm or None,
+    rows of the iterate, the matvec C x on those rows), or None for the
+    ELL gather. Raises where a required format does not fit."""
+    from ..ops.banded import (banded_from_sparse_device, dia_from_sparse,
+                              rcm_permutation)
+    from ..ops.blocked_ell import blocked_ell_from_sparse
+    if not (banded in (True, "dia", "blocked")
+            or (banded is None and dev.type == "cuda")):
+        return None
+    V = len(mask)
+    L_host = polish[0] if polish is not None else _ell_to_scipy(L_ell)
+    fits = L_host.shape[0] == V
+    if banded == "dia":
+        # structured meshes (few distinct col - row offsets): statically
+        # shifted elementwise products, no gather, memory D * V
+        dia = dia_from_sparse(L_host) if fits else None
+        if dia is None:
+            raise RuntimeError("banded='dia' but the operator is not "
+                               "diagonal-structured (or the ELL was padded)")
+        return ("eigensolve_device[dia]", None, V, _mv_dia(
+            torch.from_numpy(dia[0]).to(dev), dia[1],
+            torch.from_numpy(inv_sqrt_m).to(dev),
+            torch.from_numpy(mask).to(dev), bound, eps,
+            64 if V * n_cols * 4 > 1.0e9 else None))
+    budget = _format_budget(V, n_cols, dev)
+    if banded is True:
+        rep = banded_from_sparse_device(
+            L_host, max_band_bytes=budget, perm=rcm_permutation(L_host),
+            device=dev) if fits else None
+        if rep is None:
+            raise RuntimeError("banded=True but the RCM-reordered bandwidth "
+                               "exceeds the band-size budget")
+        T_, TR, Wd = rep.band.shape
+        n_rows = T_ * TR
+        col_chunk = None
+        if T_ * Wd * 4 * n_cols > 1.5e9:   # the (T, W, chunk) window gather
+            col_chunk = max(16, int(1.5e9 / (T_ * Wd * 4)) // 16 * 16)
+        mv = _mv_banded(rep, torch.from_numpy(
+            _to_rows(inv_sqrt_m, rep.perm, n_rows)).to(dev),
+            torch.from_numpy(_to_rows(mask, rep.perm, n_rows)).to(dev),
+            bound, eps, col_chunk)
+        return "eigensolve_device[banded]", rep.perm, n_rows, mv
+    rep = blocked_ell_from_sparse(
+        L_host, max_bytes=budget, perm=rcm_permutation(L_host),
+        device=dev) if fits else None
+    if rep is None:
+        if banded == "blocked":
+            raise RuntimeError("banded='blocked' but the sliced-ELL format "
+                               "exceeds the memory budget")
+        return None
+    mv = _mv_blocked(rep, torch.from_numpy(
+        _to_rows(inv_sqrt_m, rep.perm, rep.n_pad)).to(dev),
+        torch.from_numpy(_to_rows(mask, rep.perm, rep.n_pad)).to(dev),
+        bound, eps)
+    return "eigensolve_device[blocked]", rep.perm, rep.n_pad, mv
+
+
 def eigensolve_device(L_ell: Ell, massvec, k_eig: int,
                       n_valid: int | None = None,
                       eps: float = 1e-8, tol: float = 2e-4,
@@ -598,11 +734,11 @@ def eigensolve_device(L_ell: Ell, massvec, k_eig: int,
     package's bits). banded: operator format. None: on a CUDA device the
     sliced-ELL SpMM (kernel B5), or the ELL gather when the format exceeds
     the memory budget; on the CPU the ELL gather. 'blocked' requires the
-    sliced format (its plain version on the CPU) and raises if it does
-    not fit; False forces the ELL gather; True and 'dia' (the dense band,
-    DIA) are not ported (ROADMAP item A.5). timings: optional dict of wall
-    seconds per stage (eigen_band_build, eigen_sweeps, eigen_polish,
-    polish_*).
+    sliced format (its plain version on the CPU), True the dense RCM band
+    and 'dia' the DIA format (ops/banded.py, plain torch); each raises if
+    the operator does not fit it. False forces the ELL gather. timings:
+    optional dict of wall seconds per stage (eigen_band_build,
+    eigen_sweeps, eigen_polish, polish_*).
 
     Raises EigenSolveNotConverged if the band does not converge in
     max_sweeps, or, with polish, if the f64 certification rejects the
@@ -612,16 +748,10 @@ def eigensolve_device(L_ell: Ell, massvec, k_eig: int,
             timings[stage] = timings.get(stage, 0.0) + time.perf_counter() - t0
         return time.perf_counter()
 
-    if banded is True or banded == "dia":
-        raise NotImplementedError(
-            f"banded={banded!r}: the dense RCM band and DIA formats are "
-            "queued in ROADMAP item A.5; use None, 'blocked' or False")
-    if banded not in (None, False, "blocked"):
-        raise ValueError(f"banded={banded!r}: expected None, 'blocked' or "
-                         "False")
-    if cheb_degree is not None and cheb_degree < 2:
-        raise ValueError(f"cheb_degree must be >= 2, got {cheb_degree} "
-                         "(the recurrence always consumes degrees 0..1)")
+    if banded not in (None, False, True, "blocked", "dia"):
+        raise ValueError(f"banded={banded!r}: expected None, False, True, "
+                         "'blocked' or 'dia'")
+    _check_cheb_degree(cheb_degree)
     dev = torch.device(device)
     V = np.asarray(L_ell.idx).shape[0]
     if k_eig == 0:
@@ -639,70 +769,33 @@ def eigensolve_device(L_ell: Ell, massvec, k_eig: int,
     if n_valid_rows <= min(12 * n_cols, 4096):
         return _dense_eigh_tiny(L_ell, massvec, mask, k_eig, eps, polish,
                                 dev)
-
-    if cheb_degree is None:
-        # the Chebyshev convergence exponent sqrt(bound / lambda_cut), capped
-        # at the JAX package's 320 so both packages run the same schedule
-        cheb_degree = int(np.clip(8.0 * np.sqrt(bound / lambda_cut) + 10,
-                                  50, 320))
-        cheb_degree = -32 * (-cheb_degree // 32)
+    cheb_degree = _cheb_degree(cheb_degree, bound, lambda_cut)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    blocked_rep = None
-    if banded == "blocked" or (banded is None and dev.type == "cuda"):
-        from ..ops.banded import rcm_permutation
-        from ..ops.blocked_ell import blocked_ell_from_sparse
-        t0 = time.perf_counter()
-        L_host = polish[0] if polish is not None else _ell_to_scipy(L_ell)
-        if L_host.shape[0] == V:
-            blocked_rep = blocked_ell_from_sparse(
-                L_host, max_bytes=_format_budget(V, n_cols, dev),
-                perm=rcm_permutation(L_host), device=dev)
+    t0 = time.perf_counter()
+    fmt = _operator_format(banded, L_ell, polish, inv_sqrt_m, mask, bound,
+                           eps, n_cols, dev)
+    if fmt is not None or dev.type == "cuda":
         _mark("eigen_band_build", t0)
-        if blocked_rep is None and banded == "blocked":
-            raise RuntimeError("banded='blocked' but the sliced-ELL format "
-                               "exceeds the memory budget")
-
-    if blocked_rep is not None:
-        name = "eigensolve_device[blocked]"
-        perm, n_rows = blocked_rep.perm, blocked_rep.n_pad
-
-        def to_rows(a):
-            """A (V,) vector in the permuted, tile-padded row order."""
-            out = np.zeros(n_rows, a.dtype)
-            out[:V] = a[perm]
-            return out
-
-        mask_rows = to_rows(mask)
-        mv = _mv_blocked(blocked_rep, torch.from_numpy(to_rows(inv_sqrt_m)
-                                                       ).to(dev),
-                         torch.from_numpy(mask_rows).to(dev), bound, eps)
-    else:
+    if fmt is None:
         # ELL gather: wide operators, banded=False, and the CPU default
-        name = "eigensolve_device"
-        n_rows, perm, mask_rows = V, None, mask
         idx = np.asarray(L_ell.idx)
-        val = np.asarray(L_ell.val, np.float32)
-        # bound the (V, D, chunk) gather temporary to ~1.5 GB
-        gather_bytes = V * idx.shape[1] * 4
-        col_chunk = None
-        if gather_bytes * n_cols > 1.5e9:
-            col_chunk = max(16, int(1.5e9 / gather_bytes) // 16 * 16)
-        mv = _mv_ell(torch.from_numpy(idx).to(dev),
-                     torch.from_numpy(val).to(dev),
-                     torch.from_numpy(inv_sqrt_m).to(dev),
-                     torch.from_numpy(mask).to(dev), bound, eps, col_chunk)
+        fmt = ("eigensolve_device", None, V, _mv_ell(
+            torch.from_numpy(idx).to(dev),
+            torch.from_numpy(np.asarray(L_ell.val, np.float32)).to(dev),
+            torch.from_numpy(inv_sqrt_m).to(dev),
+            torch.from_numpy(mask).to(dev), bound, eps,
+            _ell_col_chunk(V, idx.shape[1], n_cols)))
+    name, perm, n_rows, mv = fmt
+    mask_rows = mask if perm is None else _to_rows(mask, perm, n_rows)
     mask_t = torch.from_numpy(mask_rows).to(dev)
 
     with _full_f32_matmul():
         X0 = torch.randn((n_rows, n_cols), generator=gen, device=dev)
         t0 = time.perf_counter()
-        X, w = _converge(
-            lambda X, lo: _split_sweep(
-                lambda Xs, los: _dev_filter_gram(mv, mask_t, Xs, los, bound,
-                                                 cheb_degree),
-                lambda Ys, Fs: _dev_rotate_apply(mv, Ys, Fs), X, lo),
-            X0, lambda_cut, k_eig, eps, tol, max_sweeps, bound, verbose, name)
+        X, w = _converge(_sweep_fn(mv, mask_t, bound, cheb_degree), X0,
+                         lambda_cut, k_eig, eps, tol, max_sweeps, bound,
+                         verbose, name)
     # back to the original vertex order
     if perm is None:
         X_orig = X.cpu().numpy()
@@ -720,4 +813,97 @@ def eigensolve_device(L_ell: Ell, massvec, k_eig: int,
                             dtype=torch.float32, device=dev)
     evecs = torch.as_tensor(inv_sqrt_m[:, None] * X_orig[:, :k_eig],
                             dtype=torch.float32, device=dev)
+    return evals, evecs
+
+
+# ---------------------------------------------------------------------------
+# The vertex-sharded solver (several cards): every (V, n) block row-sharded
+# over the `vert` axis of a DeviceMesh, one rank a shard. The SpMM gathers
+# the iterate (the operator's column indices are global); the Gram, Rayleigh-
+# Ritz and residual sums are reduced over the shards in a fixed order; all
+# O(V) work stays on the rank's card.
+# ---------------------------------------------------------------------------
+
+def eigensolve_device_sharded(L_ell: Ell, massvec, k_eig: int, mesh,
+                              axis: str = "vert",
+                              n_valid: int | None = None,
+                              eps: float = 1e-8, tol: float = 2e-4,
+                              max_sweeps: int = 30,
+                              lambda_cut: float | None = None,
+                              cheb_degree: int | None = None,
+                              oversample: int | None = None,
+                              seed: int = 777,
+                              polish=None,
+                              verbose: bool = False,
+                              device=None):
+    """eigensolve_device with every (V, n) block row-sharded over the
+    `axis` axis of `mesh` (a `parallel.make_mesh` DeviceMesh), run on every
+    rank of it: the route for surfaces whose blocks do not fit one card.
+    The same algorithm and convergence loop as the ELL route of
+    eigensolve_device; what crosses the shards is one all-gather of the
+    (V, n) iterate per filter matvec and fixed-order sums of the (n, n)
+    matrices and the residuals, so every rank makes the same host
+    decisions. The start block is the single-card solver's (the whole
+    (V, n) block from a torch.Generator seeded with `seed`, each rank
+    keeping its rows), and there is no tiny dense route.
+
+    L_ell, massvec: the whole padded surface (numpy), the same on every
+    rank; V must be divisible by the shard count. device: this rank's card
+    (default cuda:LOCAL_RANK). Returns (evals (k,), evecs (V / shards, k),
+    this rank's rows) f32 on `device`; with polish=(L_scipy, massvec_f64)
+    the iterate is gathered and every rank runs the f64 host polish and
+    returns the whole (evals, evecs) float64 numpy arrays."""
+    from ..ops.collectives import ordered_sum
+    from ..parallel.distributed import rank_device
+    from ..parallel.mesh import _AllGather
+
+    n_shards = mesh.size(mesh.mesh_dim_names.index(axis))
+    V = np.asarray(L_ell.idx).shape[0]
+    if V % n_shards != 0:
+        raise ValueError(f"V={V} not divisible by {n_shards} '{axis}' shards"
+                         " — pad the operator rows (ell_pad) first")
+    _check_cheb_degree(cheb_degree)
+    dev = rank_device(device)
+    if k_eig == 0:
+        return (torch.zeros((0,), device=dev),
+                torch.zeros((V // n_shards, 0), device=dev))
+
+    mask, inv_sqrt_m, bound, n_cols, oversample, lambda_cut = \
+        _device_solver_setup(L_ell, massvec, k_eig, n_valid, eps,
+                             lambda_cut, oversample)
+    cheb_degree = _cheb_degree(cheb_degree, bound, lambda_cut)
+
+    group = mesh.get_group(axis)
+    step = V // n_shards
+    rows = slice(mesh.get_local_rank(axis) * step,
+                 (mesh.get_local_rank(axis) + 1) * step)
+
+    def local(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.asarray(a)[rows] if dtype is None
+            else np.asarray(a, dtype)[rows])).to(dev)
+    idx = np.asarray(L_ell.idx)
+    inv_t, mask_t = local(inv_sqrt_m), local(mask)
+    mv = _mv_ell(local(idx), local(L_ell.val, np.float32), inv_t, mask_t,
+                 bound, eps, _ell_col_chunk(step, idx.shape[1], n_cols),
+                 gather=lambda t: _AllGather.apply(t, 0, group))
+    # a sum over one shard is the identity (and keeps the single-card
+    # route's residual norms)
+    reduce = _identity if n_shards == 1 else (
+        lambda t: ordered_sum(t, group))
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with _full_f32_matmul():
+        X0 = torch.randn((V, n_cols), generator=gen, device=dev)[rows]
+        X, w = _converge(_sweep_fn(mv, mask_t, bound, cheb_degree, reduce),
+                         X0.contiguous(), lambda_cut, k_eig, eps, tol,
+                         max_sweeps, bound, verbose,
+                         "eigensolve_device_sharded")
+    if polish is not None:
+        L_sp, mass_f64 = polish
+        X_all = _AllGather.apply(X, 0, group).cpu().numpy()
+        return _rr_polish_host(L_sp, mass_f64, X_all, k_eig, eps)
+    evals = torch.as_tensor(np.clip(w[:k_eig] - eps, 0.0, None),
+                            dtype=torch.float32, device=dev)
+    evecs = inv_t[:, None] * X[:, :k_eig]
     return evals, evecs

@@ -8,7 +8,9 @@ block chooses them:
     Operators.gradX_spec): the gradients of the diffused signal are
     GX @ (e^{-lambda t} (.) x_hat), dense products;
   * the same, fused into kernel B4 (ops/fused.py) when use_pallas_fused and
-    V % pallas_tile_v == 0 (else the dense route: JAX semantics);
+    V % pallas_tile_v == 0 (else the dense route: JAX semantics); on a
+    vertex-sharded surface (inference only) B4 runs on each shard's rows
+    with the projection summed over the shards between its two kernels;
   * ELL gradient operators (gradX/gradY an `Ell`): `ell_matvec` of the
     diffused signal. Required by diffusion_method="implicit_dense".
 
@@ -32,7 +34,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.fused import fused_spectral_block, fused_spectral_block_batched
+from ..ops.fused import (fused_spectral_block, fused_spectral_block_batched,
+                         fused_spectral_block_sharded)
 from ..ops.sparse import Ell, ell_matvec, ell_to_dense
 from ..ops.spectral import from_basis, lowp_matmul, to_basis
 
@@ -237,12 +240,12 @@ class DiffusionNetBlock(nn.Module):
         fused = (spectral_grads and self.use_pallas_fused
                  and x_in.shape[-2] % self.pallas_tile_v == 0)
         if fused and vert is not None:
-            raise ValueError(
-                "the fused route (use_pallas_fused, kernel B4) cannot be "
-                "vertex-sharded: its projection sums over every vertex "
-                "inside the kernel (as XLA cannot partition the Pallas "
-                "call); build the model without use_pallas_fused")
-        if fused:
+            # B4 on the shard's rows, its (K, C) projection summed over the
+            # shards between the two kernels (inference only)
+            x_diffuse, x_gradX, x_gradY = fused_spectral_block_sharded(
+                x_in, evecs, gradX, gradY, mass,
+                self.diffusion.coefs(evals), vert.sum, self.pallas_tile_v)
+        elif fused:
             block = (fused_spectral_block_batched if x_in.ndim == 3
                      else fused_spectral_block)
             x_diffuse, x_gradX, x_gradY = block(

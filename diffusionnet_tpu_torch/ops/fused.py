@@ -393,3 +393,26 @@ def fused_spectral_block(x, evecs, gX, gY, mass, coefs,
     outs = _FusedSpectralBlock.apply(x[None], evecs[None], gX[None],
                                      gY[None], mass[None], coefs[None])
     return tuple(o[0] for o in outs)
+
+
+def fused_spectral_block_sharded(x, evecs, gX, gY, mass, coefs, reduce,
+                                 tile_v: int = DEFAULT_TILE_V):
+    """(y, ygx, ygy) on one shard's rows of a vertex-sharded surface, for
+    inference: the projection of the shard's rows, `reduce` (the sum of the
+    shards' (B, K, C) partials), then the apply on the shard's rows. The
+    same registered ops as the single-card block, so a traced program holds
+    them as graph nodes. Shapes as fused_spectral_block_batched's, with the
+    shard's V a multiple of tile_v, or unbatched as fused_spectral_block's.
+    No autograd: training a sharded surface takes the unfused model or the
+    megakernel."""
+    if torch.is_grad_enabled() and (x.requires_grad or coefs.requires_grad):
+        raise ValueError("fused_spectral_block_sharded is inference only "
+                         "(run it under torch.no_grad())")
+    if x.ndim == 2:
+        return tuple(o[0] for o in fused_spectral_block_sharded(
+            x[None], evecs[None], gX[None], gY[None], mass[None],
+            coefs[None], reduce, tile_v))
+    _check_tile(x.shape[-2], tile_v)
+    x_hat = reduce(spectral_project(x, evecs, mass))
+    return spectral_apply(x_hat, coefs, evecs, gX, gY, x.dtype)
+

@@ -11,5 +11,5 @@ from .vertex_sharded import (make_two_axis_eval_step,
                              shard_operators_by_vertex,
                              vertex_sharded_forward,
                              vertex_sharded_megakernel_forward)
-from .distributed import (initialize, launch, make_pod_mesh,
+from .distributed import (initialize, launch, make_pod_mesh, rank_device,
                           run_multiprocess_dryrun)

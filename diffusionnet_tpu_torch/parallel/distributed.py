@@ -79,6 +79,18 @@ def initialize(init_method: str | None = None, world_size: int | None = None,
         print(f"torch.distributed initialize skipped: {e}")
 
 
+def rank_device(device=None) -> torch.device:
+    """`device`, or this rank's card: cuda:LOCAL_RANK (torchrun sets
+    LOCAL_RANK; 0 without it). Raises when torch sees no such card."""
+    if device is not None:
+        return torch.device(device)
+    local = int(os.environ.get("LOCAL_RANK", 0))
+    if not torch.cuda.is_available() or local >= torch.cuda.device_count():
+        raise RuntimeError(f"no CUDA card cuda:{local} is visible to torch; "
+                           "pass device='cpu' to run on the CPU")
+    return torch.device("cuda", local)
+
+
 def make_pod_mesh(vert: int = 1):
     """A (data, vert) mesh over the whole world with each `vert` group on
     consecutive ranks of one node (LOCAL_WORLD_SIZE ranks a node, as

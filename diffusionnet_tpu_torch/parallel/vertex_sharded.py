@@ -120,14 +120,17 @@ def vertex_sharded_forward(model, params: dict | None, x_in, ops: Operators,
     model's forward (faces, edges, deterministic, ...) as given. The dense
     spectral gradients are used where the bundle has them (local products);
     else the ELL operators, which read the surface gathered from every
-    shard. The fused route (use_pallas_fused, kernel B4) cannot be sharded
-    and raises ValueError. Returns this rank's rows of vertex outputs;
-    face, edge and global-mean outputs whole on every rank."""
+    shard. A fused model (use_pallas_fused, kernel B4) raises ValueError:
+    its sharded route is inference only and is served by
+    serving.export_sharded_forward. Returns this rank's rows of vertex
+    outputs; face, edge and global-mean outputs whole on every rank."""
     if getattr(model, "use_pallas_fused", False):
         raise ValueError(
-            "vertex_sharded_forward: the fused route (use_pallas_fused, "
-            "kernel B4) cannot be vertex-sharded, as XLA cannot partition "
-            "its Pallas call; build the model without use_pallas_fused")
+            "vertex_sharded_forward: a fused model (use_pallas_fused, kernel "
+            "B4) runs vertex-sharded for inference only, through "
+            "serving.export_sharded_forward and load_sharded_serving_model; "
+            "build the model without use_pallas_fused to train or "
+            "differentiate it here")
     if params is None:
         device = next(model.parameters()).device
         fn = model

@@ -1,9 +1,9 @@
-"""Serving: export the forward pass as torch.export artifacts (static vertex
-buckets, symbolic batch) and load + serve them without the model
-definition. See serving.export's module docstring. The vertex-sharded
-artifact comes with ROADMAP item A.6: its entry points here
-(export_sharded_forward, load_sharded_serving_model, ShardedServingModel,
-PreparedSurface) raise NotImplementedError."""
+"""Serving: export the forward pass as torch.export artifacts and load +
+serve them without the model definition: per-bucket programs on one card
+(export_forward, load_serving_model, PreparedMesh), and one large surface
+vertex-sharded over several ranks (export_sharded_forward,
+load_sharded_serving_model, PreparedSurface). See serving.export's module
+docstring."""
 
 from .export import (
     PreparedMesh,

@@ -31,13 +31,22 @@ since torch specialises sizes 0 and 1), so one program serves any batch
 size. `outputs_at='edges'/'faces'` adds one int32 index input whose
 element count is a second symbolic dimension.
 
-Artifact directory layout:
-    manifest.json     io spec, bucket list, metadata (the JAX keys)
-    params.npz        parameters keyed by '/'-joined pytree path
-    bucket_<V>.pt2    torch.export.ExportedProgram for vertex bucket V
+The vertex-sharded artifact (kind="sharded_forward",
+`export_sharded_forward` / `load_sharded_serving_model`) serves ONE large
+surface over n ranks, one process a card. Its one program is one rank's
+forward on v_bucket / n rows, traced once; every rank loads the same file.
+The only exchange between the shards is each block's (K, C) projection sum
+and global_mean's numerator and denominator: the registered operator
+dnt_torch::vert_sum (ops/collectives.py), a graph node whose fake needs no
+process group, so the export runs in one process; the loader registers the
+rank's `vert` group for it. A use_pallas_fused model runs B4 on each
+shard's rows, its projection summed between the two kernels.
 
-The vertex-sharded artifact (the JAX package's kind="sharded_forward")
-comes with ROADMAP item A.6.
+Artifact directory layout:
+    manifest.json       io spec, bucket list, metadata (the JAX keys)
+    params.npz          parameters keyed by '/'-joined pytree path
+    bucket_<V>.pt2      torch.export.ExportedProgram for vertex bucket V
+    sharded_<V>x<n>.pt2 one rank's program (kind="sharded_forward")
 """
 
 from __future__ import annotations
@@ -48,8 +57,10 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..ops import collectives as _collectives  # registers dnt_torch::vert_sum
 from ..ops import fused as _fused  # registers the kernel ops before a load
 
 MANIFEST_NAME = "manifest.json"
@@ -108,13 +119,16 @@ def _io_kind(outputs_at: str) -> dict:
 
 def _device(device) -> torch.device:
     """An explicit device, honoured exactly: "cuda" without a card raises
-    (no CPU artifact or program in its place)."""
+    (no CPU artifact or program in its place). "cuda" is the current card,
+    by its index."""
     device = torch.device(device)
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} was asked for, but "
                            "torch.cuda.is_available() is false")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -146,17 +160,21 @@ class _Forward(torch.nn.Module):
     outside the module's state, so the program's only weights are its
     `params` input."""
 
-    def __init__(self, model, index_input: str | None, module_state):
+    def __init__(self, model, index_input: str | None, module_state,
+                 vert=None):
         super().__init__()
         self._model = (model,)
         self._index_input = index_input
         self._module_state = module_state
+        self._vert = vert   # a TracedVert: one shard's rows
 
     def forward(self, params, x, mass, evals, evecs, gX, gY, inds=None):
         kw = dict(evals=evals, evecs=evecs, gradX=gX, gradY=gY,
                   deterministic=True)
         if self._index_input is not None:
             kw[self._index_input] = inds
+        if self._vert is not None:
+            kw["vert"] = self._vert
         state = self._module_state(_flatten_params(params))
         return torch.func.functional_call(self._model[0], state, (x, mass),
                                           kw, strict=True)
@@ -204,14 +222,8 @@ def export_forward(model, v_buckets: Sequence[int], out_dir: str, k_eig: int,
             args += (torch.zeros((2, 2, io["index_width"]), dtype=torch.int32,
                                  device=dev),)
             shapes += ({0: b, 1: torch.export.Dim("e", min=1)},)
-        with torch.no_grad():
-            program = torch.export.export(fwd, args, dynamic_shapes=shapes)
-        reads = host_reads(program)
-        if reads:
-            raise RuntimeError(f"the traced forward reads device values on "
-                               f"the host: {reads}")
-        program.example_inputs = None  # not saved: bucket-sized zeros
-        torch.export.save(program, os.path.join(out_dir, f"bucket_{v}.pt2"))
+        _save_program(fwd, args, os.path.join(out_dir, f"bucket_{v}.pt2"),
+                      shapes)
 
     manifest = {
         "format_version": FORMAT_VERSION,
@@ -226,19 +238,96 @@ def export_forward(model, v_buckets: Sequence[int], out_dir: str, k_eig: int,
         "batch_symbolic": True,
         "metadata": extra_metadata or {},
     }
-    np.savez(os.path.join(out_dir, PARAMS_NAME), **flat)
-    with open(os.path.join(out_dir, MANIFEST_NAME), "w") as f:
-        json.dump(manifest, f, indent=1)
+    _write_params_manifest(out_dir, flat, manifest)
     return out_dir
 
 
-_SHARDED = ("the vertex-sharded serving artifact (one surface over several "
-            "cards) comes with ROADMAP item A.6; export_forward and "
-            "load_serving_model serve on one card")
+def _write_params_manifest(out_dir: str, flat: dict, manifest: dict):
+    np.savez(os.path.join(out_dir, PARAMS_NAME), **flat)
+    with open(os.path.join(out_dir, MANIFEST_NAME), "w") as f:
+        json.dump(manifest, f, indent=1)
 
 
-def export_sharded_forward(*args, **kwargs):
-    raise NotImplementedError(_SHARDED)
+def _save_program(fwd, args, path: str, dynamic_shapes=None):
+    """Trace fwd(*args) without autograd, refuse host reads, save."""
+    with torch.no_grad():
+        program = torch.export.export(fwd, args,
+                                      dynamic_shapes=dynamic_shapes)
+    reads = host_reads(program)
+    if reads:
+        raise RuntimeError(f"the traced forward reads device values on "
+                           f"the host: {reads}")
+    program.example_inputs = None  # not saved: bucket-sized zeros
+    torch.export.save(program, path)
+
+
+def export_sharded_forward(model, v_bucket: int, out_dir: str, k_eig: int,
+                           n_devices: int | None = None, mesh=None,
+                           device=None,
+                           extra_metadata: dict | None = None) -> str:
+    """Export a VERTEX-SHARDED forward of ONE large surface as a serving
+    artifact under `out_dir`: one program, one rank's deterministic forward
+    on v_bucket / n rows (x, mass, evecs, gX, gY those rows; evals whole),
+    each block's projection summed over the ranks by dnt_torch::vert_sum.
+    The trace runs in this one process and needs no process group.
+
+    n_devices: the rank count n to serve on; or mesh=, a DeviceMesh whose
+    `vert` axis gives it. outputs_at must be 'vertices' or 'global_mean'
+    (edge and face outputs gather across shards: serve those with
+    export_forward); v_bucket must split over the n ranks, and for a
+    use_pallas_fused model each rank's rows must be a multiple of its
+    pallas_tile_v (B4's row tile). device: as export_forward's. Returns
+    out_dir; load it with load_sharded_serving_model on every rank."""
+    from ..models.params import module_state, to_flat_jax_params
+
+    if model.diffusion_method != "spectral":
+        raise ValueError("export_sharded_forward supports "
+                         "diffusion_method='spectral'")
+    if model.outputs_at not in ("vertices", "global_mean"):
+        raise ValueError("sharded serving supports outputs_at='vertices' or "
+                         "'global_mean'")
+    if mesh is not None:
+        n = mesh.size(mesh.mesh_dim_names.index("vert"))
+    elif n_devices is None:
+        raise ValueError("pass mesh= or n_devices=")
+    else:
+        n = int(n_devices)
+    v = int(v_bucket)
+    if n < 1 or v % n != 0:
+        raise ValueError(f"v_bucket={v} not divisible by the {n} devices")
+    rows = v // n
+    if getattr(model, "use_pallas_fused", False) and (
+            rows % model.pallas_tile_v):
+        raise ValueError(
+            f"v_bucket={v} over {n} devices gives {rows} rows a rank, not a "
+            f"multiple of the fused model's pallas_tile_v="
+            f"{model.pallas_tile_v}: B4 would not run on the shards")
+    dev = _device(next(model.parameters()).device if device is None
+                  else device)
+    flat = to_flat_jax_params(model)
+    fwd = _Forward(model, None, module_state, _collectives.TracedVert(n))
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+    args = (_params_tree(flat, dev), zeros(rows, model.c_in),
+            zeros(rows) + 1, zeros(k_eig), zeros(rows, k_eig),
+            zeros(rows, k_eig), zeros(rows, k_eig))
+    os.makedirs(out_dir, exist_ok=True)
+    _save_program(fwd, args, os.path.join(out_dir, f"sharded_{v}x{n}.pt2"))
+    manifest = {
+        "format_version": FORMAT_VERSION,
+        "kind": "sharded_forward",
+        "c_in": int(model.c_in),
+        "c_out": int(model.c_out),
+        "k_eig": int(k_eig),
+        "outputs_at": model.outputs_at,
+        "v_bucket": v,
+        "n_devices": n,
+        "platforms": [dev.type],
+        "metadata": extra_metadata or {},
+    }
+    _write_params_manifest(out_dir, flat, manifest)
+    return out_dir
 
 
 # ---------------------------------------------------------------------------
@@ -465,34 +554,184 @@ def load_serving_model(artifact_dir: str, device="cuda") -> ServingModel:
     """Load an artifact written by export_forward onto `device` (the CUDA
     card unless the caller asks for the CPU; "cuda" without a card
     raises). Needs torch, numpy and the port's kernel ops only. A program
-    traced for another device is moved with
-    torch.export.passes.move_to_device_pass; a failure there raises."""
+    traced on another device (the CPU, another card) is moved there
+    (`_load_program`)."""
     manifest, params = _read_manifest_params(artifact_dir)
     kind = manifest.get("kind", "forward")
     if kind != "forward":
-        raise ValueError(f"artifact kind={kind!r}; the sharded artifact "
-                         "comes with ROADMAP item A.6")
+        raise ValueError(f"artifact kind={kind!r}; use "
+                         "load_sharded_serving_model for sharded artifacts")
     dev = _device(device)
-    programs = {}
-    for v in manifest["v_buckets"]:
-        program = torch.export.load(
-            os.path.join(artifact_dir, f"bucket_{v}.pt2"))
-        if manifest["platforms"] != [dev.type]:
-            from torch.export.passes import move_to_device_pass
-            program = move_to_device_pass(program, dev)
-        programs[int(v)] = program
+    programs = {int(v): _load_program(artifact_dir, f"bucket_{v}.pt2", dev)
+                for v in manifest["v_buckets"]}
     return ServingModel(manifest, params, programs, dev)
 
 
-def load_sharded_serving_model(*args, **kwargs):
-    raise NotImplementedError(_SHARDED)
+def _traced_device(program) -> torch.device | None:
+    """The device a program was traced on: its first tensor input's."""
+    for node in program.graph.nodes:
+        val = node.meta.get("val") if node.op == "placeholder" else None
+        if isinstance(val, torch.Tensor):
+            return val.device
+    return None
+
+
+def _load_program(artifact_dir: str, name: str, dev):
+    """An ExportedProgram on `dev`. A program traced on another device (the
+    CPU, or another card: its graph asserts each input's device) is moved
+    with torch.export.passes.move_to_device_pass; a failure there raises."""
+    program = torch.export.load(os.path.join(artifact_dir, name))
+    if _traced_device(program) != dev:
+        from torch.export.passes import move_to_device_pass
+        program = move_to_device_pass(program, dev)
+    return program
 
 
 class ShardedServingModel:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_SHARDED)
+    """A loaded vertex-sharded artifact on one rank: serves ONE large
+    surface with the other ranks of its `vert` group, each running the
+    same program on its rows.
+
+    call(x, mass, evals, evecs, gradX_spec, gradY_spec), unbatched (V, ...)
+    inputs, the whole surface on every rank (arrays or tensors): V is
+    padded to the exported bucket, each rank moves its rows to its card,
+    and every rank returns the whole output (vertex outputs gathered from
+    the ranks and sliced back to V; global_mean (c_out,)), on its card."""
+
+    def __init__(self, manifest: dict, params: dict, program, device,
+                 group=None):
+        self.manifest = manifest
+        self.device = torch.device(device)
+        self.group = group
+        self.params = _params_tree(_flatten_params(params), self.device)
+        self.program = program
+        self._fn = program.module()
+        self.rows = manifest["v_bucket"] // manifest["n_devices"]
+        self.rank = dist.get_rank(group)
+        from ..parallel.mesh import _AllGather
+        self._gather = _AllGather.apply
+
+    def _local(self, a, v: int) -> torch.Tensor:
+        """This rank's rows of a whole-surface (v, ...) array, padded to the
+        bucket, f32 on the card (only the rank's rows are moved)."""
+        a = torch.as_tensor(a, dtype=torch.float32)
+        a = _pad_rows(a, 0, self.manifest["v_bucket"] - v)
+        return a.narrow(0, self.rank * self.rows, self.rows).to(
+            self.device).contiguous()
+
+    def _check_x(self, x):
+        if x.ndim != 2:
+            raise ValueError("sharded serving takes ONE surface: x (V, c_in)")
+        if x.shape[-1] != self.manifest["c_in"]:
+            raise ValueError(f"x has {x.shape[-1]} channels; artifact "
+                             f"expects c_in={self.manifest['c_in']}")
+
+    def _normalize(self, mass, evals, evecs, gX, gY):
+        """Validate, K-truncate, pad and keep this rank's rows; returns
+        (mass, evals, evecs, gX, gY) on the card and the true V."""
+        m = self.manifest
+        k = np.shape(evals)[-1]
+        if k < m["k_eig"]:
+            raise ValueError(f"operators have K={k} < artifact k_eig="
+                             f"{m['k_eig']}; recompute with larger k_eig")
+        kk = m["k_eig"]
+        v, bucket = np.shape(evecs)[0], m["v_bucket"]
+        if v > bucket:
+            raise ValueError(f"surface has {v} vertices > exported bucket "
+                             f"{bucket}; re-export with a larger bucket")
+        evals = torch.as_tensor(evals, dtype=torch.float32,
+                                device=self.device)[:kk].contiguous()
+        return (self._local(mass, v), evals,
+                *(self._local(a[:, :kk], v) for a in (evecs, gX, gY))), v
+
+    def _run(self, x, ops, v: int):
+        with torch.no_grad():
+            out = self._fn(self.params, x, *ops)
+            if self.manifest["outputs_at"] == "vertices":
+                out = self._gather(out, 0, self.group)[:v]
+        return out
+
+    def __call__(self, x, mass, evals, evecs, gradX_spec, gradY_spec):
+        self._check_x(torch.as_tensor(x))
+        ops, v = self._normalize(mass, evals, evecs, gradX_spec, gradY_spec)
+        if np.shape(x)[0] != v:
+            raise ValueError(f"x has {np.shape(x)[0]} vertices; the "
+                             f"operators have V={v}")
+        return self._run(self._local(x, v), ops, v)
+
+    def prepare(self, mass, evals, evecs, gradX_spec,
+                gradY_spec) -> "PreparedSurface":
+        """Pad the surface's operators and move this rank's rows to its
+        card ONCE; returns a PreparedSurface whose `handle(x)` ships only
+        the signal."""
+        ops, v = self._normalize(mass, evals, evecs, gradX_spec, gradY_spec)
+        return PreparedSurface(self, v, ops)
+
+    def prepare_operators(self, ops) -> "PreparedSurface":
+        """prepare() from a geometry.Operators bundle (needs ops.gradX_spec)."""
+        if ops.gradX_spec is None:
+            raise ValueError("Operators bundle lacks spectral gradient "
+                             "operators (computed by compute_operators)")
+        return self.prepare(ops.mass, ops.evals, ops.evecs, ops.gradX_spec,
+                            ops.gradY_spec)
+
+    def call_operators(self, x, ops):
+        """Forward from a geometry.Operators bundle (needs ops.gradX_spec)."""
+        if ops.gradX_spec is None:
+            raise ValueError("Operators bundle lacks spectral gradient "
+                             "operators (computed by compute_operators)")
+        return self(x, ops.mass, ops.evals, ops.evecs, ops.gradX_spec,
+                    ops.gradY_spec)
 
 
 class PreparedSurface:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_SHARDED)
+    """Device-resident sharded-serving handle: this rank's padded operator
+    rows live on its card; each call ships only x (V, c_in), of which the
+    rank moves its rows."""
+
+    def __init__(self, ssm: ShardedServingModel, v: int, ops):
+        self._ssm = ssm
+        self.v = v
+        self._ops = ops  # (mass, evals, evecs, gX, gY): this rank's rows
+
+    def __call__(self, x):
+        ssm = self._ssm
+        ssm._check_x(torch.as_tensor(x))
+        if x.shape[0] != self.v:
+            raise ValueError(f"x has {x.shape[0]} vertices; this handle was "
+                             f"prepared for V={self.v}")
+        return ssm._run(ssm._local(x, self.v), self._ops, self.v)
+
+
+def load_sharded_serving_model(artifact_dir: str, mesh=None,
+                               device=None) -> ShardedServingModel:
+    """Load an artifact written by export_sharded_forward on this rank,
+    after torch.distributed is initialized (`parallel.initialize`): every
+    rank of the group calls it. mesh: a DeviceMesh whose `vert` axis is the
+    group to serve over (default: the whole world); its size must be the
+    artifact's n_devices. The group is registered for dnt_torch::vert_sum.
+    device: this rank's card (default cuda:LOCAL_RANK); "cpu" on the CPU.
+    Needs the port's parallel package besides the kernel ops (the caller
+    has initialized torch.distributed through it)."""
+    manifest, params = _read_manifest_params(artifact_dir)
+    kind = manifest.get("kind", "forward")
+    if kind != "sharded_forward":
+        raise ValueError(f"artifact kind={kind!r}; use load_serving_model "
+                         "for bucketed single-device artifacts")
+    if not dist.is_initialized():
+        raise RuntimeError("torch.distributed is not initialized: call "
+                           "diffusionnet_tpu_torch.parallel.initialize() on "
+                           "every rank first")
+    group = None if mesh is None else mesh.get_group("vert")
+    n = dist.get_world_size(group)
+    if n != manifest["n_devices"]:
+        raise ValueError(f"artifact was exported for "
+                         f"{manifest['n_devices']} devices; the vert group "
+                         f"has {n}")
+    from ..parallel.distributed import rank_device
+    dev = _device(rank_device(device))
+    _collectives.register_group("vert", group)
+    program = _load_program(
+        artifact_dir,
+        f"sharded_{manifest['v_bucket']}x{manifest['n_devices']}.pt2", dev)
+    return ShardedServingModel(manifest, params, program, dev, group)

@@ -17,10 +17,23 @@ torus (`chip_smoke.py`), then starts one rank a card
      labels, dropout off, each then timed over 10 more steps (CUDA events
      on every rank; the step in lockstep over the cards);
 
+  3. eigensolve_device_sharded at vert = ranks on a regular torus of
+     about a million vertices (SHARD_TORUS), k 128, each rank holding its
+     rows of every (V, n) block and gathering the iterate over nccl;
+  4. the segmentation model (vertex outputs, fused and unfused) exported
+     sharded for `ranks` devices at bucket 32768 and served on the
+     20,160-vertex torus, B4 on each rank's rows for the fused artifact,
+     warm requests through a PreparedSurface timed (host clock);
+
 and holds them against one process on card 0: the forward against B1 on
 the whole torus (`chip_smoke.PAR_FWD_TOL`), each step's loss and
 gradients against one process's step with the same objective
-(`chip_smoke.step_agreement`), whose time is printed beside. Then it runs
+(`chip_smoke.step_agreement`), whose time is printed beside; the sharded
+solve against the single-card solve on B5 (eigenvalues within
+chip_smoke.EIG_TOL of the largest, M-orthonormal, every rank's eigenvalues
+bit-equal); each sharded artifact against the single-card ServingModel
+(chip_smoke.SHARD_SERVE_TOL), with 4 + 4 B4 launches (and 4 of
+xhat_reduce) a request on every rank of the fused one. Then it runs
 the RNA driver as a user launches it, `torchrun --nproc_per_node=RANKS -m
 ...rna_mesh_segmentation --megakernel --mesh RANKS/2,2`, for one epoch on
 its synthetic layout. The last line is one JSON object with the results;
@@ -42,6 +55,9 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
+
+
+SHARD_TORUS = (1000, 1000)      # torus(n_major, n_minor): 1,000,000 vertices
 
 
 def _precise():
@@ -112,8 +128,9 @@ def _step_timed(out, name, make, params0, block, timed=True):
     out[name + "/ms"] = float(np.median(times))
 
 
-def _rank(rank, world, inputs):
-    """One rank: the forward, the two steps (see the module docstring)."""
+def _rank(rank, world, inputs, arts):
+    """One rank: the forward, the two steps, the sharded solve and
+    artifacts (see the module docstring)."""
     import torch.distributed as dist
     from diffusionnet_tpu_torch import _build
     from diffusionnet_tpu_torch.data import PaddedBatch
@@ -143,7 +160,166 @@ def _rank(rank, world, inputs):
     _, sums = _losses(VertexGroup(mesh))
     _step_timed(out, "two_axis", lambda opt: make_two_axis_train_step(
         sums, opt, mesh), params0, shard_batch(batch, mesh, "vertex").to(dev))
+    _sharded(out, z, arts, make_mesh(vert=world), dev)
     return out
+
+
+def _sharded(out, z, arts, mesh, dev):
+    """The sharded solve of the large torus, then each sharded artifact
+    (name=path) serving the 20,160-vertex torus: its output, B4's launches
+    of one request, 10 warm requests through a PreparedSurface."""
+    from diffusionnet_tpu_torch.geometry import eigen as teig
+    from diffusionnet_tpu_torch.ops import fused as fu
+    from diffusionnet_tpu_torch.ops import megablock as mbk
+    from diffusionnet_tpu_torch.ops.sparse import Ell
+    from diffusionnet_tpu_torch.serving import load_sharded_serving_model
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev, evecs = teig.eigensolve_device_sharded(
+        Ell(z["eig/idx"], z["eig/val"]), z["eig/mass"], cs.K_EIG, mesh,
+        device=dev)
+    torch.cuda.synchronize()
+    out["eig/s"] = time.perf_counter() - t0
+    out["eig/sweeps"] = teig.LAST_CONVERGE_INFO["sweeps"]
+    out["eig/evals"] = ev.cpu().numpy()
+    out["eig/evecs"] = evecs.cpu().numpy()
+    del evecs
+    if mesh.get_rank() == 0:
+        cs.log(f"  rank 0: sharded solve {out['eig/s']:.2f} s")
+    ops = [torch.from_numpy(z["srv/" + f]).to(dev)
+           for f in ("mass", "evals", "evecs", "gX", "gY")]
+    x = torch.from_numpy(z["srv/x"]).to(dev)
+    for item in arts:
+        name, d = item.split("=", 1)
+        sm = load_sharded_serving_model(d, mesh=mesh, device=dev)
+        torch.cuda.synchronize()
+        fu.reset_launches()
+        mbk.reset_launches()
+        y = sm(x, *ops)
+        torch.cuda.synchronize()
+        out[name + "/launches"] = np.asarray(
+            [fu.LAUNCHES["spectral_project"], fu.LAUNCHES["spectral_apply"],
+             mbk.LAUNCHES["xhat_reduce"]])
+        out[name + "/y"] = y.cpu().numpy()
+        handle = sm.prepare(*ops)
+        walls = []
+        for _ in range(cs.SHARD_REQUESTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            handle(x)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[name + "/ms"] = np.asarray(walls[2:])
+        if mesh.get_rank() == 0:
+            cs.log(f"  rank 0: {name} artifact served")
+
+
+def _sharded_inputs(d, ds, n, tmp):
+    """Phase 3's and 4's inputs into d: the large torus's ELL and mass, the
+    20,160-vertex torus's operators and HKS; the sharded artifacts for n
+    devices under tmp. Returns (the artifacts as name=path, what the checks
+    need)."""
+    from diffusionnet_tpu_torch.data.features import get_features
+    from diffusionnet_tpu_torch.geometry.laplacian import (cotan_laplacian,
+                                                           vertex_areas)
+    from diffusionnet_tpu_torch.ops.sparse import ell_from_coo
+    from diffusionnet_tpu_torch.serving import export_sharded_forward
+    t0 = time.perf_counter()
+    v, f = cs.meshgen().torus(n_major=SHARD_TORUS[0], n_minor=SHARD_TORUS[1])
+    L = cotan_laplacian(v, f)
+    m = vertex_areas(v, f)
+    c = L.tocoo()
+    ell = ell_from_coo(c.row, c.col, c.data, L.shape[0])
+    d["eig/idx"], d["eig/val"] = ell.idx, ell.val
+    d["eig/mass"] = m.astype(np.float32)
+    o = ds.ops_list[0]
+    x = get_features("hks", None, torch.from_numpy(o.evals).cuda(),
+                     torch.from_numpy(o.evecs).cuda()).contiguous()
+    d["srv/x"] = x.cpu().numpy()
+    for key, a in (("mass", o.mass), ("evals", o.evals), ("evecs", o.evecs),
+                   ("gX", o.gradX_spec), ("gY", o.gradY_spec)):
+        d["srv/" + key] = np.ascontiguousarray(a, np.float32)
+    models = {"unfused": cs.segmentation_model(outputs_at="vertices",
+                                               dropout=False),
+              "fused": cs.segmentation_model(outputs_at="vertices",
+                                             dropout=False,
+                                             use_pallas_fused=True)}
+    arts = []
+    for name, model in models.items():
+        path = os.path.join(tmp, "sharded_" + name)
+        export_sharded_forward(model, cs.SHARD_SERVE_V, path, cs.K_EIG,
+                               n_devices=n, device="cuda")
+        arts.append(f"{name}={path}")
+    cs.log(f"  torus{SHARD_TORUS} ({L.shape[0]} vertices) Laplacian and "
+           f"the sharded artifacts for {n} devices: "
+           f"{time.perf_counter() - t0:.2f} s")
+    return arts, dict(ell=ell, mass=m, models=models, tmp=tmp)
+
+
+def _sharded_checks(ranks, shard, card):
+    """The sharded solve against the single-card solve (B5) on card 0, and
+    each sharded artifact against the single-card ServingModel."""
+    from diffusionnet_tpu_torch.geometry import eigen as teig
+    from diffusionnet_tpu_torch.serving import (export_forward,
+                                                load_serving_model)
+    n = len(ranks)
+    V = shard["ell"].idx.shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev, vec = teig.eigensolve_device(shard["ell"],
+                                     shard["mass"].astype(np.float32),
+                                     cs.K_EIG, device="cuda")
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    single_sweeps = teig.LAST_CONVERGE_INFO["sweeps"]
+    r0 = ranks[0]
+    cs.check(all(r["eig/evals"].tobytes() == r0["eig/evals"].tobytes()
+                 for r in ranks), "the ranks' evals differ")
+    ev = ev.cpu().numpy()
+    err = float(np.abs(r0["eig/evals"] - ev).max() / ev.max())
+    secs = [float(r["eig/s"]) for r in ranks]
+    cs.log(f"  sharded solve, vert {n}, torus{SHARD_TORUS} ({V} vertices), "
+           f"k {cs.K_EIG}: {secs} s on the ranks, {int(r0['eig/sweeps'])} "
+           f"sweeps; single card (B5) {single_s:.2f} s, {single_sweeps} "
+           f"sweeps (host clock) [{card}]; evals against the single card "
+           f"{err:.3e} of the largest")
+    cs.check(err <= cs.EIG_TOL, "the sharded solve disagrees with B5's")
+    evecs = np.concatenate([r["eig/evecs"] for r in ranks])
+    E = evecs.astype(np.float64)
+    orth = float(np.abs(E.T @ (shard["mass"][:, None] * E)
+                        - np.eye(E.shape[1])).max())
+    cs.log(f"  M-orthonormality of the sharded basis {orth:.3e}")
+    cs.check(orth <= cs.EIG_TOL, "the sharded basis is not M-orthonormal")
+    del vec, evecs, E
+    res = {"eig_s": secs, "eig_sweeps": int(r0["eig/sweeps"]),
+           "single_s": single_s, "evals_err": err}
+    z = np.load(os.path.join(shard["tmp"], "inputs.npz"))
+    ops = [torch.from_numpy(z["srv/" + f]).cuda()
+           for f in ("mass", "evals", "evecs", "gX", "gY")]
+    x = torch.from_numpy(z["srv/x"]).cuda()
+    for name, model in shard["models"].items():
+        single = os.path.join(shard["tmp"], "single_" + name)
+        export_forward(model, (cs.SHARD_SERVE_V,), single, cs.K_EIG,
+                       device="cuda")
+        with torch.no_grad():
+            ref = load_serving_model(single, device="cuda")(x, *ops)
+        for r, rep in enumerate(ranks):
+            cs.compare(f"rank {r} {name} sharded artifact (vert "
+                       f"{len(ranks)}) against the single-card ServingModel",
+                       torch.from_numpy(rep[name + "/y"]).cuda(), ref,
+                       cs.SHARD_SERVE_TOL, quiet=r > 0)
+            want = [cs.N_BLOCK] * 3 if name == "fused" else [0, 0, 0]
+            got = rep[name + "/launches"].tolist()
+            cs.check(got == want, f"rank {r} {name}: B4 (project, apply) "
+                     f"and xhat_reduce launches {got}")
+        ms = [float(np.median(rep[name + "/ms"])) for rep in ranks]
+        cs.log(f"  {name} sharded artifact, vert {len(ranks)}: B4 (project, "
+               f"apply) and xhat_reduce launches a request {[rep[name + '/launches'].tolist() for rep in ranks]}"
+               f"; warm request through a PreparedSurface, median of "
+               f"{cs.SHARD_REQUESTS - 2}: {ms} ms on the ranks (host clock) "
+               f"[{card}]")
+        res[name + "_ms"] = ms
+    return res
 
 
 def main() -> int:
@@ -194,10 +370,11 @@ def main() -> int:
         d.update(cs._bundle_arrays("b/ops/", batch.ops))
         for f in ("verts", "labels", "faces", "face_mask"):
             d["b/" + f] = getattr(batch, f).cpu().numpy()
+        arts, shard = _sharded_inputs(d, ds, n, tmp)
         inputs = os.path.join(tmp, "inputs.npz")
         np.savez(inputs, **d)
         t0 = time.perf_counter()
-        ranks = parallel.launch(_rank, n, (inputs,), backend="nccl",
+        ranks = parallel.launch(_rank, n, (inputs, arts), backend="nccl",
                                 threads=None, timeout_s=900,
                                 workdir=os.path.join(tmp, "ranks"))
         cs.log(f"  {n} nccl ranks ran in {time.perf_counter() - t0:.2f} s "
@@ -273,6 +450,8 @@ def main() -> int:
             results[name] = {"loss": float(res["rank 0"][0]),
                              "ms": ms, "one_process_ms": one["one/ms"],
                              "launches": launches}
+
+        results["sharded"] = _sharded_checks(ranks, shard, card)
 
         # the RNA driver as a user launches it
         root = layouts.rna(os.path.join(tmp, "rna"),

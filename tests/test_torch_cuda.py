@@ -877,3 +877,105 @@ def test_driver_one_epoch_on_the_card(cuda, tmp_path):
     assert be.LAUNCHES["blocked_ell"] > 0, be.LAUNCHES
     assert mb.LAUNCHES["megablock_fwd"] > 0, mb.LAUNCHES
     assert mb.LAUNCHES["megablock_bwd_rows"] > 0, mb.LAUNCHES
+
+
+def _torus_problem():
+    """torus(40, 30)'s cotan Laplacian, mass and ELL (numpy)."""
+    from diffusionnet_tpu_torch.ops.sparse import ell_from_coo
+    L, m = _torus_laplacian(with_mass=True)
+    c = L.tocoo()
+    return L, m, ell_from_coo(c.row, c.col, c.data, L.shape[0])
+
+
+def _one_rank_world(backend="nccl"):
+    """A world of one process (this one) over a free localhost port."""
+    import socket
+    from diffusionnet_tpu_torch import parallel
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    parallel.initialize(f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+                        backend=backend)
+
+
+@pytest.mark.cuda
+def test_sharded_solver_at_vert_1_is_the_ell_route(cuda):
+    """eigensolve_device_sharded over one nccl rank (vert = 1): the same
+    start block and reductions as eigensolve_device(banded=False), so the
+    same eigenvalues and vectors bit for bit."""
+    import torch.distributed as dist
+    from diffusionnet_tpu_torch.geometry import eigen
+    from diffusionnet_tpu_torch.parallel import make_mesh
+    L, m, ell = _torus_problem()
+    _one_rank_world()
+    try:
+        ev_s, vec_s = eigen.eigensolve_device_sharded(
+            ell, m.astype(np.float32), 16, make_mesh(vert=1), device="cuda")
+    finally:
+        dist.destroy_process_group()
+    ev, vec = eigen.eigensolve_device(ell, m.astype(np.float32), 16,
+                                      banded=False, device="cuda")
+    assert torch.equal(ev_s, ev) and torch.equal(vec_s, vec)
+
+
+@pytest.mark.cuda
+def test_fused_sharded_program_launches_b4_on_one_rank(cuda, tmp_path):
+    """A fused model's sharded artifact (n_devices 1) on one nccl rank:
+    its program holds B4's two ops and the sum between them once a block,
+    a request launches B4's two kernels (and xhat_reduce) once a block,
+    and the output agrees with the single-card ServingModel of the same
+    model."""
+    import torch.distributed as dist
+    from diffusionnet_tpu_torch.models import DiffusionNet
+    from diffusionnet_tpu_torch.ops import fused
+    from diffusionnet_tpu_torch.ops import megablock as mb
+    from diffusionnet_tpu_torch.parallel import make_mesh
+    from diffusionnet_tpu_torch.serving import (
+        export_forward, export_sharded_forward, load_serving_model,
+        load_sharded_serving_model)
+    from diffusionnet_tpu_torch.serving.export import kernel_ops
+    model = DiffusionNet(c_in=3, c_out=5, c_width=16, n_block=2,
+                         dropout=False, use_pallas_fused=True,
+                         pallas_tile_v=128)
+    d, single = str(tmp_path / "sharded"), str(tmp_path / "single")
+    export_sharded_forward(model, 256, d, 16, n_devices=1, device="cuda")
+    export_forward(model, (256,), single, 16, device="cuda")
+    x, mass, evals, evecs, gX, gY = _serving_inputs(cuda)
+    ref = load_serving_model(single)(x, mass, evals, evecs, gX, gY)
+    _one_rank_world()
+    try:
+        sm = load_sharded_serving_model(d, mesh=make_mesh(vert=1))
+        assert kernel_ops(sm.program) == {"spectral_project": 2,
+                                          "spectral_apply": 2, "vert_sum": 2}
+        torch.cuda.synchronize()
+        fused.reset_launches()
+        mb.reset_launches()
+        out = sm(x, mass, evals, evecs, gX, gY)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES == {"spectral_project": 2,
+                                  "spectral_apply": 2, "spectral_ds": 0}
+        assert mb.LAUNCHES["xhat_reduce"] == 2
+    finally:
+        dist.destroy_process_group()
+    assert out.is_cuda and out.shape == ref.shape
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("banded", ["dia", True])
+def test_band_and_dia_solves_match_b5(cuda, banded):
+    """The DIA and dense-band routes on the torus against the B5 route:
+    polished eigenvalues within 1e-6 of the largest."""
+    from diffusionnet_tpu_torch.geometry import eigen
+    from diffusionnet_tpu_torch.ops import blocked_ell as be
+    L, m, ell = _torus_problem()
+    pol = (L, np.asarray(m, np.float64))
+    be.reset_launches()
+    ev_b5, _ = eigen.eigensolve_device(ell, m.astype(np.float32), 16,
+                                       polish=pol, device="cuda")
+    assert be.LAUNCHES["blocked_ell"] > 0
+    be.reset_launches()
+    ev, _ = eigen.eigensolve_device(ell, m.astype(np.float32), 16,
+                                    banded=banded, polish=pol, device="cuda")
+    assert be.LAUNCHES["blocked_ell"] == 0
+    assert np.abs(ev - ev_b5).max() <= 1e-6 * ev_b5.max()

@@ -5,9 +5,9 @@ The same weights (the JAX init, carried over with from_flat_jax_params)
 and the same operators (the JAX package's, numpy) go through JAX's
 model.apply and through the port's exported programs; outputs within the
 JAX serving tests' own tolerance (rtol 2e-5, atol 2e-6). The JAX tests of
-the vertex-sharded artifact have no counterpart here: it comes with
-ROADMAP item A.6. The hot path's no-sync test needs the card and lives in
-tests/test_torch_cuda.py."""
+the vertex-sharded artifact have their counterparts in
+tests/test_torch_serving_sharded.py. The hot path's no-sync test needs the
+card and lives in tests/test_torch_cuda.py."""
 
 import json
 import os
@@ -368,9 +368,17 @@ def test_explicit_device_honored(vertex_artifact, tmp_path):
 
 
 def test_sharded_entry_points_name_their_roadmap_item(vertex_artifact):
-    for fn in (export_sharded_forward, load_sharded_serving_model):
-        with pytest.raises(NotImplementedError, match="A.6"):
-            fn(vertex_artifact["dir"])
+    """The sharded entry points refuse what is not theirs: a bucketed
+    artifact (kind dispatch, before any process group is needed) and a
+    model the sharded export cannot serve (tests/test_torch_serving_sharded
+    .py serves the sharded artifact over 4 ranks)."""
+    with pytest.raises(ValueError, match="load_serving_model"):
+        load_sharded_serving_model(vertex_artifact["dir"], device="cpu")
+    with pytest.raises(ValueError, match="outputs_at"):
+        export_sharded_forward(
+            DiffusionNet(c_in=3, c_out=2, c_width=8, n_block=1,
+                         outputs_at="faces"),
+            V_BUCKET, vertex_artifact["dir"] + "_sharded", K, n_devices=2)
 
 
 def test_format_version_mismatch_rejected(vertex_artifact, tmp_path):
