@@ -24,7 +24,8 @@ with --block (the block kernels and the train step they carry):
     x_hat kernel's results on these inputs (`digest`), which two trees
     share where their kernels sum in the same order;
   * B1 at C = 256, hidden [256, 256], K = 128, B=1, V=32768 (the
-    sampling_invariance model's widths), the same way;
+    sampling_invariance model's widths), the same way; B1 and B2 at C = 256
+    with hidden [1024, 1024] (a tree's wide route, where it has one);
   * xhat_reduce at B1's split counts (1, 128) and (8, 16), and at
     (1, 132), in device time (chip_smoke.device_ms);
   * the train step at bench.py's shapes (chip_smoke.phase_step_times,
@@ -66,6 +67,7 @@ Without --block or --fused:
 from __future__ import annotations
 
 import hashlib
+import inspect
 import json
 import os
 import statistics
@@ -110,6 +112,15 @@ def host_ms(fn, calls=20, reps=11, warmup=3) -> float:
     return statistics.median(runs)
 
 
+def b1_route(mb, C, widths, lowp) -> list:
+    """B1's route or layout at these widths in the tree's own terms (its
+    fwd_route took K first while it had a wide route)."""
+    limit = mb._smem_limit(0)
+    if "K" in inspect.signature(mb.fwd_route).parameters:
+        return list(mb.fwd_route(128, C, widths, lowp, limit))
+    return list(mb.fwd_route(C, widths, lowp, limit))
+
+
 def block_times(cs, out):
     """B1 and B2 (and their kernels where the tree has them), B1 at C = 256,
     xhat_reduce and the bench-shape train step, into `out`."""
@@ -140,8 +151,7 @@ def block_times(cs, out):
             b1_rows_bound_ms=cs.megablock_bound(B, V, 128, C, widths, False,
                                                 False, lowp)[0],
             b1_xhat_bound_ms=cs.xhat_bound(B, V, 128, C, sp[0], lowp)[0],
-            b1_route=list(mb.fwd_route(128, C, widths, lowp,
-                                       mb._smem_limit(0))),
+            b1_route=b1_route(mb, C, widths, lowp),
             xhat_splits=sp)
         del src
 
@@ -183,6 +193,24 @@ def block_times(cs, out):
         b1(r, args, 1, 32768, 256, (768, 256, 256, 256), kind == "bf16")
         out[f"block C=256 B=1 V=32768 K=128 {kind}"] = r
         del args
+    widths = (768, 1024, 1024, 256)
+    for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        lowp = kind == "bf16"
+        args = cs.block_inputs(1, 32768, 128, 256, widths[1:3], dtype, seed=1)
+        g = torch.Generator(device="cuda").manual_seed(3)
+        dout = torch.randn(1, 32768, 256, generator=g, device="cuda").to(dtype)
+        dxn = torch.randn(1, 128, 256, generator=g, device="cuda")
+        r = {}
+        b1(r, args, 1, 32768, 256, widths, lowp)
+        r.update(
+            b1_bound_ms=cs.megablock_bound(1, 32768, 128, 256, widths, True,
+                                           False, lowp)[0],
+            b2_ms=cs.time_ms(lambda: mb.megablock_chained_bwd(
+                *args, dout, dxn, lowp=lowp)),
+            b2_digest=digest(mb.megablock_chained_bwd(*args, dout, dxn,
+                                                      lowp=lowp)))
+        out[f"block C=256 hidden [1024, 1024] B=1 V=32768 K=128 {kind}"] = r
+        del args, dout, dxn
     g = torch.Generator(device="cuda").manual_seed(7)
     for B, S in ((1, 128), (8, 16), (1, 132)):
         p = torch.randn(B, S, mb.SLOT, mb.SLOT, generator=g, device="cuda")

@@ -11,8 +11,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      segmentation model (B=2, V=32768, K=128, C=128, hidden [128, 128]), of
      the sampling_invariance model (B=1, V=32768, C=256, hidden [256, 256],
      K 128 and 256: B1's row kernel with one warpgroup a CTA and feat in a
-     device scratch in f32, x_hat_next in 128 x 128 pieces), at a small ragged shape, and on B1's
-     wide route (C=256 with hidden [1024, 1024]; C % 8 != 0), f32 and bf16
+     device scratch in f32, x_hat_next in 128 x 128 pieces), at a small ragged shape, and at the
+     shapes of B1's earlier wide route (C=256 with hidden [1024, 1024], the
+     hidden layers in device scratch; C = 12, padded to 16), f32 and bf16
      operands, emit_next on and off, each launched twice and bit-identical;
      B1's x_hat kernel alone against its plain version (the same split of
      V) with the fixed-order sum of its partials bit-equal to the plain
@@ -47,8 +48,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      must agree in loss, every gradient and the updated parameters;
   9. times: B2 against its plain backward, and its rows kernel, grads
      kernel and partial sums each beside its plain version and bound, B1's
-     dropout cost, B1 and B2 at C = 256 (K 128 and 256) and B1's wide
-     route (C = 256, hidden [1024, 1024]), B1 held to its plain version
+     dropout cost, B1 and B2 at C = 256 (K 128 and 256, hidden [256, 256];
+     K 128, hidden [1024, 1024]), B1 held to its plain version
      with two launches bit-identical before each time, and the whole
      train step at bench.py's shapes (B=8, V=20480, f32 and bf16
      operands) with its peak memory and a profiler breakdown averaged over
@@ -115,6 +116,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      icosphere(5) padded to 32768) through apply_model(use_megakernel=True):
      4 B1 and 4 B2 launches a step; one step with dropout off against the
      eager model with autograd; the step's time;
+ 16b. two models at widths the earlier kernels did not take, c_width 100
+     (default hidden [100, 100]; B1 and B2 pad C to 104) and c_width 256
+     with hidden [1024, 1024] (B1's hidden layers in device scratch), in
+     the segmentation model's configuration: 5 Adam steps each (dropout
+     on) on phase 8's batch through the fast path, 4 B1 and 4 B2 launches a
+     step, each step's loss and gradients against the same step with the
+     blocks' plain version on the card; a step's time; a warm
+     InferenceSession(use_megakernel=True) request against the eager model;
  17. the training harness (experiments.exp_common.fit): (a) B1 and B2
      against their plain versions at the synthetic SHREC example's shapes
      (B=10, V=256 with padding rows, K=32, C=64, hidden [64, 64]; f32 and
@@ -221,6 +230,7 @@ before them is a JSON summary of the kernels.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -240,7 +250,7 @@ N_BLOCK = 4
 # last, B2's two kernels per block and three partial sums each (ds, the
 # parameters, db)
 B2_PER_STEP = {"megablock_fwd": N_BLOCK, "megablock_fwd_xhat": N_BLOCK - 1,
-               "megablock_fwd_wide": 0, "xhat_reduce": N_BLOCK - 1,
+               "xhat_reduce": N_BLOCK - 1,
                "megablock_bwd_rows": N_BLOCK, "megablock_bwd_grads": N_BLOCK,
                "grad_reduce": 3 * N_BLOCK}
 SEG_MODEL = dict(c_in=16, c_out=8, c_width=128, n_block=N_BLOCK,
@@ -453,17 +463,23 @@ def b1_twice(mb, tag, args, **kw):
     return out, xn, {k: v // 2 for k, v in mb.LAUNCHES.items()}
 
 
-def b1_launches(mb, K, C, hidden, lowp, emit):
-    """The launches of one B1 call: the row kernel (and with emit_next its
-    x_hat kernel and partial sum), or the wide route (and its sum)."""
-    route = mb.fwd_route(K, C, (3 * C, *hidden, C), lowp, mb._smem_limit(0))
+def b1_launches(mb, C, hidden, lowp, emit):
+    """The row kernel's layout for one B1 call, and the call's launches:
+    the row kernel (and with emit_next its x_hat kernel and partial sum)."""
+    layout = mb.fwd_route(C, (3 * C, *hidden, C), lowp, mb._smem_limit(0))
     want = dict.fromkeys(mb.LAUNCHES, 0)
-    want["xhat_reduce"] = int(emit)
-    if route[0] == "rows":
-        want.update(megablock_fwd=1, megablock_fwd_xhat=int(emit))
-    else:
-        want["megablock_fwd_wide"] = 1
-    return route, want
+    want.update(megablock_fwd=1, megablock_fwd_xhat=int(emit),
+                xhat_reduce=int(emit))
+    return layout, want
+
+
+def layout_name(layout) -> str:
+    """A row-kernel layout (`fwd_route`) in words."""
+    wgs, resident, spilled = layout
+    slots = ("gx/xd", "gy", "feat")[resident:]
+    return (f"{wgs} warpgroup{'s' if wgs > 1 else ''} a CTA"
+            + (f", {' and '.join(slots)} spilled" if slots else "")
+            + (", hidden layers spilled" if spilled else ""))
 
 
 def xhat_kernel_check(mb, tag, args, out, lowp):
@@ -496,14 +512,15 @@ def xhat_kernel_check(mb, tag, args, out, lowp):
 
 def phase_kernels(mb):
     log("== phase 3: kernels against their plain versions")
-    errs = {"megablock_fwd": 0.0, "megablock_fwd_xhat": 0.0,
-            "megablock_fwd_wide": 0.0}
+    errs = {"megablock_fwd": 0.0, "megablock_fwd_xhat": 0.0}
+    # the last two: the earlier wide route's shapes, on the row kernel with
+    # the hidden layers spilled, and with C padded to 16
     shapes = [(2, 32768, 128, 128, (128, 128), 0),     # full width
               (1, 32768, 128, 256, (256, 256), 0),     # C = 256
               (1, 32768, 256, 256, (256, 256), 0),     # K = C = 256
               (2, 1000, 16, 8, (16, 32, 8), 100),      # ragged last tile
-              (1, 8192, 128, 256, (1024, 1024), 0),    # the wide route
-              (2, 1000, 16, 12, (12,), 100)]           # C % 8 != 0: wide
+              (1, 8192, 128, 256, (1024, 1024), 0),    # hidden 1024
+              (2, 1000, 16, 12, (12,), 100)]           # C % 8 != 0
     for B, V, K, C, hidden, n_pad in shapes:
         for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             args = block_inputs(B, V, K, C, hidden, dtype, seed=V + K,
@@ -512,18 +529,15 @@ def phase_kernels(mb):
             for emit in (True, False):
                 tag = (f"B={B} V={V} K={K} C={C} hidden={list(hidden)} "
                        f"{kind} emit_next={emit}")
-                route, want = b1_launches(mb, K, C, hidden, lowp, emit)
+                layout, want = b1_launches(mb, C, hidden, lowp, emit)
                 out, xn, got = b1_twice(mb, tag, args, emit_next=emit,
                                         lowp=lowp)
                 check(got == want, f"{tag}: launches {got} != {want}")
                 ref, ref_xn = mb.megablock_chained_reference(
                     *args, emit_next=emit, lowp=lowp)
                 torch.cuda.synchronize()
-                lay = route[1]
-                lay = (f"rows route, {lay[0]} warpgroups a CTA"
-                       + (", feat spilled" if lay[1] else "")
-                       if route[0] == "rows" else "wide route")
-                tag += f" ({lay}; two launches bit-identical)"
+                tag += (f" ({layout_name(layout)}; two launches "
+                        "bit-identical)")
                 check(out.dtype == args[0].dtype and out.shape == ref.shape,
                       f"{tag}: out dtype/shape")
                 e = compare(f"{tag} out", out, ref, TOL[kind])
@@ -532,11 +546,9 @@ def phase_kernels(mb):
                                        TOL[kind]))
                 else:
                     check(xn is None, f"{tag}: x_hat_next without emit_next")
-                name = ("megablock_fwd" if route[0] == "rows"
-                        else "megablock_fwd_wide")
                 if kind == "f32" and V >= 8192:
-                    errs[name] = max(errs[name], e)
-                if route[0] == "rows" and not emit:
+                    errs["megablock_fwd"] = max(errs["megablock_fwd"], e)
+                if not emit:
                     ex = xhat_kernel_check(mb, tag, args, out, lowp)
                     if kind == "f32" and V >= 8192:
                         errs["megablock_fwd_xhat"] = max(
@@ -600,7 +612,7 @@ def phase_slice(mb):
                                    use_megakernel=True, device="cuda")
         per_block = {"megablock_fwd": N_BLOCK,
                      "megablock_fwd_xhat": N_BLOCK - 1,
-                     "megablock_fwd_wide": 0, "xhat_reduce": N_BLOCK - 1,
+                     "xhat_reduce": N_BLOCK - 1,
                      "megablock_bwd_rows": 0, "megablock_bwd_grads": 0,
                      "grad_reduce": 0}
         preds, stamps = [], []
@@ -966,7 +978,7 @@ def segmentation_dataset(cache):
 
 
 def step_agreement(name_a, name_b, res, before, checked, exempt=(),
-                   tol=STEP_TOL):
+                   tol=STEP_TOL, per_tensor=True, label="dropout off"):
     """Two results of one train step from the same state, res[name] =
     (loss, gradients, parameters after): the loss within STEP_TOL["loss"],
     then for each of gradients, Adam updates (parameters after minus
@@ -976,10 +988,11 @@ def step_agreement(name_a, name_b, res, before, checked, exempt=(),
     others. Tensors whose names contain a string of `exempt` are printed
     but left out of the Adam updates' check (their gradients stay
     checked). tol: STEP_TOL, or a wider `whole` where a phase measures its
-    configuration's own sensitivity."""
+    configuration's own sensitivity. per_tensor: print each tensor's
+    difference too (it is checked either way). label: the lines' prefix."""
     (la, ga, pa), (lb, gb, pb) = res[name_a], res[name_b]
     rel = abs(la - lb) / abs(lb)
-    log(f"  dropout off: loss {name_a} {la:.8f}, {name_b} {lb:.8f} "
+    log(f"  {label}: loss {name_a} {la:.8f}, {name_b} {lb:.8f} "
         f"(relative difference {rel:.2e}, tolerance {tol['loss']})")
     check(rel <= tol["loss"], f"loss: {name_a} and {name_b} differ")
     kinds = (("gradient", ga, gb),
@@ -995,7 +1008,7 @@ def step_agreement(name_a, name_b, res, before, checked, exempt=(),
             return math.sqrt(sum(d(k).float().norm().item() ** 2 for k in ks))
         whole, held_whole = norm(b), norm(held)
         diff = norm(held, lambda k: a[k].float() - b[k].float())
-        log(f"  dropout off, {what}s ({'checked' if gate else 'not checked'}"
+        log(f"  {label}, {what}s ({'checked' if gate else 'not checked'}"
             f"): whole {diff / held_whole:.2e} of the whole norm "
             f"{held_whole:.3e} (tolerance {tol['whole']}"
             + (f"; {len(b) - len(held)} tensors matching {exempt} printed, "
@@ -1010,7 +1023,7 @@ def step_agreement(name_a, name_b, res, before, checked, exempt=(),
             if k in held and e > (tol["own"] * own
                                   + tol["whole"] * held_whole):
                 bad.append(k)
-        for i in range(0, len(rows), 4):
+        for i in range(0, len(rows) if per_tensor else 0, 4):
             log("    " + "; ".join(rows[i:i + 4]))
         if gate:
             check(diff <= tol["whole"] * held_whole,
@@ -1087,43 +1100,35 @@ def phase_train(mb):
 
 
 def phase_wide_times(mb, card):
-    """B1 and B2 at C = 256 (hidden [256, 256], K 128 and 256, B=1,
-    V=32768, emit_next), f32 and bf16, beside their plain versions and
-    bounds: the sampling_invariance model's widths; then B1's wide route
-    at C = 256 with hidden [1024, 1024]. B1 is first held to its plain
-    version, two launches bit-identical. Returns the times, and the wide
-    route's (kernel, plain, bound, error) in f32."""
-    log("== phase 9b: B1 and B2 at C = 256, and B1's wide route (CUDA "
-        "events, median of 10 runs of 10 calls)")
+    """B1 and B2 at C = 256 (B=1, V=32768, emit_next), f32 and bf16, beside
+    their plain versions and bounds: hidden [256, 256] at K 128 and 256,
+    the sampling_invariance model's widths; hidden [1024, 1024] at K 128,
+    the earlier wide route's shape, on the row kernel with the hidden
+    layers spilled. B1 is first held to its plain version, two launches
+    bit-identical. Returns the times by (K, hidden[0], kind)."""
+    log("== phase 9b: B1 and B2 at C = 256, hidden [256, 256] and [1024, "
+        "1024] (CUDA events, median of 10 runs of 10 calls)")
     out = {}
     for K, hidden in ((128, (256, 256)), (256, (256, 256)),
                       (128, (1024, 1024))):
         widths = (768, *hidden, 256)
-        wide = hidden[0] == 1024
         for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             lowp = kind == "bf16"
             args = block_inputs(1, 32768, K, 256, hidden, dtype, seed=K)
-            route, want = b1_launches(mb, K, 256, hidden, lowp, True)
+            layout, want = b1_launches(mb, 256, hidden, lowp, True)
             tag = (f"B=1 V=32768 K={K} C=256 hidden {list(hidden)} {kind} "
-                   f"({route[0]} route)")
+                   f"({layout_name(layout)})")
             o, xn, got = b1_twice(mb, tag, args, lowp=lowp)
             check(got == want, f"{tag}: launches {got} != {want}")
             ref, ref_xn = mb.megablock_chained_reference(*args, lowp=lowp)
-            err = max(compare(f"{tag} out (two launches bit-identical)", o,
-                              ref, TOL[kind]),
-                      compare(f"{tag} x_hat_next", xn, ref_xn, TOL[kind]))
+            compare(f"{tag} out (two launches bit-identical)", o, ref,
+                    TOL[kind])
+            compare(f"{tag} x_hat_next", xn, ref_xn, TOL[kind])
             del o, xn, ref, ref_xn
             f = time_ms(lambda: mb.megablock_chained_fwd(*args, lowp=lowp))
             fp = time_ms(lambda: mb.megablock_chained_reference(*args,
                                                                lowp=lowp))
             fb = megablock_bound(1, 32768, K, 256, widths, True, False, lowp)
-            if wide:
-                out[("wide", kind)] = (f, fp, fb, err)
-                log(f"  time {tag}: B1 {f:.4f} ms (plain {fp:.4f}, bound "
-                    f"{fb[0]:.4f} ms, {fb[1]}, share {fb[0] / f:.3f}) "
-                    f"[{card}]")
-                del args
-                continue
             g = torch.Generator(device="cuda").manual_seed(4)
             dout = torch.randn(1, 32768, 256, generator=g, device="cuda").to(
                 dtype)
@@ -1133,7 +1138,7 @@ def phase_wide_times(mb, card):
             bp = time_ms(lambda: mb.megablock_chained_bwd_reference(
                 *args, dout, dxn, lowp=lowp), reps=3)
             bb = megablock_bound(1, 32768, K, 256, widths, True, True, lowp)
-            out[(K, kind)] = dict(fwd=(f, fp, fb), bwd=(b, bp, bb))
+            out[(K, hidden[0], kind)] = dict(fwd=(f, fp, fb), bwd=(b, bp, bb))
             log(f"  time {tag}: "
                 f"B1 {f:.4f} ms (plain {fp:.4f}, bound {fb[0]:.4f} ms, "
                 f"{fb[1]}, share {fb[0] / f:.3f}); B2 {b:.4f} ms (plain "
@@ -1856,7 +1861,7 @@ def phase_fused_slice(mb, fu, batch):
     per_step = {"spectral_project": N_BLOCK, "spectral_apply": N_BLOCK,
                 "spectral_ds": N_BLOCK,
                 "megablock_fwd": 0, "megablock_fwd_xhat": 0,
-                "megablock_fwd_wide": 0, "xhat_reduce": 2 * N_BLOCK,
+                "xhat_reduce": 2 * N_BLOCK,
                 "megablock_bwd_rows": 0, "megablock_bwd_grads": 0,
                 "grad_reduce": 0}
     log(f"  launches in 5 steps (B={B}, V={V}): {launches}")
@@ -1902,7 +1907,7 @@ def phase_fused_slice(mb, fu, batch):
     per_req = {"spectral_project": N_BLOCK, "spectral_apply": N_BLOCK,
                "spectral_ds": 0,
                "megablock_fwd": 0, "megablock_fwd_xhat": 0,
-               "megablock_fwd_wide": 0, "xhat_reduce": N_BLOCK,
+               "xhat_reduce": N_BLOCK,
                "megablock_bwd_rows": 0, "megablock_bwd_grads": 0,
                "grad_reduce": 0}
     log(f"  warm request torus(144, 140) (V={verts.shape[0]}, bucket "
@@ -1943,8 +1948,7 @@ def phase_fused_slice(mb, fu, batch):
     one = {**fu.LAUNCHES, **mb.LAUNCHES}
     want = {"spectral_project": 3, "spectral_apply": 0, "spectral_ds": 0,
             "megablock_fwd": 3,
-            "megablock_fwd_xhat": 0, "megablock_fwd_wide": 0,
-            "xhat_reduce": 3, "megablock_bwd_rows": 3,
+            "megablock_fwd_xhat": 0, "xhat_reduce": 3, "megablock_bwd_rows": 3,
             "megablock_bwd_grads": 3, "grad_reduce": 9}
     log(f"    launches: {one}")
     check(one == want, f"B3 path launches {one} != {want}")
@@ -2270,6 +2274,141 @@ def phase_c256_train(mb, card):
     return launches
 
 
+# Phase 16b's two models: the segmentation model's configuration (HKS
+# input, 8 face classes, 4 blocks, k 128, dropout on) at widths the JAX
+# package's fast path takes and the port's kernels did not take before:
+# c_width 100 with the default hidden [100, 100] (C % 8 != 0: B1 and B2 run
+# with C padded to 104) and c_width 256 with hidden [1024, 1024] (B1's row
+# kernel with the hidden layers in device scratch)
+WIDE_MODELS = {"c_width 100": dict(c_width=100, mlp_hidden_dims=None),
+               "c_width 256, hidden [1024, 1024]": dict(
+                   c_width=256, mlp_hidden_dims=[1024, 1024])}
+
+
+@contextlib.contextmanager
+def plain_blocks(mb):
+    """The fast path with each block's plain PyTorch version in place of
+    B1 and B2 (differentiable through autograd), on the same tensors."""
+    from diffusionnet_tpu_torch.models import fast_path
+    saved = fast_path.megablock_chained
+    fast_path.megablock_chained = mb.megablock_chained_reference
+    try:
+        yield
+    finally:
+        fast_path.megablock_chained = saved
+
+
+def phase_wide_train(mb, card, batch):
+    """Each of WIDE_MODELS takes 5 Adam steps (dropout on) on phase 8's
+    batch through make_train_step on the fast path: every step launches B1
+    and B2 as phase 8's do, and is held, in loss and gradients, to the same
+    step from the same state and dropout generator with the blocks' plain
+    version on the card. Then a train step's time, and a cold and a warm
+    InferenceSession(use_megakernel=True) request on torus(144, 140), the
+    warm one against the eager model. Returns the launch counts of the
+    kernel steps and the warm requests."""
+    from diffusionnet_tpu_torch.models import DiffusionNet, flat_params
+    from diffusionnet_tpu_torch.training import (
+        InferenceSession, TaskConfig, adam_state_from_flat,
+        adam_state_to_flat, adam_with_step_decay, apply_model,
+        loss_and_counts, make_train_step)
+
+    log("== phase 16b: models at c_width 100 and at c_width 256 with hidden "
+        "[1024, 1024], 5 Adam steps each through the fast path on cuda, "
+        "each against the blocks' plain version, and a served request")
+    B, V = batch.verts.shape[:2]
+    cfg = TaskConfig(input_features="hks", labels_kind="face")
+    verts, faces = meshgen().torus(n_major=144, n_minor=140)
+    launches = dict.fromkeys(mb.LAUNCHES, 0)
+    per_req = {**dict.fromkeys(mb.LAUNCHES, 0), "megablock_fwd": N_BLOCK,
+               "megablock_fwd_xhat": N_BLOCK - 1, "xhat_reduce": N_BLOCK - 1}
+    for name, kw in WIDE_MODELS.items():
+        model = DiffusionNet(**{**SEG_MODEL, **kw},
+                             generator=torch.Generator().manual_seed(5),
+                             last_activation=functools.partial(
+                                 torch.log_softmax, dim=-1))
+        C = kw["c_width"]
+        widths = (3 * C, *(kw["mlp_hidden_dims"] or (C, C)), C)
+        log(f"  {name}: B1's layout, f32 operands: "
+            f"{layout_name(mb.fwd_route(C, widths, False, mb._smem_limit(0)))}"
+            f"; bf16: "
+            f"{layout_name(mb.fwd_route(C, widths, True, mb._smem_limit(0)))}")
+        params = flat_params(model, "cuda", requires_grad=True)
+        opt = adam_with_step_decay(1e-3, 50, 0.5)
+        state = opt.init(params)
+        step = make_train_step(
+            lambda p, b, g: loss_and_counts(
+                apply_model(model, p, b, g, cfg, False), b, cfg), opt)
+        gen = torch.Generator().manual_seed(6)
+        losses = []
+        for i in range(5):
+            # the same step with the plain version, from copies of the
+            # state and of the generator (so the same dropout seeds)
+            p_ref = {k: v.detach().clone().requires_grad_(True)
+                     for k, v in params.items()}
+            s_ref = adam_state_from_flat(opt.init(p_ref),
+                                         adam_state_to_flat(state))
+            g_ref = torch.Generator()
+            g_ref.set_state(gen.get_state())
+            with plain_blocks(mb):
+                _, _, loss_ref, _ = step(p_ref, s_ref, batch, g_ref)
+            before = {k: v.detach().clone() for k, v in params.items()}
+            torch.cuda.synchronize()
+            mb.reset_launches()
+            t0 = time.perf_counter()
+            _, _, loss, (correct, total) = step(params, state, batch, gen)
+            losses.append(loss.item())
+            got = dict(mb.LAUNCHES)
+            log(f"  {name} step {i}: loss {losses[-1]:.6f} (plain "
+                f"{loss_ref.item():.6f}), correct {int(correct)} of "
+                f"{int(total)} faces, "
+                f"{1e3 * (time.perf_counter() - t0):.1f} ms [{card}]")
+            check(got == B2_PER_STEP,
+                  f"{name} step {i}: launches {got} != {B2_PER_STEP}")
+            for k in launches:
+                launches[k] += got[k]
+            res = {"kernels": (losses[-1],
+                               {k: v.grad for k, v in params.items()},
+                               {k: v.detach() for k, v in params.items()}),
+                   "plain version": (
+                       loss_ref.item(), {k: v.grad for k, v in p_ref.items()},
+                       {k: v.detach() for k, v in p_ref.items()})}
+            step_agreement("kernels", "plain version", res, before,
+                           checked=("gradient",), per_tensor=i == 0,
+                           label=f"step {i} (dropout on)")
+            del p_ref, s_ref, res
+        check(all(map(math.isfinite, losses)), f"{name}: losses {losses}")
+        t = time_ms(lambda: step(params, state, batch, gen), reps=3,
+                    calls=3, warmup=1)
+        log(f"  time train step B={B} V={V} {name} (dropout on), fast path: "
+            f"{t:.3f} ms per step [{card}]")
+        del params, state, step
+        with tempfile.TemporaryDirectory() as cache:
+            session = InferenceSession(model, k_eig=K_EIG, op_cache_dir=cache,
+                                       use_megakernel=True, device="cuda")
+            session(verts, faces)
+            torch.cuda.synchronize()
+            mb.reset_launches()
+            t0 = time.perf_counter()
+            pred = session(verts, faces)
+            warm = time.perf_counter() - t0
+            got = dict(mb.LAUNCHES)
+            check(got == per_req,
+                  f"{name}: request launches {got} != {per_req}")
+            for k in launches:
+                launches[k] += got[k]
+            ref = InferenceSession(model, k_eig=K_EIG, op_cache_dir=cache,
+                                   device="cuda")(verts, faces)
+        log(f"  {name}: warm request torus(144, 140) (V={verts.shape[0]}): "
+            f"{warm * 1e3:.1f} ms host clock, forward "
+            f"{session.timings['forward_s'] * 1e3:.2f} ms [{card}]")
+        compare(f"{name}: predictions {pred.shape} against the eager model",
+                torch.from_numpy(pred), torch.from_numpy(ref), SLICE_TOL)
+        del session, model
+    log(f"  launches of phase 16b: {launches}")
+    return launches
+
+
 # the synthetic SHREC example's shapes on the megakernel path: batch 10 of
 # meshes of 160-200 vertices padded to the 256 bucket (n_pad: the rows of a
 # 196-vertex mesh's padding), k 32, c_width 64, hidden [64, 64]; the
@@ -2303,10 +2442,9 @@ def phase_example_kernels(mb):
                 tag = (f"example B={B} V={V} K={K} C={C} {kind} "
                        f"emit_next={emit} dropout={seed is not None}")
                 kw = dict(lowp=lowp, seed=seed, tile_v=V)
-                route, want = b1_launches(mb, K, C, hidden, lowp, emit)
+                layout, want = b1_launches(mb, C, hidden, lowp, emit)
                 out, xn, got = b1_twice(mb, tag, args, emit_next=emit, **kw)
-                check(route[0] == "rows" and got == want,
-                      f"{tag}: route {route}, launches {got} != {want}")
+                check(got == want, f"{tag}: launches {got} != {want}")
                 ref, ref_xn = mb.megablock_chained_reference(
                     *args, emit_next=emit, **kw)
                 compare(f"{tag} out (two launches bit-identical)", out, ref,
@@ -2730,7 +2868,7 @@ def phase_serving(mb, fu, card, seg_ds):
     plain_model = segmentation_model().to("cuda").eval()
     per_req = {"spectral_project": N_BLOCK, "spectral_apply": N_BLOCK,
                "spectral_ds": 0, "megablock_fwd": 0, "megablock_fwd_xhat": 0,
-               "megablock_fwd_wide": 0, "xhat_reduce": N_BLOCK,
+               "xhat_reduce": N_BLOCK,
                "megablock_bwd_rows": 0, "megablock_bwd_grads": 0,
                "grad_reduce": 0}
     tmp = tempfile.TemporaryDirectory()
@@ -4182,7 +4320,7 @@ def main() -> int:
     log(f"  launches of the inference slice: {serve_launches}; of the "
         f"training slice: {launches}")
     bwd_times = phase_bwd_times(mb, card)
-    wide_ms = phase_wide_times(mb, card)
+    phase_wide_times(mb, card)
     # grad_reduce over the parameter partials of the grads kernel at B=1,
     # V=32768, f32 (phase 7b), beside its plain version and torch.sum
     par = slots.unsqueeze(0)
@@ -4216,6 +4354,7 @@ def main() -> int:
         f"one request {served_launches}; the B3 op's 3 steps {b3_launches}")
 
     si_launches = phase_c256_train(mb, card)
+    wide16b = phase_wide_train(mb, card, seg_batch)
     phase_example_kernels(mb)
     harness_launches, example_launches, harness_whole = phase_harness(
         mb, card, seg_ds)
@@ -4232,7 +4371,6 @@ def main() -> int:
     widths = (3 * 128, 128, 128, 128)
     b1 = times[(1, 32768, "f32")]
     b2 = bwd_times[(1, 32768, "f32")]
-    wide = wide_ms[("wide", "f32")]
     fwd_b = megablock_bound(1, 32768, 128, 128, widths, True, False)
     bwd_b = megablock_bound(1, 32768, 128, 128, widths, True, True)
     t5 = b5_ms["torus(144, 140)"]
@@ -4246,7 +4384,8 @@ def main() -> int:
         f"{gr_b[0]:.4f} ms, B5 torus C=160 {t5['bound_ms']:.4f} ms "
         f"({t5['bound_by']})")
     log(f"  launches of the sampling_invariance model's 3 steps (phase 16): "
-        f"{si_launches}")
+        f"{si_launches}; of the wide models' 10 steps and 2 requests "
+        f"(phase 16b): {wide16b}")
     log(f"  launches of the harness (phase 17b, 2 epochs at full width): "
         f"{harness_launches}; of the synthetic SHREC example (phase 17c): "
         f"{example_launches}; of the two point-cloud examples (phase 17d): "
@@ -4260,10 +4399,12 @@ def main() -> int:
     def slice_launches(name):
         """A kernel's launches on the main paths that the summary counts:
         phase 8's train steps (B1, B2) or phase 12's precompute (B5), the
-        point-cloud slice's phases 17d and 19, the drivers' phase 20 and
-        phase 21's ranks."""
-        return (ex17d.get(name, 0) + cloud19.get(name, 0)
-                + drivers20.get(name, 0) + par21.get(name, 0))
+        wide models' steps and requests of phase 16b, the point-cloud
+        slice's phases 17d and 19, the drivers' phase 20 and phase 21's
+        ranks."""
+        return (wide16b.get(name, 0) + ex17d.get(name, 0)
+                + cloud19.get(name, 0) + drivers20.get(name, 0)
+                + par21.get(name, 0))
 
     def row(name, source, replaces, n, err, ms, plain, bnd, lib):
         return {"name": name, "route": "cuda",
@@ -4274,8 +4415,7 @@ def main() -> int:
                 "library_ms": lib}
     summary = {"kernels": [
         # B1 at B=1, V=32768, f32: its row kernel, its x_hat kernel (the
-        # plain version of each on the same inputs), the wide route at its
-        # own widths (C=256, hidden [1024, 1024]; not on the main path)
+        # plain version of each on the same inputs)
         row("megablock_fwd", "megablock_fwd.cu", "pallas_megablock.py:259",
             launches["megablock_fwd"] + slice_launches("megablock_fwd"),
             errs["megablock_fwd"], *b1["rows"], None),
@@ -4284,9 +4424,6 @@ def main() -> int:
             launches["megablock_fwd_xhat"]
             + slice_launches("megablock_fwd_xhat"),
             errs["megablock_fwd_xhat"], *b1["xhat"]),
-        row("megablock_fwd_wide", "megablock_fwd_wide.cu",
-            "pallas_megablock.py:259", launches["megablock_fwd_wide"],
-            max(errs["megablock_fwd_wide"], wide[3]), *wide[:3], None),
         # launches: the training slice's (phase 8), the serving slice's
         # (phase 18), the sharded artifact's ranks (phase 22) and the
         # slices of phases 17d, 19, 20 and 21

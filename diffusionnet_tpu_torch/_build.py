@@ -22,7 +22,6 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 SOURCES = (_PKG / "csrc" / "megablock_fwd.cu",
-           _PKG / "csrc" / "megablock_fwd_wide.cu",
            _PKG / "csrc" / "megablock_bwd.cu",
            _PKG / "csrc" / "blocked_ell.cu",
            _PKG / "csrc" / "spectral_fused.cu")
@@ -109,13 +108,10 @@ def load() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         pp, pi, ll = ctypes.POINTER(p), ctypes.POINTER(i), ctypes.c_longlong
         lib.mb_fwd_launch.argtypes = (
-            [p] * 7 + [pp, pp, pi, i, p, p, p] + [i] * 12 + [p])
+            [p] * 7 + [pp, pp, pi, i, p, pp, pp, ll, p] + [i] * 12 + [p])
         lib.mb_fwd_launch.restype = i
         lib.mb_fwd_xhat_launch.argtypes = [p] * 4 + [i] * 8 + [p]
         lib.mb_fwd_xhat_launch.restype = i
-        lib.mb_fwd_wide_launch.argtypes = (
-            [p] * 6 + [i, p, i, pp, pi, pp, pi, i, p, p] + [i] * 13 + [p])
-        lib.mb_fwd_wide_launch.restype = i
         lib.mb_xhat_reduce_launch.argtypes = [p, p, i, i, i, i, p]
         lib.mb_xhat_reduce_launch.restype = i
         lib.mb_smem_optin.argtypes = []

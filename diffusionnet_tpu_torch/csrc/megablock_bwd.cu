@@ -114,7 +114,10 @@
 //
 // Padding: rows at or past V are masked (loads give 0, stores are skipped),
 // and every partial gets exactly 0 from them. Padded rows inside V carry
-// mass 0 and zero operator rows.
+// mass 0 and zero operator rows. A channel count C that is not a multiple
+// of 8 the wrapper pads with zero channels (ops/megablock.py::pad_block),
+// as for B1: every padded channel's value and gradient is exactly 0, and
+// dropout, which acts on the hidden layers only, keeps the model's masks.
 
 #include "megablock_common.cuh"
 #include "splitv.cuh"
@@ -769,9 +772,9 @@ extern "C" {
 // element; dxnT null: emit_next off; cmapF, cmapB; wf[l] for
 // l < n_dense - 1; wb[l]) are tiled as ops/megablock.py::b_tiles lays them
 // out, in the product type (f32 hi and lo, or bf16 with lowp), 16-byte
-// aligned; R (B V, ldr) is in the product type with the groups at the given
-// offsets (multiples of 32); E (B V, 6C) f32 with lowp, else null; dbp
-// (B n_tiles, ld_db) f32.
+// aligned; C % 8 == 0 (the wrapper pads C); R (B V, ldr) is in the product
+// type with the groups at the given offsets (multiples of 32); E (B V, 6C)
+// f32 with lowp, else null; dbp (B n_tiles, ld_db) f32.
 int mb_bwd_rows_launch(
     const void* x, const void* evecs, const void* gx, const void* gy,
     const void* mass, const void* sT, const void* dxnT, const void* cmapF,

@@ -27,10 +27,11 @@
 //    by the wrapper in the order of a thread's A fragments
 //    (ops/megablock.py::b_tiles: wgmma's tf32 takes K-major operands only).
 //    A of the spectral products is the operator rows, read once from device
-//    memory; A of the complex map and the MLP is the tile's activations,
-//    resident in shared memory ([gx | gy], then [x | xd | feat], then the
-//    hidden layers; x itself is read from device memory), so no product's
-//    output makes a round trip through device memory. The epilogues work on
+//    memory; A of the complex map and the MLP is the tile's activations
+//    ([gx | gy], then [x | xd | feat], then the hidden layers; x itself is
+//    read from device memory), in shared memory where they fit, so that
+//    at the models' usual widths no product's output makes a round trip
+//    through device memory (the layouts are below). The epilogues work on
 //    the accumulators in registers: gx, gy, xd and the hidden layers go to
 //    shared memory; the complex map's B columns are interleaved (re_c,
 //    im_c), so a thread's accumulator pair is (vb_re, vb_im) of one column
@@ -48,21 +49,33 @@
 // floating-point atomics: two launches give the same bits.
 //
 // Shared memory of the row kernel: the B ring (NS stages of 32 KB in f32,
-// hi and lo, or 8 KB under lowp) and, per warpgroup, three activation
-// buffers of 64 rows, each round32(max(C, hidden widths)) + 4 floats wide (a
-// row stride of 4 mod 32 floats keeps a quarter-warp's fragment loads in
-// distinct banks): buffer 0 holds gx, then xd, then every other hidden
-// layer; buffer 1 gy, then the other hidden layers; buffer 2 feat. Where
-// the third buffer does not fit, feat goes to a device-memory scratch (B V,
-// C) f32, written once and read once, from L2, by the first MLP layer. The
-// wrapper chooses the layout from these byte counts, before launch
-// (ops/megablock.py::fwd_route), two warpgroups before one and feat in
-// shared memory before the scratch: at K = C = 128, hidden [128, 128],
-// two warpgroups with feat spilled in f32 (2 x 66 KB + 64 KB, NS = 2), with
-// feat resident under lowp (2 x 99 KB + 16 KB); at C = 256, hidden [256,
-// 256], one warpgroup with feat spilled in f32 (130 KB + 96 KB, NS = 3),
-// resident under lowp. Shapes one warpgroup's two buffers do not take go
-// to the wide route (megablock_fwd_wide.cu). One CTA per SM.
+// hi and lo, or 8 KB under lowp) and, per warpgroup, up to three activation
+// buffers of 64 rows (a row stride of 4 mod 32 floats keeps a
+// quarter-warp's fragment loads in distinct banks). The tile's activations
+// sit in three slots, gx then xd, gy, and feat, and its hidden layers, by
+// turns, over the slots of gy and gx. A slot whose buffer does not fit goes
+// to a device-memory scratch of (B V, C) f32, and the hidden layers to two
+// scratches of (B V, widest hidden) f32: each is written once per tile and
+// read back once, from L2, as the next product's A operand, which the
+// kernel reads from device memory the way it reads the operator rows.
+// The wrapper chooses the layout from these byte counts, before launch
+// (ops/megablock.py::fwd_route): the hidden layers in shared buffers
+// (round32(max(C, hidden widths)) + 4 floats wide) before the scratch,
+// two warpgroups before one, and more slots in shared memory before fewer.
+// At K = C = 128, hidden [128, 128]: two warpgroups with feat spilled in
+// f32 (2 x 66 KB + 64 KB, NS = 2), all three buffers under lowp (2 x 99 KB
+// + 16 KB); at C = 256, hidden [256, 256]: one warpgroup with feat spilled
+// in f32 (130 KB + 96 KB, NS = 3), all three under lowp; at C = 256,
+// hidden [1024, 1024]: two warpgroups with the hidden layers, gy and feat
+// spilled (2 x 65 KB + 64 KB in f32, 2 x 65 KB + 16 KB under lowp). One
+// CTA per SM. At C = 256 with hidden [1024, 1024], B = 1, V = 32768 the
+// scratch traffic is about 0.6 GB (the hidden layers' 512 MB), against
+// 160 GFLOP of products.
+//
+// A channel count C that is not a multiple of 8 the wrapper pads with zero
+// channels (ops/megablock.py::pad_block): every padded channel computes
+// exactly 0, and dropout, which acts on the hidden layers only (any width),
+// keeps the model's masks.
 //
 // What bounds it on this card. At K = C = 128 with hidden [128, 128] a
 // vertex costs 212,992 multiply-adds (Phi/GX/GY products 3KC, the complex
@@ -142,11 +155,17 @@ struct FwdArgs {
   const float* bias[MAX_DENSE];
   int width[MAX_DENSE + 1];
   int n_dense;
-  void* out;    // (B,V,C) in x's dtype
-  float* feat;  // (B V, C) f32 scratch, or null: feat in shared memory
-  float* y;     // (B V, C) f32 m (.) out, or null
+  void* out;        // (B,V,C) in x's dtype
+  float* spill[3];  // gx then xd, gy, feat: (B V, C) f32 scratch, or null:
+                    // in a shared buffer
+  float* hid[2];    // the hidden layers by turns: (B V, ldh) f32 scratch,
+                    // or null: in the shared buffers of gy and gx
+  long long ldh;
+  float* y;  // (B V, C) f32 m (.) out, or null
   int V, K, C, c32;
-  int ldb;      // row stride of the shared activation buffers, floats
+  int ldb;   // row stride of the shared activation buffers, floats
+  int nres;  // shared activation buffers per warpgroup: the slots of
+             // spill that are null
   int x_bf16, ops_bf16, x_vec, ops_vec;
   Dropout drop;
 };
@@ -220,15 +239,22 @@ __global__ void __launch_bounds__(W * RNT, 1)
   const int nv = min(RT, V - row0);                // rows inside V (<= 0:
                                                    // a tile past V)
   const long long vr0 = (long long)b * V + row0;   // the tile's first row
-  const bool spill = p.feat != nullptr;
   char* ring = smem;
-  float* buf0 = reinterpret_cast<float*>(smem + NS * SB) +
-                wgi * (spill ? 2 : 3) * RT * ldb;
-  float* buf1 = buf0 + RT * ldb;
-  // feat: the third buffer, or the tile's rows of the device scratch
-  float* feat = spill ? p.feat + vr0 * C : buf1 + RT * ldb;
-  const long long ldf = spill ? C : ldb;
-  const int feat_rows = spill ? nv : RT;
+  // The activation slots: 0 holds gx, then xd; 1 gy; 2 feat. Each is a
+  // 64-row shared buffer (row stride ldb) or the tile's rows of a device
+  // scratch (row stride C; only the rows inside V are read or written).
+  float* const res = reinterpret_cast<float*>(smem + NS * SB) +
+                     wgi * p.nres * RT * ldb;
+  float* act[3];
+  long long lda[3];
+  int rows[3];
+#pragma unroll
+  for (int i = 0, r = 0; i < 3; ++i) {
+    const bool dev = p.spill[i] != nullptr;
+    act[i] = dev ? p.spill[i] + vr0 * C : res + (r++) * RT * ldb;
+    lda[i] = dev ? C : ldb;
+    rows[i] = dev ? nv : RT;
+  }
   const int nseg = p.c32 / KCH;  // chunks of one C-wide segment
   const int nk_s = (K + KCH - 1) / KCH;
   const char* sT = reinterpret_cast<const char*>(p.sT) +
@@ -247,15 +273,22 @@ __global__ void __launch_bounds__(W * RNT, 1)
     int rows, vec, bf16;
   };
   enum { TO_BUF, FEAT, HIDDEN, OUT };
-  float* const hb[2] = {buf1, buf0};  // layer l's output: hb[l % 2]
+  // layer l's output: hb[l % 2], in the device scratch, or over gy and gx
+  const bool hdev = p.hid[0] != nullptr;
+  float* const hb[2] = {hdev ? p.hid[0] + vr0 * p.ldh : act[1],
+                        hdev && p.hid[1] != nullptr ? p.hid[1] + vr0 * p.ldh
+                                                    : act[0]};
+  const long long ldh = hdev ? p.ldh : ldb;
+  const int hrows = hdev ? nv : RT;
   Seg s0{}, s1{}, s2{};
   int seg = 1, kvalid = 0, nk = 0, N = 0, kind = TO_BUF, l = 0;
   const void* Bt = nullptr;
-  float* dst = buf0;
+  float* dst = act[0];  // where TO_BUF and HIDDEN write: row stride ldd,
+  long long ldd = ldb;  // rows below drows
+  int drows = RT;
   const float* bias = nullptr;
-  auto smem_seg = [&](const float* buf) {
-    return Seg{buf, ldb, 0, RT, 1, 0};
-  };
+  auto act_seg = [&](int i) { return Seg{act[i], lda[i], 0, rows[i], 1, 0}; };
+  const int frows = min(rows[0], min(rows[1], rows[2]));
 
   auto load = [&](wg::RowF& a, int kc) {
     const int g = min(kc / seg, 2);
@@ -309,20 +342,20 @@ __global__ void __launch_bounds__(W * RNT, 1)
     }
   };
   auto epi = [&](int n0, float(&d)[64]) {
-    if (kind == TO_BUF) {  // gx, gy, xd into a shared buffer
+    if (kind == TO_BUF) {  // gx, gy, xd into their slot
       wg::for_pairs(d, [&](int m, int nn, float v0, float v1) {
         const int c = n0 + nn;
-        if (c < N)
-          *reinterpret_cast<float2*>(dst + m * ldb + c) = make_float2(v0, v1);
+        if (c < N && m < drows)
+          *reinterpret_cast<float2*>(dst + m * ldd + c) = make_float2(v0, v1);
       });
     } else if (kind == FEAT) {  // B's columns interleaved: the pair
                                 // (2c, 2c + 1) of a block is (vb_re, vb_im)
                                 // of column c
       wg::for_pairs(d, [&](int m, int nn, float vr, float vi) {
         const int c = (n0 + nn) / 2;
-        if (c < C && m < feat_rows)
-          feat[m * ldf + c] =
-              tanhf(buf0[m * ldb + c] * vr + buf1[m * ldb + c] * vi);
+        if (c < C && m < frows)
+          act[2][m * lda[2] + c] = tanhf(act[0][m * lda[0] + c] * vr +
+                                         act[1][m * lda[1] + c] * vi);
       });
     } else if (kind == HIDDEN) {  // ReLU, dropout (tested once: the
                                   // compiler would compute every mask's
@@ -330,7 +363,7 @@ __global__ void __launch_bounds__(W * RNT, 1)
       auto hidden = [&](auto drop) {
         wg::for_pairs(d, [&](int m, int nn, float v0, float v1) {
           const int c = n0 + nn;
-          if (c >= N) return;
+          if (c >= N || m >= drows) return;
           v0 = fmaxf(v0, 0.f);
           v1 = c + 1 < N ? fmaxf(v1, 0.f) : 0.f;
           if (decltype(drop)::value) {
@@ -338,7 +371,7 @@ __global__ void __launch_bounds__(W * RNT, 1)
             v0 = p.drop.apply(v0, b, r, c, N, l);
             v1 = c + 1 < N ? p.drop.apply(v1, b, r, c + 1, N, l) : 0.f;
           }
-          *reinterpret_cast<float2*>(dst + m * ldb + c) = make_float2(v0, v1);
+          *reinterpret_cast<float2*>(dst + m * ldd + c) = make_float2(v0, v1);
         });
       };
       if (p.drop.on)
@@ -379,10 +412,13 @@ __global__ void __launch_bounds__(W * RNT, 1)
       Bt = sT;
       N = C;
       kind = TO_BUF;
-      dst = st == 1 ? buf1 : buf0;  // xd over gx: the complex map is done
+      const bool gy = st == 1;  // xd over gx: the complex map is done
+      dst = gy ? act[1] : act[0];
+      ldd = gy ? lda[1] : lda[0];
+      drows = gy ? rows[1] : rows[0];
     } else if (st == 2) {  // [vb_re | vb_im] = [gx | gy] cmap; feat
-      s0 = smem_seg(buf0);
-      s1 = smem_seg(buf1);
+      s0 = act_seg(0);
+      s1 = act_seg(1);
       seg = nseg;
       nk = 2 * nseg;
       kvalid = C;
@@ -393,13 +429,13 @@ __global__ void __launch_bounds__(W * RNT, 1)
       l = st - 4;
       if (l == 0) {
         s0 = Seg{p.x, C, vr0, nv, p.x_vec, p.x_bf16};
-        s1 = smem_seg(buf0);
-        s2 = Seg{feat, ldf, 0, feat_rows, 1, 0};
+        s1 = act_seg(0);
+        s2 = act_seg(2);
         seg = nseg;
         nk = 3 * nseg;
         kvalid = C;
       } else {
-        s0 = smem_seg(hb[(l - 1) % 2]);
+        s0 = Seg{hb[(l - 1) % 2], ldh, 0, hrows, 1, 0};
         kvalid = p.width[l];
         seg = nk = (kvalid + KCH - 1) / KCH;
       }
@@ -408,6 +444,8 @@ __global__ void __launch_bounds__(W * RNT, 1)
       bias = p.bias[l];
       kind = l + 1 < n ? HIDDEN : OUT;
       dst = hb[l % 2];
+      ldd = ldh;
+      drows = hrows;
     }
     fwd_product<LOWP, W>(ring, nk, Bt, N, load, init, epi);
   }
@@ -542,18 +580,24 @@ extern "C" {
 
 // The row kernel on `stream`. sT (per batch element), cmapF and wf[l] are
 // B tiles as ops/megablock.py::b_tiles lays them out, in the product type,
-// 16-byte aligned; feat: null (feat in shared memory) or a (B V, C) f32
-// scratch; y: null or (B V, C) f32 for m (.) out; ldb: the activation
-// buffers' row stride in floats (4 mod 32, at least round32(max(C, hidden
-// widths)) + 4); wgs: warpgroups a CTA, 1 or 2. dropout 0: off; else masks
-// from (seed, b, row / tile_v, layer).
+// 16-byte aligned; C % 8 == 0 (the wrapper pads C). spill[i]:
+// null (slot i of gx then xd, gy, feat in a shared buffer) or a (B V, C)
+// f32 scratch; hid[0], hid[1]: null (the hidden layers in the buffers of
+// gx and gy, which must then be shared) or (B V, ldh) f32 scratch, hid[1]
+// only with two hidden layers or more; y: null or (B V, C) f32 for
+// m (.) out; ldb: the shared buffers' row stride in floats (4 mod 32, at
+// least round32(C) + 4, and round32(widest hidden) + 4 where they hold the
+// hidden layers); wgs: warpgroups a CTA, 1 or 2. dropout 0: off; else
+// masks from (seed, b, row / tile_v, layer).
 int mb_fwd_launch(const void* x, const void* evecs, const void* gx,
                   const void* gy, const void* mass, const void* sT,
                   const void* cmapF, const void* const* wf,
                   const void* const* bs, const int* widths, int n_dense,
-                  void* out, void* feat, void* y, int B, int V, int K, int C,
-                  int ldb, int wgs, int x_bf16, int ops_bf16, int lowp,
-                  int dropout, int seed, int tile_v, void* stream) {
+                  void* out,
+                  void* const* spill, void* const* hid, long long ldh,
+                  void* y, int B, int V, int K, int C, int ldb, int wgs,
+                  int x_bf16, int ops_bf16, int lowp, int dropout, int seed,
+                  int tile_v, void* stream) {
   if (n_dense < 1 || n_dense > MAX_DENSE || K < 1 || C < 1 || C % 8 != 0 ||
       B < 1 || B > 65535 || V < 1 || (wgs != 1 && wgs != 2))
     return MB_BAD_SHAPE;
@@ -561,14 +605,27 @@ int mb_fwd_launch(const void* x, const void* evecs, const void* gx,
                   V / tile_v > 65536 || n_dense - 1 > 16))
     return MB_BAD_SHAPE;
   if (widths[0] != 3 * C || widths[n_dense] != C) return MB_BAD_SHAPE;
-  int widest = C;
+  int hmax = 0;  // the widest hidden layer
   for (int l = 1; l < n_dense; ++l) {
     if (widths[l] < 1) return MB_BAD_SHAPE;
-    if (widths[l] > widest) widest = widths[l];
+    if (widths[l] > hmax) hmax = widths[l];
   }
-  if (ldb % 32 != 4 || ldb < round_up(widest, 32) + 4) return MB_BAD_LAYOUT;
+  const bool hdev = hid[0] != nullptr;
+  int nres = 0;
+  for (int i = 0; i < 3; ++i) {
+    if (spill[i] == nullptr) ++nres;
+    else if (!aligned16(spill[i])) return MB_BAD_LAYOUT;
+  }
+  if (!hdev && n_dense > 1 && (spill[0] != nullptr || spill[1] != nullptr))
+    return MB_BAD_LAYOUT;  // the hidden layers go over gx's and gy's buffers
+  if (hdev && (ldh % 4 != 0 || ldh < hmax || !aligned16(hid[0]) ||
+               (n_dense > 2 && (hid[1] == nullptr || !aligned16(hid[1])))))
+    return MB_BAD_LAYOUT;
+  const int buf_cols = hdev || C > hmax ? C : hmax;  // a buffer's widest
+  if (nres > 0 && (ldb % 32 != 4 || ldb < round_up(buf_cols, 32) + 4))
+    return MB_BAD_LAYOUT;
   if (!aligned16(sT) || !aligned16(cmapF) || !aligned16(out) ||
-      (feat != nullptr && !aligned16(feat)) || (y != nullptr && !aligned16(y)))
+      (y != nullptr && !aligned16(y)))
     return MB_BAD_LAYOUT;
   FwdArgs p = {};
   p.x = x;
@@ -583,11 +640,15 @@ int mb_fwd_launch(const void* x, const void* evecs, const void* gx,
   for (int l = 0; l <= n_dense; ++l) p.width[l] = widths[l];
   p.n_dense = n_dense;
   p.out = out;
-  p.feat = static_cast<float*>(feat);
+  for (int i = 0; i < 3; ++i) p.spill[i] = static_cast<float*>(spill[i]);
+  p.hid[0] = static_cast<float*>(hid[0]);
+  p.hid[1] = static_cast<float*>(hid[1]);
+  p.ldh = ldh;
   p.y = static_cast<float*>(y);
   p.V = V; p.K = K; p.C = C;
   p.c32 = round_up(C, KCH);
   p.ldb = ldb;
+  p.nres = nres;
   p.x_bf16 = x_bf16; p.ops_bf16 = ops_bf16;
   p.x_vec = aligned16(x);  // C % 8 == 0: every row is 16-byte aligned too
   p.ops_vec = aligned16(evecs) && aligned16(gx) && aligned16(gy) &&
@@ -596,7 +657,7 @@ int mb_fwd_launch(const void* x, const void* evecs, const void* gx,
   const int stage = lowp ? wg::b_stage_bytes<true>() : wg::b_stage_bytes<false>();
   const int ns = wgs == 2 ? stages<2>() : stages<1>();
   const long long smem =
-      (long long)ns * stage + wgs * (feat ? 2LL : 3LL) * RT * ldb * 4;
+      (long long)ns * stage + (long long)wgs * nres * RT * ldb * 4;
   if (smem > max_smem()) return MB_SMEM;
   void* kernel =
       lowp ? (wgs == 2 ? (void*)megablock_fwd_rows_kernel<true, 2>

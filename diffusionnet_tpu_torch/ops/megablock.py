@@ -16,10 +16,10 @@ and, with emit_next, the next block's x_hat = Phi^T (m out). On the card
 the forward is two kernels and a partial sum (csrc/megablock_fwd.cu):
 `megablock_fwd` runs the block per 64-row tile on wgmma and writes `out`;
 `megablock_fwd_xhat` runs x_hat_next's V-reduction on a split-V grid; and
-`xhat_reduce` sums its partials in a fixed order. Shapes the row kernel does
-not take (C % 8 != 0, or MLP widths whose shared buffers exceed the card's)
-go, by `fwd_route` before launch, to the wide route `megablock_fwd_wide`
-(csrc/megablock_fwd_wide.cu, WMMA on 32- or 16-row tiles). The backward
+`xhat_reduce` sums its partials in a fixed order. `fwd_route` chooses the
+row kernel's layout before launch: which activations sit in shared memory
+and which in a device scratch, at any width. Both directions take C % 8 ==
+0 on the card: `pad_block` pads another C with zero channels. The backward
 returns (dx_direct, ds, dA_re, dA_im, dW_l, db_l); `megablock_chained` wraps
 both in a torch.autograd.Function. On the card the backward is two kernels
 and a partial sum: `megablock_bwd_rows` recomputes the forward per 64-row
@@ -61,9 +61,9 @@ _SCALE = 1.0 / (1.0 - DROPOUT_RATE)
 
 # launches per kernel since the last reset_launches(); each wrapper adds one
 # where it launches its kernel, and nowhere else
-LAUNCHES = {"megablock_fwd": 0, "megablock_fwd_xhat": 0,
-            "megablock_fwd_wide": 0, "xhat_reduce": 0, "megablock_bwd_rows": 0,
-            "megablock_bwd_grads": 0, "grad_reduce": 0}
+LAUNCHES = {"megablock_fwd": 0, "megablock_fwd_xhat": 0, "xhat_reduce": 0,
+            "megablock_bwd_rows": 0, "megablock_bwd_grads": 0,
+            "grad_reduce": 0}
 
 
 def reset_launches() -> None:
@@ -564,12 +564,6 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _nsplit(dev: torch.device, B: int, n_tiles: int) -> int:
-    """CTAs per batch element: about one wave over the SMs (the kernels run
-    one CTA per SM), never more than the row tiles."""
-    return max(1, min(n_tiles, _sm_count(dev.index) // B))
-
-
 SLOT = 128  # side of an x_hat partial slot: (K, C) in SLOT x SLOT pieces
 MAX_DENSE = 16  # MLP layers a launch's arguments hold (MAX_DENSE there)
 
@@ -642,62 +636,71 @@ def reduce_pieces(partial: torch.Tensor, B: int, K: int, C: int,
             .reshape(B, nkt * kr, nct * cr)[:, :K, :C].contiguous())
 
 
-def _weight_layout(W: torch.Tensor, rows: int = 8, cols: int = 16
-                   ) -> torch.Tensor:
-    """W (k, n) as B1 reads its weights from global memory: rows 32-byte
-    aligned, zero rows up to a multiple of `rows` and columns up to one of
-    `cols`. W itself where it already is so, else a zero-padded copy."""
-    k, n = W.shape
-    kp, np_ = _up(k, rows), _up(n, cols)
-    if (kp, np_) == (k, n) and W.data_ptr() % 32 == 0:
-        return W
-    out = W.new_zeros((kp, np_))
-    out[:k, :n] = W
-    return out
+def pad_block(x, coefs, A_re, A_im, Ws, bs, *per_channel):
+    """The block's inputs with C padded to round8(C) by zero channels, as
+    the kernels take them (they read rows of C values 16 bytes at a time):
+    x, coefs, A_re and A_im, W_0's rows at each third of [x | xd | feat],
+    the last layer's columns and bias, and the (..., C) tensors
+    `per_channel` (x_hat_in, dout, dx_hat_next; None stays None). Returns
+    them in that order; at C % 8 == 0 the inputs themselves.
+
+    Exact: in a padded channel s, xd, gx, gy and vb are 0, feat is
+    tanh(0) = 0, the first layer reads it through a zero row and the last
+    writes 0 + 0 to out; so x_hat_next and every gradient there are 0, and
+    the real channels' sums only gain zero terms. The hidden widths stay
+    as they are (the kernels take any), so dropout, which acts on the
+    hidden layers only, draws the model's own masks."""
+    C = x.shape[-1]
+    C8 = _up(C, 8)
+    if C8 == C:
+        return (x, coefs, A_re, A_im, tuple(Ws), tuple(bs), *per_channel)
+    pad = torch.nn.functional.pad
+
+    def ch(t):
+        return None if t is None else pad(t, (0, C8 - C))
+    Ws, bs = list(Ws), list(bs)
+    w1 = Ws[0].shape[1]
+    Ws[0] = pad(Ws[0].reshape(3, C, w1), (0, 0, 0, C8 - C)).view(3 * C8, w1)
+    Ws[-1] = ch(Ws[-1])
+    bs[-1] = ch(bs[-1])
+    return (ch(x), ch(coefs), pad(A_re, (0, C8 - C, 0, C8 - C)),
+            pad(A_im, (0, C8 - C, 0, C8 - C)), tuple(Ws), tuple(bs),
+            *map(ch, per_channel))
 
 
-def _padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
-    """(B, k, n) -> contiguous, 32-byte aligned (B, rows, cols), zero past
-    (k, n)."""
-    B, k, n = t.shape
-    if ((k, n) == (rows, cols) and t.is_contiguous()
-            and t.data_ptr() % 32 == 0):
-        return t
-    out = t.new_zeros((B, rows, cols))
-    out[:, :k, :n] = t
-    return out
+def unpad_grads(C: int, ds, dA_re, dA_im, dWs, dbs):
+    """The gradients of `pad_block`'s padded parameters cut back to the
+    model's C: ds (B, K, C), dA_re, dA_im, dWs, dbs."""
+    C8 = ds.shape[-1]
+    if C8 == C:
+        return ds, dA_re, dA_im, dWs, dbs
+    dWs, dbs = list(dWs), list(dbs)
+    dWs[-1] = dWs[-1][:, :C]
+    dbs[-1] = dbs[-1][:C]
+    dWs[0] = dWs[0].reshape(3, C8, -1)[:, :C].reshape(3 * C, -1)
+    return (ds[..., :C].contiguous(), dA_re[:C, :C].contiguous(),
+            dA_im[:C, :C].contiguous(), [w.contiguous() for w in dWs],
+            [b.contiguous() for b in dbs])
 
 
-# The wide route's shared memory (csrc/megablock_fwd_wide.cu, smem_bytes):
-# per row of its tile, in floats, the staged operator chunk (32 + 4), the Phi
-# piece of the x_hat product (128 + 4), the warps' output patches (NP + 4,
-# NP = 128 at 32 rows and 256 at 16), [x | xd | feat] (round8(3C) + 4) and
-# two MLP buffers (round8(max(2C, widths)) + 4 each); with res, s resident
-# (SLOT x (SLOT + 4)).
-def fwd_smem_bytes(tv: int, C: int, widths, res: bool = False) -> int:
-    ldc = _up(3 * C, 8) + 4
-    ldp = _up(max([2 * C] + list(widths[1:])), 8) + 4
-    np_ = 128 if tv == 32 else 256
-    return 4 * (tv * (36 + 132 + np_ + 4 + ldc + 2 * ldp)
-                + (SLOT * (SLOT + 4) if res else 0))
-
-
-def fwd_rows_ldb(C: int, widths) -> int:
+def fwd_rows_ldb(C: int, widths, hidden_spilled: bool = False) -> int:
     """Row stride, in floats, of the row kernel's activation buffers:
-    round32(max(C, hidden widths)) + 4."""
-    return _up(max([C] + list(widths[1:-1])), 32) + 4
+    round32(C) + 4, or round32(max(C, hidden widths)) + 4 where they also
+    hold the hidden layers."""
+    return _up(max([C] + ([] if hidden_spilled else list(widths[1:-1]))),
+               32) + 4
 
 
-def fwd_rows_smem_bytes(C: int, widths, lowp: bool, spill: bool = False,
-                        wgs: int = 1) -> int:
-    """The row kernel's shared memory (csrc/megablock_fwd.cu) with `wgs`
-    warpgroups a CTA: a ring of B stages (128 x 32 values, TF32 hi and lo
-    in f32, bf16 under lowp; 3 stages for one warpgroup, 2 for two) and,
-    per warpgroup, three 64-row activation buffers, or two where feat is
-    spilled to a device scratch."""
+def fwd_rows_smem_bytes(C: int, widths, lowp: bool, layout) -> int:
+    """The row kernel's shared memory (csrc/megablock_fwd.cu) in a layout
+    (warpgroups a CTA, resident buffers, hidden layers spilled): a ring of
+    B stages (128 x 32 values, TF32 hi and lo in f32, bf16 under lowp; 3
+    stages for one warpgroup, 2 for two) and, per warpgroup, the resident
+    64-row activation buffers (of gx then xd, gy and feat, in that order)."""
+    wgs, resident, spilled = layout
     stage = 128 * 32 * (2 if lowp else 8)
     return ((3 if wgs == 1 else 2) * stage
-            + wgs * (2 if spill else 3) * ROW_TILE * fwd_rows_ldb(C, widths)
+            + wgs * resident * ROW_TILE * fwd_rows_ldb(C, widths, spilled)
             * 4)
 
 
@@ -710,42 +713,39 @@ def _smem_limit(index: int) -> int:
 
 
 # the row kernel's layouts in the order the route tries them: (warpgroups a
-# CTA, feat spilled)
-FWD_ROWS_ORDER = ((2, False), (2, True), (1, False), (1, True))
+# CTA, activation buffers in shared memory, hidden layers in a device
+# scratch). With the hidden layers in the buffers of gx and gy, those two
+# stay in shared memory.
+FWD_LAYOUTS = ((2, 3, False), (2, 2, False), (1, 3, False), (1, 2, False),
+               (2, 3, True), (2, 2, True), (2, 1, True), (2, 0, True))
 
 
-def fwd_route(K: int, C: int, widths, lowp: bool, limit: int) -> tuple:
-    """B1's route at these shapes, chosen before launch from the shared
-    memory each kernel needs, computed from the shapes: ("rows", (wgs,
-    spill)), the 64-row wgmma row kernel where C % 8 == 0 and its buffers
-    fit in `limit` bytes, with two warpgroups (two tiles) a CTA where they
-    fit, else one, and feat in shared memory where it fits, else in a
-    device scratch (spill); else ("wide", (row tile, s resident)), the WMMA
-    kernel at 32 rows with s resident where K, C <= SLOT, 32 rows, or 16
-    rows. Raises with the bytes needed where 16 rows' buffers exceed the
-    limit too."""
-    if C % 8 == 0:
-        for wgs, spill in FWD_ROWS_ORDER:
-            if fwd_rows_smem_bytes(C, widths, lowp, spill, wgs) <= limit:
-                return "rows", (wgs, spill)
-    for tv, res in ((32, True), (32, False), (16, False)):
-        if ((not res or max(K, C) <= SLOT)
-                and fwd_smem_bytes(tv, C, widths, res) <= limit):
-            return "wide", (tv, res)
+def fwd_route(C: int, widths, lowp: bool, limit: int) -> tuple:
+    """B1's row-kernel layout at these widths (C padded as `pad_block`
+    pads it), chosen before launch from the shared memory each layout
+    needs, computed from the shapes: the first of `FWD_LAYOUTS` whose
+    bytes fit in `limit`, so the hidden layers in shared memory before a
+    scratch, two warpgroups (two tiles) a CTA before one, and more of the
+    activations in shared memory before fewer. Raises with the bytes
+    needed where not even the B ring fits."""
+    C8 = _up(C, 8)
+    widths = (3 * C8, *widths[1:-1], C8)
+    for layout in FWD_LAYOUTS:
+        if fwd_rows_smem_bytes(C8, widths, lowp, layout) <= limit:
+            return layout
     raise ValueError(
-        f"megablock_chained: the block kernel needs "
-        f"{fwd_smem_bytes(16, C, widths)} bytes of shared memory at its "
-        f"smallest row tile (16 rows; C={C}, widths={list(widths)}) and its "
-        f"row kernel {fwd_rows_smem_bytes(C, widths, lowp, True)}, more than "
-        f"the card's {limit} bytes")
+        f"megablock_chained: the row kernel needs at least "
+        f"{fwd_rows_smem_bytes(C8, widths, lowp, FWD_LAYOUTS[-1])} bytes of "
+        f"shared memory (C={C}, widths={list(widths)}), more than the "
+        f"card's {limit} bytes")
 
 
 def _check_block(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
                  x_hat_in, seed, tile_v, lowp=False, fwd=False):
     """The checks both kernels share (fwd: also B1's, that its row tile lies
-    inside one dropout tile); returns (B, V, K, C, widths, B1's route).
-    Shapes are refused only where B1's shared memory, computed from them,
-    exceeds the card's on both routes (B2's kernels take the same shared
+    inside one dropout tile); returns (B, V, K, C, widths, B1's layout).
+    Shapes are refused only where B1's smallest layout, computed from them,
+    exceeds the card's shared memory (B2's kernels take the same shared
     memory at every width)."""
     f32, bf16 = torch.float32, torch.bfloat16
     _check(x.ndim == 3, "x must be (B,V,C)")
@@ -779,21 +779,20 @@ def _check_block(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
         _check(W.dtype == f32 and b.dtype == f32, f"layer {l} dtype")
     tensors = [x, evecs, gX, gY, mass, coefs, A_re, A_im, x_hat_in, *Ws, *bs]
     _check(all(t.is_contiguous() for t in tensors), "inputs must be contiguous")
-    route = fwd_route(K, C, widths, lowp, _smem_limit(x.device.index or 0))
+    layout = fwd_route(C, widths, lowp, _smem_limit(x.device.index or 0))
     if seed is not None:
         # the JAX package's key packing (pallas_megablock.py:90-104)
         _check(B <= 2048 and V // tile_v <= 65536 and n_dense - 1 <= 16,
                f"dropout keys pack batch <= 2048, tiles <= 65536 and <= 16 "
                f"dropout layers (got B={B}, {V // tile_v} tiles, "
                f"{n_dense - 1} layers)")
-        tv = ROW_TILE if route[0] == "rows" else route[1][0]
-        _check(not fwd or tile_v % tv == 0,
+        _check(not fwd or tile_v % ROW_TILE == 0,
                f"tile_v={tile_v} must be a multiple of the kernel's "
-               f"{tv}-row tile, so each lies inside one dropout tile")
+               f"{ROW_TILE}-row tile, so each lies inside one dropout tile")
         _check(V % tile_v == 0, f"V={V} must be a multiple of "
                f"tile_v={tile_v} with dropout (pad to a bucket)")
         _check(0 <= int(seed) < 2 ** 31, f"seed {seed} outside [0, 2^31)")
-    return B, V, K, C, widths, route
+    return B, V, K, C, widths, layout
 
 
 def _dropout_args(seed, tile_v):
@@ -802,22 +801,26 @@ def _dropout_args(seed, tile_v):
 
 
 def _megablock_fwd_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
-                        x_hat_in, emit_next, lowp, seed, tile_v):
-    B, V, K, C, widths, route = _check_block(
-        x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs, x_hat_in, seed,
-        tile_v, lowp, fwd=True)
-    if route[0] == "wide":
-        return _megablock_fwd_wide_cuda(x, evecs, gX, gY, mass, coefs, A_re,
-                                        A_im, Ws, bs, x_hat_in, emit_next,
-                                        lowp, seed, tile_v, *route[1])
+                        x_hat_in, emit_next, lowp, seed, tile_v, layout):
+    """The row kernel (and with emit_next the x_hat kernel and its sum) on
+    inputs that `pad_block` padded, in `layout` (`fwd_route`)."""
+    B, V, C = x.shape
+    K = evecs.shape[-1]
+    widths = [W.shape[0] for W in Ws] + [Ws[-1].shape[1]]
     n = len(Ws)
     from .. import _build
     lib = _build.load()
     dev = x.device
     out = torch.empty_like(x)
-    wgs, spill = route[1]
-    feat = (torch.empty((B * V, C), dtype=torch.float32, device=dev)
-            if spill else None)
+    wgs, resident, spilled = layout
+
+    def scratch(cols):
+        return torch.empty((B * V, cols), dtype=torch.float32, device=dev)
+    # the activation slots past the resident ones, and the hidden layers by
+    # turns, in device scratch
+    spill = [None if i < resident else scratch(C) for i in range(3)]
+    ldh = _up(max(widths[1:-1], default=1), 4)
+    hid = [scratch(ldh) if spilled and i < n - 1 else None for i in range(2)]
     # x_hat_next reads the f32 `out`: where out is stored in bf16, the row
     # kernel also writes y = m (.) out in f32 for it
     y = (torch.empty((B, V, C), dtype=torch.float32, device=dev)
@@ -829,14 +832,15 @@ def _megablock_fwd_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
             x.data_ptr(), evecs.data_ptr(), gX.data_ptr(), gY.data_ptr(),
             mass.data_ptr(), ptr[0], ptr[1],
             (ctypes.c_void_p * n)(*ptr[2:]), _ptrs(bs), _ints(widths), n,
-            out.data_ptr(), None if feat is None else feat.data_ptr(),
+            out.data_ptr(), _ptrs(spill), _ptrs(hid), ldh,
             None if y is None else y.data_ptr(), B, V, K, C,
-            fwd_rows_ldb(C, widths), wgs, int(x.dtype == torch.bfloat16),
+            fwd_rows_ldb(C, widths, spilled), wgs,
+            int(x.dtype == torch.bfloat16),
             int(evecs.dtype == torch.bfloat16), int(lowp),
             *_dropout_args(seed, tile_v), stream)
     _raise_on(lib, code, "megablock_fwd launch")
     LAUNCHES["megablock_fwd"] += 1
-    del feat, tiles
+    del spill, hid, tiles
     if not emit_next:
         return out, None
     splits = xhat_splits(B, V, K, C, _sm_count(dev.index or 0))
@@ -884,50 +888,6 @@ def megablock_fwd_xhat(evecs, src, scale, splits, lowp: bool = False
     _raise_on(lib, code, "megablock_fwd_xhat launch")
     LAUNCHES["megablock_fwd_xhat"] += 1
     return part
-
-
-def _megablock_fwd_wide_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws,
-                             bs, x_hat_in, emit_next, lowp, seed, tile_v, tv,
-                             res):
-    """The wide route (csrc/megablock_fwd_wide.cu): x_hat_next through its
-    per-CTA slots and `xhat_reduce`."""
-    B, V, C = x.shape
-    K = evecs.shape[-1]
-    widths = [W.shape[0] for W in Ws] + [Ws[-1].shape[1]]
-    n_dense = len(Ws)
-    from .. import _build
-    lib = _build.load()
-    dev = x.device
-    out = torch.empty_like(x)
-    nsplit = _nsplit(dev, B, -(-V // tv))
-    nkt, nct = -(-K // SLOT), -(-C // SLOT)
-    partial = (torch.empty((B, nkt, nct, nsplit, SLOT, SLOT),
-                           dtype=torch.float32, device=dev)
-               if emit_next else None)
-    # s = coefs (.) x_hat is read like a weight: zero-padded to 32 rows
-    s = _padded(coefs * x_hat_in, _up(K, 32), _up(C, 16))
-    cmap = _weight_layout(cmap_of(A_re, A_im))
-    Wk = [_weight_layout(W) for W in Ws]
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    ws = (vp * n_dense)(*[W.data_ptr() for W in Wk])
-    ldw = (ci * n_dense)(*[W.shape[1] for W in Wk])
-    bsp = (vp * n_dense)(*[b.data_ptr() for b in bs])
-    wid = (ci * (n_dense + 1))(*widths)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.mb_fwd_wide_launch(
-            x.data_ptr(), evecs.data_ptr(), gX.data_ptr(), gY.data_ptr(),
-            mass.data_ptr(), s.data_ptr(), s.shape[-1], cmap.data_ptr(),
-            cmap.shape[1], ws, ldw, bsp, wid, n_dense, out.data_ptr(),
-            None if partial is None else partial.data_ptr(),
-            B, V, K, C, nsplit, tv, int(res), int(x.dtype == torch.bfloat16),
-            int(evecs.dtype == torch.bfloat16), int(lowp),
-            *_dropout_args(seed, tile_v), stream)
-    _raise_on(lib, code, "megablock_fwd_wide launch")
-    LAUNCHES["megablock_fwd_wide"] += 1
-    if not emit_next:
-        return out, None
-    return out, reduce_pieces(partial, B, K, C)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -1151,7 +1111,6 @@ def _check_bwd(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs, x_hat_in,
     B, V, K, C, widths, _ = _check_block(x, evecs, gX, gY, mass, coefs,
                                          A_re, A_im, Ws, bs, x_hat_in, seed,
                                          tile_v)
-    _check(C % 8 == 0, f"the backward kernel needs C % 8 == 0 (got C={C})")
     _check(tuple(dout.shape) == (B, V, C) and dout.dtype == x.dtype
            and dout.device == x.device, "dout must be (B,V,C) in x's dtype")
     if dx_hat_next is not None:
@@ -1164,9 +1123,10 @@ def _check_bwd(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs, x_hat_in,
 
 def _bwd_rows_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
                    x_hat_in, dout, dx_hat_next, lowp, seed, tile_v):
-    B, V, K, C, widths = _check_bwd(x, evecs, gX, gY, mass, coefs, A_re,
-                                    A_im, Ws, bs, x_hat_in, dout, dx_hat_next,
-                                    seed, tile_v)
+    """The rows kernel on checked inputs with C % 8 == 0."""
+    B, V, C = x.shape
+    K = evecs.shape[-1]
+    widths = [W.shape[0] for W in Ws] + [Ws[-1].shape[1]]
     n = len(Ws)
     lay = bwd_layout(K, C, widths)
     from .. import _build
@@ -1216,7 +1176,14 @@ def megablock_bwd_rows(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
     extra = [dout] + ([] if dx_hat_next is None else [dx_hat_next])
     dev = _device_of([x, evecs, gX, gY, mass, coefs, A_re, A_im, x_hat_in,
                       *Ws, *bs, *extra])
-    fn = megablock_bwd_rows_reference if dev.type == "cpu" else _bwd_rows_cuda
+    if dev.type == "cpu":
+        fn = megablock_bwd_rows_reference
+    else:
+        C = _check_bwd(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
+                       x_hat_in, dout, dx_hat_next, seed, tile_v)[3]
+        _check(C % 8 == 0, f"the rows kernel takes C % 8 == 0 (got C={C}; "
+               "megablock_chained_bwd pads C with pad_block)")
+        fn = _bwd_rows_cuda
     return fn(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs, x_hat_in,
               dout, dx_hat_next, lowp, seed, tile_v)
 
@@ -1262,6 +1229,8 @@ def megablock_bwd_grads(R, evecs, gX, gY, C: int, widths, splits,
 
 def _megablock_bwd_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
                         x_hat_in, dout, dx_hat_next, lowp, seed, tile_v):
+    """B2's rows kernel, grads kernel and partial sums on inputs that
+    `pad_block` padded."""
     dx, R, dbp = _bwd_rows_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im,
                                 Ws, bs, x_hat_in, dout, dx_hat_next, lowp,
                                 seed, tile_v)
@@ -1282,35 +1251,55 @@ def _megablock_bwd_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
 def megablock_chained_fwd(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
                           x_hat_in, emit_next=True, lowp=False, seed=None,
                           tile_v=DEFAULT_TILE_V):
-    """B1 alone (no autograd): the kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+    """B1 alone (no autograd): C padded by `pad_block`, then the kernels for
+    CUDA tensors (checked first at the model's own shapes), the plain
+    version for CPU tensors, and the result cut back to C."""
     Ws, bs = tuple(Ws), tuple(bs)
     dev = _device_of([x, evecs, gX, gY, mass, coefs, A_re, A_im, x_hat_in,
                       *Ws, *bs])
     if dev.type == "cpu":
-        return megablock_chained_reference(x, evecs, gX, gY, mass, coefs,
-                                           A_re, A_im, Ws, bs, x_hat_in,
-                                           emit_next, lowp, seed, tile_v)
-    return _megablock_fwd_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws,
-                               bs, x_hat_in, emit_next, lowp, seed, tile_v)
+        fn = megablock_chained_reference
+    else:
+        layout = _check_block(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws,
+                              bs, x_hat_in, seed, tile_v, lowp, fwd=True)[-1]
+        fn = functools.partial(_megablock_fwd_cuda, layout=layout)
+    C = x.shape[-1]
+    x, coefs, A_re, A_im, Ws, bs, x_hat_in = pad_block(
+        x, coefs, A_re, A_im, Ws, bs, x_hat_in)
+    out, xn = fn(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs, x_hat_in,
+                 emit_next, lowp, seed, tile_v)
+    if x.shape[-1] == C:
+        return out, xn
+    return (out[..., :C].contiguous(),
+            None if xn is None else xn[..., :C].contiguous())
 
 
 def megablock_chained_bwd(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
                           x_hat_in, dout, dx_hat_next=None, lowp=False,
                           seed=None, tile_v=DEFAULT_TILE_V):
-    """B2 alone: (dx_direct, ds, dA_re, dA_im, dWs, dbs), the kernel and its
-    partial-sum launches for CUDA tensors, the plain version for CPU ones."""
+    """B2 alone: (dx_direct, ds, dA_re, dA_im, dWs, dbs). C padded by
+    `pad_block`, then the kernels and their partial-sum launches for CUDA
+    tensors (checked first at the model's own shapes), the plain version
+    for CPU ones, and the results cut back to C (`unpad_grads`)."""
     Ws, bs = tuple(Ws), tuple(bs)
     extra = [dout] + ([] if dx_hat_next is None else [dx_hat_next])
     dev = _device_of([x, evecs, gX, gY, mass, coefs, A_re, A_im, x_hat_in,
                       *Ws, *bs, *extra])
     if dev.type == "cpu":
-        return megablock_chained_bwd_reference(
-            x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs, x_hat_in,
-            dout, dx_hat_next, lowp, seed, tile_v)
-    return _megablock_bwd_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws,
-                               bs, x_hat_in, dout, dx_hat_next, lowp, seed,
-                               tile_v)
+        fn = megablock_chained_bwd_reference
+    else:
+        _check_bwd(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
+                   x_hat_in, dout, dx_hat_next, seed, tile_v)
+        fn = _megablock_bwd_cuda
+    C = x.shape[-1]
+    x, coefs, A_re, A_im, Ws, bs, x_hat_in, dout, dx_hat_next = pad_block(
+        x, coefs, A_re, A_im, Ws, bs, x_hat_in, dout.contiguous(),
+        dx_hat_next)
+    dx, *grads = fn(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
+                    x_hat_in, dout, dx_hat_next, lowp, seed, tile_v)
+    if x.shape[-1] != C:
+        dx = dx[..., :C].contiguous()
+    return (dx, *unpad_grads(C, *grads))
 
 
 class _MegablockChained(torch.autograd.Function):
@@ -1360,9 +1349,8 @@ def megablock_chained(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
     (w_in, w_out) kernels and (w_out,) biases, f32, first input 3C, last
     output C; x_hat_in (B,K,C) f32. seed: None (dropout off) or an int in
     [0, 2^31) keying the dropout masks, whose tiles are tile_v rows (V must
-    then be a multiple of tile_v, and tile_v one of B1's row tile). The
-    CUDA kernels keep their own row tiles either way (B1 and B2 64 rows; B1's
-    wide route 32 or 16).
+    then be a multiple of tile_v, and tile_v one of the kernels' 64-row
+    tile). The CUDA kernels keep their own 64-row tiles either way.
     Returns (out (B,V,C) in x's dtype, x_hat_next (B,K,C) f32 or None)."""
     Ws, bs = tuple(Ws), tuple(bs)
     res = _MegablockChained.apply(x, evecs, gX, gY, mass, coefs, A_re, A_im,

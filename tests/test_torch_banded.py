@@ -26,6 +26,7 @@ from diffusionnet_tpu_torch.geometry.laplacian import (cotan_laplacian,
 from diffusionnet_tpu_torch.ops import banded as tbd
 from diffusionnet_tpu_torch.ops.sparse import ell_from_coo
 from tests.meshgen import icosphere, torus
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 

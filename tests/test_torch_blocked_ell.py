@@ -20,6 +20,7 @@ from diffusionnet_tpu_torch.ops import blocked_ell as tbe
 from diffusionnet_tpu_torch.ops.sparse import Ell, ell_from_coo, ell_matvec
 from tests.meshgen import icosphere, torus
 from tests.test_torch_cuda import _hub_matrix
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 

@@ -17,6 +17,7 @@ from diffusionnet_tpu_torch.training import (StageTimer, adam_state_to_flat,
                                              adam_with_step_decay,
                                              device_trace, slope_throughput)
 from diffusionnet_tpu_torch.training import checkpoint as tck
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _flat_params(seed=0):

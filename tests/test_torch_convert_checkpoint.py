@@ -34,6 +34,7 @@ from tests.meshgen import icosphere
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "experiments", "tools"))
 import convert_torch_checkpoint as jconv  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 

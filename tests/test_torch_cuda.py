@@ -11,6 +11,9 @@ import pytest
 import torch
 
 from diffusionnet_tpu_torch.ops import megablock as mb
+# tests/ itself, not a `tests` package: the machine with the card may have
+# one installed that would shadow it
+from torch_threads import one_torch_thread  # noqa: F401
 
 # |kernel - plain| <= atol + rtol |plain|. f32: the same products summed in
 # another order. bf16: an intermediate can round to the neighbouring bf16
@@ -61,7 +64,6 @@ def test_block_kernel_matches_plain(cuda, emit_next, lowp):
     torch.cuda.synchronize()
     assert mb.LAUNCHES == {"megablock_fwd": 1,
                            "megablock_fwd_xhat": int(emit_next),
-                           "megablock_fwd_wide": 0,
                            "xhat_reduce": int(emit_next),
                            "megablock_bwd_rows": 0, "megablock_bwd_grads": 0,
                            "grad_reduce": 0}
@@ -77,10 +79,10 @@ def test_block_kernel_matches_plain(cuda, emit_next, lowp):
 
 @pytest.mark.cuda
 def test_block_kernel_refuses_what_it_does_not_take(cuda):
-    """Wrong dtype, non-contiguous input, widths whose buffers exceed the
-    card's shared memory on both routes, even at the wide route's 16-row
-    tiles (the message names the bytes): the wrapper raises before
-    launching."""
+    """Wrong dtype, non-contiguous input, and a layout the card's shared
+    memory does not hold (the message names the bytes; every width fits
+    the smallest layout on an H100, so a limit below it stands in): the
+    wrapper raises before launching."""
     args = list(_block(cuda, False))
     mb.reset_launches()
     bad = list(args)
@@ -91,11 +93,12 @@ def test_block_kernel_refuses_what_it_does_not_take(cuda):
     bad[1] = bad[1].transpose(1, 2).contiguous().transpose(1, 2)  # evecs
     with pytest.raises(ValueError, match="contiguous"):
         mb.megablock_chained(*bad)
-    big = _block(cuda, False, V=64, K=256, C=256, hidden=(2048,))
-    need = mb.fwd_smem_bytes(16, 256, (768, 2048, 256))
-    with pytest.raises(ValueError, match=f"needs {need} bytes of shared "
-                       r"memory .* more than the card's \d+ bytes"):
-        mb.megablock_chained(*big)
+    need = mb.fwd_rows_smem_bytes(256, (768, 2048, 256), False,
+                                  mb.FWD_LAYOUTS[-1])
+    assert need <= mb._smem_limit(0)
+    with pytest.raises(ValueError, match=f"needs at least {need} bytes of "
+                       r"shared memory .* more than the card's \d+ bytes"):
+        mb.fwd_route(256, (768, 2048, 256), False, need - 1)
     assert all(v == 0 for v in mb.LAUNCHES.values())
 
 
@@ -124,8 +127,8 @@ def test_block_kernels_at_c256(cuda, K, lowp):
     its x_hat_next in 128 x 128 pieces; B2's rows and grads kernels.
     ReLU-tie rows get zero cotangent."""
     args = list(_block(cuda, lowp, V=512, K=K, C=256, hidden=(256, 256)))
-    assert mb.fwd_route(K, 256, (768, 256, 256, 256), lowp,
-                        mb._smem_limit(0)) == ("rows", (1, not lowp))
+    assert mb.fwd_route(256, (768, 256, 256, 256), lowp,
+                        mb._smem_limit(0)) == (1, 2 if not lowp else 3, False)
     kw = dict(lowp=lowp, seed=321, tile_v=128)
     out, xn = mb.megablock_chained_fwd(*args, emit_next=True, **kw)
     ref, ref_xn = mb.megablock_chained_reference(*args, emit_next=True, **kw)
@@ -197,23 +200,48 @@ def test_row_and_xhat_kernels_each_match_plain(cuda, C, seed, lowp):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lowp", [False, True], ids=["f32", "bf16"])
 def test_wide_route_matches_plain(cuda, lowp):
-    """Widths whose 64-row buffers exceed shared memory (C = 256, hidden
-    [1024, 1024]) and C % 8 != 0 go to the wide route, chosen before
-    launch and counted under its own name, and agree with the plain
-    version."""
-    for C, hidden in ((256, (1024, 1024)), (12, (12,))):
-        args = _block(cuda, lowp, V=512, K=128, C=C, hidden=hidden)
-        assert mb.fwd_route(128, C, (3 * C, *hidden, C), lowp,
-                            mb._smem_limit(0))[0] == "wide"
+    """The shapes of the earlier wide route run on the row kernel: hidden
+    widths whose 64-row buffers exceed shared memory (C = 256, hidden [1024,
+    1024]) with the hidden layers, gy and feat in device scratch, C = 384
+    (the default MLP) with every activation in device scratch in f32, and
+    C % 8 != 0 (C = 12, padded to 16 around the kernels); B1 and B2
+    against their plain versions, with dropout (ReLU-tie rows given zero
+    cotangent)."""
+    # the layouts in f32 and in bf16
+    for C, hidden, layouts in (
+            (256, (1024, 1024), ((2, 1, True), (2, 1, True))),
+            (384, (384, 384), ((2, 0, True), (1, 2, False))),
+            (12, (12,), ((2, 3, False), (2, 3, False)))):
+        args = list(_block(cuda, lowp, V=512, K=128, C=C, hidden=hidden))
+        assert mb.fwd_route(C, (3 * C, *hidden, C), lowp,
+                            mb._smem_limit(0)) == layouts[lowp]
+        kw = dict(lowp=lowp, seed=77, tile_v=128)
         mb.reset_launches()
-        out, xn = mb.megablock_chained_fwd(*args, emit_next=True, lowp=lowp)
+        out, xn = mb.megablock_chained_fwd(*args, emit_next=True, **kw)
         torch.cuda.synchronize()
-        assert mb.LAUNCHES["megablock_fwd_wide"] == 1
-        assert mb.LAUNCHES["megablock_fwd"] == 0
+        assert mb.LAUNCHES["megablock_fwd"] == 1
         ref, ref_xn = mb.megablock_chained_reference(*args, emit_next=True,
-                                                     lowp=lowp)
+                                                     **kw)
+        assert out.shape == ref.shape
         torch.testing.assert_close(out.float(), ref.float(), **TOL[lowp])
         _close("x_hat_next", xn, ref_xn, lowp)
+        ties = mb.relu_margin(*args, **kw) < 1e-5
+        args[4] = args[4].masked_fill(ties, 0.0)
+        g = torch.Generator(device=cuda).manual_seed(9)
+        dout = torch.randn(args[0].shape, generator=g, device=cuda).to(
+            args[0].dtype).masked_fill(ties[..., None], 0.0)
+        dxn = torch.randn(args[-1].shape, generator=g, device=cuda)
+        got = mb.megablock_chained_bwd(*args, dout, dxn, **kw)
+        torch.cuda.synchronize()
+        assert mb.LAUNCHES["megablock_bwd_rows"] == 1
+        want = mb.megablock_chained_bwd_reference(*args, dout, dxn, **kw)
+        for name, a, b in zip(("dx_direct", "ds", "dA_re", "dA_im"),
+                              got[:4], want[:4]):
+            assert a.shape == b.shape, name
+            _close_grad(name, a, b, lowp)
+        for l in range(len(hidden) + 1):
+            _close_grad(f"dW{l}", got[4][l], want[4][l], lowp)
+            _close_grad(f"db{l}", got[5][l], want[5][l], lowp)
 
 
 @pytest.mark.cuda
@@ -409,8 +437,9 @@ def test_function_gradients_match_autograd_of_plain(cuda, seed):
 @pytest.mark.cuda
 def test_dropout_and_backward_refusals(cuda):
     """tile_v not a multiple of the kernel's 64-row tile, V not a multiple
-    of tile_v with dropout, dout in another dtype, C % 8 != 0: raised before
-    any launch."""
+    of tile_v with dropout, dout in another dtype: raised before any
+    launch. C % 8 != 0 is no longer refused: B2 pads C to a multiple of 8
+    around its kernels and matches its plain version at C = 12."""
     args = _block(cuda, False, V=1024)
     dout = torch.zeros_like(args[0])
     mb.reset_launches()
@@ -421,10 +450,25 @@ def test_dropout_and_backward_refusals(cuda):
                                  tile_v=256)
     with pytest.raises(ValueError, match="dout must be"):
         mb.megablock_chained_bwd(*args, dout.double())
-    small = _block(cuda, False, V=64, C=12, hidden=(12,))
-    with pytest.raises(ValueError, match="C % 8 == 0"):
-        mb.megablock_chained_bwd(*small, torch.zeros_like(small[0]))
     assert all(v == 0 for v in mb.LAUNCHES.values())
+    small = list(_block(cuda, False, V=64, C=12, hidden=(12,)))
+    ties = mb.relu_margin(*small) < 1e-5
+    small[4] = small[4].masked_fill(ties, 0.0)
+    dout = torch.randn(small[0].shape, device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(3)
+                       ).masked_fill(ties[..., None], 0.0)
+    got = mb.megablock_chained_bwd(*small, dout)
+    torch.cuda.synchronize()
+    assert mb.LAUNCHES["megablock_bwd_rows"] == 1
+    assert mb.LAUNCHES["megablock_bwd_grads"] == 1
+    want = mb.megablock_chained_bwd_reference(*small, dout)
+    for name, a, b in zip(("dx_direct", "ds", "dA_re", "dA_im"), got[:4],
+                          want[:4]):
+        assert a.shape == b.shape, name
+        _close(name, a, b, False)
+    for l in range(2):
+        _close(f"dW{l}", got[4][l], want[4][l], False)
+        _close(f"db{l}", got[5][l], want[5][l], False)
 
 
 # --- B5: the sliced-ELL SpMM (csrc/blocked_ell.cu) --------------------------
@@ -708,8 +752,7 @@ def test_megablock_one_matches_plain(cuda, lowp, seed):
         if k == 0:
             torch.cuda.synchronize()
             assert mb.LAUNCHES == {"megablock_fwd": 1,
-                                   "megablock_fwd_xhat": 0,
-                                   "megablock_fwd_wide": 0, "xhat_reduce": 1,
+                                   "megablock_fwd_xhat": 0, "xhat_reduce": 1,
                                    "megablock_bwd_rows": 1,
                                    "megablock_bwd_grads": 1,
                                    "grad_reduce": 3}

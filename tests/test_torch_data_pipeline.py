@@ -21,6 +21,7 @@ from diffusionnet_tpu_torch.data import (DeviceDataset, SurfaceDataset,
 from tests.meshgen import icosphere, torus
 from tests.test_torch_geometry import _assert_ops_equal
 from tests.test_torch_train import _assert_bundle_equal, _to_jax_ops
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _batch_equal(a, b):

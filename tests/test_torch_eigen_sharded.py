@@ -30,6 +30,7 @@ from diffusionnet_tpu_torch.ops.sparse import ell_from_coo, ell_pad
 from diffusionnet_tpu_torch.parallel import launch
 from tests import torch_sharded_workers as W
 from tests.meshgen import icosphere
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 

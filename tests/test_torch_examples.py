@@ -27,16 +27,9 @@ from diffusionnet_tpu_torch.models import (FunctionalMapCorrespondence,
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from examples import fmaps_synthetic as jfm  # noqa: E402
 from examples import sampling_invariance_synthetic as jsi  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 torch.set_float32_matmul_precision("highest")
-
-
-@pytest.fixture
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _host(fn):

@@ -21,6 +21,7 @@ from diffusionnet_tpu_torch.experiments.rna_mesh_segmentation import (
 from diffusionnet_tpu_torch.experiments.sampling_invariance import (
     sampling_invariance as t_si)
 from tests.torch_experiments_common import EXP
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 

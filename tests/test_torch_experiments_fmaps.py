@@ -19,6 +19,7 @@ from diffusionnet_tpu_torch.experiments.functional_correspondence import (
     faust_scape_dataset as t_fmaps_ds, functional_correspondence as t_fmaps)
 from tests.torch_experiments_common import (FAUST_HKS, jax_module, mesh,
                                             run_jax, train_and_resume)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 

@@ -16,6 +16,7 @@ from diffusionnet_tpu_torch.experiments.human_segmentation_original import (
 from tests.torch_experiments_common import (HSEG_HKS, assert_same_surfaces,
                                             jax_module, mesh, printed, run_jax,
                                             train_and_resume)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 

@@ -18,6 +18,7 @@ from diffusionnet_tpu_torch.parallel import launch
 from tests import torch_parallel_workers
 from tests.torch_experiments_common import (assert_same_surfaces, jax_module,
                                             mesh, train_and_resume)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 

@@ -14,6 +14,7 @@ from diffusionnet_tpu_torch.experiments.classification_shrec11 import (
     classification_shrec11 as t_shrec, shrec11_dataset as t_shrec_ds)
 from tests.torch_experiments_common import (assert_same_surfaces, jax_module,
                                             mesh, train_and_resume)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 

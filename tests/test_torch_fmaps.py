@@ -15,6 +15,7 @@ from diffusionnet_tpu_torch.models import (FunctionalMapCorrespondence,
                                            compute_fmap, from_flat_jax_params,
                                            to_flat_jax_params)
 from tests.meshgen import icosphere
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 

@@ -14,6 +14,7 @@ from diffusionnet_tpu.ops.pallas_fused import (
     _bwd_b, fused_spectral_block as jax_fused,
     fused_spectral_block_batched as jax_fused_batched)
 from diffusionnet_tpu_torch.ops import fused, megablock as mb
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 

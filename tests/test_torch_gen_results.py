@@ -15,6 +15,7 @@ import torch
 
 from diffusionnet_tpu_torch.experiments.tools import gen_results as G
 from tests.meshgen import flat_grid
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 

@@ -13,6 +13,7 @@ import diffusionnet_tpu_torch.geometry as tgeo
 from diffusionnet_tpu import native as jnative
 from diffusionnet_tpu_torch import native as tnative
 from tests.meshgen import flat_grid, icosphere
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 MESHES = {"icosphere2": lambda: icosphere(2),
           "grid": lambda: flat_grid(12, jitter=0.2)}

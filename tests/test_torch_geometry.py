@@ -9,6 +9,7 @@ import diffusionnet_tpu.utils as jutils
 import diffusionnet_tpu_torch.geometry as tgeo
 import diffusionnet_tpu_torch.utils as tutils
 from tests.meshgen import flat_grid, icosphere
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FIELDS = ("frames", "mass", "evals", "evecs", "gradX_spec", "gradY_spec")
 

@@ -29,20 +29,9 @@ from tests.test_torch_train import _to_jax_ops
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
                                 "experiments"))
 import exp_common as jex  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 torch.set_float32_matmul_precision("highest")
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One intra-op thread a test: where several test processes share the
-    cores, each with a thread per core, the many short ops of these small
-    models ran 50-100x slower than alone (the threads' barriers wait on
-    each other's cores)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _meshes(n, seed=0):

@@ -9,6 +9,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from tests.torch_threads import one_thread_env, one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -68,7 +69,8 @@ def test_port_imports_no_jax():
         "print(len(names), 'modules; missing', sorted(missing), '; loaded', bad)\n"
         "sys.exit(1 if bad or missing else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=120,
+                         env=one_thread_env())
     assert res.returncode == 0, res.stdout + res.stderr
 
 
@@ -106,8 +108,7 @@ def test_megablock_dispatch_by_device():
     ref, rxn = mb.megablock_chained_reference(*args, emit_next=True)
     assert torch.equal(out, ref) and torch.equal(xn, rxn)
     assert mb.LAUNCHES == {"megablock_fwd": 0, "megablock_fwd_xhat": 0,
-                           "megablock_fwd_wide": 0, "xhat_reduce": 0,
-                           "megablock_bwd_rows": 0,
+                           "xhat_reduce": 0, "megablock_bwd_rows": 0,
                            "megablock_bwd_grads": 0, "grad_reduce": 0}
     meta = [a.to("meta") if torch.is_tensor(a) else [t.to("meta") for t in a]
             for a in args]

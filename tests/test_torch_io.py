@@ -9,6 +9,7 @@ import pytest
 from diffusionnet_tpu.geometry import io as jio
 from diffusionnet_tpu_torch.geometry import io as tio
 from tests.meshgen import icosphere
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _both(path, reader):

@@ -11,6 +11,7 @@ import torch
 from diffusionnet_tpu.ops.pallas_megablock import (
     megablock_chained as jax_megablock_chained)
 from diffusionnet_tpu_torch.ops import megablock as mb
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 
@@ -228,22 +229,49 @@ def test_fwd_b_operands_gather_equals_b_tiles(C, hidden, lowp):
     assert ends[-1] == flat.numel()
 
 
-@pytest.mark.parametrize("shape,padded", [((384, 128), (384, 128)),
-                                          ((24, 8), (24, 16)),
-                                          ((20, 10), (24, 16))])
-def test_weight_layout_pads_with_zeros(shape, padded):
-    """The kernel reads its weights in 8-row, 16-column fragments: widths
-    that are not multiples get a zero-padded copy, others pass as they are."""
-    # a copy in torch's own storage, which is 64-byte aligned (numpy's
-    # need not be 32-byte aligned)
-    W = torch.tensor(np.random.RandomState(3).randn(*shape)
-                     .astype(np.float32))
-    assert W.data_ptr() % 32 == 0
-    got = mb._weight_layout(W)
-    assert tuple(got.shape) == padded
-    assert (got is W) == (shape == padded)
-    assert torch.equal(got[:shape[0], :shape[1]], W)
-    assert not got[shape[0]:].any() and not got[:, shape[1]:].any()
+@pytest.mark.parametrize("C,hidden", [(8, (16,)), (12, (12,)),
+                                      (100, (100, 100))])
+def test_pad_block_pads_with_zeros(C, hidden):
+    """The kernels take C % 8 == 0: pad_block gives x, coefs, the complex
+    map, W_0's three segments, the last layer and the per-channel tensors
+    zero channels up to round8(C) (the inputs themselves where C % 8 == 0),
+    the hidden layers keep their widths, and unpad_grads takes the padded
+    parameters back to the model's shapes, values unmoved."""
+    rs = np.random.RandomState(C)
+    B, K, C8 = 2, 16, -(-C // 8) * 8
+
+    def r(*shape):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32))
+    widths = (3 * C, *hidden, C)
+    Ws = [r(widths[i], widths[i + 1]) for i in range(len(widths) - 1)]
+    bs = [r(w) for w in widths[1:]]
+    args = (r(B, 32, C), r(B, K, C), r(C, C), r(C, C), Ws, bs, r(B, K, C),
+            None)
+    x, coefs, A_re, A_im, pWs, pbs, xh, none = mb.pad_block(*args)
+    assert none is None
+    if C8 == C:
+        for a, b in zip((x, coefs, A_re, A_im, *pWs, *pbs, xh),
+                        (*args[:4], *Ws, *bs, args[6])):
+            assert a is b
+    for got, want in ((x, args[0]), (coefs, args[1]), (xh, args[6])):
+        assert got.shape[-1] == C8 and torch.equal(got[..., :C], want)
+        assert not got[..., C:].any()
+    for got, want in ((A_re, args[2]), (A_im, args[3])):
+        assert got.shape == (C8, C8) and torch.equal(got[:C, :C], want)
+        assert not got[C:].any() and not got[:, C:].any()
+    assert [tuple(W.shape) for W in pWs] == [
+        (3 * C8, *hidden, C8)[i:i + 2] for i in range(len(widths) - 1)]
+    seg = pWs[0].view(3, C8, -1)
+    assert torch.equal(seg[:, :C], Ws[0].view(3, C, -1))
+    assert not seg[:, C:].any()
+    assert torch.equal(pWs[-1][:, :C], Ws[-1]) and not pWs[-1][:, C:].any()
+    assert torch.equal(pbs[-1][:C], bs[-1]) and not pbs[-1][C:].any()
+    ds, dA_re, dA_im, dWs, dbs = mb.unpad_grads(C, coefs, A_re, A_im, pWs,
+                                                pbs)
+    assert torch.equal(ds, args[1]) and torch.equal(dA_re, args[2])
+    assert torch.equal(dA_im, args[3])
+    for got, want in zip(dWs + dbs, Ws + bs):
+        assert torch.equal(got, want)
 
 
 def test_megablock_apply_xhat_reduce_hook_and_refusals():

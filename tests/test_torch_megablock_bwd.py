@@ -13,6 +13,7 @@ import torch
 from diffusionnet_tpu.ops.pallas_megablock import (
     interpret_dropout_mask, megablock_chained as jax_megablock_chained)
 from diffusionnet_tpu_torch.ops import megablock as mb
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 

@@ -11,6 +11,7 @@ import torch
 from diffusionnet_tpu.ops.pallas_megablock import (
     interpret_dropout_mask, megablock as jax_megablock)
 from diffusionnet_tpu_torch.ops import fused, megablock as mb
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 

@@ -16,6 +16,7 @@ import torch
 from diffusionnet_tpu.ops.pallas_megablock import (
     megablock_chained as jax_megablock_chained)
 from diffusionnet_tpu_torch.ops import megablock as mb
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 
@@ -136,39 +137,45 @@ def test_plain_xhat_split_matches_jax_kernel_at_c256(K, dropout):
     _close("x_hat_next", mb.reduce_pieces(part, B, K, C), xn_j)
 
 
-@pytest.mark.parametrize("K,C,widths,want", [
-    (128, 128, (384, 128, 128, 128), (("rows", (2, True)),
-                                      ("rows", (2, False)))),
-    (256, 128, (384, 128, 128, 128), (("rows", (2, True)),
-                                      ("rows", (2, False)))),
-    (256, 256, (768, 256, 256, 256), (("rows", (1, True)),
-                                      ("rows", (1, False)))),
-    (256, 256, (768,) + (1024,) * 7 + (256,),
-     (("wide", (16, False)), ("wide", (16, False))))],
-    ids=["C128", "K256", "C256", "C256-1024x7"])
-def test_block_kernel_takes_c256_and_1024_wide_layers(K, C, widths, want):
-    """B1's route from its shared memory, computed from the shapes with the
-    kernels' formulas against an H100's opt-in 232,448 bytes, f32 and bf16:
-    the 64-row wgmma row kernel takes the segmentation model (K = C = 128)
-    and K = 256 with two warpgroups (two tiles) a CTA, feat spilled to a
+@pytest.mark.parametrize("C,widths,want", [
+    (128, (384, 128, 128, 128), ((2, 2, False), (2, 3, False))),
+    (128, (384, 128, 128, 128), ((2, 2, False), (2, 3, False))),
+    (256, (768, 256, 256, 256), ((1, 2, False), (1, 3, False))),
+    (256, (768,) + (1024,) * 7 + (256,), ((2, 1, True), (2, 1, True))),
+    (12, (36, 12, 12), ((2, 3, False), (2, 3, False)))],
+    ids=["C128", "K256", "C256", "C256-1024x7", "C12"])
+def test_block_kernel_takes_c256_and_1024_wide_layers(C, widths, want):
+    """B1's row-kernel layout from its shared memory, computed from the
+    shapes with the kernel's formulas against an H100's opt-in 232,448
+    bytes, f32 and bf16 (K does not enter it: the segmentation model's
+    K = 128 and K = 256 take the same layout): the segmentation model
+    (C = 128) with two warpgroups (two tiles) a CTA, feat spilled to a
     device scratch in f32 (bf16's smaller B stages leave room for all three
     buffers); the sampling_invariance model (C = 256, hidden [256, 256])
-    with one warpgroup, feat spilled in f32; hidden widths up to 1024 and 8
-    layers go to the wide route's 16-row tiles; a width past that is
-    refused with the bytes it needs."""
+    with one warpgroup, feat spilled in f32; hidden widths of 1024 (up to 8
+    layers) with the hidden layers, gy and feat in device scratch and two
+    warpgroups; C = 12, padded to 16, with everything in shared memory; a
+    card without room for the B ring alone refuses with the bytes it
+    needs."""
     limit = 232448
     for lowp, w in zip((False, True), want):
-        assert mb.fwd_route(K, C, widths, lowp, limit) == w
+        assert mb.fwd_route(C, widths, lowp, limit) == w
     seg = (384, 128, 128, 128)
-    assert mb.fwd_rows_smem_bytes(128, seg, False) \
+    assert mb.fwd_rows_smem_bytes(128, seg, False, (1, 3, False)) \
         == 3 * 32768 + 3 * 64 * 132 * 4
-    assert mb.fwd_rows_smem_bytes(128, seg, False, True, 2) \
+    assert mb.fwd_rows_smem_bytes(128, seg, False, (2, 2, False)) \
         == 2 * 32768 + 2 * 2 * 64 * 132 * 4 <= limit
-    assert mb.fwd_rows_smem_bytes(128, seg, False, False, 2) > limit
-    assert mb.fwd_rows_smem_bytes(256, (768, 256, 256, 256), False, True) \
+    assert mb.fwd_rows_smem_bytes(128, seg, False, (2, 3, False)) > limit
+    assert mb.fwd_rows_smem_bytes(256, (768, 256, 256, 256), False,
+                                  (1, 2, False)) \
         == 3 * 32768 + 2 * 64 * 260 * 4 <= limit
-    # C % 8 != 0 is the wide route's
-    assert mb.fwd_route(16, 12, (36, 12, 12), False, limit)[0] == "wide"
-    need = mb.fwd_smem_bytes(16, 256, (768, 2048, 256))
-    with pytest.raises(ValueError, match=f"needs {need} bytes"):
-        mb.fwd_route(256, 256, (768, 2048, 256), False, limit)
+    # the hidden layers in scratch: the buffers are C wide
+    wide = (768, 1024, 1024, 256)
+    assert mb.fwd_rows_smem_bytes(256, wide, False, (2, 1, True)) \
+        == 2 * 32768 + 2 * 64 * 260 * 4
+    assert mb.fwd_rows_smem_bytes(256, wide, False, (2, 2, True)) > limit
+    need = mb.fwd_rows_smem_bytes(256, (768, 2048, 256), False,
+                                  (2, 0, True))
+    assert need == 2 * 32768
+    with pytest.raises(ValueError, match=f"needs at least {need} bytes"):
+        mb.fwd_route(256, (768, 2048, 256), False, need - 1)

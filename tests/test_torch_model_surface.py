@@ -19,6 +19,7 @@ from diffusionnet_tpu_torch.models import DiffusionNet, module_state
 from diffusionnet_tpu_torch.ops import fused
 from diffusionnet_tpu_torch.ops.sparse import Ell
 from tests.meshgen import icosphere, torus
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 

@@ -14,6 +14,7 @@ import diffusionnet_tpu.utils as jutils
 import diffusionnet_tpu_torch.ops as tops
 import diffusionnet_tpu_torch.utils as tutils
 from tests.meshgen import icosphere, torus
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 

@@ -44,6 +44,7 @@ from diffusionnet_tpu_torch.training import (adam_state_to_flat,
                                              make_train_step)
 from tests import torch_parallel_workers as W
 from tests.meshgen import icosphere, torus
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 

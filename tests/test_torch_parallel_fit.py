@@ -22,6 +22,7 @@ import torch
 from diffusionnet_tpu_torch.experiments.exp_common import fit
 from diffusionnet_tpu_torch.parallel import launch
 from tests import torch_parallel_workers as W
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 

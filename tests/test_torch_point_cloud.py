@@ -25,6 +25,7 @@ from diffusionnet_tpu_torch.geometry import point_cloud as tpc
 from diffusionnet_tpu_torch.native import build as tbuild
 from diffusionnet_tpu_torch.ops.knn import find_knn
 from tests.meshgen import flat_grid, icosphere
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 

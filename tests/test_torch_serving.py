@@ -35,6 +35,7 @@ from diffusionnet_tpu_torch.serving import (export_forward,
 from diffusionnet_tpu_torch.serving.export import (MANIFEST_NAME, host_reads,
                                                    kernel_ops)
 from tests.meshgen import icosphere
+from tests.torch_threads import one_thread_env, one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 
@@ -447,7 +448,7 @@ def test_hermetic_subprocess_load(vertex_artifact, tmp_path):
         f.write(_HERMETIC_LOADER)
     proc = subprocess.run(
         [sys.executable, script, a["dir"], inputs], capture_output=True,
-        text=True, timeout=300, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO))
+        text=True, timeout=300, cwd=REPO, env=one_thread_env(PYTHONPATH=REPO))
     assert proc.returncode == 0, proc.stderr
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines()
                  if line.startswith(("CHECKSUM", "LOADED")))
@@ -465,7 +466,8 @@ def test_serving_example_runs_on_the_cpu(tmp_path):
         [sys.executable, "-m", "diffusionnet_tpu_torch.examples.serving_export",
          "--device", "cpu", "--buckets", "1024", "2048", "--k_eig", "16",
          "--out_dir", out_dir],
-        capture_output=True, text=True, timeout=300, cwd=REPO)
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+        env=one_thread_env())
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()
     assert len(lines) == 3, proc.stdout
@@ -483,7 +485,7 @@ def test_serving_example_writes_under_tmpdir_by_default(tmp_path):
         [sys.executable, "-m", "diffusionnet_tpu_torch.examples.serving_export",
          "--device", "cpu", "--buckets", "1024", "2048", "--k_eig", "16"],
         capture_output=True, text=True, timeout=300, cwd=REPO,
-        env=dict(os.environ, TMPDIR=str(tmp_path)))
+        env=one_thread_env(TMPDIR=str(tmp_path)))
     assert proc.returncode == 0, proc.stderr
     (made,) = os.listdir(tmp_path)
     assert made.startswith("dnt_artifact_")

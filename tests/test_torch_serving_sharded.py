@@ -35,6 +35,7 @@ from diffusionnet_tpu_torch.serving.export import (MANIFEST_NAME, host_reads,
                                                    kernel_ops)
 from tests import torch_sharded_workers as W
 from tests.meshgen import icosphere
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 

@@ -36,6 +36,7 @@ from tests.meshgen import flat_grid, icosphere, torus
 
 sys.path.insert(0, "experiments")
 import exp_common  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 
@@ -381,6 +382,25 @@ def test_train_step_matches_jax_step_at_c256(datasets):
     model = DiffusionNet(c_in=16, c_out=4, c_width=256, n_block=2,
                          mlp_hidden_dims=[256, 256], dropout=False,
                          outputs_at="faces",
+                         last_activation=functools.partial(torch.log_softmax,
+                                                           dim=-1))
+    _step_against_jax(tb, jb, jmodel, model, use_megakernel=True,
+                      through_adam=True)
+
+
+def test_train_step_matches_jax_step_at_c100(datasets):
+    """The megakernel path of a model whose c_width is not a multiple of 8
+    (c_width 100, the default hidden [100, 100]): B1 and B2 take C % 8 == 0,
+    so the port pads C to 104 around their plain versions here, as around
+    the kernels on the card, while the JAX step's Pallas kernels run at
+    C = 100 in interpret mode. Loss, every gradient, the updated parameters
+    and the Adam state against the JAX step."""
+    tb, jb = _first_batches(datasets)
+    jmodel = exp_common.build_model(n_class=4, c_width=100,
+                                    outputs_at="faces", dropout=False,
+                                    input_features="hks", n_block=2)
+    model = DiffusionNet(c_in=16, c_out=4, c_width=100, n_block=2,
+                         dropout=False, outputs_at="faces",
                          last_activation=functools.partial(torch.log_softmax,
                                                            dim=-1))
     _step_against_jax(tb, jb, jmodel, model, use_megakernel=True,
