@@ -201,7 +201,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      one (2, 1) step (dropout off, phase 8's batch with vertex labels)
      against one process's step within STEP_TOL, and the RNA driver with
      --mesh 1,2 --megakernel for one epoch (equal histories); each rank's
-     B1, B2 and partial-sum launches, added to the kernels line;
+     B1, B2 and partial-sum launches, added to the kernels line; then the
+     same configuration built with use_pallas_fused on the same two ranks:
+     vertex_sharded_forward on the torus (B4 on each rank's rows, x_hat's
+     partials all-reduced) against one process's fused model within
+     PAR_FWD_TOL, and one (1, 2) make_two_axis_train_step step through
+     apply_model (x_hat's cotangent all-reduced in the backward, spectral_ds
+     on each rank's rows) against one process's fused step within
+     STEP_TOL; each rank must launch B4's three kernels and xhat_reduce
+     exactly PAR_B4_WANT times and B1/B2 never, added to the kernels line;
+     the fused step on one card at B=4 and B=1 (a vert-4 rank's share of
+     the products) timed in CUDA events and device time;
  22. the vertex-sharded eigensolver and serving artifact, the band and DIA
      formats: (a) over one nccl rank, eigensolve_device_sharded at vert 1
      on the torus against eigensolve_device(banded=False) (bit-identity
@@ -3578,6 +3588,14 @@ PAR_KERNELS = ("megablock_fwd", "megablock_fwd_xhat", "xhat_reduce",
 # through four blocks
 PAR_FWD_TOL = SLICE_TOL
 PAR_TORUS_V = 32768   # the torus's bucket (16,384 rows a rank)
+# the kernels of the fused model's sharded forward and step (B4's three and
+# the partial sum of its projections); each block launches the projection,
+# the apply and one xhat_reduce forward, and in the backward spectral_ds
+# and its xhat_reduce, on every rank
+PAR_B4_KERNELS = ("spectral_project", "spectral_apply", "spectral_ds",
+                  "xhat_reduce")
+PAR_B4_WANT = {"fused_fwd": (N_BLOCK, N_BLOCK, 0, N_BLOCK),
+               "fused_step": (N_BLOCK, N_BLOCK, N_BLOCK, 2 * N_BLOCK)}
 
 
 def _free_port() -> int:
@@ -3619,11 +3637,27 @@ def _par_launches(mb):
     return {k: mb.LAUNCHES[k] for k in PAR_KERNELS}
 
 
+def _b4_launches(mb, fu):
+    """B4's launches and xhat_reduce's, in PAR_B4_KERNELS' order."""
+    import numpy as np
+    torch.cuda.synchronize()
+    return np.asarray([fu.LAUNCHES.get(k, mb.LAUNCHES.get(k))
+                       for k in PAR_B4_KERNELS])
+
+
+def fused_vertex_model():
+    """Phase 21b's fused model: the segmentation model (seeded weights and
+    diffusion times) with vertex outputs, dropout off, on B4."""
+    return segmentation_model(outputs_at="vertices", dropout=False,
+                              use_pallas_fused=True)
+
+
 def _par_rank(rank, world, inputs, rna_root):
     """One of phase 21b's two ranks, on the one card over gloo (CUDA
     tensors): the vertex-sharded forward at vert 2, one (1, 2) step, one
-    (2, 1) step and the RNA driver with --mesh 1,2; returns each one's
-    results and launches."""
+    (2, 1) step, the fused model's vertex-sharded forward and (1, 2) step,
+    and the RNA driver with --mesh 1,2; returns each one's results and
+    launches."""
     import numpy as np
     import torch.distributed as dist
     from diffusionnet_tpu_torch import _build
@@ -3631,10 +3665,12 @@ def _par_rank(rank, world, inputs, rna_root):
     from diffusionnet_tpu_torch.experiments.rna_mesh_segmentation import (
         rna_mesh_segmentation as rna)
     from diffusionnet_tpu_torch.models import DiffusionNet
+    from diffusionnet_tpu_torch.ops import fused as fu
     from diffusionnet_tpu_torch.ops import megablock as mb
     from diffusionnet_tpu_torch.parallel import (
         VertexGroup, make_dp_train_step, make_mesh, make_two_axis_train_step,
-        shard_batch, vertex_sharded_megakernel_forward)
+        shard_batch, vertex_sharded_forward,
+        vertex_sharded_megakernel_forward)
     from diffusionnet_tpu_torch.training import (
         TaskConfig, adam_with_step_decay, apply_model, loss_and_counts,
         loss_sums)
@@ -3667,15 +3703,16 @@ def _par_rank(rank, world, inputs, rna_root):
                         labels=z["b/labels"], faces=z["b/faces"],
                         face_mask=z["b/face_mask"])
 
-    def run(name, mesh, make_step, loss_fn):
-        params = {k: v.clone().requires_grad_(True)
-                  for k, v in params0.items()}
+    def run(name, mesh, make_step, loss_fn, p0=params0):
+        params = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
         opt = adam_with_step_decay(1e-3)
         block = shard_batch(batch, mesh, "vertex").to(dev)
         torch.cuda.synchronize()
         mb.reset_launches()
+        fu.reset_launches()
         _, _, loss, _ = make_step(loss_fn, opt, mesh)(params, opt.init(params),
                                                       block, None)
+        out[name + "/b4"] = _b4_launches(mb, fu)
         out[name + "/launches"] = _par_launches(mb)
         out[name + "/loss"] = float(loss)
         for k, p in params.items():
@@ -3698,6 +3735,34 @@ def _par_rank(rank, world, inputs, rna_root):
                                cfg)
     run("dp", make_mesh(data=2, vert=1),
         functools.partial(make_dp_train_step, has_aux=True), mean_loss)
+
+    # the fused model: B4 on this rank's rows, x_hat's partials and their
+    # cotangent summed over vert; the forward on the torus, then one (1, 2)
+    # step through apply_model
+    fmodel = fused_vertex_model()
+    fparams0 = {k[len("fparams/"):]: torch.from_numpy(v).to(dev)
+                for k, v in z.items() if k.startswith("fparams/")}
+    fparams = {k: v.clone().requires_grad_(True) for k, v in fparams0.items()}
+    torch.cuda.synchronize()
+    mb.reset_launches()
+    fu.reset_launches()
+    y = vertex_sharded_forward(fmodel, fparams, z["fwd/x"],
+                               _bundle(z, "fwd/ops/"), make_mesh(vert=2))
+    out["fused_fwd/b4"] = _b4_launches(mb, fu)
+    out["fused_fwd/launches"] = _par_launches(mb)
+    out["fused_fwd/y"] = y.detach().cpu().numpy()
+    del y
+    fcfg = TaskConfig(input_features="hks", labels_kind="vertex",
+                      use_megakernel=False)
+    mesh = make_mesh(data=1, vert=2)
+    vert = VertexGroup(mesh)
+
+    def fused_sum_loss(p, b, g):
+        S, C, N = loss_sums(apply_model(fmodel, p, b, g, fcfg, True, vert),
+                            b, fcfg)
+        return S, N, (C, N)
+    run("fused_step", mesh, make_two_axis_train_step, fused_sum_loss,
+        fparams0)
 
     # the RNA driver, --mesh 1,2 on the megakernel
     mb.reset_launches()
@@ -3728,7 +3793,13 @@ def phase_parallel(mb, card, seg_ds, seg_batch, whole, torus_ops):
     each against one process's step on the whole batch (the (2, 1) step's
     objective, as the JAX package's, is the mean of each rank's mean); the
     RNA driver with --mesh 1,2 --megakernel for one epoch on its synthetic
-    layout. Returns the launches of (a)'s data-parallel run and of (b)'s
+    layout. Then the same model built with use_pallas_fused (seeded
+    diffusion times) on B4: its vertex-sharded forward on the torus against
+    one process's fused model, and one (1, 2) step through apply_model
+    against one process's fused step on the whole batch, each rank
+    launching B4's three kernels and xhat_reduce (PAR_B4_WANT); then the
+    fused step on one card at B=4 and B=1 timed (CUDA events and device
+    time). Returns the launches of (a)'s data-parallel run and of (b)'s
     ranks, summed."""
     import numpy as np
     import torch.distributed as dist
@@ -3782,7 +3853,8 @@ def phase_parallel(mb, card, seg_ds, seg_batch, whole, torus_ops):
         dist.destroy_process_group()
 
     log("== phase 21b: two ranks on the card over gloo (CUDA tensors): the "
-        "vertex-sharded forward, a (1, 2) and a (2, 1) step, the RNA driver "
+        "vertex-sharded forward, a (1, 2) and a (2, 1) step, the fused "
+        "model's vertex-sharded forward and (1, 2) step, the RNA driver "
         "with --mesh 1,2")
     model = DiffusionNet(**{**SEG_MODEL, "outputs_at": "vertices",
                             "dropout": False},
@@ -3791,6 +3863,9 @@ def phase_parallel(mb, card, seg_ds, seg_batch, whole, torus_ops):
                                                            dim=-1))
     params = flat_params(model, "cpu")
     d = {"params/" + k: v.numpy() for k, v in params.items()}
+    fmodel = fused_vertex_model()
+    fparams = flat_params(fmodel, "cpu")
+    d.update({"fparams/" + k: v.numpy() for k, v in fparams.items()})
     ops = pad_operators(torus_ops, PAR_TORUS_V)
     x = compute_hks_autoscale(torch.from_numpy(ops.evals),
                               torch.from_numpy(ops.evecs), 16)
@@ -3832,6 +3907,20 @@ def phase_parallel(mb, card, seg_ds, seg_batch, whole, torus_ops):
                   and (stage == "fwd" or got["megablock_bwd_rows"] > 0),
                   f"rank {r}, {stage}: B1/B2 not launched: {got}")
         log(f"  rank {r} (backend {rep['backend']}): launches {counts}")
+        b4 = {}
+        for stage, want in PAR_B4_WANT.items():
+            got = rep[stage + "/b4"].tolist()
+            b4[stage] = dict(zip(PAR_B4_KERNELS, got))
+            for k, n in zip(PAR_B4_KERNELS, got):
+                total[k] = total.get(k, 0) + n
+            mega = rep[stage + "/launches"].tolist()
+            check(tuple(got) == want and not any(
+                mega[PAR_KERNELS.index(k)] for k in PAR_KERNELS
+                if k != "xhat_reduce"),
+                f"rank {r}, {stage}: B4 and xhat_reduce launches {got} != "
+                f"{want}, B1/B2 {mega}")
+        log(f"  rank {r}: the fused model's launches of {PAR_B4_KERNELS}: "
+            f"{b4}")
 
     # the forward against one process's B1 on the whole torus
     dev = torch.device("cuda")
@@ -3889,6 +3978,61 @@ def phase_parallel(mb, card, seg_ds, seg_batch, whole, torus_ops):
         step_agreement("rank 0", "one process", res, before,
                        checked=("gradient",))
 
+    # the fused model: the forward against one process's fused model on the
+    # whole torus, the (1, 2) step against one process's fused step
+    from diffusionnet_tpu_torch.models import module_state
+    fc = {k: v.to(dev) for k, v in fparams.items()}
+    with torch.no_grad():
+        single = torch.func.functional_call(
+            fmodel, module_state(fc), (b(d["fwd/x"])[0], b(ops.mass)[0]),
+            dict(evals=b(ops.evals)[0], evecs=b(ops.evecs)[0],
+                 gradX=b(ops.gradX_spec)[0], gradY=b(ops.gradY_spec)[0]))
+    got = torch.cat([torch.from_numpy(rep["fused_fwd/y"]) for rep in ranks])
+    ferr = compare("fused vertex-sharded forward (vert 2, B4 a rank) against "
+                   "one process's fused model", got.to(dev), single,
+                   PAR_FWD_TOL, scaled=True)
+    fcfg = TaskConfig(input_features="hks", labels_kind="vertex",
+                      use_megakernel=False)
+
+    def fused_mean(p, bt, g):
+        return loss_and_counts(apply_model(fmodel, p, bt, g, fcfg, True), bt,
+                               fcfg)
+    p = {k: v.clone().requires_grad_(True) for k, v in fc.items()}
+    opt = adam_with_step_decay(1e-3)
+    _, _, loss, _ = make_train_step(fused_mean, opt)(p, opt.init(p), batch,
+                                                     None)
+    res = {"one process": (loss.item(), {k: v.grad for k, v in p.items()},
+                           {k: v.detach() for k, v in p.items()})}
+    for r, rep in enumerate(ranks):
+        res[f"rank {r}"] = (
+            rep["fused_step/loss"],
+            {k: torch.from_numpy(rep[f"fused_step/grad/{k}"]).to(dev)
+             for k in fc},
+            {k: torch.from_numpy(rep[f"fused_step/param/{k}"]).to(dev)
+             for k in fc})
+    log(f"  fused step (1, 2): loss rank 0 {res['rank 0'][0]:.8f}, rank 1 "
+        f"{res['rank 1'][0]:.8f}, one process {res['one process'][0]:.8f}")
+    check(all(torch.equal(res["rank 0"][2][k], res["rank 1"][2][k])
+              for k in fc), "fused step: the ranks' parameters differ")
+    step_agreement("rank 0", "one process", res, fc, checked=("gradient",),
+                   label="fused (1, 2) step")
+    # a rank of parallel_smoke.py's fused (1, 4) step does a quarter of the
+    # batch's products with the same launches: the fused step on one card
+    # at B=4 and at B=1 (the quarter), CUDA events around back-to-back steps
+    # (the host's issue and the step's own waits on the card included; the
+    # step waits on the card, so device_ms cannot hold it behind its spin)
+    for nb in (4, 1):
+        bt = batch.map(lambda a, nb=nb: a[:nb])
+        p = {k: v.clone().requires_grad_(True) for k, v in fc.items()}
+        opt = adam_with_step_decay(1e-3)
+        state = opt.init(p)
+        step = make_train_step(fused_mean, opt)
+
+        def run():
+            step(p, state, bt, None)
+        log(f"  fused step on one card, B={nb} V={PAR_TORUS_V}: "
+            f"{time_ms(run, reps=3):.3f} ms (CUDA events) [{card}]")
+
     hist = [rep["rna/history"] for rep in ranks]
     log(f"  RNA driver, --mesh 1,2 --megakernel, 1 epoch: history "
         f"{hist[0].tolist()}, fit {float(ranks[0]['rna/seconds']):.2f} s "
@@ -3897,7 +4041,8 @@ def phase_parallel(mb, card, seg_ds, seg_batch, whole, torus_ops):
           and np.isfinite(hist[0]).all(),
           "RNA driver: the ranks' histories differ or are not one epoch")
     log(f"  launches of phase 21 (a's data-parallel fit, b's two ranks): "
-        f"{total}; max abs err of the forward {err:.3e}")
+        f"{total}; max abs err of the forward {err:.3e}, of the fused "
+        f"forward {ferr:.3e}")
     log(f"  phase 21: {time.perf_counter() - t_phase:.1f} s")
     return total
 
@@ -4383,6 +4528,15 @@ def main() -> int:
         f"ms), xhat_reduce {xr1['bound'][0]:.4f} ms, grad_reduce "
         f"{gr_b[0]:.4f} ms, B5 torus C=160 {t5['bound_ms']:.4f} ms "
         f"({t5['bound_by']})")
+    # the whole blocks' bounds at the other shapes the kernel table times
+    whole_b = {f"{blk} B={B} V={V} {kind}": megablock_bound(
+        B, V, 128, 128, widths, True, blk == "B2", kind == "bf16")
+        for blk in ("B1", "B2") for B, V in ((1, 32768), (BENCH_B, BENCH_V))
+        for kind in ("f32", "bf16")}
+    whole_b["B4a B=1 V=32768 bf16 x"] = fused_bound(1, 32768, 128, 128, 2)
+    log("  bounds of the whole blocks (K=C=128, hidden [128, 128]; H100 SXM "
+        "peaks, [" + card + "]): " + "; ".join(
+            f"{k} {v[0]:.4f} ms ({v[1]})" for k, v in whole_b.items()))
     log(f"  launches of the sampling_invariance model's 3 steps (phase 16): "
         f"{si_launches}; of the wide models' 10 steps and 2 requests "
         f"(phase 16b): {wide16b}")
@@ -4454,21 +4608,22 @@ def main() -> int:
             t5["library_ms"]),
         # B4 at the training shape (B=4, V=32768, f32); B4a is B=1;
         # launches: the fused slice's 5 steps (phase 14), the serving
-        # slice's 10 requests (phase 18) and the sharded artifact's first
-        # request on each of its two ranks (phase 22)
+        # slice's 10 requests (phase 18), the fused model's sharded forward
+        # and step on phase 21b's two ranks, and the sharded artifact's
+        # first request on each of its two ranks (phase 22)
         row("spectral_project", "spectral_fused.cu", "pallas_fused.py:200",
             fused_launches["spectral_project"] + serve18["spectral_project"]
-            + shard22["spectral_project"],
+            + par21["spectral_project"] + shard22["spectral_project"],
             errs["spectral_project"], *fused_ms[(4, "f32")]["project"]),
         row("spectral_apply", "spectral_fused.cu", "pallas_fused.py:200",
             fused_launches["spectral_apply"] + serve18["spectral_apply"]
-            + shard22["spectral_apply"],
+            + par21["spectral_apply"] + shard22["spectral_apply"],
             errs["spectral_apply"], *fused_ms[(4, "f32")]["apply"]),
         # the backward's ds (JAX's plain einsums, `_bwd_b`) on the
         # projection's kernel with three pairs
         row("spectral_ds", "spectral_fused.cu", "pallas_fused.py:239",
-            fused_launches["spectral_ds"], errs["spectral_ds"],
-            *fused_ms[(4, "f32")]["ds"]),
+            fused_launches["spectral_ds"] + par21["spectral_ds"],
+            errs["spectral_ds"], *fused_ms[(4, "f32")]["ds"]),
         # B3: spectral_project, xhat_reduce and B1 (B=1, V=32768, f32);
         # launches: the op's calls on its own path
         row("megablock", "spectral_fused.cu", "pallas_megablock.py:244",

@@ -9,8 +9,9 @@ block chooses them:
     GX @ (e^{-lambda t} (.) x_hat), dense products;
   * the same, fused into kernel B4 (ops/fused.py) when use_pallas_fused and
     V % pallas_tile_v == 0 (else the dense route: JAX semantics); on a
-    vertex-sharded surface (inference only) B4 runs on each shard's rows
-    with the projection summed over the shards between its two kernels;
+    vertex-sharded surface B4 runs on each shard's rows, forward and
+    backward, with the projection summed over the shards between its two
+    kernels (and its cotangent in the backward);
   * ELL gradient operators (gradX/gradY an `Ell`): `ell_matvec` of the
     diffused signal. Required by diffusion_method="implicit_dense".
 
@@ -241,7 +242,8 @@ class DiffusionNetBlock(nn.Module):
                  and x_in.shape[-2] % self.pallas_tile_v == 0)
         if fused and vert is not None:
             # B4 on the shard's rows, its (K, C) projection summed over the
-            # shards between the two kernels (inference only)
+            # shards between the two kernels; differentiable, the backward
+            # summing x_hat's cotangent over the shards
             x_diffuse, x_gradX, x_gradY = fused_spectral_block_sharded(
                 x_in, evecs, gradX, gradY, mass,
                 self.diffusion.coefs(evals), vert.sum, self.pallas_tile_v)

@@ -15,7 +15,10 @@ kernel is also B3's phase 0 (`ops.megablock.megablock`) and, with three
 GY^T dgy (`spectral_ds`), long-V transposed products that cuBLAS runs on
 small tiles (PERF.md, section 5). The rest of the backward (dx = m (.)
 Phi (ds (.) coefs), dcoefs) is plain torch, as the JAX VJP (`_bwd_b`) is
-plain einsums; evecs, gX, gY and mass get no gradient.
+plain einsums; evecs, gX, gY and mass get no gradient. On a vertex-sharded
+surface (`fused_spectral_block_sharded`) the same kernels run on each
+shard's rows, and the shards exchange only x_hat's (B, K, C) partials in
+the forward and its cotangent in the backward.
 
 Dispatch: the three entry points are registered operators
 (dnt_torch::spectral_project, ::spectral_apply, ::spectral_ds; see "The
@@ -338,41 +341,84 @@ def spectral_apply(x_hat, coefs, evecs, gX, gY, out_dtype):
 
 
 # ---------------------------------------------------------------------------
-# The autograd Function and the JAX package's two entry points
+# The autograd Functions and the entry points
 # ---------------------------------------------------------------------------
 
-def spectral_chain_vjp(ds, x_hat, coefs, evecs, mass, x_dtype,
-                       dx_direct=None):
-    """The VJP of s = coefs (.) x_hat with x_hat = Phi^T (m x), given ds:
-    dcoefs = ds (.) x_hat and dx = m (.) Phi (ds (.) coefs), plus dx_direct
-    (what x receives past the projection) if given; dx in x_dtype."""
-    dt = _cdt(ds, x_hat, coefs)
-    dx = mass[..., None].to(dt) * (evecs.to(dt) @ (ds * coefs).to(dt))
+def project_vjp(dx_hat, evecs, mass, x_dtype, dx_direct=None):
+    """The VJP of x_hat = Phi^T (m x) in x, given dx_hat: dx = m (.) Phi
+    dx_hat, plus dx_direct (what x receives past the projection) if given;
+    in x_dtype."""
+    dt = _cdt(dx_hat)
+    dx = mass[..., None].to(dt) * (evecs.to(dt) @ dx_hat.to(dt))
     if dx_direct is not None:
         dx = dx_direct.to(dt) + dx
-    return dx.to(x_dtype), (ds * x_hat).to(coefs.dtype)
+    return dx.to(x_dtype)
 
 
-class _FusedSpectralBlock(torch.autograd.Function):
-    """Forward: the two kernels (x_hat kept as the residual, straight from
-    the projection). Backward (`_bwd_b`): ds on the projection's kernel
-    (`spectral_ds`), dx and dcoefs plain matmuls."""
+class _SpectralProject(torch.autograd.Function):
+    """x_hat = Phi^T (m x) of the rows given (the projection's kernel): a
+    whole surface, or one shard's partial of a vertex-sharded one. Backward
+    dx = m (.) Phi dx_hat, where on a shard dx_hat is the cotangent of the
+    summed x_hat, which the shards' sum (a psum, whose transpose sums the
+    shards' cotangents) hands back whole to every shard."""
 
     @staticmethod
-    def forward(ctx, x, evecs, gX, gY, mass, coefs):
-        x_hat = spectral_project(x, evecs, mass)
-        outs = spectral_apply(x_hat, coefs, evecs, gX, gY, x.dtype)
-        ctx.save_for_backward(evecs, gX, gY, mass, coefs, x_hat)
+    def forward(ctx, x, evecs, mass):
+        ctx.save_for_backward(evecs, mass)
         ctx.x_dtype = x.dtype
-        return outs
+        return spectral_project(x, evecs, mass)
+
+    @staticmethod
+    def backward(ctx, dx_hat):
+        evecs, mass = ctx.saved_tensors
+        return project_vjp(dx_hat, evecs, mass, ctx.x_dtype), None, None
+
+
+class _SpectralApply(torch.autograd.Function):
+    """(Phi s, GX s, GY s) on the rows given, s = coefs (.) x_hat (the apply
+    kernel; x_hat summed over the shards on a vertex-sharded surface).
+    Backward (`_bwd_b`): ds = Phi^T dy + GX^T dgx + GY^T dgy (`spectral_ds`
+    on these rows), then dx_hat = coefs (.) ds and dcoefs = x_hat (.) ds.
+    On a shard both stay this shard's part: the sum's transpose adds the
+    dx_hat of every shard, and the step's gradient all-reduce adds the
+    dcoefs (a dcoefs from the summed ds would come out `vert` times too
+    large)."""
+
+    @staticmethod
+    def forward(ctx, x_hat, coefs, evecs, gX, gY, out_dtype):
+        ctx.save_for_backward(x_hat, coefs, evecs, gX, gY)
+        return spectral_apply(x_hat, coefs, evecs, gX, gY, out_dtype)
 
     @staticmethod
     def backward(ctx, dy, dgx, dgy):
-        evecs, gX, gY, mass, coefs, x_hat = ctx.saved_tensors
+        x_hat, coefs, evecs, gX, gY = ctx.saved_tensors
         ds = spectral_ds(evecs, gX, gY, dy, dgx, dgy)
-        dx, dcoefs = spectral_chain_vjp(ds, x_hat, coefs, evecs, mass,
-                                        ctx.x_dtype)
-        return dx, None, None, None, None, dcoefs
+        return ((ds * coefs).to(x_hat.dtype), (ds * x_hat).to(coefs.dtype),
+                None, None, None, None)
+
+
+def fused_spectral_block_sharded(x, evecs, gX, gY, mass, coefs, reduce,
+                                 tile_v: int = DEFAULT_TILE_V):
+    """(y, ygx, ygy) on one shard's rows of a vertex-sharded surface: the
+    projection of the shard's rows, `reduce` (the sum of the shards'
+    (B, K, C) partials), then the apply on the shard's rows. Shapes as
+    fused_spectral_block_batched's, with the shard's V a multiple of
+    tile_v, or unbatched as fused_spectral_block's. Differentiable in x
+    and coefs when `reduce` is differentiable with a sum for its transpose
+    (`parallel.VertexGroup.sum`): the backward exchanges only the
+    (B, K, C) cotangent of x_hat. Traced without autograd (the serving
+    artifacts), the program holds the registered ops and `reduce`."""
+    if x.ndim == 2:
+        return tuple(o[0] for o in fused_spectral_block_sharded(
+            x[None], evecs[None], gX[None], gY[None], mass[None],
+            coefs[None], reduce, tile_v))
+    _check_tile(x.shape[-2], tile_v)
+    x_hat = reduce(_SpectralProject.apply(x, evecs, mass))
+    return _SpectralApply.apply(x_hat, coefs, evecs, gX, gY, x.dtype)
+
+
+def _whole(x_hat):
+    return x_hat
 
 
 def fused_spectral_block_batched(x, evecs, gX, gY, mass, coefs,
@@ -381,38 +427,13 @@ def fused_spectral_block_batched(x, evecs, gX, gY, mass, coefs,
     (B,V,K); mass (B,V); coefs (B,K,C). Outputs in x's dtype. V must be a
     multiple of tile_v, the JAX kernel's row tile (the CUDA kernels pick
     their own and mask the ragged edge). Differentiable in x and coefs."""
-    _check_tile(x.shape[-2], tile_v)
-    return _FusedSpectralBlock.apply(x, evecs, gX, gY, mass, coefs)
+    return fused_spectral_block_sharded(x, evecs, gX, gY, mass, coefs,
+                                        _whole, tile_v)
 
 
 def fused_spectral_block(x, evecs, gX, gY, mass, coefs,
                          tile_v: int = DEFAULT_TILE_V):
     """(y, ygx, ygy) for ONE surface: x (V,C); evecs/gX/gY (V,K); mass
     (V,); coefs (K,C): the batched form at B = 1."""
-    _check_tile(x.shape[-2], tile_v)
-    outs = _FusedSpectralBlock.apply(x[None], evecs[None], gX[None],
-                                     gY[None], mass[None], coefs[None])
-    return tuple(o[0] for o in outs)
-
-
-def fused_spectral_block_sharded(x, evecs, gX, gY, mass, coefs, reduce,
-                                 tile_v: int = DEFAULT_TILE_V):
-    """(y, ygx, ygy) on one shard's rows of a vertex-sharded surface, for
-    inference: the projection of the shard's rows, `reduce` (the sum of the
-    shards' (B, K, C) partials), then the apply on the shard's rows. The
-    same registered ops as the single-card block, so a traced program holds
-    them as graph nodes. Shapes as fused_spectral_block_batched's, with the
-    shard's V a multiple of tile_v, or unbatched as fused_spectral_block's.
-    No autograd: training a sharded surface takes the unfused model or the
-    megakernel."""
-    if torch.is_grad_enabled() and (x.requires_grad or coefs.requires_grad):
-        raise ValueError("fused_spectral_block_sharded is inference only "
-                         "(run it under torch.no_grad())")
-    if x.ndim == 2:
-        return tuple(o[0] for o in fused_spectral_block_sharded(
-            x[None], evecs[None], gX[None], gY[None], mass[None],
-            coefs[None], reduce, tile_v))
-    _check_tile(x.shape[-2], tile_v)
-    x_hat = reduce(spectral_project(x, evecs, mass))
-    return spectral_apply(x_hat, coefs, evecs, gX, gY, x.dtype)
-
+    return fused_spectral_block_sharded(x, evecs, gX, gY, mass, coefs,
+                                        _whole, tile_v)

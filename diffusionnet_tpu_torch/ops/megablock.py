@@ -1406,11 +1406,10 @@ class _Megablock(torch.autograd.Function):
         dx_direct, ds, dA_re, dA_im, dWs, dbs = megablock_chained_bwd(
             x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs, x_hat,
             dout.contiguous(), None, lowp, seed, tile_v)
-        from .fused import spectral_chain_vjp
-        dx, dcoefs = spectral_chain_vjp(ds, x_hat, coefs, evecs, mass,
-                                        x.dtype, dx_direct)
-        return (dx, None, None, None, None, dcoefs, dA_re, dA_im, None, None,
-                None, None, *dWs, *dbs)
+        from .fused import project_vjp
+        dx = project_vjp(ds * coefs, evecs, mass, x.dtype, dx_direct)
+        return (dx, None, None, None, None, (ds * x_hat).to(coefs.dtype),
+                dA_re, dA_im, None, None, None, None, *dWs, *dbs)
 
 
 def megablock(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs, seed,

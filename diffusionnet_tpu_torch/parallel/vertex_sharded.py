@@ -10,7 +10,9 @@ shards (`VertexGroup.sum`, with its transpose in the backward); the
 back-projection and the gradient products are local; an ELL gradient reads
 the surface gathered from every shard. On the megakernel path kernel B1
 runs on each shard's rows and emits a partial x_hat, the only quantity the
-shards exchange per block; B2 receives the sum's cotangent.
+shards exchange per block; B2 receives the sum's cotangent. On the eager
+model's fused route kernel B4 does the same: its projection and apply
+kernels on the shard's rows, and in the backward `spectral_ds` on them.
 """
 
 from __future__ import annotations
@@ -120,17 +122,10 @@ def vertex_sharded_forward(model, params: dict | None, x_in, ops: Operators,
     model's forward (faces, edges, deterministic, ...) as given. The dense
     spectral gradients are used where the bundle has them (local products);
     else the ELL operators, which read the surface gathered from every
-    shard. A fused model (use_pallas_fused, kernel B4) raises ValueError:
-    its sharded route is inference only and is served by
-    serving.export_sharded_forward. Returns this rank's rows of vertex
+    shard. A fused model (use_pallas_fused, kernel B4) runs B4 on the
+    shard's rows, forward and backward, the shards exchanging x_hat's
+    (K, C) partials and their cotangent. Returns this rank's rows of vertex
     outputs; face, edge and global-mean outputs whole on every rank."""
-    if getattr(model, "use_pallas_fused", False):
-        raise ValueError(
-            "vertex_sharded_forward: a fused model (use_pallas_fused, kernel "
-            "B4) runs vertex-sharded for inference only, through "
-            "serving.export_sharded_forward and load_sharded_serving_model; "
-            "build the model without use_pallas_fused to train or "
-            "differentiate it here")
     if params is None:
         device = next(model.parameters()).device
         fn = model

@@ -69,8 +69,10 @@ def apply_model(model, params: dict, batch, generator, cfg: TaskConfig,
     vert: None, or the `parallel.VertexGroup` of a batch whose V axis is
     split over several ranks (this rank's rows; `parallel.shard_batch`).
     The projections and the global mean are then summed over the shards
-    (the megakernel's x_hat through xhat_reduce), and the shard's index is
-    folded into each block's dropout seed, so shards draw different masks.
+    (the megakernel's x_hat through xhat_reduce; a fused model's between
+    B4's two kernels, its cotangent in the backward), and the shard's index
+    is folded into each block's dropout seed, so shards draw different
+    masks.
     The rotations come from `generator` alone: the caller folds in the data
     rank only, and every shard of a surface rotates it alike. Face outputs
     need the whole surface and are refused on the megakernel path."""

@@ -14,8 +14,12 @@ torus (`chip_smoke.py`), then starts one rank a card
      rows with each block's x_hat all-reduced;
   2. one data-parallel step at (ranks, 1) and one two-axis step at
      (ranks / 2, 2) on the batch of 4 meshes padded to 32768 with vertex
-     labels, dropout off, each then timed over 10 more steps (CUDA events
-     on every rank; the step in lockstep over the cards);
+     labels, dropout off, and one two-axis step at (1, ranks) of the same
+     configuration built with use_pallas_fused (`chip_smoke.
+     fused_vertex_model`: B4 on each rank's rows, x_hat's partials and
+     their cotangent all-reduced over vert), each then timed over 10 more
+     steps (CUDA events on every rank; the step in lockstep over the
+     cards);
 
   3. eigensolve_device_sharded at vert = ranks on a regular torus of
      about a million vertices (SHARD_TORUS), k 128, each rank holding its
@@ -28,7 +32,9 @@ torus (`chip_smoke.py`), then starts one rank a card
 and holds them against one process on card 0: the forward against B1 on
 the whole torus (`chip_smoke.PAR_FWD_TOL`), each step's loss and
 gradients against one process's step with the same objective
-(`chip_smoke.step_agreement`), whose time is printed beside; the sharded
+(`chip_smoke.step_agreement`), whose time is printed beside (the fused
+step with B4's three kernels and xhat_reduce launched
+`chip_smoke.PAR_B4_WANT["fused_step"]` times on every rank); the sharded
 solve against the single-card solve on B5 (eigenvalues within
 chip_smoke.EIG_TOL of the largest, M-orthonormal, every rank's eigenvalues
 bit-equal); each sharded artifact against the single-card ServingModel
@@ -75,14 +81,16 @@ def _model():
                                                           dim=-1))
 
 
-def _losses(vert=None):
+def _losses(vert=None, fused=False):
     """(mean, sums): a batch's masked-mean NLL (a data-parallel rank's loss,
     and one process's two-axis objective), and a rank's sums for the
-    two-axis step, its projections summed over vert."""
+    two-axis step, its projections summed over vert. fused: the model on
+    the eager fused route (B4), else on the megakernel (B1/B2)."""
     from diffusionnet_tpu_torch.training import (
         TaskConfig, apply_model, loss_and_counts, loss_sums)
-    model, cfg = _model(), TaskConfig(input_features="hks",
-                                      labels_kind="vertex")
+    model = cs.fused_vertex_model() if fused else _model()
+    cfg = TaskConfig(input_features="hks", labels_kind="vertex",
+                     use_megakernel=not fused)
 
     def mean(p, b, g):
         return loss_and_counts(apply_model(model, p, b, g, cfg, True), b, cfg)
@@ -98,6 +106,7 @@ def _step_timed(out, name, make, params0, block, timed=True):
     """One step from params0 (its loss, gradients and parameters into out),
     then (timed) the ms of one step over 10 more (CUDA events, median of
     3)."""
+    from diffusionnet_tpu_torch.ops import fused as fu
     from diffusionnet_tpu_torch.ops import megablock as mb
     from diffusionnet_tpu_torch.training import adam_with_step_decay
     params = {k: v.clone().requires_grad_(True) for k, v in params0.items()}
@@ -106,7 +115,9 @@ def _step_timed(out, name, make, params0, block, timed=True):
     step = make(opt)
     torch.cuda.synchronize()
     mb.reset_launches()
+    fu.reset_launches()
     loss = step(params, state, block, None)[2]
+    out[name + "/b4"] = cs._b4_launches(mb, fu)
     out[name + "/launches"] = np.asarray(
         [mb.LAUNCHES[k] for k in cs.PAR_KERNELS])
     out[name + "/loss"] = float(loss)
@@ -160,6 +171,13 @@ def _rank(rank, world, inputs, arts):
     _, sums = _losses(VertexGroup(mesh))
     _step_timed(out, "two_axis", lambda opt: make_two_axis_train_step(
         sums, opt, mesh), params0, shard_batch(batch, mesh, "vertex").to(dev))
+    mesh = make_mesh(data=1, vert=world)
+    _, fsums = _losses(VertexGroup(mesh), fused=True)
+    fparams0 = {k[len("fparams/"):]: torch.from_numpy(v).to(dev)
+                for k, v in z.items() if k.startswith("fparams/")}
+    _step_timed(out, "fused_step", lambda opt: make_two_axis_train_step(
+        fsums, opt, mesh), fparams0,
+        shard_batch(batch, mesh, "vertex").to(dev))
     _sharded(out, z, arts, make_mesh(vert=world), dev)
     return out
 
@@ -362,6 +380,8 @@ def main() -> int:
         batch = batch._replace(labels=labels)
         params = flat_params(_model(), "cpu")
         d = {"params/" + k: v.numpy() for k, v in params.items()}
+        fparams = flat_params(cs.fused_vertex_model(), "cpu")
+        d.update({"fparams/" + k: v.numpy() for k, v in fparams.items()})
         ops = pad_operators(ds.ops_list[0], cs.PAR_TORUS_V)   # the torus
         d["fwd/x"] = compute_hks_autoscale(torch.from_numpy(ops.evals),
                                            torch.from_numpy(ops.evecs),
@@ -397,9 +417,13 @@ def main() -> int:
             f"vertex-sharded forward (vert {n}) against one process's B1",
             got.to(dev), single, cs.PAR_FWD_TOL, scaled=True)
         mean, _ = _losses()
+        fmean, _ = _losses(fused=True)
+        fpc = {k: v.to(dev) for k, v in fparams.items()}
         one = {}   # the whole batch's step on one card: its time
         _step_timed(one, "one", lambda opt: make_train_step(mean, opt), pc,
                     batch)
+        _step_timed(one, "fused", lambda opt: make_train_step(fmean, opt),
+                    fpc, batch)
 
         def mean_of_blocks(p, bt, g):
             # the data-parallel objective: each rank's block's mean, averaged
@@ -407,48 +431,65 @@ def main() -> int:
             parts = [mean(p, bt.map(lambda a, i=i: a[i * k:(i + 1) * k]),
                           g)[0] for i in range(n)]
             return sum(parts) / n, None
-        before = {k: v.detach() for k, v in pc.items()}
-        for name, ref in (("dp", mean_of_blocks), ("two_axis", mean)):
+        meshes = {"dp": (n, 1), "two_axis": (n // 2, 2),
+                  "fused_step": (1, n)}
+        for name, ref, p0 in (("dp", mean_of_blocks, pc),
+                              ("two_axis", mean, pc),
+                              ("fused_step", fmean, fpc)):
+            before = {k: v.detach() for k, v in p0.items()}
             ref_out = {}
             _step_timed(ref_out, "one", lambda opt: make_train_step(ref, opt),
-                        pc, batch, timed=False)
+                        p0, batch, timed=False)
             res = {"one process": (ref_out["one/loss"],
                                    {k: torch.from_numpy(
                                        ref_out["one/grad/" + k]).to(dev)
-                                    for k in pc},
+                                    for k in p0},
                                    {k: torch.from_numpy(
                                        ref_out["one/param/" + k]).to(dev)
-                                    for k in pc})}
+                                    for k in p0})}
             for r, rep in enumerate(ranks):
                 res[f"rank {r}"] = (
                     float(rep[name + "/loss"]),
                     {k: torch.from_numpy(rep[f"{name}/grad/{k}"]).to(dev)
-                     for k in pc},
+                     for k in p0},
                     {k: torch.from_numpy(rep[f"{name}/param/{k}"]).to(dev)
-                     for k in pc})
+                     for k in p0})
             same = all(np.array_equal(rep[f"{name}/param/{k}"],
                                       ranks[0][f"{name}/param/{k}"])
-                       for rep in ranks for k in pc)
+                       for rep in ranks for k in p0)
             ms = [float(rep[name + "/ms"]) for rep in ranks]
+            one_ms = one["fused/ms" if name == "fused_step" else "one/ms"]
             launches = dict(zip(cs.PAR_KERNELS,
                                 ranks[0][name + "/launches"].tolist()))
-            cs.log(f"  {name} step, mesh "
-                   f"{(n, 1) if name == 'dp' else (n // 2, 2)}: loss "
+            b4 = [dict(zip(cs.PAR_B4_KERNELS, rep[name + "/b4"].tolist()))
+                  for rep in ranks]
+            launches.update(b4[0])
+            cs.log(f"  {name.removesuffix('_step')} step, mesh "
+                   f"{meshes[name]}: loss "
                    f"{res['rank 0'][0]:.8f} (one process "
                    f"{res['one process'][0]:.8f}); the ranks' parameters "
                    f"{'bit-identical' if same else 'DIFFER'}; ms a step "
                    f"(CUDA events, median of 3 x 10) on each card {ms}, one "
                    f"process's step on the batch of 4 on one card "
-                   f"{one['one/ms']:.3f} [{card}]; rank 0's launches "
+                   f"{one_ms:.3f} [{card}]; rank 0's launches "
                    f"{launches}")
             cs.check(same, f"{name}: the ranks' parameters differ")
-            cs.check(launches["megablock_fwd"] > 0
-                     and launches["megablock_bwd_rows"] > 0,
-                     f"{name}: B1/B2 not launched")
+            if name == "fused_step":
+                want = dict(zip(cs.PAR_B4_KERNELS,
+                                cs.PAR_B4_WANT["fused_step"]))
+                cs.check(all(r == want for r in b4)
+                         and not launches["megablock_fwd"]
+                         and not launches["megablock_bwd_rows"],
+                         f"fused step: B4 and xhat_reduce launches {b4} != "
+                         f"{want} on every rank, or B1/B2 launched")
+            else:
+                cs.check(launches["megablock_fwd"] > 0
+                         and launches["megablock_bwd_rows"] > 0,
+                         f"{name}: B1/B2 not launched")
             cs.step_agreement("rank 0", "one process", res, before,
                               checked=("gradient",))
             results[name] = {"loss": float(res["rank 0"][0]),
-                             "ms": ms, "one_process_ms": one["one/ms"],
+                             "ms": ms, "one_process_ms": one_ms,
                              "launches": launches}
 
         results["sharded"] = _sharded_checks(ranks, shard, card)

@@ -1,6 +1,7 @@
 """The port's fused spectral block (kernel B4, ops/fused.py) against the JAX
 package's Pallas op in interpret mode, on the CPU (both at full matmul
-precision): forward, the autograd Function's VJP, bf16 x, the tile check;
+precision): forward, the autograd Function's VJP, the vertex-sharded
+block's autograd pieces on in-process shards, bf16 x, the tile check;
 the projection's split-V plain version (the order the card sums in) and
 the layout in which spectral_apply stages s."""
 
@@ -72,6 +73,43 @@ def test_fused_vjp_matches_jax_grad(batched):
     for g, w in zip((tx.grad, tc.grad), want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-4)
+
+
+def test_sharded_pieces_match_jax_grad():
+    """The vertex-sharded block's two autograd pieces on 4 shards of a
+    batch of 2 surfaces (V = 512, 128 rows a shard, every row real), in
+    one process: each shard's `_SpectralProject`, their sum (its transpose
+    hands every shard the whole cotangent, as VertexGroup.sum's does), each
+    shard's `_SpectralApply`. The outputs assembled from the shards and dx
+    and dcoefs (summed over the shards' applies, each from its own ds_r)
+    against the whole surface's Pallas op and its jax.grad: rtol 1e-4,
+    atol 1e-5 of the largest entry (forward) and 1e-4 (gradients). A
+    dcoefs from the summed ds would be 4 times too large."""
+    x, evecs, gX, gY, mass, coefs = _inputs(2, B=2, V=512, K=16, C=8)
+    ops = [jnp.asarray(a) for a in (evecs, gX, gY, mass)]
+
+    def jloss(x, coefs):
+        y, a, b = jax_fused_batched(x, *ops, coefs, 128, True)
+        return jnp.sum(y ** 2) + jnp.sum(a ** 2) + 2 * jnp.sum(b ** 3)
+    want_out = jax_fused_batched(jnp.asarray(x), *ops, jnp.asarray(coefs),
+                                 128, True)
+    want = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(coefs))
+
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tc = torch.from_numpy(coefs).requires_grad_(True)
+    t_ops = [torch.from_numpy(a) for a in (evecs, gX, gY, mass)]
+    rows = [slice(128 * r, 128 * (r + 1)) for r in range(4)]
+    x_hat = sum(fused._SpectralProject.apply(tx[:, s], t_ops[0][:, s],
+                                          t_ops[3][:, s]) for s in rows)
+    outs = [fused._SpectralApply.apply(x_hat, tc, *(o[:, s] for o in t_ops[:3]),
+                                    tx.dtype) for s in rows]
+    got = [torch.cat(o, dim=1) for o in zip(*outs)]
+    for g, w in zip(got, want_out):
+        _scaled_close(g.detach().numpy(), np.asarray(w), 1e-4, 1e-5)
+    y, a, b = got
+    ((y ** 2).sum() + (a ** 2).sum() + 2 * (b ** 3).sum()).backward()
+    for g, w in zip((tx.grad, tc.grad), want):
+        _scaled_close(g.numpy(), np.asarray(w), 1e-4, 1e-4)
 
 
 def test_fused_bf16_x_with_f32_operators():
@@ -188,8 +226,8 @@ def test_split_ds_matches_jax_bwd(S):
     it (the plain version of the projection's kernel with three pairs: the
     pairs' partials per V range of a ragged V = 1000, then the fixed-order
     sum) against JAX's `_bwd_b`, whose dcoefs is ds itself where x_hat is
-    1; and dx through `spectral_chain_vjp` against its dx. rtol 1e-4, atol
-    1e-5 of each result's largest entry."""
+    1; and dx through `project_vjp` of coefs (.) ds against its dx. rtol
+    1e-4, atol 1e-5 of each result's largest entry."""
     x, evecs, gX, gY, mass, coefs = _inputs(9, B=2, V=1000, K=8, C=8)
     rs = np.random.RandomState(10)
     cts = [rs.randn(2, 1000, 8).astype(np.float32) for _ in range(3)]
@@ -202,8 +240,7 @@ def test_split_ds_matches_jax_bwd(S):
     ds = fused.spectral_ds_reference(t[1], t[2], t[3],
                                      *map(torch.from_numpy, cts), splits)
     _scaled_close(ds.numpy(), np.asarray(ds_j), 1e-4, 1e-5)
-    dx, _ = fused.spectral_chain_vjp(ds, torch.ones(2, 8, 8), t[5], t[1],
-                                     t[4], torch.float32)
+    dx = fused.project_vjp(ds * t[5], t[1], t[4], torch.float32)
     _scaled_close(dx.numpy(), np.asarray(dx_j), 1e-4, 1e-5)
 
 

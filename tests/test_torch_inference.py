@@ -161,8 +161,8 @@ def test_session_serves_fused_model(mesh_and_cache, monkeypatch):
     model = DiffusionNet(**ARCH, **kw, last_activation=functools.partial(
         torch.log_softmax, dim=-1))
     calls = []
-    real = fused._FusedSpectralBlock.apply
-    monkeypatch.setattr(fused._FusedSpectralBlock, "apply",
+    real = fused._SpectralProject.apply
+    monkeypatch.setattr(fused._SpectralProject, "apply",
                         lambda *a: calls.append(a[0].shape) or real(*a))
     got = InferenceSession(model, flat, k_eig=K_EIG, op_cache_dir=cache,
                            device="cpu")(verts, faces)

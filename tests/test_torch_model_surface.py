@@ -134,8 +134,8 @@ def test_fused_route_matches_jax(meshes, batched, monkeypatch):
     package."""
     x, mass, jkw, tkw = _batched(meshes, batched, ell=False)
     calls = []
-    real = fused._FusedSpectralBlock.apply
-    monkeypatch.setattr(fused._FusedSpectralBlock, "apply",
+    real = fused._SpectralProject.apply
+    monkeypatch.setattr(fused._SpectralProject, "apply",
                         lambda *a: calls.append(a[0].shape) or real(*a))
     for tile, n_fused in ((128, ARCH["n_block"]), (96, 0)):
         calls.clear()

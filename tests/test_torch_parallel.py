@@ -8,10 +8,12 @@ on the same numpy inputs and weights.
 Checked: the data-parallel step on data = 4 (loss, parameters and Adam's
 moments after one step; the eval step's summed counts), the vertex-sharded
 megakernel forward at vert = 2 and 4, the vertex-sharded eager forward on
-its dense-spectral, ELL, face-output and global-mean routes (and the fused
-route's refusal), the (data 2, vert 2) step (loss, every gradient,
-parameters and Adam's moments) against JAX's two-axis step and against one
-process's step on the whole batch, the dropout and rotation rule under
+its dense-spectral, ELL, face-output, global-mean and fused (B4 a shard)
+routes, the gradients of the ELL and fused routes, the (data 2, vert 2)
+step (loss, every gradient, parameters and Adam's moments) against JAX's
+two-axis step and against one process's step on the whole batch, the
+same step of a fused model against one process's and JAX's one-device
+fused step, the dropout and rotation rule under
 sharding, the mesh refusals, the multi-process dry run and the
 host-parallel precompute."""
 
@@ -41,6 +43,7 @@ from diffusionnet_tpu_torch import geometry as tgeo
 from diffusionnet_tpu_torch.models import megablock_apply
 from diffusionnet_tpu_torch.parallel import launch, run_multiprocess_dryrun
 from diffusionnet_tpu_torch.training import (adam_state_to_flat,
+                                             apply_model, loss_and_counts,
                                              make_train_step)
 from tests import torch_parallel_workers as W
 from tests.meshgen import icosphere, torus
@@ -162,6 +165,7 @@ def world(tmp_path_factory, cpu_devices):
     jops = _jops(ops)
     ell_ops = jops._replace(gradX_spec=None, gradY_spec=None)
     mesh = jax_make_mesh(data=1, vert=4, devices=devs)
+    sf_params = {}
     for outputs_at, routes in (("vertices", (("dense", jops),
                                              ("ell", ell_ops))),
                                ("faces", (("faces", jops),)),
@@ -177,11 +181,25 @@ def world(tmp_path_factory, cpu_devices):
         params = jm.init(jax.random.PRNGKey(1), jnp.asarray(x), jops.mass,
                          L=jops.L, evals=jops.evals, evecs=jops.evecs,
                          gradX=jops.gradX, gradY=jops.gradY, **extra)
+        sf_params[outputs_at] = params
         for k, v in _flat(params).items():
             d[f"sf/{outputs_at}/params/" + k] = v
         for route, o in routes:
             jax_out["sf/" + route] = np.asarray(jax_vertex_sharded_forward(
                 jm, params, jnp.asarray(x), o, mesh, **extra))
+    # the fused model (B4, Pallas in interpret mode) with the vertex
+    # outputs' weights: its sharded forward and jax.grad of sum(w * out)
+    # through it
+    jm = JaxDiffusionNet(c_in=3, c_out=4, c_width=16, n_block=2,
+                         dropout=False, use_pallas_fused=True,
+                         pallas_tile_v=64)
+    weights = jnp.asarray(d["sf/weights"])
+
+    def fused_out(p):
+        return jax_vertex_sharded_forward(jm, p, jnp.asarray(x), jops, mesh)
+    jax_out["sf/fused"] = np.asarray(fused_out(sf_params["vertices"]))
+    jax_out["sf/fused_grad"] = _flat(jax.grad(
+        lambda p: jnp.sum(weights * fused_out(p)))(sf_params["vertices"]))
 
     # --- the (data 2, vert 2) step (the torus, B 2, v_pad 256)
     B, v_pad = 2, 256
@@ -225,16 +243,38 @@ def world(tmp_path_factory, cpu_devices):
         return S, N, (C, N)
     opt = optax.adam(1e-2)
     mesh22 = jax_make_mesh(data=2, vert=2, devices=devs)
+    state0 = _adam_state(d, "ta/adam0/", opt, params, 5)
     p1, s1, loss, (c, t) = jax_two_axis_step(
         vs_loss, opt, mesh22, batch_pspecs(jbatch, "vertex"),
-        donate=False)(params, _adam_state(d, "ta/adam0/", opt, params, 5),
-                      jbatch, jax.random.PRNGKey(1))
+        donate=False)(params, state0, jbatch, jax.random.PRNGKey(1))
     jax_out["ta/loss"], jax_out["ta/counts"] = float(loss), (int(c), int(t))
     jax_out["ta/params"] = _flat(p1)
     jax_out["ta/mu"], jax_out["ta/nu"] = _flat(s1[0].mu), _flat(s1[0].nu)
     # the step's gradients, from Adam's first moment: mu = 0.9 mu0 + 0.1 g
     jax_out["ta/grads"] = {k: (m - 0.9 * d["ta/adam0/mu/" + k]) / 0.1
                            for k, m in jax_out["ta/mu"].items()}
+
+    # the same step's model on the fused route (B4, Pallas in interpret
+    # mode), one device, the whole batch: the masked mean NLL, from the
+    # same Adam state
+    jm = JaxDiffusionNet(c_in=3, c_out=2, c_width=8, n_block=2,
+                         dropout=False, use_pallas_fused=True,
+                         pallas_tile_v=64, last_activation=jax.nn.log_softmax)
+
+    def fused_loss(p):
+        o = jbatch.ops
+        preds = jm.apply(p, jbatch.verts, o.mass, evals=o.evals,
+                         evecs=o.evecs, gradX=o.gradX_spec,
+                         gradY=o.gradY_spec)
+        valid = jbatch.labels >= 0
+        per = -jnp.take_along_axis(
+            preds, jnp.maximum(jbatch.labels, 0)[..., None], axis=-1)[..., 0]
+        return jnp.sum(per * valid) / jnp.sum(valid)
+    loss, grads = jax.value_and_grad(fused_loss)(params)
+    updates, s1 = opt.update(grads, state0, params)
+    jax_out["taf/loss"], jax_out["taf/grads"] = float(loss), _flat(grads)
+    jax_out["taf/params"] = _flat(optax.apply_updates(params, updates))
+    jax_out["taf/mu"], jax_out["taf/nu"] = _flat(s1[0].mu), _flat(s1[0].nu)
 
     inputs = str(tmp_path_factory.mktemp("parallel") / "inputs.npz")
     np.savez(inputs, **d)
@@ -306,15 +346,17 @@ def test_vertex_sharded_megakernel_forward(world, vert):
 
 
 @pytest.mark.parametrize("route", ["dense", "ell", "faces", "ell_mean",
-                                   "implicit"])
+                                   "implicit", "fused"])
 def test_vertex_sharded_forward_matches_jax(world, route):
     """vert = 4 against JAX's vertex_sharded_forward (rtol 1e-4, atol 1e-5
     of the largest output): vertex outputs assembled from the ranks' rows,
-    face and global-mean outputs whole on every rank."""
+    face and global-mean outputs whole on every rank. "fused": a
+    use_pallas_fused model, B4 on each rank's 64 rows (its plain version
+    here) against JAX's fused model, Pallas in interpret mode."""
     _, jo, ranks = world
     want = jo["sf/" + route]
     atol = 1e-5 * float(np.abs(want).max())
-    if route in ("dense", "ell", "implicit"):
+    if route in ("dense", "ell", "implicit", "fused"):
         got = np.concatenate([r["sf/" + route] for r in ranks])
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=atol)
     else:
@@ -349,9 +391,39 @@ def test_vertex_sharded_ell_route_gradients(world):
         _close(_sub(r, "sf/ell_grad/"), want, 1e-4, 1e-6)
 
 
-def test_vertex_sharded_forward_refuses_the_fused_route(world):
-    for r in world[2]:
-        assert "use_pallas_fused" in str(r["sf/fused_error"])
+def _one_process_fused_grad(d):
+    """The gradient of sum(w * out) through the fused model on the whole
+    surface, one process."""
+    from diffusionnet_tpu_torch.models import DiffusionNet
+    o = W.load_ops(d, "sf/ops/")
+    params = W.load_params(d, "sf/vertices/params/")
+    model = DiffusionNet(c_in=3, c_out=4, c_width=16, n_block=2,
+                         dropout=False, use_pallas_fused=True,
+                         pallas_tile_v=64)
+    t = {f: torch.from_numpy(np.asarray(getattr(o, f)))
+         for f in ("mass", "evals", "evecs", "gradX_spec", "gradY_spec")}
+    y = torch.func.functional_call(
+        model, W.module_state(params),
+        (torch.from_numpy(d["sf/x"]), t["mass"]),
+        dict(evals=t["evals"], evecs=t["evecs"], gradX=t["gradX_spec"],
+             gradY=t["gradY_spec"]))
+    (y * torch.from_numpy(d["sf/weights"])).sum().backward()
+    return {k: p.grad.numpy() for k, p in params.items()}
+
+
+@pytest.mark.parametrize("against", ["jax", "one_process"])
+def test_vertex_sharded_fused_route_gradients(world, against):
+    """The gradient of sum(w * out) through the fused route over 4 shards
+    (B4 on each rank's rows; x_hat's cotangent all-reduced, each rank's
+    dcoefs from its own ds), summed over the ranks, against jax.grad
+    through JAX's fused vertex_sharded_forward and against one process's
+    autograd through the fused model on the whole surface: within rtol
+    1e-4, atol 1e-6 of the largest."""
+    d, jo, ranks = world
+    want = (jo["sf/fused_grad"] if against == "jax"
+            else _one_process_fused_grad(d))
+    for r in ranks:
+        _close(_sub(r, "sf/fused_grad/"), want, 1e-4, 1e-6)
 
 
 def _single_step(d):
@@ -398,6 +470,55 @@ def test_two_axis_step_matches_jax_and_one_process(world):
                jo["ta/nu"], 1e-4, 1e-6)
         for k, v in _sub(r, "ta/param/").items():
             np.testing.assert_array_equal(v, ranks[0]["ta/param/" + k])
+
+
+def _single_fused_step(d):
+    """One process's step of the fused model on the whole batch (B4 at
+    V = 256): the port's train step through apply_model."""
+    params = W.load_params(d, "ta/params/")
+    adam, state = W.load_adam(d, "ta/adam0/", params, 1e-2)
+    model = W.fused_vertex_model()
+
+    def loss_fn(p, b, gen):
+        preds = apply_model(model, p, b, gen, W.FUSED_TASK, True)
+        return loss_and_counts(preds, b, W.FUSED_TASK)
+    _, _, loss, _ = make_train_step(loss_fn, adam)(
+        params, state, W.padded_batch(d, "ta/").to("cpu"))
+    return (float(loss), {k: p.grad.numpy() for k, p in params.items()},
+            {k: p.detach().numpy() for k, p in params.items()},
+            adam_state_to_flat(state))
+
+
+@pytest.mark.parametrize("against", ["jax", "one_process"])
+def test_two_axis_fused_step_matches_one_device(world, against):
+    """(data 2, vert 2) of a use_pallas_fused model through apply_model (B4
+    on each shard's 128 rows, every shard holding real vertices of the
+    torus), against JAX's one-device step of the fused model on the whole
+    batch (Pallas in interpret mode) and against the port's one-process
+    step: the loss within rtol 1e-5; every gradient, the parameters and
+    Adam's moments after one step from an Adam state at count 3 within
+    rtol 1e-4, atol 1e-6 of the largest entry; every rank the same bits."""
+    d, jo, ranks = world
+    if against == "jax":
+        want = (jo["taf/loss"], jo["taf/grads"], jo["taf/params"],
+                jo["taf/mu"], jo["taf/nu"])
+    else:
+        loss, grads, params, adam = _single_fused_step(d)
+        want = (loss, grads, params,
+                {k[3:]: v for k, v in adam.items() if k.startswith("mu/")},
+                {k[3:]: v for k, v in adam.items() if k.startswith("nu/")})
+    for r in ranks:
+        np.testing.assert_allclose(float(r["taf/loss"]), want[0], rtol=1e-5)
+        assert int(r["taf/total"]) == 2 * 224
+        _close(_sub(r, "taf/grad/"), want[1], 1e-4, 1e-6)
+        _close(_sub(r, "taf/param/"), want[2], 1e-4, 1e-6)
+        adam = _sub(r, "taf/adam/")
+        _close({k[3:]: v for k, v in adam.items() if k.startswith("mu/")},
+               want[3], 1e-4, 1e-6)
+        _close({k[3:]: v for k, v in adam.items() if k.startswith("nu/")},
+               want[4], 1e-4, 1e-6)
+        for k, v in _sub(r, "taf/param/").items():
+            np.testing.assert_array_equal(v, ranks[0]["taf/param/" + k])
 
 
 def test_sharded_dropout_and_rotation_rule(world):

@@ -262,10 +262,98 @@ def test_export_refusals(world, tmp_path):
         assert not os.path.exists(str(tmp_path / sub / MANIFEST_NAME))
 
 
-def test_sharded_fused_block_is_inference_only(world):
+def _block_inputs(seed, V, K=8, C=4):
+    rs = np.random.RandomState(seed)
+    x, evecs, gX, gY = (torch.from_numpy(rs.randn(1, V, n).astype(
+        np.float32)) for n in (C, K, K, K))
+    mass = torch.from_numpy(rs.rand(1, V).astype(np.float32))
+    coefs = torch.from_numpy(rs.rand(1, K, C).astype(np.float32))
+    return x, evecs, gX, gY, mass, coefs
+
+
+class _ShardBlock(torch.nn.Module):
+    """The fused block on one shard's rows with coefs a parameter, each
+    projection summed by dnt_torch::vert_sum (TracedVert's sum)."""
+
+    def __init__(self, coefs):
+        super().__init__()
+        self.coefs = torch.nn.Parameter(coefs)
+
+    def forward(self, x, evecs, gX, gY, mass):
+        from diffusionnet_tpu_torch.ops.collectives import TracedVert
+        from diffusionnet_tpu_torch.ops.fused import (
+            fused_spectral_block_sharded)
+        return fused_spectral_block_sharded(x, evecs, gX, gY, mass,
+                                            self.coefs,
+                                            TracedVert(WORLD).sum, TILE_V)
+
+
+def test_sharded_fused_block_traces_to_the_registered_ops(world):
+    """Traced without autograd, as export_sharded_forward traces, the
+    sharded block is the registered projection, vert_sum and apply, in
+    that order, and nothing else (no autograd node), though x and coefs
+    require grad; the fused artifact's program holds no autograd node
+    either. Run eagerly, the block records its two autograd pieces only
+    where autograd records: `reduce` receives a partial with no grad_fn
+    under no_grad, and the projection's node otherwise."""
     from diffusionnet_tpu_torch.ops.fused import fused_spectral_block_sharded
-    x = torch.zeros(1, TILE_V, 4, requires_grad=True)
-    ops = torch.zeros(1, TILE_V, 8)
-    with pytest.raises(ValueError, match="inference only"):
-        fused_spectral_block_sharded(x, ops, ops, ops, torch.ones(1, TILE_V),
-                                     torch.ones(1, 8, 4), lambda t: t, TILE_V)
+    x, evecs, gX, gY, mass, coefs = _block_inputs(0, TILE_V)
+    seen = []
+
+    def reduce(t):
+        seen.append(type(t.grad_fn).__name__)
+        return t
+    for grad in (False, True):
+        with torch.set_grad_enabled(grad):
+            outs = fused_spectral_block_sharded(
+                x.requires_grad_(True), evecs, gX, gY, mass,
+                coefs.requires_grad_(True), reduce, TILE_V)
+        assert [type(o.grad_fn).__name__ for o in outs] == 3 * [
+            "_SpectralApplyBackward" if grad else "NoneType"]
+    assert seen == ["NoneType", "_SpectralProjectBackward"]
+    x, coefs = x.detach(), coefs.detach()
+    with torch.no_grad():
+        p = torch.export.export(_ShardBlock(coefs), (
+            x.requires_grad_(True), evecs, gX, gY, mass))
+    calls = [str(n.target) for n in p.graph.nodes if n.op == "call_function"
+             and "getitem" not in str(n.target)]
+    assert calls == ["dnt_torch.spectral_project.default",
+                     "dnt_torch.vert_sum.default",
+                     "dnt_torch.spectral_apply.default"]
+    art = torch.export.load(os.path.join(world["dirs"]["fused"],
+                                         f"sharded_{V_BUCKET}x{WORLD}.pt2"))
+    assert not [n for n in art.graph.nodes if n.op == "call_function"
+                and "autograd" in str(n.target)]
+
+
+def test_sharded_fused_block_with_a_plain_reduce(world):
+    """Under no_grad, with x and coefs requiring grad, a `reduce` that is a
+    plain function (no autograd, no process group: each shard's partial
+    plus the other shards' partials) gives the whole surface's fused block
+    on each of 4 shards of V = 256: within rtol 1e-5, atol 1e-6 of the
+    largest entry, and no output requires grad."""
+    from diffusionnet_tpu_torch.ops.fused import (
+        fused_spectral_block_batched, fused_spectral_block_sharded,
+        spectral_project)
+    V = WORLD * TILE_V
+    x, evecs, gX, gY, mass, coefs = _block_inputs(1, V)
+    x.requires_grad_(True)
+    coefs.requires_grad_(True)
+    with torch.no_grad():
+        want = fused_spectral_block_batched(x, evecs, gX, gY, mass, coefs,
+                                            TILE_V)
+        rows = [slice(r * TILE_V, (r + 1) * TILE_V) for r in range(WORLD)]
+        parts = [spectral_project(x[:, s], evecs[:, s], mass[:, s])
+                 for s in rows]
+        got = []
+        for r, s in enumerate(rows):
+            others = sum(q for i, q in enumerate(parts) if i != r)
+            got.append(fused_spectral_block_sharded(
+                x[:, s].contiguous(), *(t[:, s].contiguous() for t in (
+                    evecs, gX, gY, mass)), coefs,
+                lambda t, o=others: t + o, TILE_V))
+    for i, w in enumerate(want):
+        g = torch.cat([o[i] for o in got], dim=1)
+        assert not g.requires_grad
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-6 * float(w.abs().max()))

@@ -165,40 +165,37 @@ def _mega_forward(z, out):
 def _sharded_forward(z, out):
     """vertex_sharded_forward on mesh (1, 4): the dense-spectral, ELL and
     implicit_dense routes at vertex outputs, face outputs, the ELL route's
-    global mean, and the fused route's refusal; and the gradient of a
-    weighted sum of the ELL route's outputs (each rank's rows, the
-    gradients summed over the ranks)."""
+    global mean, and the fused route (B4 on each rank's 64 rows); and the
+    gradient of a weighted sum of the ELL and fused routes' outputs (each
+    rank's rows, the gradients summed over the ranks)."""
     mesh = make_mesh(vert=4)
     x = z["sf/x"]
+    w = vertex_sharding(mesh, torch.from_numpy(z["sf/weights"]))
     kw = dict(c_in=3, c_out=4, c_width=16, n_block=2, dropout=False)
-    for route, spectral, outputs_at, method in (
-            ("dense", True, "vertices", "spectral"),
-            ("ell", False, "vertices", "spectral"),
-            ("faces", True, "faces", "spectral"),
-            ("ell_mean", False, "global_mean", "spectral"),
-            ("implicit", False, "vertices", "implicit_dense")):
+    for route, spectral, outputs_at, method, fused in (
+            ("dense", True, "vertices", "spectral", False),
+            ("ell", False, "vertices", "spectral", False),
+            ("faces", True, "faces", "spectral", False),
+            ("ell_mean", False, "global_mean", "spectral", False),
+            ("implicit", False, "vertices", "implicit_dense", False),
+            ("fused", True, "vertices", "spectral", True)):
         model = DiffusionNet(**kw, outputs_at=outputs_at,
-                             diffusion_method=method)
+                             diffusion_method=method,
+                             use_pallas_fused=fused, pallas_tile_v=64)
         key = "implicit" if method == "implicit_dense" else outputs_at
-        params = load_params(z, f"sf/{key}/params/", grad=route == "ell")
+        grad = route in ("ell", "fused")
+        params = load_params(z, f"sf/{key}/params/", grad=grad)
         extra = ({"faces": torch.from_numpy(z["sf/faces"])}
                  if outputs_at == "faces" else {})
-        with torch.set_grad_enabled(route == "ell"):
+        with torch.set_grad_enabled(grad):
             y = vertex_sharded_forward(model, params, x,
                                        load_ops(z, "sf/ops/", spectral),
                                        mesh, **extra)
         out[f"sf/{route}"] = y.detach().numpy()
-        if route == "ell":
-            w = vertex_sharding(mesh, torch.from_numpy(z["sf/weights"]))
+        if grad:
             (y * w).sum().backward()
             for k, p in params.items():
-                out["sf/ell_grad/" + k] = all_reduce_(p.grad).numpy()
-    fused = DiffusionNet(**kw, use_pallas_fused=True, pallas_tile_v=64)
-    try:
-        vertex_sharded_forward(fused, None, x, load_ops(z, "sf/ops/"), mesh)
-        out["sf/fused_error"] = ""
-    except ValueError as e:
-        out["sf/fused_error"] = str(e)
+                out[f"sf/{route}_grad/" + k] = all_reduce_(p.grad).numpy()
 
 
 def _two_axis(z, out):
@@ -220,6 +217,44 @@ def _two_axis(z, out):
     save_tensors(out, "ta/grad/", {k: p.grad for k, p in params.items()})
     save_tensors(out, "ta/param/", params)
     save_tensors(out, "ta/adam/", adam_state_to_flat(state))
+
+
+def fused_vertex_model():
+    """The (data, vert) step's model on the eager fused route: B4 at
+    pallas_tile_v 64 (128 rows a shard at vert 2, 256 on one process)."""
+    return DiffusionNet(c_in=3, c_out=2, c_width=8, n_block=2, dropout=False,
+                        use_pallas_fused=True, pallas_tile_v=64,
+                        last_activation=log_softmax)
+
+
+FUSED_TASK = TaskConfig(input_features="xyz", labels_kind="vertex",
+                        use_megakernel=False)
+
+
+def _two_axis_fused(z, out):
+    """make_two_axis_train_step on (data 2, vert 2) of the fused model
+    through training.apply_model (B4 on each shard's rows, x_hat and its
+    cotangent summed over vert): the loss, every gradient, the parameters
+    and Adam's state after one step."""
+    mesh = make_mesh(data=2, vert=2)
+    vert = VertexGroup(mesh)
+    model = fused_vertex_model()
+    params = load_params(z, "ta/params/")
+    adam, state = load_adam(z, "ta/adam0/", params, 1e-2)
+    batch = shard_batch(padded_batch(z, "ta/"), mesh).to("cpu")
+
+    def sum_loss(params, b, gen):
+        preds = task.apply_model(model, params, b, gen, FUSED_TASK, True,
+                                 vert)
+        S, C, N = task.loss_sums(preds, b, FUSED_TASK)
+        return S, N, (C, N)
+    _, _, loss, (c, t) = make_two_axis_train_step(sum_loss, adam, mesh)(
+        params, state, batch, torch.Generator().manual_seed(1))
+    out["taf/loss"], out["taf/correct"], out["taf/total"] = (float(loss),
+                                                             int(c), int(t))
+    save_tensors(out, "taf/grad/", {k: p.grad for k, p in params.items()})
+    save_tensors(out, "taf/param/", params)
+    save_tensors(out, "taf/adam/", adam_state_to_flat(state))
 
 
 def _dropout_rule(z, out):
@@ -294,6 +329,7 @@ def parallel_rank(rank: int, world: int, inputs: str) -> dict:
     _mega_forward(z, out)
     _sharded_forward(z, out)
     _two_axis(z, out)
+    _two_axis_fused(z, out)
     _dropout_rule(z, out)
     _mesh_refusals(out)
     return out
