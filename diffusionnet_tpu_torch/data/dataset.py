@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import utils
+from ..training.profiling import span, wait
 from ..geometry.operators import (DEFAULT_EIGENSOLVER, Operators,
                                   get_all_operators, map_operators,
                                   pad_operators, truncate_k)
@@ -196,21 +197,25 @@ def _stacked_groups(ds: SurfaceDataset, buckets):
     return groups
 
 
-def _epoch_rows(groups, batch_size: int, shuffle: bool, seed: int):
-    """(stacked group, rows, n_real) of each batch of an epoch: each group's
-    order is a numpy RandomState(seed) permutation with shuffle (as in the
-    JAX package); a partial final batch repeats the chunk's first row after
-    its n_real real ones."""
+def _epoch_chunks(groups, batch_size: int, shuffle: bool, seed: int):
+    """(stacked group, the group's order, start) of each batch of an epoch:
+    each group's order is a numpy RandomState(seed) permutation with
+    shuffle (as in the JAX package); `_rows` makes the batch's rows."""
     rng = np.random.RandomState(seed) if shuffle else None
     for idx, stacked in groups:
         n = len(idx)
         order = rng.permutation(n) if rng is not None else np.arange(n)
         for start in range(0, n, batch_size):
-            chunk = order[start:start + batch_size]
-            n_fill = batch_size - len(chunk)
-            rows = np.concatenate([chunk,
-                                   np.full(n_fill, chunk[0], chunk.dtype)])
-            yield stacked, rows, len(chunk)
+            yield stacked, order, start
+
+
+def _rows(order, start: int, batch_size: int) -> tuple:
+    """(rows, n_real) of the batch at `start` of an epoch's order: a partial
+    final batch repeats the chunk's first row after its n_real real ones."""
+    chunk = order[start:start + batch_size]
+    n_fill = batch_size - len(chunk)
+    return (np.concatenate([chunk, np.full(n_fill, chunk[0], chunk.dtype)]),
+            len(chunk))
 
 
 def make_padded_batches(ds: SurfaceDataset, batch_size: int,
@@ -229,8 +234,9 @@ def make_padded_batches(ds: SurfaceDataset, batch_size: int,
     if len(ds.ops_list) != len(ds):
         raise RuntimeError("ops_list is stale: precompute() after every add()")
 
-    for stacked, rows, n_real in _epoch_rows(_stacked_groups(ds, buckets),
-                                             batch_size, shuffle, seed):
+    for stacked, order, start in _epoch_chunks(_stacked_groups(ds, buckets),
+                                               batch_size, shuffle, seed):
+        rows, n_real = _rows(order, start, batch_size)
         batch = stacked.map(lambda a: a[rows])
         if n_real < batch_size:
             # filler rows: labels -1, face_mask False
@@ -267,7 +273,9 @@ def prefetch_to_device(batches, size: int = 2, device="cuda"):
     the batch, with every tensor marked as used on it for the caching
     allocator. A producer error is raised in the consumer; a consumer that
     abandons the generator (an exception, an early stop) releases the
-    thread, which then drops its batches."""
+    thread, which then drops its batches. The consumer's wait for each
+    batch is the span dnt.batch (`training.profiling`), and so is its wait
+    for the end of the producer's batches."""
     device = torch.device(device)
     q: queue.Queue = queue.Queue(maxsize=max(1, size))
     sentinel = object()
@@ -303,20 +311,22 @@ def prefetch_to_device(batches, size: int = 2, device="cuda"):
     threading.Thread(target=producer, daemon=True).start()
     try:
         while True:
-            item = q.get()
+            with span("dnt.batch"):
+                item = q.get()
+                if item is not sentinel:
+                    batch, event = item
+                    if event is not None:
+                        stream = torch.cuda.current_stream(device)
+                        stream.wait_event(event)
+
+                        def used_here(t):
+                            t.record_stream(stream)
+                            return t
+                        batch = batch.map(used_here)
             if item is sentinel:
                 if errors:
                     raise errors[0]
                 return
-            batch, event = item
-            if event is not None:
-                stream = torch.cuda.current_stream(device)
-                stream.wait_event(event)
-
-                def used_here(t):
-                    t.record_stream(stream)
-                    return t
-                batch = batch.map(used_here)
             yield batch
     finally:
         # closed or abandoned: release the producer, drop what it queued
@@ -349,16 +359,22 @@ class DeviceDataset:
         with the filler of make_padded_batches (the same seed gives the
         same permutation): a partial final batch repeats the chunk's first
         row with labels -1 and face_mask False, so its leaves equal those of
-        make_padded_batches."""
-        for stacked, rows, n_real in _epoch_rows(self.groups, batch_size,
-                                                 shuffle, seed):
-            r = torch.from_numpy(rows).to(self.device)
-            batch = stacked.map(lambda a: a.index_select(0, r))
-            if n_real < batch_size:
-                fill = torch.arange(batch_size, device=self.device) >= n_real
-                lbl = fill.reshape((-1,) + (1,) * (batch.labels.ndim - 1))
-                batch = batch._replace(
-                    labels=batch.labels.masked_fill(lbl, -1),
-                    face_mask=batch.face_mask.masked_fill(fill[:, None],
-                                                          False))
+        make_padded_batches. The making of each (its rows, their copy to
+        the device, the gather) is the span dnt.batch
+        (`training.profiling`)."""
+        for stacked, order, start in _epoch_chunks(self.groups, batch_size,
+                                                   shuffle, seed):
+            with span("dnt.batch"):
+                rows, n_real = _rows(order, start, batch_size)
+                with wait("dnt.wait.batch_rows", self.device):
+                    r = torch.from_numpy(rows).to(self.device)
+                batch = stacked.map(lambda a: a.index_select(0, r))
+                if n_real < batch_size:
+                    fill = (torch.arange(batch_size, device=self.device)
+                            >= n_real)
+                    lbl = fill.reshape((-1,) + (1,) * (batch.labels.ndim - 1))
+                    batch = batch._replace(
+                        labels=batch.labels.masked_fill(lbl, -1),
+                        face_mask=batch.face_mask.masked_fill(fill[:, None],
+                                                              False))
             yield batch

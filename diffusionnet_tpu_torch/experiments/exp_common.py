@@ -58,6 +58,7 @@ from ..parallel.mesh import any_rank
 from ..training import (TaskConfig, adam_with_step_decay, apply_model,
                         loss_and_counts, loss_sums, make_eval_step,
                         make_train_step)
+from ..training import profiling
 from ..training.checkpoint import (latest_checkpoint, load_train_state,
                                    nest, restore_checkpoint, save_checkpoint,
                                    train_state, unnest)
@@ -385,6 +386,28 @@ def parallel_route(cfg: FitConfig, model, verbose: bool = True):
     return cfg, make_mesh(data=data, vert=shape[1])
 
 
+def step_split(records: list) -> dict:
+    """The host's split of the train steps among `records` (the registry's,
+    `training.profiling`): per step, the ms it issued work in the step's
+    call (dnt.step less its dnt.wait.* spans), the ms it waited on the
+    card (those spans, and fit's reads of the loss and counts), and the
+    syncs of both; None each where no dnt.step was recorded (the
+    multi-card steps record none)."""
+    steps = [r for r in records if r.name == "dnt.step"]
+    reads = [r for r in records if r.name.startswith(profiling.WAIT)]
+    if not steps:
+        return dict(issue_ms_per_step=None, wait_ms_per_step=None,
+                    syncs_per_step=None)
+    n = len(steps)
+    both = steps + reads
+    return dict(
+        issue_ms_per_step=1e3 * sum(r.seconds - r.wait_s()
+                                    for r in steps) / n,
+        wait_ms_per_step=1e3 * sum(r.wait_s() for r in both) / n,
+        syncs_per_step=sum(r.counter(profiling.SYNCS)[0]
+                           for r in both) / n)
+
+
 def fit(model, train_ds, test_ds, cfg: FitConfig,
         model_save_path: str | None = None,
         params=None, eval_every: int = 1,
@@ -499,15 +522,17 @@ def fit(model, train_ds, test_ds, cfg: FitConfig,
     with stack:
         for epoch in range(start_epoch, cfg.n_epoch):
             epoch_t0 = time.time()
+            epoch_ns = time.perf_counter_ns()
             correct = total = 0
             last_loss = None
             for batch in _batches(train_ds, shuffle=True,
                                   seed=cfg.seed + epoch):
                 params, opt_state, loss, (c, t) = train_step(
                     params, opt_state, batch, step_generator())
-                correct += int(c)
-                total += int(t)
-                last_loss = float(loss)
+                with profiling.wait("dnt.wait.step_reads", device):
+                    correct += int(c)
+                    total += int(t)
+                    last_loss = float(loss)
                 if not math.isfinite(last_loss):
                     raise FloatingPointError(
                         f"non-finite training loss at epoch {epoch}; inspect "
@@ -534,7 +559,9 @@ def fit(model, train_ds, test_ds, cfg: FitConfig,
                     # the staircase factor this epoch's steps used
                     "lr": float(cfg.lr * cfg.decay_rate
                                 ** (epoch // max(1, cfg.decay_every))),
-                    "epoch_seconds": round(time.time() - epoch_t0, 3)}
+                    "epoch_seconds": round(time.time() - epoch_t0, 3),
+                    **step_split([r for r in profiling.snapshot()
+                                  if r.start_ns >= epoch_ns])}
                 if geo is not None:
                     line["geodesic_eval"] = geo
                 with open(log_path, "a") as f:

@@ -39,6 +39,7 @@ from ..ops.fused import (fused_spectral_block, fused_spectral_block_batched,
                          fused_spectral_block_sharded)
 from ..ops.sparse import Ell, ell_matvec, ell_to_dense
 from ..ops.spectral import from_basis, lowp_matmul, to_basis
+from ..training.profiling import span
 
 # flax's truncated-normal variance scaling divides the stddev by the std of a
 # unit normal truncated to [-2, 2]
@@ -313,7 +314,8 @@ class MeanPlan:
     @property
     def max_degree(self) -> int:
         if self._event is not None:
-            self._event.synchronize()
+            with span("dnt.wait.mean_degree"):
+                self._event.synchronize()
         return int(self._d)
 
 

@@ -38,11 +38,13 @@ kernel or raise. There is no fallback between the two.
 from __future__ import annotations
 
 import threading
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..training.profiling import count, since
 from .banded import rcm_permutation
 
 SLICE = 32            # rows per slice
@@ -187,6 +189,7 @@ def _raise_on(lib, code: int) -> None:
 
 
 def _blocked_ell_matvec_cuda(b: SlicedEll, x: torch.Tensor) -> torch.Tensor:
+    t0 = time.perf_counter_ns()
     _check(x.dtype == torch.float32 and x.ndim == 2 and x.is_contiguous(),
            "x must be a contiguous f32 (n, C) matrix")
     C = x.shape[1]
@@ -215,6 +218,7 @@ def _blocked_ell_matvec_cuda(b: SlicedEll, x: torch.Tensor) -> torch.Tensor:
     _raise_on(lib, code)
     with _LAUNCHES_LOCK:
         LAUNCHES["blocked_ell"] += 1
+    count("launch.blocked_ell", seconds=since(t0))
     return y
 
 

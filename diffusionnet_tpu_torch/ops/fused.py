@@ -30,8 +30,11 @@ raise. There is no fallback between the two.
 
 from __future__ import annotations
 
+import time
+
 import torch
 
+from ..training.profiling import count, since
 from .megablock import (SLOT, _cdt, _mm, _mm_t, _raise_on, _sm_count,
                         megablock_fwd_xhat_reference, reduce_pieces,
                         xhat_reduce_reference, xhat_splits)
@@ -152,6 +155,7 @@ def _split_products(ops, srcs, mass, lowp: bool, what: str) -> torch.Tensor:
     split-V kernel's partials (one launch, counted under `what`), then
     `xhat_reduce`. ops (B,V,K), one dtype; srcs (B,V,C), one dtype
     (each f32 or bf16); mass (B,V) f32 or None."""
+    t0 = time.perf_counter_ns()
     ts = [*ops, *srcs] + ([] if mass is None else [mass])
     dev = _device_of(ts)
     B, V, K = ops[0].shape
@@ -187,6 +191,7 @@ def _split_products(ops, srcs, mass, lowp: bool, what: str) -> torch.Tensor:
             int(srcs[0].dtype == bf16), int(lowp), stream)
     _raise_on(lib, code, f"{what} launch")
     LAUNCHES[what] += 1
+    count("launch." + what, seconds=since(t0))
     return reduce_pieces(part, B, K, C)
 
 
@@ -216,6 +221,7 @@ def _ds_cuda(evecs: Tensor, gX: Tensor, gY: Tensor, dy: Tensor, dgx: Tensor,
 def _apply_cuda(x_hat: Tensor, coefs: Tensor, evecs: Tensor, gX: Tensor,
                 gY: Tensor, out_dtype: torch.dtype
                 ) -> tuple[Tensor, Tensor, Tensor]:
+    t0 = time.perf_counter_ns()
     dev = x_hat.device
     _check(evecs.ndim == 3, "evecs must be (B,V,K)")
     B, V, K = evecs.shape
@@ -245,6 +251,7 @@ def _apply_cuda(x_hat: Tensor, coefs: Tensor, evecs: Tensor, gX: Tensor,
             stream)
     _raise_on(lib, code, "spectral_apply launch")
     LAUNCHES["spectral_apply"] += 1
+    count("launch.spectral_apply", seconds=since(t0))
     return tuple(outs)
 
 

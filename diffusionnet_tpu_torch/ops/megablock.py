@@ -50,9 +50,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import time
 
 import torch
 
+from ..training.profiling import count, since, wait
 from .spectral import lowp_matmul
 
 DEFAULT_TILE_V = 1024
@@ -60,7 +62,9 @@ DROPOUT_RATE = 0.5   # the reference's fixed MiniMLP rate
 _SCALE = 1.0 / (1.0 - DROPOUT_RATE)
 
 # launches per kernel since the last reset_launches(); each wrapper adds one
-# where it launches its kernel, and nowhere else
+# where it launches its kernel, and nowhere else, and beside it counts
+# launch.<kernel> in `training.profiling` with the host seconds from its
+# entry to the launch's return
 LAUNCHES = {"megablock_fwd": 0, "megablock_fwd_xhat": 0, "xhat_reduce": 0,
             "megablock_bwd_rows": 0, "megablock_bwd_grads": 0,
             "grad_reduce": 0}
@@ -576,6 +580,7 @@ def xhat_reduce(partial: torch.Tensor, K: int, C: int) -> torch.Tensor:
     """Sum per-CTA x_hat partials, slots (G, S, SLOT, SLOT) of which the
     (K, C) corner is used, -> (G, K, C) in the fixed order that
     `xhat_reduce_reference` states (bit-equal to it on the card)."""
+    t0 = time.perf_counter_ns()
     if partial.device.type == "cpu":
         return xhat_reduce_reference(partial, K, C)
     _check(partial.device.type == "cuda", f"unsupported device {partial.device}")
@@ -595,12 +600,14 @@ def xhat_reduce(partial: torch.Tensor, K: int, C: int) -> torch.Tensor:
                                          B, S, K, C, stream)
     _raise_on(lib, code, "xhat_reduce launch")
     LAUNCHES["xhat_reduce"] += 1
+    count("launch.xhat_reduce", seconds=since(t0))
     return out
 
 
 def grad_reduce(partial: torch.Tensor, off: int, n: int) -> torch.Tensor:
     """Sum elements [off, off + n) of per-CTA gradient slots (G, S, P) over
     S in a fixed order -> (G, n)."""
+    t0 = time.perf_counter_ns()
     if partial.device.type == "cpu":
         return grad_reduce_reference(partial, off, n)
     _check(partial.device.type == "cuda", f"unsupported device {partial.device}")
@@ -617,6 +624,7 @@ def grad_reduce(partial: torch.Tensor, off: int, n: int) -> torch.Tensor:
                                          G, S, P, off, n, stream)
     _raise_on(lib, code, "grad_reduce launch")
     LAUNCHES["grad_reduce"] += 1
+    count("launch.grad_reduce", seconds=since(t0))
     return out
 
 
@@ -804,6 +812,7 @@ def _megablock_fwd_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
                         x_hat_in, emit_next, lowp, seed, tile_v, layout):
     """The row kernel (and with emit_next the x_hat kernel and its sum) on
     inputs that `pad_block` padded, in `layout` (`fwd_route`)."""
+    t0 = time.perf_counter_ns()
     B, V, C = x.shape
     K = evecs.shape[-1]
     widths = [W.shape[0] for W in Ws] + [Ws[-1].shape[1]]
@@ -840,6 +849,7 @@ def _megablock_fwd_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
             *_dropout_args(seed, tile_v), stream)
     _raise_on(lib, code, "megablock_fwd launch")
     LAUNCHES["megablock_fwd"] += 1
+    count("launch.megablock_fwd", seconds=since(t0))
     del spill, hid, tiles
     if not emit_next:
         return out, None
@@ -855,6 +865,7 @@ def megablock_fwd_xhat(evecs, src, scale, splits, lowp: bool = False
     CPU ones: the partial slots that `megablock_fwd_xhat_reference` states
     (on the card only the (K, C) corner of each piece is written), to be
     summed by `reduce_pieces`. src (B,V,C) f32, scale (B,V) f32 or None."""
+    t0 = time.perf_counter_ns()
     dev = _device_of([evecs, src] + ([] if scale is None else [scale]))
     if dev.type == "cpu":
         return megablock_fwd_xhat_reference(evecs, src, scale, splits, lowp)
@@ -887,6 +898,7 @@ def megablock_fwd_xhat(evecs, src, scale, splits, lowp: bool = False
             stream)
     _raise_on(lib, code, "megablock_fwd_xhat launch")
     LAUNCHES["megablock_fwd_xhat"] += 1
+    count("launch.megablock_fwd_xhat", seconds=since(t0))
     return part
 
 
@@ -996,8 +1008,10 @@ class _Plan:
         self.stage += len(idx) * (idx[0].numel() // 4096)
 
     def done(self, device) -> tuple:
-        return (torch.cat(self.pieces).to(device), tuple(self.firsts),
-                self.zero)
+        index = torch.cat(self.pieces)
+        with wait("dnt.wait.tile_plan", device):
+            index = index.to(device)
+        return index, tuple(self.firsts), self.zero
 
 
 def _gather_tiles(srcs, index, firsts, lowp):
@@ -1124,6 +1138,7 @@ def _check_bwd(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs, x_hat_in,
 def _bwd_rows_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
                    x_hat_in, dout, dx_hat_next, lowp, seed, tile_v):
     """The rows kernel on checked inputs with C % 8 == 0."""
+    t0 = time.perf_counter_ns()
     B, V, C = x.shape
     K = evecs.shape[-1]
     widths = [W.shape[0] for W in Ws] + [Ws[-1].shape[1]]
@@ -1164,6 +1179,7 @@ def _bwd_rows_cuda(x, evecs, gX, gY, mass, coefs, A_re, A_im, Ws, bs,
             *_dropout_args(seed, tile_v), stream)
     _raise_on(lib, code, "megablock_bwd_rows launch")
     LAUNCHES["megablock_bwd_rows"] += 1
+    count("launch.megablock_bwd_rows", seconds=since(t0))
     return dx, R, dbp
 
 
@@ -1192,6 +1208,7 @@ def megablock_bwd_grads(R, evecs, gX, gY, C: int, widths, splits,
                         lowp: bool = False):
     """B2's grads kernel for CUDA tensors, its plain version for CPU ones:
     (part_par, part_ds) as `megablock_bwd_grads_reference` states them."""
+    t0 = time.perf_counter_ns()
     dev = _device_of([R, evecs, gX, gY])
     if dev.type == "cpu":
         return megablock_bwd_grads_reference(R, evecs, gX, gY, C, widths,
@@ -1224,6 +1241,7 @@ def megablock_bwd_grads(R, evecs, gX, gY, C: int, widths, splits,
             int(evecs.dtype == torch.bfloat16), int(lowp), stream)
     _raise_on(lib, code, "megablock_bwd_grads launch")
     LAUNCHES["megablock_bwd_grads"] += 1
+    count("launch.megablock_bwd_grads", seconds=since(t0))
     return part_par, part_ds
 
 

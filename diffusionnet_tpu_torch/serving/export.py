@@ -62,6 +62,7 @@ import torch.nn.functional as F
 
 from ..ops import collectives as _collectives  # registers dnt_torch::vert_sum
 from ..ops import fused as _fused  # registers the kernel ops before a load
+from ..training.profiling import count, span, wait
 
 MANIFEST_NAME = "manifest.json"
 PARAMS_NAME = "params.npz"
@@ -376,21 +377,40 @@ class PreparedMesh:
             self._cache[b] = got
         return got
 
+    def _upload(self, x) -> torch.Tensor:
+        """x on the device as f32. Host data is copied there, counted in
+        upload_bytes, and the copy blocks until the card has it."""
+        dev = self._sm.device
+        if torch.is_tensor(x) and x.device.type == dev.type:
+            return self._sm._f32(x)
+        with wait("dnt.wait.upload", dev):
+            x = self._sm._f32(x)
+        count("upload_bytes", x.numel() * x.element_size())
+        return x
+
     def __call__(self, x):
+        """The model's output for x (V, c_in) or (B, V, c_in), on the device.
+        A call records the span dnt.serve, with dnt.serve.upload, .pad,
+        .program and .finish inside it (`training.profiling`)."""
         sm, m = self._sm, self._sm.manifest
-        x = sm._f32(x)
-        unbatched = x.ndim == 2
-        if x.shape[-1] != m["c_in"]:
-            raise ValueError(f"x has {x.shape[-1]} channels; artifact "
-                             f"expects c_in={m['c_in']}")
-        if x.shape[-2] != self.v:
-            raise ValueError(f"x has {x.shape[-2]} vertices; this handle was "
-                             f"prepared for V={self.v}")
-        if unbatched:
-            x = x[None]
-        x = _pad_rows(x, -2, self.bucket - self.v)
-        out = sm._run(self.bucket, x, *self._batched(x.shape[0]))
-        return sm._finish(out, self.v, self.bucket, unbatched)
+        with span("dnt.serve"):
+            with span("dnt.serve.upload"):
+                x = self._upload(x)
+            unbatched = x.ndim == 2
+            if x.shape[-1] != m["c_in"]:
+                raise ValueError(f"x has {x.shape[-1]} channels; artifact "
+                                 f"expects c_in={m['c_in']}")
+            if x.shape[-2] != self.v:
+                raise ValueError(f"x has {x.shape[-2]} vertices; this handle "
+                                 f"was prepared for V={self.v}")
+            with span("dnt.serve.pad"):
+                if unbatched:
+                    x = x[None]
+                x = _pad_rows(x, -2, self.bucket - self.v)
+            with span("dnt.serve.program"):
+                out = sm._run(self.bucket, x, *self._batched(x.shape[0]))
+            with span("dnt.serve.finish"):
+                return sm._finish(out, self.v, self.bucket, unbatched)
 
 
 class ServingModel:

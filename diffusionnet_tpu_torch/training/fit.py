@@ -16,6 +16,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from .profiling import span
+
 
 def step_decay_schedule(base_lr: float, decay_every_steps: int,
                         decay_rate: float = 0.5) -> Callable[[int], float]:
@@ -64,15 +66,21 @@ def make_train_step(loss_fn: Callable, optimizer: Adam):
 
     Returns train_step(params, opt_state, batch, generator) ->
     (params, opt_state, loss, aux), the JAX package's signature. params and
-    opt_state are updated in place and returned; loss is detached."""
+    opt_state are updated in place and returned; loss is detached. A step
+    records the span dnt.step, with dnt.step.forward, .backward and
+    .optimizer inside it (`profiling`)."""
 
     def train_step(params, opt_state: AdamState, batch, generator=None):
-        opt = opt_state.optimizer
-        opt.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(params, batch, generator)
-        loss.backward()
-        opt.step()
-        opt_state.scheduler.step()
+        with span("dnt.step"):
+            opt = opt_state.optimizer
+            opt.zero_grad(set_to_none=True)
+            with span("dnt.step.forward"):
+                loss, aux = loss_fn(params, batch, generator)
+            with span("dnt.step.backward"):
+                loss.backward()
+            with span("dnt.step.optimizer"):
+                opt.step()
+                opt_state.scheduler.step()
         return params, opt_state, loss.detach(), aux
 
     return train_step

@@ -13,9 +13,9 @@ from diffusionnet_tpu.serving.export import _flatten_params, _unflatten_params
 from diffusionnet_tpu.training import (
     adam_with_step_decay as jax_adam_with_step_decay)
 from diffusionnet_tpu.training import checkpoint as jck
-from diffusionnet_tpu_torch.training import (StageTimer, adam_state_to_flat,
+from diffusionnet_tpu_torch.training import (adam_state_to_flat,
                                              adam_with_step_decay,
-                                             device_trace, slope_throughput)
+                                             device_trace)
 from diffusionnet_tpu_torch.training import checkpoint as tck
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
@@ -131,24 +131,6 @@ def test_full_state_roundtrip_and_params_only_restore(tmp_path, monkeypatch):
         params["params/first_lin/kernel"].detach().numpy())
     with pytest.raises(ValueError, match="does not contain"):
         tck.restore_checkpoint(path, {"other": np.zeros(2)})
-
-
-def test_stage_timer():
-    t = StageTimer()
-    for name in ("a", "a", "b"):
-        with t.stage(name):
-            pass
-    assert t.counts["a"] == 2 and t.counts["b"] == 1
-    assert "a" in t.report()
-
-
-def test_slope_throughput():
-    def step(x):
-        y = x * 1.0001
-        return y, y.sum()
-    rate, state = slope_throughput(step, torch.ones(16))
-    assert rate > 0
-    assert state.shape == (16,)
 
 
 def test_device_trace_writes_a_trace(tmp_path):

@@ -407,12 +407,16 @@ import sys
 import numpy as np
 
 # The artifact must load and serve WITHOUT the model stack: bar jax, flax,
-# the JAX package and the port's model, geometry, training, data and
-# experiments modules from import (relative imports included), then import
-# the serving package, whose package __init__ loads nothing eagerly.
+# the JAX package and the port's model, geometry, training (all but its
+# spans and counters, training.profiling, which the serving call records
+# into), data and experiments modules from import (relative imports
+# included), then import the serving package, whose package __init__ loads
+# nothing eagerly.
 BARRED = ("jax", "jaxlib", "flax", "optax", "diffusionnet_tpu")
 PORT_BARRED = tuple("diffusionnet_tpu_torch." + m for m in
-                    ("models", "geometry", "training", "data", "experiments"))
+                    ("models", "geometry", "training.inference",
+                     "training.fit", "training.task", "training.checkpoint",
+                     "data", "experiments"))
 class Bar:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BARRED or name.startswith(PORT_BARRED):
