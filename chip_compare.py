@@ -2,7 +2,7 @@
 """Times kernels of the PyTorch port for the package of a given tree, on one
 CUDA card.
 
-    python3 chip_compare.py [--block | --fused] [TREE]
+    python3 chip_compare.py [--block | --fused | --eager] [TREE]
 
 TREE (default: this checkout) is a directory that holds a
 diffusionnet_tpu_torch package, such as an unpacked `git archive` of another
@@ -49,7 +49,25 @@ With --fused (the fused spectral block B4 and the paths that run it):
     apply_model(use_megakernel=False), dropout on, B=4 padded to 32768),
     its dataset's operators cached under build/dev/.
 
-Without --block or --fused:
+With --eager (the eager model as the drivers build it, without
+use_pallas_fused, on seeded dense spectral operators, K 128):
+
+  * one train step (forward, autograd backward, torch.optim.Adam) of
+    classification_shrec11's model (c_width 64, HKS in, 30 classes,
+    global_mean, dropout on) at B=8, V = 1024 and 4096;
+  * one request (forward under no_grad, batch 1) of the segmentation
+    model with vertex outputs (chip_smoke.SEG_MODEL) at V = 1024, 4096 and
+    16384;
+
+  each in CUDA events around calls back to back (chip_smoke.time_ms, 30
+  runs: the pace, the host's or the device's), in device time
+  (chip_smoke.device_ms) and in host time (`host_ms`), with B4's launches
+  in one call (none where the tree runs these blocks on the dense route).
+  The last two hold the device with a spin while the host issues, so they
+  issue one step, or four requests, a run: more would fill the card's
+  launch queue (about a thousand launches), and the host would wait.
+
+Without --block, --fused or --eager:
 
   * B5 at C = 160 on the cotan Laplacians of torus(144, 140) and
     delaunay_sphere(100000): device time (chip_smoke.device_ms) and CUDA
@@ -66,6 +84,7 @@ Without --block or --fused:
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import inspect
 import json
@@ -292,6 +311,74 @@ def fused_times(cs, out):
         lambda: step(params, state, batch, gen), reps=5, calls=3, warmup=2)
 
 
+def _eager_operands(B, V, K, c_in, seed):
+    """Seeded inputs and dense spectral operators on the card, scaled as a
+    surface's (mass summing to 1, eigenvalues growing by about 4 pi,
+    gradients of size sqrt(evals / 2)); the last V / 8 rows are padding."""
+    g = torch.Generator().manual_seed(seed)
+    n_pad = V // 8
+    x = torch.randn(B, V, c_in, generator=g)
+    mass = torch.rand(B, V, generator=g) + 0.5
+    mass[:, V - n_pad:] = 0
+    mass = mass / mass.sum(-1, keepdim=True)
+    evals = torch.cumsum(4 * np.pi * (0.5 + torch.rand(B, K, generator=g)),
+                         -1)
+    evecs = torch.randn(B, V, K, generator=g)
+    gX, gY = (torch.randn(B, V, K, generator=g) * (evals[:, None] / 2).sqrt()
+              for _ in range(2))
+    for t in (x, evecs, gX, gY):
+        t[:, V - n_pad:] = 0
+    return [t.to("cuda") for t in (x, mass, evals, evecs, gX, gY)]
+
+
+def eager_times(cs, out):
+    """Small buckets on the eager model: SHREC11's train step and a batch-1
+    request of the segmentation model, into `out`."""
+    from diffusionnet_tpu_torch.models import DiffusionNet
+    from diffusionnet_tpu_torch.ops import fused as fu
+
+    def timed(fn, calls, held):
+        fu.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        launches = sum(fu.LAUNCHES.values())
+        return dict(ms=cs.time_ms(fn, reps=30, calls=calls),
+                    device_ms=cs.device_ms(fn, calls=held, reps=9),
+                    host_ms=host_ms(fn, calls=held, reps=21),
+                    b4_launches=launches)
+
+    log_softmax = functools.partial(torch.log_softmax, dim=-1)
+    for V in (1024, 4096):
+        model = DiffusionNet(
+            c_in=16, c_out=30, c_width=64, n_block=4, dropout=True,
+            outputs_at="global_mean", last_activation=log_softmax,
+            generator=torch.Generator().manual_seed(1)).to("cuda").train()
+        inputs = _eager_operands(8, V, 128, 16, seed=V)
+        labels = torch.arange(8, device="cuda") % 30
+        adam = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+        def step():
+            adam.zero_grad(set_to_none=True)
+            loss = torch.nn.functional.nll_loss(model(*inputs), labels)
+            loss.backward()
+            adam.step()
+        out[f"shrec11 step B=8 V={V}"] = timed(step, calls=3, held=1)
+        del model, inputs, adam
+    model = DiffusionNet(**{**cs.SEG_MODEL, "outputs_at": "vertices"},
+                         last_activation=log_softmax,
+                         generator=torch.Generator().manual_seed(2)
+                         ).to("cuda").eval()
+    for V in (1024, 4096, 16384):
+        inputs = _eager_operands(1, V, 128, 16, seed=V + 1)
+
+        def request():
+            with torch.no_grad():
+                return model(*inputs)
+        out[f"segmentation request B=1 V={V}"] = timed(request, calls=10,
+                                                       held=4)
+        del inputs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_compare: torch.cuda.is_available() is false",
@@ -300,7 +387,8 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     argv = sys.argv[1:]
     block, fused = "--block" in argv, "--fused" in argv
-    argv = [a for a in argv if a not in ("--block", "--fused")]
+    eager = "--eager" in argv
+    argv = [a for a in argv if a not in ("--block", "--fused", "--eager")]
     tree = os.path.abspath(argv[0] if argv else here)
     import chip_smoke as cs        # this checkout's, whatever the tree
     sys.path.insert(0, tree)       # the tree's package before this one's
@@ -315,8 +403,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     out = {"tree": tree, "card": cs.card_line()}
-    if block or fused:
-        (block_times if block else fused_times)(cs, out)
+    if block or fused or eager:
+        (block_times if block else fused_times if fused else eager_times)(
+            cs, out)
         print(json.dumps(out), flush=True)
         return 0
     for name, (v, f) in cs.b5_meshes():

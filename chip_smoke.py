@@ -3,7 +3,11 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, in order; any failure raises and the script exits non-zero. Where
+a phase holds a hand-written kernel to "the eager model" or "the unfused
+model" on the card, that model runs on the dense route (`dense_route`:
+torch products on cuBLAS), checked to launch no B4 kernel: the card's
+eager model would otherwise run its spectral products on B4 too.
 
   1. device: a CUDA card must be present; prints its name and power limit;
   2. build: compiles the hand-written kernels from csrc/ with nvcc;
@@ -219,11 +223,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      sharded solve of icosphere(5) (10,244 rows) at vert 2 against ARPACK
      and the single-card solve, every rank's evals bit-equal; (c) on the
      same ranks, the segmentation model (vertex outputs, fused and
-     unfused, and a global_mean head) exported sharded at bucket 32768
-     serves the torus against the single-card ServingModel within the
-     serving tests' tolerance, B4 launched 4 + 4 times a request on each
-     rank of the fused artifact (and xhat_reduce 4 times, one a
-     projection), warm requests timed; (d) one matvec of the DIA format
+     unfused on the dense route, and a global_mean head, unfused, on the
+     card's default B4) exported sharded at bucket 32768 serves the torus
+     against the single-card ServingModel within the serving tests'
+     tolerance, B4 launched 4 + 4 times a request on each rank of the
+     fused and global_mean artifacts (and xhat_reduce 4 times, one a
+     projection) and never by the dense one, warm requests timed; (d) one matvec of the DIA format
      (torus) and of the dense band (icosphere(5)) against B5 and
      torch.sparse.mm, and their solves against ARPACK beside the B5 and
      ELL solves. B4's and xhat_reduce's sharded launches join the kernels
@@ -241,6 +246,7 @@ before them is a JSON summary of the kernels.
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import json
 import math
@@ -605,6 +611,45 @@ def segmentation_model(**kw):
     return model
 
 
+# The plain side of the checks against the hand-written kernels. On a card
+# a block with dense spectral gradients runs B4 wherever V is a multiple of
+# its pallas_tile_v (models/diffusion_net.py::takes_b4); with a row tile
+# that divides no bucket (each a power of two) it keeps the dense route,
+# torch products on cuBLAS, on the same inputs.
+OFF_TILE_V = 3
+
+
+def dense_route(model):
+    """A copy of `model`, same weights, whose blocks keep the dense route
+    on the card."""
+    model = copy.deepcopy(model)
+    model.pallas_tile_v = OFF_TILE_V
+    for blk in model.blocks:
+        blk.pallas_tile_v = OFF_TILE_V
+    return model
+
+
+def without_b4(fn, tag):
+    """fn()'s result, checked to have launched no B4 kernel and counted
+    only `block.dense` routes (training.profiling): the dense route."""
+    from diffusionnet_tpu_torch.ops import fused as fu
+    from diffusionnet_tpu_torch.training import profiling
+    before = dict(fu.LAUNCHES)
+    profiling.reset()
+    out = fn()
+    t = profiling.totals()
+    routes = {}
+    for counters in (t["counters"], *(r["counters"]
+                                      for r in t["records"].values())):
+        for k, (n, _) in counters.items():
+            if k.startswith("block."):
+                routes[k] = routes.get(k, 0) + n
+    check(fu.LAUNCHES == before and set(routes) == {"block.dense"},
+          f"{tag}: the dense route launched B4 ({before} -> {fu.LAUNCHES}) "
+          f"or counted {routes}")
+    return out
+
+
 def phase_slice(mb):
     """The main path: three requests through InferenceSession on the card.
     Returns the launch counts of the three requests."""
@@ -643,8 +688,8 @@ def phase_slice(mb):
         check(stamps[2] == stamps[1] and len(stamps[1]) == 2,
               "the repeated mesh did not hit the operator cache")
 
-        eager = InferenceSession(model, k_eig=K_EIG, op_cache_dir=cache,
-                                 device="cuda")
+        eager = InferenceSession(dense_route(model), k_eig=K_EIG,
+                                 op_cache_dir=cache, device="cuda")
         for (name, (verts, faces)), p in zip(requests, preds):
             check(p.shape == (faces.shape[0], SEG_MODEL["c_out"]),
                   f"{name}: predictions {p.shape}")
@@ -653,7 +698,7 @@ def phase_slice(mb):
             psum = torch.from_numpy(p).double().exp().sum(-1)
             sum_err = (psum - 1).abs().max().item()
             check(sum_err < 1e-4, f"{name}: probabilities sum off by {sum_err}")
-            ref = eager(verts, faces)
+            ref = without_b4(lambda: eager(verts, faces), name)
             compare(f"{name}: predictions {p.shape} against the eager model "
                     f"(probabilities sum to 1 within {sum_err:.1e})",
                     torch.from_numpy(p), torch.from_numpy(ref), SLICE_TOL)
@@ -1066,10 +1111,10 @@ def phase_train(mb):
     opt = adam_with_step_decay(1e-3, 50, 0.5)
     state = opt.init(params)
 
-    def make_step(c, deterministic):
+    def make_step(c, deterministic, m=model):
         return make_train_step(
             lambda p, b, g: loss_and_counts(
-                apply_model(model, p, b, g, c, deterministic), b, c), opt)
+                apply_model(m, p, b, g, c, deterministic), b, c), opt)
     step = make_step(cfg, False)
     before = {k: v.detach().clone() for k, v in params.items()}
     gen = torch.Generator().manual_seed(1)
@@ -1092,16 +1137,19 @@ def phase_train(mb):
     check(not still, f"parameters that did not move: {still}")
 
     # one more step with dropout off, from the same state, through the fast
-    # path and through the eager model with autograd
+    # path and through the eager model with autograd on the dense route
     flat_state = adam_state_to_flat(state)
     res = {}
+    dense = dense_route(model)
     for name, use_mk in (("fast path", True), ("eager model", False)):
         p = {k: v.detach().clone().requires_grad_(True)
              for k, v in params.items()}
         s = adam_state_from_flat(opt.init(p), flat_state)
         c = TaskConfig(input_features="hks", labels_kind="face",
                        use_megakernel=use_mk)
-        _, _, loss, _ = make_step(c, True)(p, s, batch, None)
+        one = make_step(c, True, model if use_mk else dense)
+        _, _, loss, _ = (one(p, s, batch, None) if use_mk else without_b4(
+            lambda: one(p, s, batch, None), "phase 8's eager step"))
         res[name] = (loss.item(), {k: v.grad for k, v in p.items()},
                      {k: v.detach() for k, v in p.items()})
     step_agreement("fast path", "eager model", res, params,
@@ -1843,7 +1891,7 @@ def phase_fused_slice(mb, fu, batch):
         "on cuda: 5 Adam steps through the eager model, then a request")
     B, V = batch.verts.shape[:2]
     fused_model = segmentation_model(use_pallas_fused=True)
-    plain_model = segmentation_model()
+    plain_model = dense_route(segmentation_model())
     params = flat_params(fused_model, "cuda", requires_grad=True)
     cfg = TaskConfig(input_features="hks", labels_kind="face",
                      use_megakernel=False)
@@ -1879,14 +1927,18 @@ def phase_fused_slice(mb, fu, batch):
           f"launches {launches} != 5 x {per_step}")
     check(all(map(math.isfinite, losses)), f"losses {losses}")
 
-    # one step with dropout off from the same state, fused and unfused
+    # one step with dropout off from the same state, fused and unfused (the
+    # dense route)
     flat_state = adam_state_to_flat(state)
     res = {}
     for name, model in (("fused", fused_model), ("unfused", plain_model)):
         p = {k: v.detach().clone().requires_grad_(True)
              for k, v in params.items()}
         s = adam_state_from_flat(opt.init(p), flat_state)
-        _, _, loss, _ = make_step(model, True)(p, s, batch, None)
+        one = make_step(model, True)
+        _, _, loss, _ = (one(p, s, batch, None) if name == "fused" else
+                         without_b4(lambda: one(p, s, batch, None),
+                                    "phase 14's unfused step"))
         res[name] = (loss.item(), {k: v.grad for k, v in p.items()},
                      {k: v.detach() for k, v in p.items()})
     # the loss, the gradients, the Adam updates and the updated parameters
@@ -1912,8 +1964,9 @@ def phase_fused_slice(mb, fu, batch):
         fu.reset_launches()
         pred = sess(verts, faces)
         served = {**fu.LAUNCHES, **mb.LAUNCHES}
-        ref = InferenceSession(plain_model, k_eig=K_EIG, op_cache_dir=cache,
-                               device="cuda")(verts, faces)
+        ref = without_b4(lambda: InferenceSession(
+            plain_model, k_eig=K_EIG, op_cache_dir=cache,
+            device="cuda")(verts, faces), "phase 14's unfused request")
     per_req = {"spectral_project": N_BLOCK, "spectral_apply": N_BLOCK,
                "spectral_ds": 0,
                "megablock_fwd": 0, "megablock_fwd_xhat": 0,
@@ -2070,13 +2123,14 @@ def phase_fused_times(mb, fu, card, batch):
             f"{bd[0]:.4f} ms ({bd[1]}), share {bd[0] / k:.4f} [{card}]")
         del args
 
-    # the train step of phase 14, fused and unfused, dropout on
+    # the train step of phase 14, fused and unfused (the dense route),
+    # dropout on
     cfg = TaskConfig(input_features="hks", labels_kind="face",
                      use_megakernel=False)
     gen = torch.Generator(device="cuda").manual_seed(9)
     steps = {}
     for name, kw in (("fused", dict(use_pallas_fused=True)),
-                     ("unfused", {})):
+                     ("unfused", dict(pallas_tile_v=OFF_TILE_V))):
         model = segmentation_model(**kw)
         params = flat_params(model, "cuda", requires_grad=True)
         opt = adam_with_step_decay(1e-3)
@@ -2084,6 +2138,9 @@ def phase_fused_times(mb, fu, card, batch):
         step = make_train_step(
             lambda p, b, g: loss_and_counts(
                 apply_model(model, p, b, g, cfg, False), b, cfg), opt)
+        if name == "unfused":
+            without_b4(lambda: step(params, state, batch, gen),
+                       "phase 15's unfused step")
         t = time_ms(lambda: step(params, state, batch, gen), reps=5, calls=3,
                     warmup=2)
         steps[name] = t
@@ -2209,10 +2266,10 @@ def phase_c256_train(mb, card):
     opt = adam_with_step_decay(1e-3, 50, 0.5)
     state = opt.init(params)
 
-    def make_step(c, deterministic):
+    def make_step(c, deterministic, m=model):
         return make_train_step(
             lambda p, b, g: loss_and_counts(
-                apply_model(model, p, b, g, c, deterministic), b, c), opt)
+                apply_model(m, p, b, g, c, deterministic), b, c), opt)
     cfg = TaskConfig(input_features="xyz", labels_kind="vertex")
     step = make_step(cfg, False)
     before = {k: v.detach().clone() for k, v in params.items()}
@@ -2240,15 +2297,19 @@ def phase_c256_train(mb, card):
     log(f"  time train step B={B} V={V} sampling_invariance model (C=256, "
         f"dropout on), megakernel path: {t:.3f} ms per step [{card}]")
 
+    # the eager model on the dense route (cuBLAS)
     flat_state = adam_state_to_flat(state)
     res = {}
+    dense = dense_route(model)
     for name, use_mk in (("fast path", True), ("eager model", False)):
         p = {k: v.detach().clone().requires_grad_(True)
              for k, v in params.items()}
         s = adam_state_from_flat(opt.init(p), flat_state)
         c = TaskConfig(input_features="xyz", labels_kind="vertex",
                        use_megakernel=use_mk)
-        _, _, loss, _ = make_step(c, True)(p, s, batch, None)
+        one = make_step(c, True, model if use_mk else dense)
+        _, _, loss, _ = (one(p, s, batch, None) if use_mk else without_b4(
+            lambda: one(p, s, batch, None), "phase 16's eager step"))
         res[name] = (loss.item(), {k: v.grad for k, v in p.items()},
                      {k: v.detach() for k, v in p.items()})
     # This configuration's gradient moves by about 1e-3 of its norm under a
@@ -2264,7 +2325,8 @@ def phase_c256_train(mb, card):
     s = adam_state_from_flat(opt.init(p), flat_state)
     c = TaskConfig(input_features="xyz", labels_kind="vertex",
                    use_megakernel=False)
-    make_step(c, True)(p, s, batch, None)
+    without_b4(lambda: make_step(c, True, dense)(p, s, batch, None),
+               "phase 16's nudged eager step")
     ge, gp = res["eager model"][1], {k: v.grad for k, v in p.items()}
     ue = {k: res["eager model"][2][k] - params[k].detach() for k in ge}
     up = {k: p[k].detach() - params[k].detach() for k in ge}
@@ -2407,8 +2469,9 @@ def phase_wide_train(mb, card, batch):
                   f"{name}: request launches {got} != {per_req}")
             for k in launches:
                 launches[k] += got[k]
-            ref = InferenceSession(model, k_eig=K_EIG, op_cache_dir=cache,
-                                   device="cuda")(verts, faces)
+            ref = without_b4(lambda: InferenceSession(
+                dense_route(model), k_eig=K_EIG, op_cache_dir=cache,
+                device="cuda")(verts, faces), f"{name}: the eager request")
         log(f"  {name}: warm request torus(144, 140) (V={verts.shape[0]}): "
             f"{warm * 1e3:.1f} ms host clock, forward "
             f"{session.timings['forward_s'] * 1e3:.2f} ms [{card}]")
@@ -2543,7 +2606,8 @@ def phase_harness(mb, card, seg_ds):
         run("first", 1)
         run("resumed", 2, resume="first")
         run("device_data", 2, device_data=True)
-        # the eager route (cuBLAS for the blocks' products): printed only
+        # the eager route (its blocks' spectral products on B4 on the card,
+        # the rest on cuBLAS): printed only
         run("eager whole", 2, mega=False)
         run("eager first", 1, mega=False)
         run("eager resumed", 2, resume="eager first", mega=False)
@@ -2767,14 +2831,18 @@ SERVE_BUCKETS = (16384, 32768)
 SERVE_BATCH = 4
 # the serving process of phase 18: loads the artifact with the model stack
 # (and jax) barred from import, serves each mesh at batch 1 and SERVE_BATCH
-# through __call__ and a PreparedMesh, and saves the outputs
+# through __call__ and a PreparedMesh, and saves the outputs. Barred as in
+# tests/test_torch_serving.py: the port's models, geometry, data,
+# experiments and training modules, all but training.profiling (the spans
+# and counters the kernel wrappers and the serving call record into)
+SERVE_BARRED = ("models", "geometry", "training.inference", "training.fit",
+                "training.task", "training.checkpoint", "data", "experiments")
 HERMETIC_SERVER = r"""
 import json, sys
 import numpy as np
 import torch
 BARRED = ("jax", "jaxlib", "flax", "optax", "diffusionnet_tpu")
-PORT_BARRED = tuple("diffusionnet_tpu_torch." + m for m in
-                    ("models", "geometry", "training", "data", "experiments"))
+PORT_BARRED = tuple("diffusionnet_tpu_torch." + m for m in %r)
 class Bar:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BARRED or name.startswith(PORT_BARRED):
@@ -2856,9 +2924,9 @@ def phase_serving(mb, fu, card, seg_ds):
     may not import the model stack, and serves torus(144, 140) (bucket
     32768) and icosphere(5) (bucket 16384) through ServingModel.__call__
     and a PreparedMesh at batch 1 and SERVE_BATCH, held to the eager model
-    (use_pallas_fused=False) on the same card within SLICE_TOL. Each
-    request launches B4's two kernels once a block; the hot path makes no
-    host sync (torch.cuda.set_sync_debug_mode("error")). Then the warm
+    on the dense route (`dense_route`) on the same card within SLICE_TOL.
+    Each request launches B4's two kernels once a block; the hot path makes
+    no host sync (torch.cuda.set_sync_debug_mode("error")). Then the warm
     request (batch 1, the torus) on three routes: InferenceSession with a
     cache hit, __call__ with the operators on the card, a PreparedMesh's
     handle(x). An artifact exported and loaded with both ends' defaults
@@ -2875,7 +2943,7 @@ def phase_serving(mb, fu, card, seg_ds):
         f"segmentation model on cuda, buckets {SERVE_BUCKETS}")
     t_phase = time.perf_counter()
     fused_model = segmentation_model(use_pallas_fused=True)
-    plain_model = segmentation_model().to("cuda").eval()
+    plain_model = dense_route(segmentation_model()).to("cuda").eval()
     per_req = {"spectral_project": N_BLOCK, "spectral_apply": N_BLOCK,
                "spectral_ds": 0, "megablock_fwd": 0, "megablock_fwd_xhat": 0,
                "xhat_reduce": N_BLOCK,
@@ -2912,7 +2980,8 @@ def phase_serving(mb, fu, card, seg_ds):
         xn = torch.stack([x1 * (1 + 0.25 * j) for j in range(SERVE_BATCH)])
         check(sm.pick_bucket(x1.shape[0]) == bucket,
               f"{tag}: bucket {sm.pick_bucket(x1.shape[0])} != {bucket}")
-        # the eager model on the same card, at the same bucket
+        # the eager model on the same card, at the same bucket, on the dense
+        # route
         pad = bucket - x1.shape[0]
         padded = [torch.nn.functional.pad(a, (0, 0, 0, pad)) for a in
                   (ops[2], ops[3], ops[4])]
@@ -2924,9 +2993,9 @@ def phase_serving(mb, fu, card, seg_ds):
                 xx = torch.nn.functional.pad(x.reshape(B, *x1.shape),
                                              (0, 0, 0, pad))
                 rep = lambda a: a.expand(B, *a.shape).contiguous()
-                out = plain_model(xx, rep(mass_p), rep(ops[1]),
-                                  *(rep(a) for a in padded),
-                                  faces=rep(faces).long())
+                out = without_b4(lambda: plain_model(
+                    xx, rep(mass_p), rep(ops[1]), *(rep(a) for a in padded),
+                    faces=rep(faces).long()), f"{tag}: the eager model")
                 refs[b] = out[0] if b == "1" else out
         meshes[tag] = (ops, faces, x1, xn, refs)
 
@@ -3022,7 +3091,7 @@ def phase_serving(mb, fu, card, seg_ds):
     np.savez(inputs, **arrays)
     script = os.path.join(tmp.name, "server.py")
     with open(script, "w") as f:
-        f.write(HERMETIC_SERVER)
+        f.write(HERMETIC_SERVER % (SERVE_BARRED,))
     out_path = os.path.join(tmp.name, "served.npz")
     t0 = time.perf_counter()
     res = subprocess.run(
@@ -3035,9 +3104,7 @@ def phase_serving(mb, fu, card, seg_ds):
               if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                      "diffusionnet_tpu")
               or m.startswith(tuple(
-                  "diffusionnet_tpu_torch." + p for p in
-                  ("models", "geometry", "training", "data",
-                   "experiments")))]
+                  "diffusionnet_tpu_torch." + p for p in SERVE_BARRED))]
     check(not barred, f"the serving process imported {barred}")
     check(all(got == per_req for got in report["launches"]),
           f"the serving process's launches {report['launches']}")
@@ -3132,6 +3199,7 @@ def phase_clouds(mb, be, card):
                         outputs_at="vertices", dropout=True,
                         input_features="xyz")
     model.reset_parameters(torch.Generator().manual_seed(19))
+    dense = dense_route(model)
     params = flat_params(model, "cuda")
     mega = TaskConfig(input_features="xyz", labels_kind="vertex",
                       use_megakernel=True)
@@ -3195,15 +3263,16 @@ def phase_clouds(mb, be, card):
         check(tuple(batch.verts.shape[:2]) == (1, want_v),
               f"{name}: batch {tuple(batch.verts.shape)}")
 
-        def request(cfg=mega):
+        def request(cfg=mega, m=model):
             with torch.no_grad():
-                return apply_model(model, params, batch, None, cfg,
+                return apply_model(m, params, batch, None, cfg,
                                    deterministic=True)
         before = dict(mb.LAUNCHES)
         out = request()
         torch.cuda.synchronize()
         got = {k: mb.LAUNCHES[k] - before[k] for k in before}
-        ref = request(eager)
+        ref = without_b4(lambda: request(eager, dense), f"{name}: the eager "
+                         "model")
         n = verts.shape[0]
         err = compare(f"{name}: E5 model on B1 against the eager model "
                       f"(B=1, V={want_v})", out[0, :n], ref[0, :n],
@@ -4205,10 +4274,12 @@ def phase_sharded(fu, be, card, seg_ds):
     of the largest, M-orthonormality within EIG_TOL, padded rows exactly
     0), against the single-card solve (B5), every rank's evals bit-equal.
     (c) on the same ranks: the segmentation model (vertex outputs, fused
-    and unfused; and a global_mean head) exported sharded at bucket 32768
+    and unfused on the dense route, `dense_route`; and a global_mean head,
+    unfused, which the card runs on B4) exported sharded at bucket 32768
     (16,384 rows a rank) serves the torus, each against the single-card
-    ServingModel of the same model within SHARD_SERVE_TOL; the fused
-    artifact launches B4's two kernels once a block on each rank; warm
+    ServingModel of the same model within SHARD_SERVE_TOL; the fused and
+    global_mean artifacts launch B4's two kernels once a block on each
+    rank, the dense route's none; warm
     requests through a PreparedSurface (host clock, median of 10).
     (d) the DIA format on the torus and the dense band on icosphere(5):
     one matvec against B5 and torch.sparse.mm (device time), and the
@@ -4277,8 +4348,8 @@ def phase_sharded(fu, be, card, seg_ds):
     o = seg_ds.ops_list[0]
     x_t = get_features("hks", None, torch.from_numpy(o.evals).cuda(),
                        torch.from_numpy(o.evecs).cuda()).contiguous()
-    models = {"unfused": segmentation_model(outputs_at="vertices",
-                                            dropout=False),
+    models = {"unfused": dense_route(segmentation_model(
+                  outputs_at="vertices", dropout=False)),
               "fused": segmentation_model(outputs_at="vertices",
                                           dropout=False,
                                           use_pallas_fused=True),
@@ -4345,7 +4416,7 @@ def phase_sharded(fu, be, card, seg_ds):
                         torch.from_numpy(rep[f"{name}/{call}"]).cuda(), ref,
                         SHARD_SERVE_TOL, quiet=r > 0 or call != "y")
             launches = rep[name + "/launches"].tolist()
-            want = [N_BLOCK] * 3 if name == "fused" else [0, 0, 0]
+            want = [0, 0, 0] if name == "unfused" else [N_BLOCK] * 3
             check(launches == want, f"rank {r} {name}: B4 and xhat_reduce "
                   f"launches {launches} a request, expected {want}")
             total["spectral_project"] += launches[0]

@@ -11,7 +11,14 @@ block chooses them:
     V % pallas_tile_v == 0 (else the dense route: JAX semantics); on a
     vertex-sharded surface B4 runs on each shard's rows, forward and
     backward, with the projection summed over the shards between its two
-    kernels (and its cotangent in the backward);
+    kernels (and its cotangent in the backward). On a CUDA device the
+    dense-spectral block takes this route whatever use_pallas_fused says:
+    the two compute the same products, and B4's kernels are the card's
+    implementation of them (cuBLAS runs the long-V transposed products on
+    small tiles), unless an operator requires grad: B4 gives the operators
+    no gradient, the dense route does (`takes_b4`). On the CPU
+    use_pallas_fused picks between the two formulations, as in the JAX
+    package;
   * ELL gradient operators (gradX/gradY an `Ell`): `ell_matvec` of the
     diffused signal. Required by diffusion_method="implicit_dense".
 
@@ -39,7 +46,7 @@ from ..ops.fused import (fused_spectral_block, fused_spectral_block_batched,
                          fused_spectral_block_sharded)
 from ..ops.sparse import Ell, ell_matvec, ell_to_dense
 from ..ops.spectral import from_basis, lowp_matmul, to_basis
-from ..training.profiling import span
+from ..training.profiling import count, span
 
 # flax's truncated-normal variance scaling divides the stddev by the std of a
 # unit normal truncated to [-2, 2]
@@ -194,10 +201,23 @@ class MiniMLP(nn.Module):
         return x
 
 
+def takes_b4(x_in, operators, use_pallas_fused: bool, tile_v: int) -> bool:
+    """Whether a block with dense spectral gradients runs on B4 (module
+    docstring): only where V (a shard's rows) is a multiple of tile_v; then
+    where use_pallas_fused asks for it, or on a CUDA tensor unless an
+    operator (mass, evecs, gradX, gradY) requires grad, since B4 gives the
+    operators no gradient and the dense route does."""
+    if x_in.shape[-2] % tile_v:
+        return False
+    return use_pallas_fused or (x_in.is_cuda and not any(
+        t.requires_grad for t in operators))
+
+
 class DiffusionNetBlock(nn.Module):
     """diffusion -> tangent gradients -> gradient features -> MLP -> residual
     (reference layers.py:167-241), on one of the three routes of the module
-    docstring."""
+    docstring. A call with dense spectral gradients counts the route it
+    took, `block.b4` or `block.dense` (training.profiling.count)."""
 
     def __init__(self, c_width: int, mlp_hidden_dims: Sequence[int],
                  dropout: bool = True, with_gradient_features: bool = True,
@@ -239,8 +259,11 @@ class DiffusionNetBlock(nn.Module):
             raise ValueError(
                 "dense spectral gradient operators require "
                 "diffusion_method='spectral'; pass Ell gradX/gradY instead")
-        fused = (spectral_grads and self.use_pallas_fused
-                 and x_in.shape[-2] % self.pallas_tile_v == 0)
+        fused = spectral_grads and takes_b4(
+            x_in, (mass, evecs, gradX, gradY), self.use_pallas_fused,
+            self.pallas_tile_v)
+        if spectral_grads:
+            count("block.b4" if fused else "block.dense")
         if fused and vert is not None:
             # B4 on the shard's rows, its (K, C) projection summed over the
             # shards between the two kernels; differentiable, the backward
@@ -414,9 +437,11 @@ class DiffusionNet(nn.Module):
 
     compute_dtype: e.g. torch.bfloat16 (module docstring). use_pallas_fused:
     the blocks' spectral diffusion and gradient products as kernel B4 when
-    V % pallas_tile_v == 0. remat_blocks: recompute each block in the
-    backward pass (torch.utils.checkpoint) instead of keeping its
-    activations; dropout masks are redrawn from the same generator state."""
+    V % pallas_tile_v == 0. On a CUDA device the flag is moot for dense
+    spectral gradients: those blocks take B4 there either way, unless an
+    operator requires grad (module docstring, `takes_b4`). remat_blocks: recompute each block in the backward pass
+    (torch.utils.checkpoint) instead of keeping its activations; dropout
+    masks are redrawn from the same generator state."""
 
     def __init__(self, c_in: int, c_out: int, c_width: int = 128,
                  n_block: int = 4,

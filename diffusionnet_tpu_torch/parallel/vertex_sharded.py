@@ -122,10 +122,12 @@ def vertex_sharded_forward(model, params: dict | None, x_in, ops: Operators,
     model's forward (faces, edges, deterministic, ...) as given. The dense
     spectral gradients are used where the bundle has them (local products);
     else the ELL operators, which read the surface gathered from every
-    shard. A fused model (use_pallas_fused, kernel B4) runs B4 on the
-    shard's rows, forward and backward, the shards exchanging x_hat's
-    (K, C) partials and their cotangent. Returns this rank's rows of vertex
-    outputs; face, edge and global-mean outputs whole on every rank."""
+    shard. A fused block (kernel B4: use_pallas_fused, or dense spectral
+    gradients on a card, where the shard's rows are a multiple of
+    pallas_tile_v) runs B4 on the shard's rows, forward and backward, the
+    shards exchanging x_hat's (K, C) partials and their cotangent. Returns
+    this rank's rows of vertex outputs; face, edge and global-mean outputs
+    whole on every rank."""
     if params is None:
         device = next(model.parameters()).device
         fn = model

@@ -56,8 +56,9 @@ def apply_model(model, params: dict, batch, generator, cfg: TaskConfig,
     (JAX-layout leaf tensors) on a PaddedBatch of tensors.
 
     With cfg.use_megakernel the blocks run as kernels B1/B2
-    (`megablock_apply`); else the eager model runs on the same tensors (a
-    model built with use_pallas_fused runs its blocks on kernel B4 there).
+    (`megablock_apply`); else the eager model runs on the same tensors (its
+    dense-spectral blocks on kernel B4 on a card, and on the CPU where the
+    model was built with use_pallas_fused).
 
     generator: None (evaluation), or the torch.Generator of the step's
     randomness, drawn in this order: first the rotation uniforms of

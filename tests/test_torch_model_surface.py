@@ -145,6 +145,80 @@ def test_fused_route_matches_jax(meshes, batched, monkeypatch):
         assert len(calls) == n_fused
 
 
+@pytest.mark.parametrize("flag,tile,ell,want", [
+    (False, 128, False, {"block.dense": 2}),
+    (True, 128, False, {"block.b4": 2}),
+    (True, 96, False, {"block.dense": 2}),
+    (False, 128, True, {})], ids=["dense", "b4", "b4-off-tile", "ell"])
+def test_blocks_count_their_route(meshes, monkeypatch, flag, tile, ell,
+                                  want):
+    """A block with dense spectral gradients counts the route it took
+    (training.profiling.count): on the CPU use_pallas_fused picks it,
+    `block.b4` for B4 (its plain versions), `block.dense` for the dense
+    route, also where pallas_tile_v does not divide V; an ELL-gradient
+    block counts neither. Both dense-spectral routes give the same output
+    (rtol 1e-5, atol 1e-6: f32 sums in other orders)."""
+    from diffusionnet_tpu_torch.training import profiling
+    x, mass, _, tkw = _batched(meshes, True, ell=ell)
+
+    def run(use_fused):
+        model = DiffusionNet(**ARCH, use_pallas_fused=use_fused,
+                             pallas_tile_v=tile)
+        with torch.no_grad():
+            for blk in model.blocks:
+                blk.diffusion.diffusion_time.fill_(0.02)
+            return model(torch.from_numpy(x), torch.from_numpy(mass), **tkw)
+    monkeypatch.setattr(profiling, "_REG", profiling.Registry())
+    out = run(flag)
+    got = {k: n for k, (n, _) in profiling.totals()["counters"].items()
+           if k.startswith("block.")}
+    assert got == want
+    np.testing.assert_allclose(out.numpy(), run(False).numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("flag,cuda,tile,grad,want", [
+    (False, False, 128, False, False),
+    (True, False, 128, False, True),
+    (False, True, 128, False, True),
+    (False, True, 128, True, False),
+    (True, True, 128, True, True),
+    (True, True, 96, False, False),
+    (False, True, 96, False, False)],
+    ids=["cpu", "cpu-flag", "card", "card-op-grad", "card-flag-op-grad",
+         "flag-off-tile", "card-off-tile"])
+def test_takes_b4(flag, cuda, tile, grad, want):
+    """The dense-spectral block's route: B4 only where V is a multiple of
+    the tile; there where use_pallas_fused asks for it, or on a CUDA tensor
+    whose operators require no grad (B4 gives them none, the dense route
+    does). `is_cuda` is the tensor's own attribute, so the card's cases
+    stand in an object that has the attributes the predicate reads."""
+    from types import SimpleNamespace
+    from diffusionnet_tpu_torch.models.diffusion_net import takes_b4
+    x = SimpleNamespace(shape=(2, 256, 8), is_cuda=cuda)
+    ops = [SimpleNamespace(requires_grad=False) for _ in range(4)]
+    ops[2].requires_grad = grad
+    assert takes_b4(x, ops, flag, tile) is want
+
+
+def test_block_with_operator_grads_counts_dense(meshes, monkeypatch):
+    """A dense-spectral block whose operators require grad takes the dense
+    route on the CPU (`block.dense`), and the operators get their gradient
+    from it, as from the JAX package's unfused model."""
+    from diffusionnet_tpu_torch.training import profiling
+    x, mass, _, tkw = _batched(meshes, True, ell=False)
+    model = DiffusionNet(**ARCH, pallas_tile_v=128)
+    ops = {k: v.clone().requires_grad_(True) for k, v in tkw.items()}
+    monkeypatch.setattr(profiling, "_REG", profiling.Registry())
+    out = model(torch.from_numpy(x), torch.from_numpy(mass), **ops)
+    got = {k: n for k, (n, _) in profiling.totals()["counters"].items()
+           if k.startswith("block.")}
+    assert got == {"block.dense": ARCH["n_block"]}
+    out.square().sum().backward()
+    for k in ("evecs", "gradX", "gradY"):
+        assert ops[k].grad is not None and ops[k].grad.abs().sum() > 0, k
+
+
 @pytest.mark.parametrize("batched", [False, True])
 def test_ell_gradient_route_matches_jax(meshes, batched):
     """gradX/gradY as ELL operators (the block tells them from the dense
