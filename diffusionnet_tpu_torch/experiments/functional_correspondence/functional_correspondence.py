@@ -16,13 +16,20 @@ The data is what experiments/functional_correspondence/prepare_data.py lays
 out. --evaluate without --load_model takes the converted reference weights
 pretrained_models/<test_dataset>_<input_features>.npz.
 
+A step trains --batch_pairs P pairs (default 1, the reference's one pair a
+step). Every padded training shape and the ground-truth map of every
+training pair are uploaded once (`stack_shapes`, `gt_fmap_table`), a step's
+pairs are gathered on the device (`PairFeed`), and both shapes of all P
+pairs run through one call of the feature extractor. The loss is the mean
+over the P pairs of each pair's mean squared map error (`pair_loss`).
+
 A run's randomness comes from one torch.Generator on the CPU (seed 0):
-each training pair draws one seed from it for the pair's own generator on
-the device, from which the two rotations (xyz features) and then the
-dropout masks are drawn. Epoch e visits the pairs in numpy
-RandomState(1000 + e) order, as the JAX driver does. A checkpoint holds the
-full train state, the epoch, the pair position and the generator's state,
-so --resume_from continues at the exact pair where a run stopped.
+each step draws one seed from it for the step's own generator on the
+device, from which the 2P rotations (xyz features) and then the dropout
+masks are drawn. Epoch e visits the pairs in numpy RandomState(1000 + e)
+order, as the JAX driver does. A checkpoint holds the full train state,
+the epoch, the pair position and the generator's state, so --resume_from
+continues at the exact pair where a run stopped.
 """
 
 from __future__ import annotations
@@ -45,7 +52,8 @@ from ...training import adam_with_step_decay, make_train_step
 from ...training.checkpoint import (latest_checkpoint, load_train_state,
                                     restore_checkpoint, save_checkpoint,
                                     train_state)
-from ...utils import random_rotate_points, round_up_to_multiple
+from ...training.profiling import span
+from ...utils import rotation_from_uniforms, round_up_to_multiple
 from ..exp_common import (Stopwatch, add_device_arg, driver_device,
                           graceful_stop, load_weights, suite_dir)
 from .faust_scape_dataset import FaustScapeDataset
@@ -68,33 +76,111 @@ def _tree_map(fn, *shapes):
 
 def make_shape_fn(ds, v_pad, d_l, d_g, k_eig, input_features, device,
                   device_data=False):
-    """shape(i, generator=None): the model's input dict of shape i on
-    `device` (ELL gradient operators, as the JAX driver feeds them), its
-    xyz features rotated by a rotation drawn from `generator` when one is
-    given. device_data: every padded shape uploaded once, stacked; a shape
-    is then a gather on the device."""
-    def host_shape(i):
-        return shape_dict(ds.verts_list[i], ds.ops_list[i], v_pad, k_eig,
-                          device, input_features, d_l=d_l, d_g=d_g,
-                          spectral_grads=False)
-
+    """shape(i): the model's input dict of shape i on `device` (ELL
+    gradient operators, as the JAX driver feeds them), for evaluation.
+    device_data: every padded shape uploaded once, stacked; a shape is then
+    a gather on the device."""
     if device_data:
-        stacked = _tree_map(lambda *xs: torch.stack(xs),
-                            *[host_shape(i) for i in range(len(ds.verts_list))])
+        stacked = stack_shapes(ds, v_pad, d_l, d_g, k_eig, input_features,
+                               device)
+        return lambda i: _tree_map(lambda a: a[i], stacked)
+    return lambda i: shape_dict(ds.verts_list[i], ds.ops_list[i], v_pad,
+                                k_eig, device, input_features, d_l=d_l,
+                                d_g=d_g, spectral_grads=False)
 
-        def base(i):
-            return _tree_map(lambda a: a[i], stacked)
-    else:
-        base = host_shape
 
-    def shape(i, generator=None):
-        s = base(i)
-        if generator is not None:
-            # xyz features are the positions
-            s = dict(s, features=random_rotate_points(s["features"],
-                                                      generator))
-        return s
-    return shape
+def stack_shapes(ds, v_pad, d_l, d_g, k_eig, input_features, device):
+    """Every shape of ds padded (to v_pad rows, ELL degrees d_l and d_g),
+    uploaded once and stacked: the model's input dict with a leading axis
+    of len(ds.verts_list) shapes (ELL gradient operators)."""
+    return _tree_map(lambda *xs: torch.stack(xs), *[
+        shape_dict(v, ops, v_pad, k_eig, device, input_features, d_l=d_l,
+                   d_g=d_g, spectral_grads=False)
+        for v, ops in zip(ds.verts_list, ds.ops_list)])
+
+
+def gt_fmap_table(ds, n_fmap: int, device) -> torch.Tensor:
+    """(N, N, n_fmap, n_fmap) float32 on `device`: the ground-truth map
+    (`models.fmaps.gt_fmap`, float64 least squares) of every ordered pair
+    of ds's N shapes, [i1, i2] the pair (i1, i2). One solve a first shape,
+    on `device`, the samples of every second shape its right-hand sides;
+    every shape has as many samples (vts_list)."""
+    E = [torch.as_tensor(ops.evecs[:, :n_fmap][vts], dtype=torch.float64,
+                         device=device)
+         for ops, vts in zip(ds.ops_list, ds.vts_list)]
+    N, k = len(E), n_fmap
+    rhs = torch.cat(E, 1)                                # (S, N k)
+    rows = [torch.linalg.lstsq(e, rhs).solution.view(k, N, k)
+            for e in E]                                  # [i1] (k, N, k)
+    return torch.stack(rows).permute(0, 2, 3, 1).float().contiguous()
+
+
+def pair_order(n_pairs: int, epoch: int) -> np.ndarray:
+    """The pairs' order in epoch `epoch` (the JAX driver's)."""
+    return np.random.RandomState(1000 + epoch).permutation(n_pairs)
+
+
+def rotate_shapes(shapes: dict, generator) -> dict:
+    """shapes (B, V, 3) xyz features, each right-multiplied by its own
+    uniform random rotation, from one draw of (B, 3) uniforms."""
+    x = shapes["features"]
+    u = torch.rand((x.shape[0], 3), generator=generator,
+                   device=generator.device)
+    R = rotation_from_uniforms(u).to(x.device, x.dtype)
+    return dict(shapes, features=x @ R)
+
+
+class PairFeed:
+    """A step's pairs, gathered on the card: `stacked` (stack_shapes),
+    `table` (gt_fmap_table), and the ordered pairs (i1, i2) of `pairs`.
+
+    batch(epoch_order, start, n, generator) -> (shapes, C_gt): the pairs
+    at positions [start, start + n) of the epoch's order (a device tensor
+    of `epoch`), shapes the model's input dict of the n first shapes, then
+    the n second ones (2n, ...), rotated with `generator` where one is
+    given; C_gt (n, K, K). One span dnt.batch; nothing waits for the
+    card."""
+
+    def __init__(self, stacked: dict, table: torch.Tensor, pairs, device):
+        self.stacked, self.table, self.device = stacked, table, device
+        self.pairs = torch.as_tensor(np.asarray(pairs, np.int64),
+                                     device=device)
+
+    def epoch(self, epoch: int) -> torch.Tensor:
+        order = torch.from_numpy(pair_order(len(self.pairs), epoch))
+        if self.device.type == "cuda":
+            order = order.pin_memory()
+        return order.to(self.device, non_blocking=True)
+
+    def batch(self, epoch_order, start: int, n: int, generator=None):
+        with span("dnt.batch"):
+            pair = self.pairs[epoch_order[start:start + n]]     # (n, 2)
+            rows = pair.t().reshape(-1)                         # (2n,)
+            shapes = _tree_map(lambda a: a[rows], self.stacked)
+            if generator is not None:
+                shapes = rotate_shapes(shapes, generator)
+            return shapes, self.table[pair[:, 0], pair[:, 1]]
+
+
+def pair_loss(C_pred: torch.Tensor, C_gt: torch.Tensor) -> torch.Tensor:
+    """The mean over the pairs (leading axes) of each pair's mean squared
+    map error."""
+    return torch.mean((C_pred - C_gt) ** 2)
+
+
+def pair_loss_fn(model):
+    """loss_fn(params, (shapes, C_gt), generator) -> (loss, info) over a
+    PairFeed batch, one extractor call for its 2P shapes, for
+    `make_train_step`. info: the head's solve info (P, K) on the device
+    (non-zero where a system was singular)."""
+    def loss_fn(params, batch, generator):
+        shapes, C_gt = batch
+        C_pred, _, _, info = torch.func.functional_call(
+            model, module_state(params), (shapes,),
+            {"deterministic": False, "generator": generator,
+             "return_info": True})
+        return pair_loss(C_pred, C_gt), info
+    return loss_fn
 
 
 def main(argv=None) -> dict:
@@ -119,8 +205,11 @@ def main(argv=None) -> dict:
                              "approximate) | 'heat_device' (the full table "
                              "on --device) | 'steiner' | 'graph'")
     parser.add_argument("--device_data", action="store_true",
-                        help="keep all padded shapes on the card and gather "
-                             "pairs there (no per-step host copy)")
+                        help="keep all padded test shapes on the card too "
+                             "(training always gathers its pairs there)")
+    parser.add_argument("--batch_pairs", type=int, default=1,
+                        help="training pairs a step, their 2P shapes run "
+                             "through one extractor call")
     parser.add_argument("--resume_from", type=str, default=None,
                         help="checkpoint dir: continue a stopped run at the "
                              "exact training pair it stopped at")
@@ -162,11 +251,18 @@ def main(argv=None) -> dict:
         c_in=FEATURE_DIMS[input_features], c_out=n_feat, c_width=n_feat,
         n_fmap=n_fmap, lambda_param=1e-3,
         generator=torch.Generator().manual_seed(0)).to(device)
+    P = args.batch_pairs
+    if P < 1:
+        raise ValueError("--batch_pairs must be at least 1")
     with sw("upload"):
-        shape_of = {id(d): make_shape_fn(d, v_pad, d_l, d_g, k_eig,
-                                         input_features, device,
-                                         args.device_data)
-                    for d in all_ds}
+        test_shape = make_shape_fn(test_ds, v_pad, d_l, d_g, k_eig,
+                                   input_features, device, args.device_data)
+        if train:
+            feed = PairFeed(
+                stack_shapes(train_ds, v_pad, d_l, d_g, k_eig,
+                             input_features, device),
+                gt_fmap_table(train_ds, n_fmap, device),
+                train_ds.combinations, device)
 
     if not args.load_model and args.evaluate:
         cand = os.path.join(base_path, "pretrained_models",
@@ -187,7 +283,7 @@ def main(argv=None) -> dict:
 
     def test(params, with_geodesic_error=False):
         losses, geo_errs = [], []
-        sf = shape_of[id(test_ds)]
+        sf = test_shape
         for idx in range(len(test_ds)):
             i1, i2, C_gt = test_ds[idx]
             with torch.no_grad():
@@ -216,15 +312,7 @@ def main(argv=None) -> dict:
         optimizer = adam_with_step_decay(5e-4)
         opt_state = optimizer.init(params)
         rng = torch.Generator().manual_seed(0)
-
-        def loss_fn(params, pair, generator):
-            s1, s2, C_gt = pair
-            C_pred = predict(params, s1, s2, deterministic=False,
-                             generator=generator)
-            return torch.mean((C_pred - C_gt) ** 2), None
-
-        train_step = make_train_step(loss_fn, optimizer)
-        sf = shape_of[id(train_ds)]
+        train_step = make_train_step(pair_loss_fn(model), optimizer)
         # one directory per config: faust and scape share parameter
         # shapes, and a shared one would resume the other's weights
         ckpt_dir = model_save_path + "_ckpt"
@@ -259,23 +347,20 @@ def main(argv=None) -> dict:
             for epoch in range(start_epoch, args.n_epoch):
                 epoch_t0 = time.time()
                 losses = []
-                order = np.random.RandomState(1000 + epoch).permutation(
-                    len(train_ds))
+                order = feed.epoch(epoch)
                 pos0 = start_pos if epoch == start_epoch else 0
-                for pos in range(pos0, len(order)):
-                    i1, i2, C_gt = train_ds[int(order[pos])]
+                for pos in range(pos0, len(order), P):
                     seed = int(torch.randint(0, 2 ** 62, (), generator=rng))
                     g = torch.Generator(device=device).manual_seed(seed)
-                    pair = (sf(i1, g if augment else None),
-                            sf(i2, g if augment else None),
-                            torch.from_numpy(C_gt).to(device))
-                    _, _, loss, _ = train_step(params, opt_state, pair, g)
+                    batch = feed.batch(order, pos, P, g if augment else None)
+                    _, _, loss, _ = train_step(params, opt_state, batch, g)
                     losses.append(float(loss))
+                    end = min(pos + P, len(order))
                     if stop_requested:
-                        save_state(epoch, pos + 1, step=epoch)
+                        save_state(epoch, end, step=epoch)
                         print(f"preemption checkpoint: epoch {epoch}, "
-                              f"pair {pos + 1}; resume with --resume_from")
-                        return dict(result, stopped=(epoch, pos + 1),
+                              f"pair {end}; resume with --resume_from")
+                        return dict(result, stopped=(epoch, end),
                                     params=params)
                 test_loss, test_geo = test(params, with_geodesic_error=True)
                 # a resume that landed on an epoch boundary replays the

@@ -216,8 +216,9 @@ def takes_b4(x_in, operators, use_pallas_fused: bool, tile_v: int) -> bool:
 class DiffusionNetBlock(nn.Module):
     """diffusion -> tangent gradients -> gradient features -> MLP -> residual
     (reference layers.py:167-241), on one of the three routes of the module
-    docstring. A call with dense spectral gradients counts the route it
-    took, `block.b4` or `block.dense` (training.profiling.count)."""
+    docstring. A call counts the route it took, `block.b4` or
+    `block.dense` with dense spectral gradients, `block.ell` with ELL ones
+    (training.profiling.count)."""
 
     def __init__(self, c_width: int, mlp_hidden_dims: Sequence[int],
                  dropout: bool = True, with_gradient_features: bool = True,
@@ -264,6 +265,8 @@ class DiffusionNetBlock(nn.Module):
             self.pallas_tile_v)
         if spectral_grads:
             count("block.b4" if fused else "block.dense")
+        elif self.with_gradient_features and isinstance(gradX, Ell):
+            count("block.ell")
         if fused and vert is not None:
             # B4 on the shard's rows, its (K, C) projection summed over the
             # shards between the two kernels; differentiable, the backward

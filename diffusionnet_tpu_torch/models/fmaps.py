@@ -1,7 +1,9 @@
 """Functional-maps correspondence head: the counterpart of
 diffusionnet_tpu/models/fmaps.py (reference
 experiments/functional_correspondence/fmaps_model.py). All regularised rows
-of the functional map are one batched linear solve.
+of the functional map are one batched Cholesky solve, which does not make
+the host wait for the card: a singular system is reported in the
+factorisation's `info`, on the device, instead of raising.
 
 Also the helpers that the fmaps example and the functional_correspondence
 driver share: a shape's input dict, the ground-truth map, one Adam step and
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..training.profiling import count, span
 from .diffusion_net import DiffusionNet
 
 
@@ -22,8 +25,11 @@ def compute_fmap(feat_x, feat_y, evals_x, evals_y, evecs_trans_x,
     regularisation.
 
     feat_x: (..., Vx, C); evecs_trans_x: (..., Kx, Vx) mass-weighted
-    transposed eigenvectors; evals_*: (..., K). Returns C_xy (..., Ky, Kx)
-    mapping spectral coefficients on X to Y."""
+    transposed eigenvectors; evals_*: (..., K). Returns (C_xy, info): C_xy
+    (..., Ky, Kx) maps spectral coefficients on X to Y; info (..., Ky)
+    int32, on the device, is 0 where row i's system was solved and else
+    the order of the leading minor that is not positive definite (that
+    row's values are then meaningless). Nothing here waits for the card."""
     A = evecs_trans_x @ feat_x                       # (..., Kx, C)
     B = evecs_trans_y @ feat_y                       # (..., Ky, C)
     D = (evals_y[..., :, None] - evals_x[..., None, :]) ** 2  # (..., Ky, Kx)
@@ -35,7 +41,14 @@ def compute_fmap(feat_x, feat_y, evals_x, evals_y, evecs_trans_x,
     eye = torch.eye(D.shape[-1], dtype=A.dtype, device=A.device)
     systems = A_A_t[..., None, :, :] + lambda_param * (D[..., :, None] * eye)
     rhs = B_A_t[..., :, :, None]                     # (..., Ky, Kx, 1)
-    return torch.linalg.solve(systems, rhs)[..., 0]  # (..., Ky, Kx)
+    # the systems are symmetric positive definite: a batched Cholesky
+    # factorisation and two batched triangular solves, none of which waits
+    # for the card (torch.linalg.solve raises on a singular system, so it
+    # waits to find out, and solve_ex's batched LU waits as well)
+    L, info = torch.linalg.cholesky_ex(systems)
+    C = torch.linalg.solve_triangular(
+        L.mT, torch.linalg.solve_triangular(L, rhs, upper=False), upper=True)
+    return C[..., 0], info
 
 
 class FunctionalMapCorrespondence(nn.Module):
@@ -57,35 +70,53 @@ class FunctionalMapCorrespondence(nn.Module):
             c_in=c_in, c_out=c_out, c_width=c_width, n_block=n_block,
             dropout=True, outputs_at="vertices", generator=generator)
 
-    def forward(self, shape_x: dict, shape_y: dict,
+    def forward(self, shape_x: dict, shape_y: dict | None = None,
                 deterministic: bool = True,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                return_info: bool = False):
         """Each shape dict: {features, mass, L, evals, evecs, gradX, gradY}.
-        generator: the dropout masks' source in training mode. Returns
-        (C_xy (n_fmap, n_fmap), feat_x, feat_y)."""
+        shape_y None: shape_x holds both shapes of P pairs, batched (2P,
+        ...), the P first shapes first, and the extractor runs once over
+        all 2P (else once a dict). generator: the dropout masks' source in
+        training mode. Returns (C_xy (..., n_fmap, n_fmap), feat_x, feat_y),
+        and the solve's info (..., n_fmap) with return_info
+        (`compute_fmap`)."""
         def extract(s):
             return self.feature_extractor(
                 s["features"], s["mass"], evals=s["evals"], evecs=s["evecs"],
                 gradX=s["gradX"], gradY=s["gradY"],
                 deterministic=deterministic, generator=generator, L=s["L"])
 
-        feat_x = extract(shape_x)
-        feat_y = extract(shape_y)
         k = self.n_fmap
-        for name, s in (("shape_x", shape_x), ("shape_y", shape_y)):
-            if s["evals"].shape[-1] < k:
+        for s in (shape_x, shape_y):
+            if s is not None and s["evals"].shape[-1] < k:
                 raise ValueError(
-                    f"{name} carries only {s['evals'].shape[-1]} eigenpairs "
+                    f"a shape carries only {s['evals'].shape[-1]} eigenpairs "
                     f"but n_fmap={k}; precompute with k_eig >= n_fmap")
-
-        def trans(s):
+        if shape_y is None:
+            P = shape_x["features"].shape[0] // 2
+            feats = extract(shape_x)
+            feat_x, feat_y = feats[:P], feats[P:]
+            evals, evecs = shape_x["evals"][..., :k], shape_x["evecs"]
+            mass = shape_x["mass"]
+            sides = [(evals[:P], evecs[:P], mass[:P]),
+                     (evals[P:], evecs[P:], mass[P:])]
+        else:
+            feat_x = extract(shape_x)
+            feat_y = extract(shape_y)
+            sides = [(s["evals"][..., :k], s["evecs"], s["mass"])
+                     for s in (shape_x, shape_y)]
+        with span("dnt.fmap"):
+            count("fmap.pairs", feat_x.numel() // feat_x.shape[-2:].numel())
             # (K, V) mass-weighted transposed eigenvectors
-            return (s["evecs"][..., :, :k].transpose(-1, -2)
-                    * s["mass"][..., None, :])
-
-        C = compute_fmap(feat_x, feat_y, shape_x["evals"][..., :k],
-                         shape_y["evals"][..., :k], trans(shape_x),
-                         trans(shape_y), lambda_param=self.lambda_param)
+            (ev_x, vec_x, m_x), (ev_y, vec_y, m_y) = sides
+            C, info = compute_fmap(
+                feat_x, feat_y, ev_x, ev_y,
+                vec_x[..., :, :k].transpose(-1, -2) * m_x[..., None, :],
+                vec_y[..., :, :k].transpose(-1, -2) * m_y[..., None, :],
+                lambda_param=self.lambda_param)
+        if return_info:
+            return C, feat_x, feat_y, info
         return C, feat_x, feat_y
 
 

@@ -15,6 +15,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..training.profiling import span
+
 
 class Ell(NamedTuple):
     """A square (n, n) sparse matrix in ELL (padded row-major) layout.
@@ -100,6 +102,11 @@ class _EllMatvec(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
+        with span("dnt.ell"):
+            return _EllMatvec._backward(ctx, dy)
+
+    @staticmethod
+    def _backward(ctx, dy):
         idx, val, x = ctx.saved_tensors
         acc = _acc_dtype(val, x)
         dy = dy.to(acc)
@@ -143,8 +150,10 @@ def ell_matvec(ell: Ell, x: torch.Tensor) -> torch.Tensor:
     Accumulates in f32 (f64 for f64 operands) and returns x's dtype, as
     the JAX package's `ell_matvec` does. Plain torch: the JAX package has
     no kernel here either (plain XLA). Differentiable in x and val, with a
-    backward that repeats its bits (`_EllMatvec`)."""
-    return _EllMatvec.apply(ell.idx.long(), ell.val, x)
+    backward that repeats its bits (`_EllMatvec`). The forward and the
+    backward are each a span `dnt.ell` (`training.profiling`)."""
+    with span("dnt.ell"):
+        return _EllMatvec.apply(ell.idx.long(), ell.val, x)
 
 
 def ell_to_dense(ell: Ell, n: int | None = None) -> torch.Tensor:

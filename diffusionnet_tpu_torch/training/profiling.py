@@ -31,9 +31,15 @@ The names the port records:
     dnt.serve.program      the host's launch of the exported program
     dnt.serve.finish       the output's slice back to the mesh
     dnt.wait.<why>         the host blocked on the card; counts `syncs`
+    dnt.ell                one `ell_matvec`, forward or backward
+    dnt.fmap               the functional-map head's forward (projections,
+                           systems, solve)
     launch.<kernel>        counter: launches of the port's CUDA kernels,
                            with the host seconds of each wrapper call
     upload_bytes           counter: bytes of a request's signal uploaded
+    block.b4, block.dense, block.ell
+                           counter: a DiffusionNet block's route
+    fmap.pairs             counter: functional maps solved
 
 `device_trace(dir)` records a torch.profiler trace of a block of work (the
 host's ops and, where there is a card, its kernels and copies) into

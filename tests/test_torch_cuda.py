@@ -1160,3 +1160,107 @@ def test_band_and_dia_solves_match_b5(cuda, banded):
                                     banded=banded, polish=pol, device="cuda")
     assert be.LAUNCHES["blocked_ell"] == 0
     assert np.abs(ev - ev_b5).max() <= 1e-6 * ev_b5.max()
+
+
+@pytest.mark.cuda
+def test_fmaps_pair_step_at_size_makes_no_sync(cuda, tmp_path):
+    """One train step of the correspondence driver's pair batches at the
+    fmap_train cell's shapes (8 pairs, 16 shapes of 4,900-5,100 vertices
+    padded to 5,120, widths 128, k 128, n_fmap 30; 2 distinct surfaces)
+    runs under torch.cuda.set_sync_debug_mode("error"): nothing in the
+    batch's gather, the step or the head's solve waits for the card. Its
+    loss agrees with the plain reference's on the CPU, from the masks and
+    rotations the card drew, within 3e-4 relative, fmap_train's limit:
+    f32 sums in other orders (TF32 off), which the extractor amplifies at
+    unit-area shapes (the cell's program reads up to 9.7e-5 on the card).
+    """
+    import importlib.util
+    import json
+    import os
+    import sys
+    bench = os.path.abspath(os.path.join(os.path.dirname(__file__),
+                                         os.pardir, "benchmark"))
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    spec = importlib.util.spec_from_file_location(
+        "bench_loop_train_pairs", os.path.join(bench, "loops",
+                                               "train_pairs.py"))
+    loop = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(loop)
+    from reference import fmaps as ref_fm
+    from diffusionnet_tpu_torch.experiments.functional_correspondence import \
+        functional_correspondence as fc
+    from diffusionnet_tpu_torch.models import FunctionalMapCorrespondence
+    from diffusionnet_tpu_torch.training import (adam_with_step_decay,
+                                                 make_train_step)
+    loop.CACHE = tmp_path
+    with open(os.path.join(bench, "configs",
+                           "fmaps_faust_xyz_c128.json")) as f:
+        conf = json.load(f)
+    conf["dataset"].update(n_train=16, distinct_surfaces=2)
+    m, P = conf["model"], conf["fit"]["batch_pairs"]
+    data = loop.Data(conf, 2 ** 31 + 5, cuda)
+    assert data.v_pad == 5120
+
+    class Shapes:
+        verts_list = data.verts
+        ops_list = [data.ops[j] for j in data.bundle_of]
+        vts_list = data.vts
+        combinations = data.pairs
+    feed = fc.PairFeed(
+        fc.stack_shapes(Shapes, data.v_pad, data.d_l, data.d_g, m["k_eig"],
+                        "xyz", cuda),
+        fc.gt_fmap_table(Shapes, m["n_fmap"], cuda), data.pairs, cuda)
+    model = FunctionalMapCorrespondence(
+        c_in=3, c_out=m["c_out"], c_width=m["c_width"], n_block=m["n_block"],
+        n_fmap=m["n_fmap"], lambda_param=m["lambda"]).to(cuda)
+    params = {k: v.clone().requires_grad_(True)
+              for k, v in data.weights.items()}
+    opt = adam_with_step_decay(conf["fit"]["lr"])
+    st = opt.init(params)
+    step = make_train_step(fc.pair_loss_fn(model), opt)
+    order = feed.epoch(0)
+
+    def one(pos, seed):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        return step(params, st, feed.batch(order, pos, P, g), g)
+    one(0, 11)  # first use: cuBLAS and cuSOLVER handles, allocations
+    torch.cuda.synchronize()
+    p0 = {k: v.detach().clone() for k, v in params.items()}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, loss, info = one(P, 12)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int((info != 0).sum()) == 0
+    assert loss.shape == () and torch.isfinite(loss)
+
+    pairs = [data.pairs[int(k)] for k in order[P:2 * P].cpu()]
+    rows = [a for a, _ in pairs] + [b for _, b in pairs]
+    u, keep = ref_fm.draws(12, 2 * P, data.v_pad, m["n_block"],
+                           [3 * m["c_width"], *m["mlp_hidden_dims"]], True,
+                           cuda)
+    R = ref_fm.rotation(u.cpu())
+    p = {k: v.cpu() for k, v in p0.items()}
+    feats = []
+    for r, i in enumerate(rows):
+        o = data.ops[data.bundle_of[i]]
+        V = o.mass.shape[0]
+        t = torch.from_numpy
+        feats.append(ref_fm.features(
+            p, t(data.verts[i]) @ R[r], t(o.mass), t(o.evals), t(o.evecs),
+            ref_fm.sparse(t(o.gradX.idx), t(o.gradX.val), V),
+            ref_fm.sparse(t(o.gradY.idx), t(o.gradY.val), V), m["n_block"],
+            lambda b, l, nr, w, r=r: keep[b, l][r, :nr].cpu()))
+    total = 0.0
+    for j, (i1, i2) in enumerate(pairs):
+        ox, oy = (data.ops[data.bundle_of[i]] for i in (i1, i2))
+        t = torch.from_numpy
+        C = ref_fm.fmap(feats[j], feats[P + j], t(ox.evals), t(oy.evals),
+                        t(ox.evecs), t(oy.evecs), t(ox.mass), t(oy.mass),
+                        m["n_fmap"], m["lambda"])
+        gt = ref_fm.gt_map(t(ox.evecs), t(oy.evecs), t(data.vts[i1]),
+                           t(data.vts[i2]), m["n_fmap"]).float()
+        total = total + torch.mean((C - gt) ** 2)
+    want = float(total / P)
+    assert abs(float(loss) - want) <= 3e-4 * abs(want), (float(loss), want)

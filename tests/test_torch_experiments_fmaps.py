@@ -147,3 +147,39 @@ def test_fmaps_sigterm_at_a_pair_and_resume_is_exact(fmaps, tmp_path,
     for key in ("test_loss", "test_geodesic_error"):
         assert log[1][key] == whole["log"][1][key]
     assert (log[0]["train_loss"] is None) == (stopped_at == (0, 6))
+
+
+def test_fmaps_pair_batches_stop_and_resume_exactly(fmaps, tmp_path,
+                                                    monkeypatch):
+    """--batch_pairs 4 on the 6 training pairs (a step of 4, then one of
+    2), xyz features with rotations and dropout: a run stopped by SIGTERM
+    after its first step resumes at pair 4 and ends with the uninterrupted
+    run's weights bit for bit; every logged train loss is finite."""
+    runs = {}
+    for name in ("whole", "stopped"):
+        runs[name] = str(tmp_path / name)
+        shutil.copytree(fmaps[0], runs[name],
+                        ignore=shutil.ignore_patterns("saved_models"))
+    argv = FMAPS_TRAIN + ["--input_features", "xyz", "--n_epoch", "2",
+                          "--batch_pairs", "4"]
+    whole = t_fmaps.main(argv + ["--data_dir", runs["whole"]])
+    assert all(np.isfinite(x["train_loss"]) for x in whole["log"])
+    make = t_fmaps.make_train_step
+
+    def signalling(loss_fn, optimizer):
+        step = make(loss_fn, optimizer)
+
+        def wrapped(*a):
+            out = step(*a)
+            os.kill(os.getpid(), signal.SIGTERM)
+            return out
+        return wrapped
+    with monkeypatch.context() as m:
+        m.setattr(t_fmaps, "make_train_step", signalling)
+        stopped = t_fmaps.main(argv + ["--data_dir", runs["stopped"]])
+    assert stopped["stopped"] == (0, 4)
+    ckpt = os.path.join(runs["stopped"], "saved_models", "faust_xyz_ckpt")
+    resumed = t_fmaps.main(argv + ["--data_dir", runs["stopped"],
+                                   "--resume_from", ckpt])
+    for k, v in whole["params"].items():
+        assert torch.equal(resumed["params"][k], v), k

@@ -34,7 +34,7 @@ def test_compute_fmap_matches_jax():
               for _ in range(2))
     args = (fx, fy, ex, ey, tx, ty)
     want = np.asarray(jax_compute_fmap(*map(jnp.asarray, args)))
-    got = compute_fmap(*map(torch.from_numpy, args)).numpy()
+    got = compute_fmap(*map(torch.from_numpy, args))[0].numpy()
     assert got.shape == (B, K, K)
     np.testing.assert_allclose(got, want, rtol=1e-4,
                                atol=1e-5 * np.abs(want).max())

@@ -149,14 +149,15 @@ def test_fused_route_matches_jax(meshes, batched, monkeypatch):
     (False, 128, False, {"block.dense": 2}),
     (True, 128, False, {"block.b4": 2}),
     (True, 96, False, {"block.dense": 2}),
-    (False, 128, True, {})], ids=["dense", "b4", "b4-off-tile", "ell"])
+    (False, 128, True, {"block.ell": 2})],
+    ids=["dense", "b4", "b4-off-tile", "ell"])
 def test_blocks_count_their_route(meshes, monkeypatch, flag, tile, ell,
                                   want):
     """A block with dense spectral gradients counts the route it took
     (training.profiling.count): on the CPU use_pallas_fused picks it,
     `block.b4` for B4 (its plain versions), `block.dense` for the dense
     route, also where pallas_tile_v does not divide V; an ELL-gradient
-    block counts neither. Both dense-spectral routes give the same output
+    block counts `block.ell`. Both dense-spectral routes give the same output
     (rtol 1e-5, atol 1e-6: f32 sums in other orders)."""
     from diffusionnet_tpu_torch.training import profiling
     x, mass, _, tkw = _batched(meshes, True, ell=ell)
